@@ -1,0 +1,176 @@
+// K2: warm-started stair-preconditioned PCG on the BTD Schur system, with
+// the dz (primal step) recovery as its epilogue.
+//
+// Replaces the TPU kernel mpcgpu_tpu/ops/pcg_pallas.py::
+// pcg_dz_solve_pallas_lanes (_make_pcg_dz_kernel = _make_pcg_kernel +
+// kkt_pallas.py::dz_from_lane_values).  Iteration semantics are the
+// kernel's, exactly: r0 = gamma - S lam0 and the exit test runs once on
+// (r0, eta0) before any step; each step computes alpha = eta / (p . Sp), then
+// z = Pinv r, then eta'; `done` is tested after the update; after the exit
+// or the cap no step runs, and `iters` counts the steps that ran.  The exit
+// is |eta| < tol ("eta") or ||r||^2 < tol^2 ("rnorm").
+//
+// What bounds it on an H100: one solve is up to a few hundred dependent
+// iterations, each a BTD matvec with S and one with Pinv (2 x 3 x 14 x 14 x N
+// floats: 301 KB at N = 64, 2.4 MB at N = 512) and two reductions over N x 14
+// values.  S and Pinv exceed one block's 227 KB of shared memory at large N,
+// so this first design runs the whole solve in ONE block: lam, r, p, z and Sp
+// live in shared memory (5 x 14 x N floats: 18 KB at N = 64, 143 KB at
+// N = 512, hence the dynamic shared-memory attribute), and S and Pinv are
+// streamed from L2 every iteration (they stay resident in the 50 MB L2).  The
+// cost per iteration is then L2 bandwidth of one SM plus the block-wide syncs
+// of the two fixed-order reductions (deterministic for a given block size).
+// A one-block-per-block-row cooperative design (GBD-PCG) or a thread-block
+// cluster holding S and Pinv in distributed shared memory is later work.
+//
+// The edge blocks S[0,0] and S[N-1,2] are skipped by explicit bounds, not
+// relied on to be zero.  The epilogue computes, with lam_{N} = 0 and no du at
+// the last knot,
+//   dx_k = Qinv_k (q_k - lam_k + A_k^T lam_{k+1}),
+//   du_k = (r_cost u_k + B_k^T lam_{k+1}) / (r_cost + rho).
+#include "common.cuh"
+
+using namespace mpc;
+
+namespace {
+
+constexpr int NN = NX * NX;
+constexpr int THREADS = 1024;
+
+// row (k, i) of the BTD product M x, M (N, 3, NX, NX); (center + left) + right
+__device__ inline float btd_row(const float* __restrict__ M, const float* x,
+                                int row, int N) {
+  const int k = row / NX, i = row - k * NX;
+  const float* Mk = M + (size_t)k * 3 * NN;
+  float c = 0.f, l = 0.f, r = 0.f;
+  for (int j = 0; j < NX; ++j) c += Mk[NN + i * NX + j] * x[k * NX + j];
+  if (k > 0)
+    for (int j = 0; j < NX; ++j) l += Mk[i * NX + j] * x[(k - 1) * NX + j];
+  if (k < N - 1)
+    for (int j = 0; j < NX; ++j) r += Mk[2 * NN + i * NX + j] * x[(k + 1) * NX + j];
+  return (c + l) + r;
+}
+
+__global__ void __launch_bounds__(THREADS)
+pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
+              const float* __restrict__ gamma, const float* __restrict__ lam0,
+              const float* __restrict__ Qinv, const float* __restrict__ A,
+              const float* __restrict__ B, const float* __restrict__ q,
+              const float* __restrict__ u, int u_stride,
+              const float* __restrict__ rho_p, float r_cost, int max_iter,
+              const float* __restrict__ tol_p, int rnorm, int N,
+              float* __restrict__ lam_o, float* __restrict__ dz,
+              int* __restrict__ iters_o, int* __restrict__ conv_o) {
+  extern __shared__ float sh[];
+  __shared__ float red[33];
+  const int n = N * NX, tid = threadIdx.x, nth = blockDim.x;
+  float* lam = sh;
+  float* r = lam + n;
+  float* p = r + n;
+  float* z = p + n;
+  float* Sp = z + n;
+  const float tol = *tol_p;
+
+  for (int i = tid; i < n; i += nth) lam[i] = lam0[i];
+  __syncthreads();
+  for (int i = tid; i < n; i += nth) r[i] = gamma[i] - btd_row(S, lam, i, N);
+  __syncthreads();
+  float rz = 0.f, rr = 0.f;
+  for (int i = tid; i < n; i += nth) {
+    const float zi = btd_row(Pinv, r, i, N);
+    z[i] = zi;
+    p[i] = zi;
+    rz += r[i] * zi;
+    rr += r[i] * r[i];
+  }
+  float eta = block_sum(rz, red);
+  if (rnorm) rr = block_sum(rr, red);
+  bool done = rnorm ? rr < tol * tol : fabsf(eta) < tol;
+  int it = 0;
+  while (it < max_iter && !done) {
+    float pSp = 0.f;
+    for (int i = tid; i < n; i += nth) {
+      const float s = btd_row(S, p, i, N);
+      Sp[i] = s;
+      pSp += p[i] * s;
+    }
+    const float alpha = eta / block_sum(pSp, red);
+    for (int i = tid; i < n; i += nth) {
+      lam[i] += alpha * p[i];
+      r[i] -= alpha * Sp[i];
+    }
+    __syncthreads();
+    rz = 0.f;
+    rr = 0.f;
+    for (int i = tid; i < n; i += nth) {
+      const float zi = btd_row(Pinv, r, i, N);
+      z[i] = zi;
+      rz += r[i] * zi;
+      rr += r[i] * r[i];
+    }
+    const float eta_new = block_sum(rz, red);
+    if (rnorm) rr = block_sum(rr, red);
+    done = rnorm ? rr < tol * tol : fabsf(eta_new) < tol;
+    const float beta = eta_new / eta;
+    for (int i = tid; i < n; i += nth) p[i] = z[i] + beta * p[i];
+    eta = eta_new;
+    ++it;
+    __syncthreads();
+  }
+
+  // dz epilogue
+  const float rho = *rho_p;
+  const float s_r = 1.f / (r_cost + rho);
+  for (int i = tid; i < n; i += nth) {
+    const int k = i / NX, c = i - k * NX;
+    float at = 0.f;
+    if (k < N - 1) {
+      const float* Ak = A + (size_t)k * NN;
+      for (int j = 0; j < NX; ++j) at += Ak[j * NX + c] * lam[(k + 1) * NX + j];
+    }
+    z[i] = (q[i] - lam[i]) + at;
+    lam_o[i] = lam[i];
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += nth) {
+    const int k = i / NX, c = i - k * NX;
+    const float* Qk = Qinv + (size_t)k * NN;
+    float acc = 0.f;
+    for (int j = 0; j < NX; ++j) acc += Qk[c * NX + j] * z[k * NX + j];
+    dz[k * W + c] = acc;
+  }
+  for (int i = tid; i < N * NU; i += nth) {
+    const int k = i / NU, c = i - k * NU;
+    float du = 0.f;
+    if (k < N - 1) {
+      const float* Bk = B + (size_t)k * NX * NU;
+      float bt = 0.f;
+      for (int j = 0; j < NX; ++j) bt += Bk[j * NU + c] * lam[(k + 1) * NX + j];
+      du = s_r * (r_cost * u[k * u_stride + c] + bt);
+    }
+    dz[k * W + NX + c] = du;
+  }
+  if (tid == 0) {
+    *iters_o = it;
+    *conv_o = done ? 1 : 0;
+  }
+}
+
+}  // namespace
+
+extern "C" int pcg_dz_launch(const float* S, const float* Pinv,
+                             const float* gamma, const float* lam0,
+                             const float* Qinv, const float* A, const float* B,
+                             const float* q, const float* u, int u_stride,
+                             const float* rho, float r_cost, int max_iter,
+                             const float* tol, int rnorm, int N, float* lam,
+                             float* dz, int* iters, int* conv, void* stream) {
+  const size_t smem = (size_t)5 * N * NX * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      pcg_dz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pcg_dz_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      S, Pinv, gamma, lam0, Qinv, A, B, q, u, u_stride, rho, r_cost, max_iter,
+      tol, rnorm, N, lam, dz, iters, conv);
+  return static_cast<int>(cudaGetLastError());
+}

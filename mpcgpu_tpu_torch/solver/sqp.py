@@ -1,0 +1,197 @@
+"""SQP outer loop: KKT -> Schur -> linear solve -> dz -> line search -> rho.
+
+Port of ``mpcgpu_tpu/solver/sqp.py::sqp_solve``.  ``linsys`` selects the
+linear-system path:
+
+  * ``"pcg"``: the plain composition build_kkt -> form_schur_system ->
+    pcg_solve -> compute_dz -> line_search_merits (the JAX XLA path);
+  * ``"pcg_cuda"``: the fused path K1 -> K2 -> K3 (solver/kkt_cuda.py,
+    ops/pcg_cuda.py, solver/merit_cuda.py), stair preconditioner only.  On
+    CUDA tensors these launch the hand-written kernels; on CPU tensors they
+    run their plain versions.
+
+The merit argmin, the Levenberg-Marquardt rho schedule and the
+Eisenstat-Walker forcing stay on the device as tensor ops.  The loop reads
+its stop flag back to the host once per SQP iteration after the first; a
+one-iteration solve (the MPC chain) never syncs.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mpcgpu_tpu_torch import _kernels
+from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu_tpu_torch.models.robot import RobotModel
+from mpcgpu_tpu_torch.ops.pcg import pcg_solve
+from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve
+from mpcgpu_tpu_torch.ops.schur import compute_dz, form_schur_system
+from mpcgpu_tpu_torch.solver.kkt import build_kkt
+from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
+from mpcgpu_tpu_torch.solver.merit import line_search_merits
+from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merits_fused
+
+# linsys values of the JAX package that the port does not have yet, and the
+# ROADMAP.md item that brings each
+_NOT_PORTED = {
+    "pcg_pallas": "queue 1, the fused path is linsys='pcg_cuda'",
+    "ldl": "queue 1 item 7 (direct solvers)",
+    "pcr": "queue 1 item 7 (direct solvers)",
+    "pcr_pallas": "queue 1 item 7 (direct solvers) and queue 2 K7",
+    "qdldl_host": "queue 1 item 7 (direct solvers)",
+}
+
+
+class SQPResult(NamedTuple):
+    xu: torch.Tensor            # (N, nx+nu) updated iterate
+    lam: torch.Tensor           # (N, nx) updated multipliers
+    rho: torch.Tensor           # () updated regularization
+    drho: torch.Tensor          # () updated L-M rho multiplier
+    sqp_iters: torch.Tensor     # () int32 iterations performed
+    merit: torch.Tensor         # () final merit value
+    gave_up: torch.Tensor       # () bool, rho exceeded rho_max
+    pcg_iters: torch.Tensor     # (max_sqp_iter,) int32 per-iteration PCG iters (-1 pad)
+    pcg_converged: torch.Tensor  # (max_sqp_iter,) bool per-iteration exit flag
+    ls_alpha_idx: torch.Tensor  # (max_sqp_iter,) int32 chosen alpha index (-1 = fail)
+
+
+def sqp_solve(
+    model: RobotModel,
+    cost: CostConfig,
+    sqp_cfg: SQPConfig,
+    pcg_cfg: PCGConfig,
+    xu,
+    lam,
+    xs,
+    ee_goal,
+    rho,
+    dt: float,
+    linsys: str = "pcg",
+    max_sqp_iter: int | None = None,
+    integrator_type: int = 0,
+    drho0=1.0,
+    angle_wrap: bool = False,
+    iter_budget=None,
+) -> SQPResult:
+    """One SQP solve from the iterate (xu, lam).
+
+    rho and drho0 may be floats or 0-d tensors.  iter_budget is an optional
+    iteration cap <= max_iter (the equivalent of the reference's wall-clock
+    exit once converted to iterations).
+    """
+    if linsys in _NOT_PORTED:
+        raise NotImplementedError(
+            f"linsys={linsys!r} is not ported yet: see ROADMAP.md "
+            f"{_NOT_PORTED[linsys]}")
+    if linsys not in ("pcg", "pcg_cuda"):
+        raise ValueError(f"unknown linsys {linsys!r}")
+    if linsys == "pcg_cuda" and pcg_cfg.preconditioner != "stair":
+        raise ValueError("linsys='pcg_cuda' supports preconditioner='stair' only")
+
+    dev, dtype = xu.device, xu.dtype
+    nx = lam.shape[-1]
+    max_iter = sqp_cfg.max_iter if max_sqp_iter is None else max_sqp_iter
+    iter_bound = max_iter if iter_budget is None else min(max_iter, int(iter_budget))
+
+    rho = _kernels.scalar(rho, dev, dtype)
+    drho = _kernels.scalar(drho0, dev, dtype)
+    mu = float(sqp_cfg.mu)
+    exit_tol_target = _kernels.scalar(pcg_cfg.exit_tol, dev, dtype)
+    lin_tol = exit_tol_target * pcg_cfg.ew_boost0 if pcg_cfg.forcing == "ew" \
+        else exit_tol_target
+    merit = _kernels.scalar(float("inf"), dev, dtype)
+    stop = torch.zeros((), dtype=torch.bool, device=dev)
+    gave_up_any = torch.zeros((), dtype=torch.bool, device=dev)
+    pcg_iters = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
+    pcg_converged = torch.zeros((max_iter,), dtype=torch.bool, device=dev)
+    ls_alpha_idx = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
+
+    it = 0
+    while it < iter_bound and (it == 0 or not bool(stop)):
+        if linsys == "pcg_cuda":
+            sys = build_kkt_schur(model, cost, xu, xs, ee_goal, rho, dt,
+                                  integrator_type, angle_wrap)
+            lam, dz, lin_iters, lin_ok = pcg_dz_solve(
+                sys, lam, xu[:, nx:], rho, cost.r_cost,
+                max_iter=pcg_cfg.max_iter, exit_tol=lin_tol,
+                exit_criterion=pcg_cfg.exit_criterion)
+            merits, alphas = line_search_merits_fused(
+                model, cost, xu, dz, xs, ee_goal, mu, dt,
+                num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
+                angle_wrap=angle_wrap)
+        else:
+            kkt = build_kkt(model, cost, xu, xs, ee_goal, dt, integrator_type,
+                            angle_wrap)
+            schur = form_schur_system(kkt, rho,
+                                      preconditioner=pcg_cfg.preconditioner)
+            res = pcg_solve(schur.S, schur.Pinv, schur.gamma, lam,
+                            max_iter=pcg_cfg.max_iter, exit_tol=lin_tol,
+                            exit_criterion=pcg_cfg.exit_criterion)
+            lam, lin_iters, lin_ok = res.lam, res.iters, res.converged
+            dz = compute_dz(kkt, schur, lam)
+            merits, alphas = line_search_merits(
+                model, cost, xu, dz, xs, ee_goal, mu, dt,
+                num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
+                include_zero=True, angle_wrap=angle_wrap)
+
+        merit_cur = merits[0]
+        best = 1 + torch.argmin(merits[1:], keepdim=True)    # (1,)
+        # gather, not merits[best]: indexing with a tensor reads it back to
+        # the host and synchronizes the stream
+        min_merit = merits.gather(0, best)[0]
+        success = min_merit < merit_cur
+
+        # Levenberg-Marquardt rho schedule
+        drho_fail = torch.clamp(drho * sqp_cfg.rho_factor, min=sqp_cfg.rho_factor)
+        rho_fail = torch.clamp(rho * drho_fail, min=sqp_cfg.rho_min)
+        gave_up = rho_fail > sqp_cfg.rho_max
+        drho_ok = torch.clamp(drho / sqp_cfg.rho_factor, max=1.0 / sqp_cfg.rho_factor)
+        rho_ok = torch.clamp(rho * drho_ok, min=sqp_cfg.rho_min)
+
+        xu = torch.where(success, xu + alphas.gather(0, best)[0] * dz, xu)
+        rho_reset = _kernels.scalar(sqp_cfg.rho_reset, dev, dtype)
+        rho = torch.where(success, rho_ok,
+                          torch.where(gave_up, rho_reset, rho_fail))
+        drho = torch.where(success, drho_ok, drho_fail)
+        merit = torch.where(success, min_merit, merit_cur)
+        stop = ~success & gave_up
+        gave_up_any = gave_up_any | stop
+
+        # Eisenstat-Walker-style forcing: decay the linear-solve tolerance
+        # with the merit-decrease ratio; a failed line search drops straight
+        # to full accuracy
+        if pcg_cfg.forcing == "ew":
+            ratio = torch.clamp(min_merit / torch.clamp(merit_cur, min=1e-30),
+                                0.0, 1.0)
+            factor = torch.clamp(torch.pow(ratio, pcg_cfg.ew_alpha),
+                                 max=pcg_cfg.ew_decay)
+            decayed = torch.maximum(exit_tol_target, lin_tol * factor)
+            lin_tol = torch.where(success, decayed, exit_tol_target)
+
+        pcg_iters[it] = lin_iters
+        pcg_converged[it] = lin_ok
+        ls_alpha_idx[it] = torch.where(success, best[0] - 1, -1).to(torch.int32)
+        it += 1
+
+    return SQPResult(
+        xu=xu, lam=lam, rho=rho, drho=drho,
+        sqp_iters=torch.full((), it, dtype=torch.int32, device=dev),
+        merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
+        pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+
+
+def make_sqp_solver(model: RobotModel, cost: CostConfig, sqp_cfg: SQPConfig,
+                    pcg_cfg: PCGConfig, dt: float, linsys: str = "pcg",
+                    integrator_type: int = 0, angle_wrap: bool = False):
+    """A solver fn(xu, lam, xs, ee_goal, rho[, drho0[, iter_budget]]) ->
+    SQPResult with the model, configuration and path bound."""
+
+    def solve(xu, lam, xs, ee_goal, rho, drho0=1.0, iter_budget=None):
+        return sqp_solve(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal,
+                         rho, dt, linsys=linsys, integrator_type=integrator_type,
+                         drho0=drho0, angle_wrap=angle_wrap,
+                         iter_budget=iter_budget)
+
+    return solve
