@@ -2,28 +2,36 @@
 
 The JAX package ``mpcgpu_tpu`` is the reference; this package computes the
 same things with PyTorch tensors and, on an NVIDIA Hopper card, with
-hand-written CUDA kernels (``csrc/``, built by ``_kernels.py``):
+hand-written CUDA kernels (``csrc/``, built by ``_kernels.py``).  It imports
+nothing of the JAX package and keeps its own copies of the configuration,
+the model constants and the numpy-only utilities:
 
+  * ``config.py`` CostConfig, PCGConfig, SQPConfig, SimConfig;
   * ``models/``  robot model, spatial algebra, batched rigid-body dynamics;
   * ``ops/``     small-matrix Gauss-Jordan, block-tridiagonal algebra, Schur
-                 condensation, PCG, and the PCG+dz kernel (K2);
-  * ``solver/``  KKT assembly, the l1 merit, the KKT+Schur kernel (K1), the
-                 line-search kernel (K3) and the SQP loop;
-  * ``sim/``     the warm-started MPC chain.
+                 condensation, PCG, and the PCG kernels K2 (PCG + dz), K2'
+                 (PCG) and K6 (dz);
+  * ``solver/``  KKT assembly, the l1 merit, the KKT kernels K1 (+ Schur) and
+                 K5 (blocks), the line-search kernel K3 and the SQP loop;
+  * ``sim/``     the closed-loop simulator, the plant kernel K4 and the
+                 warm-started chain;
+  * ``utils/``   trajectory fixtures, experiment statistics, checkpoints;
+  * ``track_iiwa_pcg.py`` the closed-loop tracker script.
 
-Public functions keep the JAX package's knot-leading layouts.  Devices are
-explicit: every function computes where its input tensors live.  A kernel
-wrapper given CPU tensors runs its plain PyTorch version; given CUDA tensors
-it launches its kernel or raises.
+Public functions keep the JAX package's knot-leading layouts.  Entry points
+build on the card unless the caller asks for the CPU, and every function
+computes where its input tensors live.  A kernel wrapper given CPU tensors
+runs its plain PyTorch version; given CUDA tensors it launches its kernel or
+raises.
 """
 
 import torch
 
-from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
 
 # Full f32 contractions: TF32 matmuls broke CG on this problem in the
 # reference (mpcgpu_tpu/precision.py forces the same on the TPU).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["CostConfig", "PCGConfig", "SQPConfig"]
+__all__ = ["CostConfig", "PCGConfig", "SimConfig", "SQPConfig"]

@@ -1,37 +1,102 @@
-"""Solver configuration and trajectory fixtures, shared with the JAX package.
+"""Runtime configuration of the solver stack and the closed-loop simulator.
 
-``mpcgpu_tpu/config.py`` (CostConfig, PCGConfig, SQPConfig) and
-``mpcgpu_tpu/utils/trajfiles.py`` are numpy-only.  They are loaded here by
-file path, so the port runs on the same knobs and fixtures without
-importing jax or the ``mpcgpu_tpu`` package.
+The port's own copy of the JAX package's configuration dataclasses, with the
+same fields and defaults, so that the two packages run on the same knobs.
+The reference encodes every knob as a compile-time ``#define``
+(include/common/settings.cuh); here they are frozen dataclasses.
 """
 
 from __future__ import annotations
 
-import importlib.util
-import sys
-from pathlib import Path
-
-_REFERENCE = Path(__file__).resolve().parents[1] / "mpcgpu_tpu"
+import dataclasses
+from typing import Optional
 
 
-def load_reference_file(relpath: str, name: str):
-    """Execute one numpy-only file of the JAX package as module ``name``."""
-    if name in sys.modules:
-        return sys.modules[name]
-    spec = importlib.util.spec_from_file_location(name, _REFERENCE / relpath)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod          # dataclasses look their module up here
-    spec.loader.exec_module(mod)
-    return mod
+def _frozen(cls):
+    return dataclasses.dataclass(frozen=True)(cls)
 
 
-_config = load_reference_file("config.py", "mpcgpu_tpu_torch._ref_config")
-_trajfiles = load_reference_file("utils/trajfiles.py",
-                                 "mpcgpu_tpu_torch._ref_trajfiles")
+@_frozen
+class CostConfig:
+    """Tracking-cost weights (settings.cuh:84-94, iiwa_eepos_plant.cuh:240-401)."""
 
-CostConfig = _config.CostConfig
-PCGConfig = _config.PCGConfig
-SQPConfig = _config.SQPConfig
-load_xu_traj = _trajfiles.load_xu_traj
-load_eepos_traj = _trajfiles.load_eepos_traj
+    qd_cost: float = 1e-4           # QD_COST
+    r_cost: float = 1e-4            # R_COST (reference uses 1e-3 when N==64)
+    # "ee" = end-effector xyz tracking; "joint" = joint-state reference
+    # tracking, where the goal array is the (N, nx) state reference and
+    # q_cost weighs positions
+    mode: str = "ee"
+    q_cost: float = 1.0             # Q_COST (joint mode only)
+    # penalize qd absolutely instead of relative to the reference
+    # (ABSOLUTE_QD_PENALTY; joint mode only, ee mode is always absolute)
+    absolute_qd_penalty: bool = False
+    # evaluate the terminal cost at the last state x_{N-1}; False replicates
+    # the reference, which evaluates it at x_{N-2}
+    terminal_at_last_state: bool = True
+
+    @staticmethod
+    def for_knots(knot_points: int) -> "CostConfig":
+        # settings.cuh:84-90: R_COST = .001 iff KNOT_POINTS == 64 else .0001
+        return CostConfig(r_cost=1e-3 if knot_points == 64 else 1e-4)
+
+
+@_frozen
+class PCGConfig:
+    """PCG solver knobs (settings.cuh:123-144)."""
+
+    max_iter: int = 173
+    exit_tol: float = 1e-5
+    # "stair" (symmetric stair), "jacobi" (block diagonal), "none", or
+    # "stair2" (stair plus the next Neumann term, block-pentadiagonal)
+    preconditioner: str = "stair"
+    # "eta" exits on |r . P^{-1} r| < exit_tol (the reference's test);
+    # "rnorm" on ||r||_2 < exit_tol
+    exit_criterion: str = "eta"
+    # per-SQP-iteration linear-solve tolerance: "fixed" = exit_tol every
+    # iteration; "ew" = exit_tol * ew_boost0 first, then tightened by
+    # min(ew_decay, merit_ratio^ew_alpha) after each successful iteration,
+    # and straight back to exit_tol after a failed line search
+    forcing: str = "fixed"
+    ew_boost0: float = 100.0
+    ew_alpha: float = 1.5
+    ew_decay: float = 0.1
+
+    @staticmethod
+    def tuned_max_iter(knot_points: int) -> int:
+        # settings.cuh:124-144 ("values found using experiments")
+        return {32: 173, 64: 167, 128: 167, 256: 118, 512: 67}.get(knot_points, 200)
+
+
+@_frozen
+class SQPConfig:
+    """SQP outer-loop knobs (settings.cuh:147-196, pcg/sqp.cuh:51-67)."""
+
+    max_iter: int = 20              # SQP_MAX_ITER
+    max_time_us: Optional[float] = 2000.0   # SQP_MAX_TIME_US; None = no wall cap
+    num_alphas: int = 8             # alpha_i = -1/2^i
+    mu: float = 10.0                # l1 merit penalty
+    rho_min: float = 1e-3           # RHO_MIN
+    rho_factor: float = 1.2         # RHO_FACTOR
+    rho_max: float = 10.0           # RHO_MAX
+    rho_reset: float = 1e-3
+
+
+@_frozen
+class SimConfig:
+    """Closed-loop MPC simulator knobs (mpcsim.cuh:146-426, settings.cuh:56-72)."""
+
+    simulation_period_us: float = 2000.0    # SIMULATION_PERIOD (const-freq mode)
+    const_update_freq: bool = True          # CONST_UPDATE_FREQ
+    shift_threshold_frac: float = 1.0       # SHIFT_THRESHOLD = frac * timestep
+    sim_step_time: float = 2e-4             # plant substep (integrator.cuh:304)
+    max_control_updates: int = 100000
+    # discarded warm-up solves before the loop (REMOVE_JITTERS; the
+    # reference discards 100)
+    remove_jitters: int = 0
+    # print the measured state every control step (LIVE_PRINT_PATH)
+    live_print_path: bool = False
+    # enforce SQP_MAX_TIME_US (sqpTimecheck, pcg/sqp.cuh:161-169)
+    time_budget_mode: bool = False
+    # "ondevice": one calibration converts max_time_us into an iteration
+    # cap; "host": chunked 1-iteration solves with wall-clock checks
+    time_budget_impl: str = "ondevice"

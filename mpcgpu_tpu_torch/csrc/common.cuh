@@ -26,9 +26,12 @@ constexpr int OFF_HC = 4 * NQ * M66;
 constexpr int OFF_HS = OFF_HC + NQ * 16;
 constexpr int OFF_HCOS = OFF_HS + NQ * 16;
 constexpr int MODEL_SIZE = OFF_HCOS + NQ * 16;   // 1344 floats
+constexpr int DYN_SIZE = OFF_HC;   // the part dynamics reads: X and inertias
 
-__device__ inline void load_model(float* dst, const float* src) {
-  for (int e = threadIdx.x; e < MODEL_SIZE; e += blockDim.x) dst[e] = src[e];
+// the first n floats of the packed model (all of it by default)
+__device__ inline void load_model(float* dst, const float* src,
+                                  int n = MODEL_SIZE) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
 }
 
 // X_j = xc + s xs + c xcos (6x6)

@@ -1,6 +1,7 @@
-// K1: KKT assembly + Schur condensation + symmetric-stair preconditioner.
+// K1: KKT assembly + Schur condensation + symmetric-stair preconditioner;
+// K5: the KKT blocks alone.
 //
-// Replaces the TPU kernel mpcgpu_tpu/solver/kkt_pallas.py::
+// K1 replaces the TPU kernel mpcgpu_tpu/solver/kkt_pallas.py::
 // build_kkt_schur_pallas (_make_kkt_schur_kernel, core _kkt_core).  Per knot
 // k it linearizes the dynamics (forward-mode RNEA with 14 tangents, CRBA mass
 // matrix and its Gauss-Jordan inverse, Euler / semi-implicit Jacobians),
@@ -26,6 +27,13 @@
 // bounds: gamma_0 leaves out c_0, row 0 has no phi, the last row no phi^T,
 // the stair bands are zero at the edges.  A and B at the last knot are not
 // part of the QP and are written as zeros.
+//
+// K5 replaces mpcgpu_tpu/solver/kkt_pallas.py::build_kkt_pallas
+// (_make_kkt_kernel, the same _kkt_core).  It is launch A's per-knot code with
+// the Schur tail compiled out (knot_kernel<false>): per knot it writes the
+// Gauss-Newton Q = [[gq gq^T, 0], [0, qd_cost I]], q, A, B and the defect
+// c_{k+1} = x_{k+1} - f(x_k, u_k) (block 0 also c_0 = x_0 - xs), and needs no
+// rho, no inverse and no neighbour, so one launch.  Latency-bound like A.
 #include "common.cuh"
 
 using namespace mpc;
@@ -135,13 +143,17 @@ __device__ void fk_dual(const float* m, const float* s, const float* c, int t,
   jcol[2] = Td[11];
 }
 
+// kSchur: launch A of K1 (Q_o gets (Q + rho I)^{-1}, scr the neighbour
+// scratch).  !kSchur: K5 (Q_o gets Q, scr the defects c (N, NX); rho_p is
+// not read, xs is read by block 0).
+template <bool kSchur>
 __global__ void __launch_bounds__(256)
 knot_kernel(const float* __restrict__ xu, int xu_stride,
             const float* __restrict__ goal, int goal_stride,
-            const float* __restrict__ rho_p, float dt,
-            const float* __restrict__ model, float gravity, float qd_cost,
-            float r_cost, int N, int integrator_type, int wrap,
-            int terminal_at_last, float* __restrict__ Qinv_o,
+            const float* __restrict__ xs, const float* __restrict__ rho_p,
+            float dt, const float* __restrict__ model, float gravity,
+            float qd_cost, float r_cost, int N, int integrator_type, int wrap,
+            int terminal_at_last, float* __restrict__ Q_o,
             float* __restrict__ A_o, float* __restrict__ B_o,
             float* __restrict__ q_o, float* __restrict__ scr) {
   const int k = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
@@ -271,6 +283,25 @@ knot_kernel(const float* __restrict__ xu, int xu_stride,
     else B[e] = integrator_type == 0 ? 0.f : dt * dt * Minv[r * NQ + c];
   }
   if (tid == 0) integrate(x, x + NQ, qdd, dt, integrator_type, wrap, xn);
+  if constexpr (!kSchur) {
+    __syncthreads();
+    for (int e = tid; e < NN; e += nth) {
+      const int r = e / NX, c = e - r * NX;
+      float val = 0.f;
+      if (r < NQ && c < NQ) val = grad[r] * grad[c];
+      else if (r == c && r >= NQ) val = qd_cost;
+      Q_o[(size_t)k * NN + e] = val;
+      A_o[(size_t)k * NN + e] = k < N - 1 ? A[e] : 0.f;
+    }
+    for (int e = tid; e < NX * NU; e += nth)
+      B_o[(size_t)k * NX * NU + e] = k < N - 1 ? B[e] : 0.f;
+    if (tid < NX) {
+      q_o[k * NX + tid] = grad[tid];
+      if (k < N - 1) scr[(k + 1) * NX + tid] = xu[(k + 1) * xu_stride + tid] - xn[tid];
+      if (k == 0) scr[tid] = x[tid] - xs[tid];
+    }
+    return;
+  }
   // (Q + rho I)^{-1} in closed form: Q = [[gq gq^T, 0], [0, qd_cost I]], so
   // (rho I + gq gq^T)^{-1} = (1/rho)(I - gq gq^T / (rho + |gq|^2))
   {
@@ -304,7 +335,7 @@ knot_kernel(const float* __restrict__ xu, int xu_stride,
     for (int j = 0; j < NU; ++j) bb += B[r * NU + j] * B[c * NU + j];
     out[e] = aqa + s_r * bb;                        // T
     out[NN + e] = AQ[e];
-    Qinv_o[(size_t)k * NN + e] = Qi[e];
+    Q_o[(size_t)k * NN + e] = Qi[e];
     A_o[(size_t)k * NN + e] = k < N - 1 ? A[e] : 0.f;
   }
   for (int e = tid; e < NX * NU; e += nth)
@@ -401,10 +432,11 @@ extern "C" int kkt_schur_launch(
     int terminal_at_last, float* S, float* Pinv, float* gamma, float* Qinv,
     float* A, float* B, float* q, float* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  knot_kernel<<<N, 256, 0, st>>>(xu, xu_stride, goal, goal_stride, rho, dt,
-                                 model, gravity, qd_cost, r_cost, N,
-                                 integrator_type, wrap, terminal_at_last, Qinv,
-                                 A, B, q, scratch);
+  knot_kernel<true><<<N, 256, 0, st>>>(xu, xu_stride, goal, goal_stride,
+                                       nullptr, rho, dt, model, gravity,
+                                       qd_cost, r_cost, N, integrator_type,
+                                       wrap, terminal_at_last, Qinv, A, B, q,
+                                       scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   schur_kernel<<<N, 256, 0, st>>>(xu, xu_stride, Qinv, q, scratch, N, S, Pinv,
@@ -412,5 +444,17 @@ extern "C" int kkt_schur_launch(
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   stair_kernel<<<N, 256, 0, st>>>(S, N, Pinv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int kkt_launch(const float* xu, int xu_stride, const float* goal,
+                          int goal_stride, const float* xs, float dt,
+                          const float* model, float gravity, float qd_cost,
+                          int N, int integrator_type, int wrap,
+                          int terminal_at_last, float* Q, float* A, float* B,
+                          float* q, float* c, void* stream) {
+  knot_kernel<false><<<N, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      xu, xu_stride, goal, goal_stride, xs, nullptr, dt, model, gravity,
+      qd_cost, 0.f, N, integrator_type, wrap, terminal_at_last, Q, A, B, q, c);
   return static_cast<int>(cudaGetLastError());
 }

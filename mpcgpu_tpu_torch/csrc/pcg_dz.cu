@@ -1,16 +1,21 @@
 // K2: warm-started stair-preconditioned PCG on the BTD Schur system, with
-// the dz (primal step) recovery as its epilogue.
+// the dz (primal step) recovery as its epilogue; K2' the same kernel with
+// the epilogue compiled out; K6 the epilogue as its own launch.
 //
-// Replaces the TPU kernel mpcgpu_tpu/ops/pcg_pallas.py::
-// pcg_dz_solve_pallas_lanes (_make_pcg_dz_kernel = _make_pcg_kernel +
-// kkt_pallas.py::dz_from_lane_values).  Iteration semantics are the
-// kernel's, exactly: r0 = gamma - S lam0 and the exit test runs once on
-// (r0, eta0) before any step; each step computes alpha = eta / (p . Sp), then
-// z = Pinv r, then eta'; `done` is tested after the update; after the exit
-// or the cap no step runs, and `iters` counts the steps that ran.  The exit
-// is |eta| < tol ("eta") or ||r||^2 < tol^2 ("rnorm").
+// Replaces the TPU kernels mpcgpu_tpu/ops/pcg_pallas.py::
+// pcg_dz_solve_pallas_lanes (K2: _make_pcg_dz_kernel = _make_pcg_kernel +
+// kkt_pallas.py::dz_from_lane_values), pcg_solve_pallas_lanes and
+// pcg_solve_pallas (K2': _make_pcg_kernel) and mpcgpu_tpu/solver/
+// kkt_pallas.py::compute_dz_pallas (K6: _make_dz_kernel).  Iteration
+// semantics are the TPU kernel's, exactly: r0 = gamma - S lam0 and the exit
+// test runs once on (r0, eta0) before any step; each step computes alpha =
+// eta / (p . Sp), then z = Pinv r, then eta'; `done` is tested after the
+// update; after the exit or the cap no step runs, and `iters` counts the
+// steps that ran.  The exit is |eta| < tol ("eta") or ||r||^2 < tol^2
+// ("rnorm").  K2 and K2' are one template (kDz), so their iterations are the
+// same code and their lam the same bits.
 //
-// What bounds it on an H100: one solve is up to a few hundred dependent
+// What bounds K2 on an H100: one solve is up to a few hundred dependent
 // iterations, each a BTD matvec with S and one with Pinv (2 x 3 x 14 x 14 x N
 // floats: 301 KB at N = 64, 2.4 MB at N = 512) and two reductions over N x 14
 // values.  S and Pinv exceed one block's 227 KB of shared memory at large N,
@@ -24,10 +29,13 @@
 // cluster holding S and Pinv in distributed shared memory is later work.
 //
 // The edge blocks S[0,0] and S[N-1,2] are skipped by explicit bounds, not
-// relied on to be zero.  The epilogue computes, with lam_{N} = 0 and no du at
-// the last knot,
+// relied on to be zero.  The dz recovery computes, with lam_{N} = 0 and no
+// du at the last knot,
 //   dx_k = Qinv_k (q_k - lam_k + A_k^T lam_{k+1}),
 //   du_k = (r_cost u_k + B_k^T lam_{k+1}) / (r_cost + rho).
+// K6 is latency-bound: it reads Qinv, A, B (~3 x 14 x 14 x N floats) once and
+// does ~1.5 KFLOP per knot; one block per knot, one thread per output.  Its
+// per-output arithmetic is K2's epilogue (the same device functions).
 #include "common.cuh"
 
 using namespace mpc;
@@ -51,6 +59,39 @@ __device__ inline float btd_row(const float* __restrict__ M, const float* x,
   return (c + l) + r;
 }
 
+// Right-hand side of dx at row (k, c): (q_k - lam_k)_c + (A_k^T lam_{k+1})_c.
+__device__ inline float dz_rhs(const float* __restrict__ A,
+                               const float* __restrict__ q, const float* lam,
+                               int k, int c, int N) {
+  float at = 0.f;
+  if (k < N - 1) {
+    const float* Ak = A + (size_t)k * NN;
+    for (int j = 0; j < NX; ++j) at += Ak[j * NX + c] * lam[(k + 1) * NX + j];
+  }
+  return (q[k * NX + c] - lam[k * NX + c]) + at;
+}
+
+// dx_k[c] = (Qinv_k rhs_k)_c, rhs_k the knot's NX right-hand sides.
+__device__ inline float dz_dx(const float* __restrict__ Qinv, const float* rhs,
+                              int k, int c) {
+  const float* Qk = Qinv + (size_t)k * NN;
+  float acc = 0.f;
+  for (int j = 0; j < NX; ++j) acc += Qk[c * NX + j] * rhs[j];
+  return acc;
+}
+
+// du_k[c] = s_r (r_cost u_k[c] + (B_k^T lam_{k+1})_c), 0 at the last knot.
+__device__ inline float dz_du(const float* __restrict__ B, const float* lam,
+                              const float* __restrict__ u, int u_stride,
+                              float r_cost, float s_r, int k, int c, int N) {
+  if (k >= N - 1) return 0.f;
+  const float* Bk = B + (size_t)k * NX * NU;
+  float bt = 0.f;
+  for (int j = 0; j < NX; ++j) bt += Bk[j * NU + c] * lam[(k + 1) * NX + j];
+  return s_r * (r_cost * u[k * u_stride + c] + bt);
+}
+
+template <bool kDz>
 __global__ void __launch_bounds__(THREADS)
 pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
               const float* __restrict__ gamma, const float* __restrict__ lam0,
@@ -118,42 +159,65 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
     __syncthreads();
   }
 
-  // dz epilogue
-  const float rho = *rho_p;
-  const float s_r = 1.f / (r_cost + rho);
-  for (int i = tid; i < n; i += nth) {
-    const int k = i / NX, c = i - k * NX;
-    float at = 0.f;
-    if (k < N - 1) {
-      const float* Ak = A + (size_t)k * NN;
-      for (int j = 0; j < NX; ++j) at += Ak[j * NX + c] * lam[(k + 1) * NX + j];
+  if constexpr (kDz) {
+    const float s_r = 1.f / (r_cost + *rho_p);
+    for (int i = tid; i < n; i += nth) {
+      const int k = i / NX, c = i - k * NX;
+      z[i] = dz_rhs(A, q, lam, k, c, N);
+      lam_o[i] = lam[i];
     }
-    z[i] = (q[i] - lam[i]) + at;
-    lam_o[i] = lam[i];
-  }
-  __syncthreads();
-  for (int i = tid; i < n; i += nth) {
-    const int k = i / NX, c = i - k * NX;
-    const float* Qk = Qinv + (size_t)k * NN;
-    float acc = 0.f;
-    for (int j = 0; j < NX; ++j) acc += Qk[c * NX + j] * z[k * NX + j];
-    dz[k * W + c] = acc;
-  }
-  for (int i = tid; i < N * NU; i += nth) {
-    const int k = i / NU, c = i - k * NU;
-    float du = 0.f;
-    if (k < N - 1) {
-      const float* Bk = B + (size_t)k * NX * NU;
-      float bt = 0.f;
-      for (int j = 0; j < NX; ++j) bt += Bk[j * NU + c] * lam[(k + 1) * NX + j];
-      du = s_r * (r_cost * u[k * u_stride + c] + bt);
+    __syncthreads();
+    for (int i = tid; i < n; i += nth) {
+      const int k = i / NX, c = i - k * NX;
+      dz[k * W + c] = dz_dx(Qinv, z + k * NX, k, c);
     }
-    dz[k * W + NX + c] = du;
+    for (int i = tid; i < N * NU; i += nth) {
+      const int k = i / NU, c = i - k * NU;
+      dz[k * W + NX + c] = dz_du(B, lam, u, u_stride, r_cost, s_r, k, c, N);
+    }
+  } else {
+    for (int i = tid; i < n; i += nth) lam_o[i] = lam[i];
   }
   if (tid == 0) {
     *iters_o = it;
     *conv_o = done ? 1 : 0;
   }
+}
+
+__global__ void __launch_bounds__(32)
+dz_kernel(const float* __restrict__ lam, const float* __restrict__ Qinv,
+          const float* __restrict__ A, const float* __restrict__ B,
+          const float* __restrict__ q, const float* __restrict__ u,
+          int u_stride, const float* __restrict__ rho_p, float r_cost, int N,
+          float* __restrict__ dz) {
+  __shared__ float rhs[NX];
+  const int k = blockIdx.x, tid = threadIdx.x;
+  if (tid < NX) rhs[tid] = dz_rhs(A, q, lam, k, tid, N);
+  __syncthreads();
+  if (tid < NX) {
+    dz[k * W + tid] = dz_dx(Qinv, rhs, k, tid);
+  } else if (tid < W) {
+    const float s_r = 1.f / (r_cost + *rho_p);
+    dz[k * W + tid] = dz_du(B, lam, u, u_stride, r_cost, s_r, k, tid - NX, N);
+  }
+}
+
+template <bool kDz>
+int pcg_launch_impl(const float* S, const float* Pinv, const float* gamma,
+                    const float* lam0, const float* Qinv, const float* A,
+                    const float* B, const float* q, const float* u,
+                    int u_stride, const float* rho, float r_cost, int max_iter,
+                    const float* tol, int rnorm, int N, float* lam, float* dz,
+                    int* iters, int* conv, void* stream) {
+  const size_t smem = (size_t)5 * N * NX * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      pcg_dz_kernel<kDz>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pcg_dz_kernel<kDz><<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      S, Pinv, gamma, lam0, Qinv, A, B, q, u, u_stride, rho, r_cost, max_iter,
+      tol, rnorm, N, lam, dz, iters, conv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -165,12 +229,26 @@ extern "C" int pcg_dz_launch(const float* S, const float* Pinv,
                              const float* rho, float r_cost, int max_iter,
                              const float* tol, int rnorm, int N, float* lam,
                              float* dz, int* iters, int* conv, void* stream) {
-  const size_t smem = (size_t)5 * N * NX * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      pcg_dz_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pcg_dz_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      S, Pinv, gamma, lam0, Qinv, A, B, q, u, u_stride, rho, r_cost, max_iter,
-      tol, rnorm, N, lam, dz, iters, conv);
+  return pcg_launch_impl<true>(S, Pinv, gamma, lam0, Qinv, A, B, q, u,
+                               u_stride, rho, r_cost, max_iter, tol, rnorm, N,
+                               lam, dz, iters, conv, stream);
+}
+
+extern "C" int pcg_launch(const float* S, const float* Pinv,
+                          const float* gamma, const float* lam0, int max_iter,
+                          const float* tol, int rnorm, int N, float* lam,
+                          int* iters, int* conv, void* stream) {
+  return pcg_launch_impl<false>(S, Pinv, gamma, lam0, nullptr, nullptr,
+                                nullptr, nullptr, nullptr, 0, nullptr, 0.f,
+                                max_iter, tol, rnorm, N, lam, nullptr, iters,
+                                conv, stream);
+}
+
+extern "C" int dz_launch(const float* lam, const float* Qinv, const float* A,
+                         const float* B, const float* q, const float* u,
+                         int u_stride, const float* rho, float r_cost, int N,
+                         float* dz, void* stream) {
+  dz_kernel<<<N, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      lam, Qinv, A, B, q, u, u_stride, rho, r_cost, N, dz);
   return static_cast<int>(cudaGetLastError());
 }

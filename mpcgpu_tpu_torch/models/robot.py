@@ -48,10 +48,11 @@ class RobotModel:
             gravity=self.gravity)
 
     @staticmethod
-    def from_numpy(obj, device=None, dtype=torch.float64,
+    def from_numpy(obj, device="cuda", dtype=torch.float64,
                    gravity: float | None = None) -> "RobotModel":
         """Carry a model across from anything holding the seven arrays:
-        an object with those attributes (a JAX ``RobotModel``) or a dict."""
+        an object with those attributes (a JAX ``RobotModel``) or a dict.
+        The model lands on the card unless ``device`` names another."""
         get = obj.get if isinstance(obj, dict) else (
             lambda name, default=None: getattr(obj, name, default))
         arrays = [torch.tensor(np.asarray(get(f)), dtype=dtype, device=device)

@@ -1,9 +1,13 @@
-"""K2: warm-started stair PCG with the dz recovery as its epilogue.
+"""K2 (warm-started stair PCG with the dz recovery as its epilogue), K2' (the
+same PCG without the epilogue) and K6 (the dz recovery alone).
 
-Port of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_dz_solve_pallas_lanes``; the
-CUDA kernel is ``csrc/pcg_dz.cu``.  Takes the K1 output dict
-(``solver/kkt_cuda.py``) in knot-leading layout.  ``pcg_dz_solve`` runs the
-plain version for CPU tensors and the kernel for CUDA tensors.
+Ports of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_dz_solve_pallas_lanes`` (K2),
+``pcg_solve_pallas_lanes`` / ``pcg_solve_pallas`` (K2') and
+``mpcgpu_tpu/solver/kkt_pallas.py::compute_dz_pallas`` (K6); the CUDA
+kernels are in ``csrc/pcg_dz.cu``.  K2 and K6 take the K1 output dict
+(``solver/kkt_cuda.py``) in knot-leading layout; K2' takes the standard
+(N, 3, n, n) BTD operands.  Each wrapper runs its plain version for CPU
+tensors and its kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -11,57 +15,80 @@ from __future__ import annotations
 import torch
 
 from mpcgpu_tpu_torch import _kernels
-from mpcgpu_tpu_torch.ops.pcg import pcg_solve
+from mpcgpu_tpu_torch.ops.pcg import PCGResult, pcg_solve
 from mpcgpu_tpu_torch.ops.schur import SchurSystem, compute_dz
 from mpcgpu_tpu_torch.solver.kkt import KKTBlocks
 
 
-def pcg_dz_solve_plain(sys: dict, lam0, u, rho, r_cost: float,
-                       max_iter: int = 173, exit_tol=1e-6,
-                       exit_criterion: str = "eta"):
-    """``pcg_solve`` on (S, Pinv, gamma), then ``compute_dz`` on the K1
-    blocks, with the ee cost's control terms R = r_cost I and r = r_cost u."""
-    res = pcg_solve(sys["S"], sys["Pinv"], sys["gamma"], lam0,
-                    max_iter=max_iter, exit_tol=exit_tol,
-                    exit_criterion=exit_criterion)
+def compute_dz_plain(sys: dict, lam, u, rho, r_cost: float):
+    """``compute_dz`` on the K1 blocks, with the ee cost's control terms
+    R = r_cost I and r = r_cost u."""
     N, nu = u.shape
     rinv = torch.eye(nu, dtype=u.dtype, device=u.device) / (r_cost + rho)
     # compute_dz reads q, r, A, B of the KKT blocks and Qinv, Rinv of the
     # Schur system; A and B drop the kernel's zero last-knot blocks
     kkt = KKTBlocks(Q=None, q=sys["q"], R=None, r=r_cost * u[:-1],
                     A=sys["A"][:-1], B=sys["B"][:-1], c=None)
-    schur = SchurSystem(S=sys["S"], Pinv=sys["Pinv"], gamma=sys["gamma"],
-                        Qinv=sys["Qinv"], Rinv=rinv.expand(N - 1, nu, nu))
-    return res.lam, compute_dz(kkt, schur, res.lam), res.iters, res.converged
+    schur = SchurSystem(S=None, Pinv=None, gamma=None, Qinv=sys["Qinv"],
+                        Rinv=rinv.expand(N - 1, nu, nu))
+    return compute_dz(kkt, schur, lam)
+
+
+def pcg_dz_solve_plain(sys: dict, lam0, u, rho, r_cost: float,
+                       max_iter: int = 173, exit_tol=1e-6,
+                       exit_criterion: str = "eta"):
+    """``pcg_solve`` on (S, Pinv, gamma), then ``compute_dz_plain``."""
+    res = pcg_solve(sys["S"], sys["Pinv"], sys["gamma"], lam0,
+                    max_iter=max_iter, exit_tol=exit_tol,
+                    exit_criterion=exit_criterion)
+    return (res.lam, compute_dz_plain(sys, res.lam, u, rho, r_cost),
+            res.iters, res.converged)
+
+
+def _require_system(S, Pinv, gamma, lam0, dev):
+    N, nx = lam0.shape
+    if nx != 14:
+        raise ValueError("the CUDA kernels are built for nx = 14")
+    _kernels.require_knots(N)
+    for name, t, shape in (("S", S, (N, 3, nx, nx)), ("Pinv", Pinv, (N, 3, nx, nx)),
+                           ("gamma", gamma, (N, nx)), ("lam0", lam0, (N, nx))):
+        _kernels.require(t, name, shape, dev)
+
+
+def _require_dz_inputs(sys: dict, u, dev):
+    N, nu = u.shape
+    if nu != 7:
+        raise ValueError("the CUDA kernels are built for nu = 7")
+    for name, shape in (("Qinv", (N, 14, 14)), ("A", (N, 14, 14)),
+                        ("B", (N, 14, nu)), ("q", (N, 14))):
+        _kernels.require(sys[name], name, shape, dev)
+    _kernels.require(u, "u", (N, nu), dev, row_major=True)
+
+
+def _check_pcg_args(exit_criterion: str, max_iter: int) -> None:
+    if exit_criterion not in ("eta", "rnorm"):
+        raise ValueError(f"unknown exit_criterion {exit_criterion!r}")
+    if int(max_iter) < 0:
+        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
 
 
 def pcg_dz_solve(sys: dict, lam0, u, rho, r_cost: float, max_iter: int = 173,
                  exit_tol=1e-6, exit_criterion: str = "eta"):
-    """Solve S lam = gamma from lam0 (N, nx), then recover dz.
+    """K2: solve S lam = gamma from lam0 (N, nx), then recover dz.
 
     u (N, nu) are the current controls (rows of unit stride, e.g.
     ``xu[:, nx:]``); rho and exit_tol may be floats or 0-d tensors.
     Returns (lam (N, nx), dz (N, nx+nu), iters () int32, converged () bool).
     """
-    if exit_criterion not in ("eta", "rnorm"):
-        raise ValueError(f"unknown exit_criterion {exit_criterion!r}")
+    _check_pcg_args(exit_criterion, max_iter)
     if _kernels.on_cpu(lam0):
         return pcg_dz_solve_plain(sys, lam0, u, rho, r_cost, max_iter,
                                   exit_tol, exit_criterion)
     dev = lam0.device
     N, nx = lam0.shape
     nu = u.shape[-1]
-    if nx != 14 or nu != 7:
-        raise ValueError("the CUDA kernels are built for nx = 14, nu = 7")
-    _kernels.require_knots(N)
-    for name, shape in (("S", (N, 3, nx, nx)), ("Pinv", (N, 3, nx, nx)),
-                        ("gamma", (N, nx)), ("Qinv", (N, nx, nx)),
-                        ("A", (N, nx, nx)), ("B", (N, nx, nu)), ("q", (N, nx))):
-        _kernels.require(sys[name], name, shape, dev)
-    _kernels.require(lam0, "lam0", (N, nx), dev)
-    _kernels.require(u, "u", (N, nu), dev, row_major=True)
-    if int(max_iter) < 0:
-        raise ValueError(f"max_iter must be >= 0, got {max_iter}")
+    _require_system(sys["S"], sys["Pinv"], sys["gamma"], lam0, dev)
+    _require_dz_inputs(sys, u, dev)
     rho_t = _kernels.scalar(rho, dev)
     tol_t = _kernels.scalar(exit_tol, dev)
 
@@ -81,3 +108,64 @@ def pcg_dz_solve(sys: dict, lam0, u, rho, r_cost: float, max_iter: int = 173,
 
 
 pcg_dz_solve.launches = 0
+
+
+def pcg_solve_cuda(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
+                   exit_criterion: str = "eta") -> PCGResult:
+    """K2': K2's PCG without the dz epilogue, on BTD S and a 3-band Pinv
+    (N, 3, n, n).  A 5-band Pinv (stair2) raises, as the TPU kernel's
+    wrapper does.  The plain version is ``pcg_solve``."""
+    if Pinv.shape[1] != 3:
+        raise ValueError(
+            f"pcg_solve_cuda takes a 3-band preconditioner, got {Pinv.shape[1]} "
+            "bands; use linsys='pcg' for preconditioner='stair2'")
+    _check_pcg_args(exit_criterion, max_iter)
+    if _kernels.on_cpu(lam0):
+        return pcg_solve(S, Pinv, gamma, lam0, max_iter, exit_tol,
+                         exit_criterion)
+    dev = lam0.device
+    N, nx = lam0.shape
+    _require_system(S, Pinv, gamma, lam0, dev)
+    tol_t = _kernels.scalar(exit_tol, dev)
+    lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
+    flags = torch.empty((2,), dtype=torch.int32, device=dev)
+    code = _kernels.entry("pcg_dz.cu", "pcg_launch")(
+        S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
+        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
+        lam.data_ptr(), flags.data_ptr(), flags.data_ptr() + 4,
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "pcg_launch")
+    pcg_solve_cuda.launches += 1
+    return PCGResult(lam=lam, iters=flags[0], converged=flags[1].bool())
+
+
+pcg_solve_cuda.launches = 0
+
+
+def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
+    """K6: dz (N, nx+nu) from lam (N, nx) and K1's blocks (Qinv, A, B, q):
+    dx = Qinv (q - lam + A^T lam_+), du = (r_cost u + B^T lam_+) / (r_cost +
+    rho), lam_+ = 0 and du = 0 at the last knot.  rho may be a float or a
+    0-d tensor.  The plain version is ``compute_dz_plain``."""
+    if _kernels.on_cpu(lam):
+        return compute_dz_plain(sys, lam, u, rho, r_cost)
+    dev = lam.device
+    N, nx = lam.shape
+    if nx != 14:
+        raise ValueError("the CUDA kernels are built for nx = 14")
+    _kernels.require_knots(N)
+    _kernels.require(lam, "lam", (N, nx), dev)
+    _require_dz_inputs(sys, u, dev)
+    rho_t = _kernels.scalar(rho, dev)
+    dz = torch.empty((N, nx + u.shape[-1]), dtype=torch.float32, device=dev)
+    code = _kernels.entry("pcg_dz.cu", "dz_launch")(
+        lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
+        sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(0),
+        rho_t.data_ptr(), float(r_cost), N, dz.data_ptr(),
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "dz_launch")
+    compute_dz_cuda.launches += 1
+    return dz
+
+
+compute_dz_cuda.launches = 0

@@ -1,14 +1,17 @@
-"""K1: KKT assembly + Schur condensation + stair preconditioner in one call.
+"""K1 (KKT assembly + Schur condensation + stair preconditioner in one call)
+and K5 (the KKT blocks alone).
 
-Port of ``mpcgpu_tpu/solver/kkt_pallas.py::build_kkt_schur_pallas``; the
-CUDA kernel is ``csrc/kkt_schur.cu``.  Outputs are knot-leading:
+Ports of ``mpcgpu_tpu/solver/kkt_pallas.py::build_kkt_schur_pallas`` and
+``build_kkt_pallas``; the CUDA kernels are in ``csrc/kkt_schur.cu``.  K1's
+outputs are knot-leading:
 
   S, Pinv (N, 3, nx, nx); gamma (N, nx); Qinv, A (N, nx, nx); B (N, nx, nu);
   q (N, nx)
 
-A and B at the last knot are not part of the QP and are zero.
-``build_kkt_schur`` runs the plain version for CPU tensors and the kernel
-for CUDA tensors.
+A and B at the last knot are not part of the QP and are zero.  K5 returns
+the ``KKTBlocks`` of the plain ``build_kkt``.  ``build_kkt_schur`` and
+``build_kkt_cuda`` run their plain versions for CPU tensors and their
+kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -19,11 +22,33 @@ from mpcgpu_tpu_torch.config import CostConfig
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.schur import form_schur_system
-from mpcgpu_tpu_torch.solver.kkt import build_kkt
+from mpcgpu_tpu_torch.solver.kkt import KKTBlocks, build_kkt
 
 # floats of per-knot scratch the kernel hands from launch A to launch B:
 # T (nx^2), A Qinv (nx^2), xnext, A Qinv q, B Rinv r (nx each)
 _SCRATCH_PER_KNOT = 2 * 14 * 14 + 3 * 14
+
+
+def _check_args(cost: CostConfig, integrator_type: int) -> None:
+    if cost.mode != "ee":
+        raise ValueError("the KKT kernels support ee cost mode only")
+    if integrator_type not in (0, 1):
+        raise ValueError(f"integrator_type {integrator_type} not in (0, 1)")
+
+
+def _require_inputs(model: RobotModel, xu, ee_goal):
+    """Check the kernel inputs; returns the packed model."""
+    if model.nq != 7:
+        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+    dev = xu.device
+    N = xu.shape[0]
+    _kernels.require_knots(N)
+    _kernels.require(xu, "xu", (N, 3 * model.nq), dev)
+    _kernels.require(ee_goal[:, :3], "ee_goal[:, :3]", (N, 3), dev,
+                     row_major=True)
+    packed = model.packed()
+    _kernels.require(packed, "model", (packed.numel(),), dev)
+    return packed
 
 
 def build_kkt_schur_plain(model: RobotModel, cost: CostConfig, xu, xs, ee_goal,
@@ -50,10 +75,7 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
     unused by the outputs (gamma_0 leaves out c_0) and kept for the plain
     version's signature.  rho may be a float or a 0-d tensor.
     """
-    if cost.mode != "ee":
-        raise ValueError("build_kkt_schur supports ee cost mode only")
-    if integrator_type not in (0, 1):
-        raise ValueError(f"integrator_type {integrator_type} not in (0, 1)")
+    _check_args(cost, integrator_type)
     if _kernels.on_cpu(xu):
         return build_kkt_schur_plain(model, cost, xu, xs, ee_goal, rho, dt,
                                      integrator_type, angle_wrap)
@@ -61,14 +83,7 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
     N = xu.shape[0]
     nq = model.nq
     nx = 2 * nq
-    if nq != 7:
-        raise ValueError(f"the CUDA kernels are built for nq = 7, got {nq}")
-    _kernels.require_knots(N)
-    _kernels.require(xu, "xu", (N, nx + nq), dev)
-    _kernels.require(ee_goal[:, :3], "ee_goal[:, :3]", (N, 3), dev,
-                     row_major=True)
-    packed = model.packed()
-    _kernels.require(packed, "model", (packed.numel(),), dev)
+    packed = _require_inputs(model, xu, ee_goal)
     rho_t = _kernels.scalar(rho, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -94,3 +109,44 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
 
 
 build_kkt_schur.launches = 0
+
+
+def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: float,
+                   integrator_type: int = 0, angle_wrap: bool = False) -> KKTBlocks:
+    """K5: the KKT blocks of ``build_kkt`` (ee cost mode) in one launch.
+
+    Q (N, nx, nx), q (N, nx), A (N-1, nx, nx), B (N-1, nx, nu) and c (N, nx)
+    come from the kernel; R = r_cost I and r = r_cost u[:-1] are formed here
+    as ``build_kkt`` forms them.  The plain version is ``build_kkt``.
+    """
+    _check_args(cost, integrator_type)
+    if _kernels.on_cpu(xu):
+        return build_kkt(model, cost, xu, xs, ee_goal, dt, integrator_type,
+                         angle_wrap)
+    dev = xu.device
+    N = xu.shape[0]
+    nq = model.nq
+    nx = 2 * nq
+    packed = _require_inputs(model, xu, ee_goal)
+    _kernels.require(xs, "xs", (nx,), dev)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    Q = torch.empty((N, nx, nx), **f32)
+    q = torch.empty((N, nx), **f32)
+    A = torch.empty((N, nx, nx), **f32)
+    B = torch.empty((N, nx, nq), **f32)
+    c = torch.empty((N, nx), **f32)
+    code = _kernels.entry("kkt_schur.cu", "kkt_launch")(
+        xu.data_ptr(), xu.stride(0), ee_goal.data_ptr(), ee_goal.stride(0),
+        xs.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
+        float(cost.qd_cost), N, integrator_type, int(angle_wrap),
+        int(cost.terminal_at_last_state), Q.data_ptr(), A.data_ptr(),
+        B.data_ptr(), q.data_ptr(), c.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check(code, "kkt_launch")
+    build_kkt_cuda.launches += 1
+    u = xu[:-1, nx:]
+    R = (cost.r_cost * torch.eye(nq, **f32)).expand(N - 1, nq, nq)
+    return KKTBlocks(Q=Q, q=q, R=R, r=cost.r_cost * u, A=A[:-1], B=B[:-1], c=c)
+
+
+build_kkt_cuda.launches = 0

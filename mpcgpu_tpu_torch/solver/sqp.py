@@ -1,14 +1,21 @@
 """SQP outer loop: KKT -> Schur -> linear solve -> dz -> line search -> rho.
 
-Port of ``mpcgpu_tpu/solver/sqp.py::sqp_solve``.  ``linsys`` selects the
-linear-system path:
+Port of ``mpcgpu_tpu/solver/sqp.py::sqp_solve``, with its routes (the JAX
+package's ``"pallas"`` / ``"xla"`` are ``"cuda"`` / ``"plain"`` here):
 
-  * ``"pcg"``: the plain composition build_kkt -> form_schur_system ->
-    pcg_solve -> compute_dz -> line_search_merits (the JAX XLA path);
-  * ``"pcg_cuda"``: the fused path K1 -> K2 -> K3 (solver/kkt_cuda.py,
-    ops/pcg_cuda.py, solver/merit_cuda.py), stair preconditioner only.  On
-    CUDA tensors these launch the hand-written kernels; on CPU tensors they
-    run their plain versions.
+  * ``fused`` (default: exactly when ``linsys="pcg_cuda"`` with the stair
+    preconditioner): K1 build_kkt_schur -> K2 pcg_dz_solve, or with
+    ``fused_dz=False`` K1 -> K2' pcg_solve_cuda -> K6 compute_dz_cuda;
+  * not fused: KKT blocks (K5 build_kkt_cuda when the kernels are in use,
+    else build_kkt) -> form_schur_system -> the linear solve (``"pcg"``:
+    pcg_solve; ``"pcg_cuda"``: K2' pcg_solve_cuda) -> compute_dz;
+  * merits: K3 line_search_merits_fused when the kernels are in use, else
+    its plain version line_search_merits(include_zero=True).
+
+``merit_impl="auto"`` uses the kernels (K5, K3) when xu is on the card and
+the cost is in ee mode; ``"cuda"`` and ``"plain"`` force the choice.  Each
+kernel wrapper launches its kernel on CUDA tensors and runs its plain
+version on CPU tensors.
 
 The merit argmin, the Levenberg-Marquardt rho schedule and the
 Eisenstat-Walker forcing stay on the device as tensor ops.  The loop reads
@@ -26,12 +33,13 @@ from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.pcg import pcg_solve
-from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve
+from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, pcg_dz_solve,
+                                           pcg_solve_cuda)
 from mpcgpu_tpu_torch.ops.schur import compute_dz, form_schur_system
 from mpcgpu_tpu_torch.solver.kkt import build_kkt
-from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
-from mpcgpu_tpu_torch.solver.merit import line_search_merits
-from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merits_fused
+from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_cuda, build_kkt_schur
+from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_fused,
+                                                line_search_merits_plain)
 
 # linsys values of the JAX package that the port does not have yet, and the
 # ROADMAP.md item that brings each
@@ -74,12 +82,16 @@ def sqp_solve(
     drho0=1.0,
     angle_wrap: bool = False,
     iter_budget=None,
+    merit_impl: str = "auto",
+    fused: bool | None = None,
+    fused_dz: bool = True,
 ) -> SQPResult:
     """One SQP solve from the iterate (xu, lam).
 
     rho and drho0 may be floats or 0-d tensors.  iter_budget is an optional
     iteration cap <= max_iter (the equivalent of the reference's wall-clock
-    exit once converted to iterations).
+    exit once converted to iterations).  merit_impl, fused and fused_dz pick
+    the route (module docstring).
     """
     if linsys in _NOT_PORTED:
         raise NotImplementedError(
@@ -87,8 +99,17 @@ def sqp_solve(
             f"{_NOT_PORTED[linsys]}")
     if linsys not in ("pcg", "pcg_cuda"):
         raise ValueError(f"unknown linsys {linsys!r}")
-    if linsys == "pcg_cuda" and pcg_cfg.preconditioner != "stair":
-        raise ValueError("linsys='pcg_cuda' supports preconditioner='stair' only")
+    if merit_impl == "auto":
+        use_kernels = xu.device.type == "cuda" and cost.mode == "ee"
+    elif merit_impl in ("cuda", "plain"):
+        use_kernels = merit_impl == "cuda"
+    else:
+        raise ValueError(f"unknown merit_impl {merit_impl!r}")
+    if fused is None:
+        fused = linsys == "pcg_cuda" and pcg_cfg.preconditioner == "stair"
+    if fused and pcg_cfg.preconditioner != "stair":
+        raise ValueError("the fused route (K1 -> K2) supports "
+                         "preconditioner='stair' only")
 
     dev, dtype = xu.device, xu.dtype
     nx = lam.shape[-1]
@@ -110,31 +131,34 @@ def sqp_solve(
 
     it = 0
     while it < iter_bound and (it == 0 or not bool(stop)):
-        if linsys == "pcg_cuda":
+        pcg_kw = dict(max_iter=pcg_cfg.max_iter, exit_tol=lin_tol,
+                      exit_criterion=pcg_cfg.exit_criterion)
+        if fused:
             sys = build_kkt_schur(model, cost, xu, xs, ee_goal, rho, dt,
                                   integrator_type, angle_wrap)
-            lam, dz, lin_iters, lin_ok = pcg_dz_solve(
-                sys, lam, xu[:, nx:], rho, cost.r_cost,
-                max_iter=pcg_cfg.max_iter, exit_tol=lin_tol,
-                exit_criterion=pcg_cfg.exit_criterion)
-            merits, alphas = line_search_merits_fused(
-                model, cost, xu, dz, xs, ee_goal, mu, dt,
-                num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
-                angle_wrap=angle_wrap)
+            if fused_dz:
+                lam, dz, lin_iters, lin_ok = pcg_dz_solve(
+                    sys, lam, xu[:, nx:], rho, cost.r_cost, **pcg_kw)
+            else:
+                lam, lin_iters, lin_ok = pcg_solve_cuda(
+                    sys["S"], sys["Pinv"], sys["gamma"], lam, **pcg_kw)
+                dz = compute_dz_cuda(sys, lam, xu[:, nx:], rho, cost.r_cost)
         else:
-            kkt = build_kkt(model, cost, xu, xs, ee_goal, dt, integrator_type,
-                            angle_wrap)
+            make_kkt = build_kkt_cuda if use_kernels else build_kkt
+            kkt = make_kkt(model, cost, xu, xs, ee_goal, dt, integrator_type,
+                           angle_wrap)
             schur = form_schur_system(kkt, rho,
                                       preconditioner=pcg_cfg.preconditioner)
-            res = pcg_solve(schur.S, schur.Pinv, schur.gamma, lam,
-                            max_iter=pcg_cfg.max_iter, exit_tol=lin_tol,
-                            exit_criterion=pcg_cfg.exit_criterion)
-            lam, lin_iters, lin_ok = res.lam, res.iters, res.converged
+            solve = pcg_solve_cuda if linsys == "pcg_cuda" else pcg_solve
+            lam, lin_iters, lin_ok = solve(schur.S, schur.Pinv, schur.gamma,
+                                           lam, **pcg_kw)
             dz = compute_dz(kkt, schur, lam)
-            merits, alphas = line_search_merits(
-                model, cost, xu, dz, xs, ee_goal, mu, dt,
-                num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
-                include_zero=True, angle_wrap=angle_wrap)
+        search = (line_search_merits_fused if use_kernels
+                  else line_search_merits_plain)
+        merits, alphas = search(
+            model, cost, xu, dz, xs, ee_goal, mu, dt,
+            num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
+            angle_wrap=angle_wrap)
 
         merit_cur = merits[0]
         best = 1 + torch.argmin(merits[1:], keepdim=True)    # (1,)
@@ -184,14 +208,17 @@ def sqp_solve(
 
 def make_sqp_solver(model: RobotModel, cost: CostConfig, sqp_cfg: SQPConfig,
                     pcg_cfg: PCGConfig, dt: float, linsys: str = "pcg",
-                    integrator_type: int = 0, angle_wrap: bool = False):
+                    integrator_type: int = 0, angle_wrap: bool = False,
+                    merit_impl: str = "auto", fused: bool | None = None,
+                    fused_dz: bool = True):
     """A solver fn(xu, lam, xs, ee_goal, rho[, drho0[, iter_budget]]) ->
-    SQPResult with the model, configuration and path bound."""
+    SQPResult with the model, configuration and route bound."""
 
     def solve(xu, lam, xs, ee_goal, rho, drho0=1.0, iter_budget=None):
         return sqp_solve(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal,
                          rho, dt, linsys=linsys, integrator_type=integrator_type,
                          drho0=drho0, angle_wrap=angle_wrap,
-                         iter_budget=iter_budget)
+                         iter_budget=iter_budget, merit_impl=merit_impl,
+                         fused=fused, fused_dz=fused_dz)
 
     return solve

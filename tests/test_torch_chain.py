@@ -12,8 +12,8 @@ from mpcgpu_tpu.config import SQPConfig as JSQPConfig
 from mpcgpu_tpu.models import iiwa14 as jax_iiwa14
 from mpcgpu_tpu.sim.mpc import _shift_all as jax_shift_all
 from mpcgpu_tpu.solver.sqp import sqp_solve as jax_sqp_solve
-from mpcgpu_tpu_torch.config import (CostConfig, PCGConfig, SQPConfig,
-                                     load_eepos_traj, load_xu_traj)
+from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 from mpcgpu_tpu_torch.models import iiwa14
 from mpcgpu_tpu_torch.sim.mpc import _shift_all, run_chain
 from mpcgpu_tpu_torch.solver.sqp import sqp_solve
@@ -74,7 +74,7 @@ def test_chain_matches_jax_f64():
     xu, ee_full = _inputs()
     ref = _jax_chain(xu, ee_full, STEPS)
     t = lambda a: torch.tensor(a, dtype=torch.float64)
-    got = run_chain(iiwa14(torch.float64), CostConfig.for_knots(N),
+    got = run_chain(iiwa14(torch.float64, device="cpu"), CostConfig.for_knots(N),
                     SQPConfig(max_iter=1), PCGConfig(max_iter=167, exit_tol=1e-5),
                     t(xu), torch.zeros((N, 14), dtype=torch.float64),
                     t(xu[0, :14]), t(ee_full), RHO, DT, STEPS, linsys="pcg_cuda")
@@ -108,7 +108,7 @@ def test_one_step_f32_is_finite_and_near_jax():
         JPCGConfig(max_iter=167, exit_tol=1e-5), a, jnp.zeros((N, 14), jnp.float32),
         a[0, :14], g, rho, DT, linsys="pcg"))(f32(xu), f32(ee_full[:N]))
     t = lambda a: torch.tensor(a, dtype=torch.float32)
-    got = sqp_solve(iiwa14(torch.float32), CostConfig.for_knots(N),
+    got = sqp_solve(iiwa14(torch.float32, device="cpu"), CostConfig.for_knots(N),
                     SQPConfig(max_iter=1), PCGConfig(max_iter=167, exit_tol=1e-5),
                     t(xu), torch.zeros((N, 14)), t(xu[0, :14]), t(ee_full[:N]),
                     rho, DT, linsys="pcg_cuda")

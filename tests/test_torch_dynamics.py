@@ -58,7 +58,7 @@ def test_dynamics_matches_jax(states, name):
     jm = jax_iiwa14(dtype=jnp.float64)
     ref = jax.jit(jax.vmap(lambda *a: getattr(jdyn, name)(jm, *a)))(
         *(jnp.asarray(a) for a in args))
-    got = getattr(dynamics, name)(iiwa14(torch.float64),
+    got = getattr(dynamics, name)(iiwa14(torch.float64, device="cpu"),
                                   *(torch.tensor(a) for a in args))
     _close(got, ref)
 
@@ -67,7 +67,7 @@ def test_dynamics_matches_jax(states, name):
 def test_dynamics_with_gravity_matches_jax(states, name):
     q, qd, u = states
     jm = jax_iiwa14(dtype=jnp.float64, gravity=9.81)
-    tm = iiwa14(torch.float64, gravity=9.81)
+    tm = iiwa14(torch.float64, gravity=9.81, device="cpu")
     fn = "rnea" if name == "rnea_qdd" else name
     ref = jax.jit(jax.vmap(lambda a, b, c: getattr(jdyn, fn)(jm, a, b, c)))(
         jnp.asarray(q), jnp.asarray(qd), jnp.asarray(u))
@@ -91,7 +91,7 @@ def test_spatial_matches_jax():
 def test_model_transforms_match_jax(states):
     q = states[0]
     jm = jax_iiwa14(dtype=jnp.float64)
-    tm = iiwa14(torch.float64)
+    tm = iiwa14(torch.float64, device="cpu")
     _close(tm.xmats(torch.tensor(q)), jax.vmap(jm.xmats)(jnp.asarray(q)))
     _close(tm.hom_xmats(torch.tensor(q)), jax.vmap(jm.hom_xmats)(jnp.asarray(q)))
 
@@ -100,8 +100,9 @@ def test_from_numpy_carries_the_jax_model_across():
     """RobotModel.from_numpy(jax model) == the port's iiwa14(), field by field,
     and .to() changes dtype without changing values."""
     for gravity in (0.0, 9.81):
-        carried = RobotModel.from_numpy(jax_iiwa14(dtype=jnp.float64, gravity=gravity))
-        native = iiwa14(torch.float64, gravity=gravity)
+        carried = RobotModel.from_numpy(jax_iiwa14(dtype=jnp.float64, gravity=gravity),
+                                       device="cpu")
+        native = iiwa14(torch.float64, gravity=gravity, device="cpu")
         for f in ("xc", "xs", "xcos", "inertia", "hc", "hs", "hcos"):
             assert torch.equal(getattr(carried, f), getattr(native, f)), f
         assert carried.gravity == native.gravity == gravity
@@ -110,4 +111,4 @@ def test_from_numpy_carries_the_jax_model_across():
     assert torch.equal(f32.packed(), native.packed().float())
     as_dict = {f: np.asarray(getattr(native, f)) for f in
                ("xc", "xs", "xcos", "inertia", "hc", "hs", "hcos")}
-    assert torch.equal(RobotModel.from_numpy(as_dict).inertia, native.inertia)
+    assert torch.equal(RobotModel.from_numpy(as_dict, device="cpu").inertia, native.inertia)

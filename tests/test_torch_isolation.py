@@ -1,35 +1,42 @@
-"""The port stands on its own: it imports neither jax nor the mpcgpu_tpu
-package, and its GPU smoke test refuses to run without a CUDA device."""
+"""The port stands on its own: it imports neither jax nor any file of the
+mpcgpu_tpu package, its entry points default to the card, and its GPU smoke
+test refuses to run without a CUDA device."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 
-_ONE_STEP = """
+# a few control updates of the closed loop on the CPU, then every loaded
+# module's file is checked: none may lie under mpcgpu_tpu/ (a module loaded
+# by file path under another name would pass a check of names alone)
+_CLOSED_LOOP = """
 import sys
+from pathlib import Path
 import torch
 torch.set_num_threads(1)
-from mpcgpu_tpu_torch.config import (CostConfig, PCGConfig, SQPConfig,
-                                     load_eepos_traj, load_xu_traj)
+from mpcgpu_tpu_torch.config import PCGConfig, SimConfig, SQPConfig
 from mpcgpu_tpu_torch.models import iiwa14
-from mpcgpu_tpu_torch.solver.sqp import sqp_solve
-N = 8
-xu = torch.tensor(load_xu_traj("0_0")[:N], dtype=torch.float64)
-ee = torch.tensor(load_eepos_traj("0_0")[:N], dtype=torch.float64)
-res = sqp_solve(iiwa14(torch.float64), CostConfig(), SQPConfig(max_iter=1),
-                PCGConfig(max_iter=50), xu, torch.zeros((N, 14), dtype=torch.float64),
-                xu[0, :14], ee, 1e-3, 1 / 64, linsys="pcg")
-assert torch.isfinite(res.xu).all() and int(res.sqp_iters) == 1
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu"))
+from mpcgpu_tpu_torch.sim.mpc import simulate_mpc
+from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
+stats = simulate_mpc(iiwa14(torch.float64, device="cpu"), load_xu_traj("0_0")[:20],
+                     load_eepos_traj("0_0")[:20], 8, 1 / 64,
+                     sqp_cfg=SQPConfig(max_iter=1), pcg_cfg=PCGConfig(max_iter=20),
+                     sim_cfg=SimConfig(max_control_updates=3))
+assert stats.summary()["control_updates"] == 3
+ref = (Path.cwd() / "mpcgpu_tpu").resolve()
+bad = sorted(name for name, m in list(sys.modules.items())
+             if name.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu")
+             or ref in Path(getattr(m, "__file__", None) or "/").resolve().parents)
 print("IMPORTED", bad)
 assert not bad, bad
 """
@@ -42,10 +49,36 @@ def _env():
 
 
 def test_port_imports_no_jax():
-    out = subprocess.run([sys.executable, "-c", _ONE_STEP], cwd=ROOT, env=_env(),
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", _CLOSED_LOOP], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "IMPORTED []" in out.stdout
+
+
+def test_port_sources_open_nothing_of_the_jax_package():
+    """No port source loads a file by path or joins a path onto the JAX
+    package's directory."""
+    pattern = re.compile(r"load_reference_file|spec_from_file_location|"
+                         r"[\"']mpcgpu_tpu[\"']|/ *[\"']mpcgpu_tpu[/\"']")
+    hits = [f"{p.relative_to(ROOT)}:{i}: {line.strip()}"
+            for p in sorted((ROOT / "mpcgpu_tpu_torch").rglob("*.py"))
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pattern.search(line)]
+    assert not hits, hits
+
+
+def test_entry_points_default_to_the_card():
+    """iiwa14() without a device asks for CUDA: on a machine with a card the
+    model lands there; without one it raises instead of building a silent
+    CPU model."""
+    from mpcgpu_tpu_torch.models import iiwa14
+
+    if torch.cuda.is_available():
+        assert iiwa14().xc.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            iiwa14()
+    assert iiwa14(device="cpu").xc.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

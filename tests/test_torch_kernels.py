@@ -19,7 +19,8 @@ from mpcgpu_tpu.ops import schur as jschur
 from mpcgpu_tpu.solver import kkt as jkkt
 from mpcgpu_tpu.solver import merit as jmerit
 from mpcgpu_tpu_torch import _kernels
-from mpcgpu_tpu_torch.config import CostConfig, load_eepos_traj, load_xu_traj
+from mpcgpu_tpu_torch.config import CostConfig
+from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 from mpcgpu_tpu_torch.models import iiwa14
 from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve
 from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
@@ -73,7 +74,7 @@ def _jax_reference(problem, prec, integrator_type):
 def _port_inputs(problem, prec):
     tdt = DTYPES[prec][0]
     xu, xs, ee = problem
-    return iiwa14(tdt), tuple(torch.tensor(v, dtype=tdt) for v in (xu, xs, ee))
+    return iiwa14(tdt, device="cpu"), tuple(torch.tensor(v, dtype=tdt) for v in (xu, xs, ee))
 
 
 @pytest.mark.parametrize("prec", ["f64", "f32"])
@@ -131,7 +132,7 @@ def test_k3_line_search_merits_matches_jax(problem, prec, integrator_type):
         jm, cost, *a, MU, DT, integrator_type=integrator_type,
         include_zero=True))(*(jnp.asarray(v, jdt) for v in (xu, dz, xs, ee)))
     merits, alphas = line_search_merits_fused(
-        iiwa14(tdt), CostConfig.for_knots(N),
+        iiwa14(tdt, device="cpu"), CostConfig.for_knots(N),
         *(torch.tensor(v, dtype=tdt) for v in (xu, dz, xs, ee)), MU, DT,
         integrator_type=integrator_type)
     assert merits.shape == alphas.shape == (9,)

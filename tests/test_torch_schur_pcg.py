@@ -17,7 +17,8 @@ from mpcgpu_tpu.ops import schur as jschur
 from mpcgpu_tpu.ops import smallmat as jsmall
 from mpcgpu_tpu.solver import kkt as jkkt
 from mpcgpu_tpu.solver import merit as jmerit
-from mpcgpu_tpu_torch.config import CostConfig, load_eepos_traj, load_xu_traj
+from mpcgpu_tpu_torch.config import CostConfig
+from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 from mpcgpu_tpu_torch.models import iiwa14
 from mpcgpu_tpu_torch.ops import btd, pcg, schur, smallmat
 from mpcgpu_tpu_torch.solver import kkt, merit
@@ -61,7 +62,7 @@ def _build_kkt_pair(problem, integrator_type, wrap, **cost_kw):
     j = jax.jit(lambda a, b, g: jkkt.build_kkt(jm, jc, a, b, g, DT, integrator_type,
                                                wrap))(
         jnp.asarray(xu), jnp.asarray(xs), jnp.asarray(goal))
-    t = kkt.build_kkt(iiwa14(torch.float64), cost, torch.tensor(xu),
+    t = kkt.build_kkt(iiwa14(torch.float64, device="cpu"), cost, torch.tensor(xu),
                       torch.tensor(xs), torch.tensor(goal), DT,
                       integrator_type, wrap)
     return j, t
@@ -84,7 +85,7 @@ def test_angle_wrap_and_integrator_step_match_jax():
     q = 4.0 * rng.standard_normal(64)
     _close(kkt.angle_wrap(torch.tensor(q)), jkkt.angle_wrap(jnp.asarray(q)), 0)
     x, u = rng.standard_normal((N, 14)), rng.standard_normal((N, 7))
-    jm, tm = jax_iiwa14(dtype=jnp.float64), iiwa14(torch.float64)
+    jm, tm = jax_iiwa14(dtype=jnp.float64), iiwa14(torch.float64, device="cpu")
     for it in (0, 1):
         ref = jax.vmap(lambda a, b: jkkt.integrator_step(jm, a, b, DT, it, True))(
             jnp.asarray(x), jnp.asarray(u))
@@ -146,7 +147,7 @@ def test_btd_and_smallmat_match_jax():
 def test_merit_functions_match_jax(problem):
     xu, xs, ee = problem
     dz = 0.1 * np.random.default_rng(6).standard_normal((N, 21))
-    jm, tm = jax_iiwa14(dtype=jnp.float64), iiwa14(torch.float64)
+    jm, tm = jax_iiwa14(dtype=jnp.float64), iiwa14(torch.float64, device="cpu")
     for cost_kw, it, wrap in (({}, 0, False), ({"mode": "joint"}, 1, True)):
         jc, tc = JCostConfig(**cost_kw), CostConfig(**cost_kw)
         goal = ee if tc.mode == "ee" else xu[:, :14]

@@ -17,8 +17,8 @@ from mpcgpu_tpu.config import PCGConfig as JPCGConfig
 from mpcgpu_tpu.config import SQPConfig as JSQPConfig
 from mpcgpu_tpu.models import iiwa14 as jax_iiwa14
 from mpcgpu_tpu.solver.sqp import sqp_solve as jax_sqp_solve
-from mpcgpu_tpu_torch.config import (CostConfig, PCGConfig, SQPConfig,
-                                     load_eepos_traj, load_xu_traj)
+from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 from mpcgpu_tpu_torch.models import iiwa14
 from mpcgpu_tpu_torch.solver.sqp import make_sqp_solver, sqp_solve
 
@@ -56,7 +56,7 @@ def _jax_solve(problem, forcing):
 def _port_solve(problem, linsys, forcing):
     xu, xs, ee = problem
     t = lambda a: torch.tensor(a, dtype=torch.float64)
-    return sqp_solve(iiwa14(torch.float64), CostConfig.for_knots(N),
+    return sqp_solve(iiwa14(torch.float64, device="cpu"), CostConfig.for_knots(N),
                      SQPConfig(max_iter=3),
                      PCGConfig(max_iter=167, exit_tol=1e-5, forcing=forcing),
                      t(xu), torch.zeros((N, 14), dtype=torch.float64), t(xs),
@@ -86,7 +86,7 @@ def test_make_sqp_solver_and_iter_budget(problem):
     """The bound solver equals sqp_solve; iter_budget caps the iterations."""
     xu, xs, ee = problem
     t = lambda a: torch.tensor(a, dtype=torch.float64)
-    solve = make_sqp_solver(iiwa14(torch.float64), CostConfig.for_knots(N),
+    solve = make_sqp_solver(iiwa14(torch.float64, device="cpu"), CostConfig.for_knots(N),
                             SQPConfig(max_iter=3),
                             PCGConfig(max_iter=167, exit_tol=1e-5), DT,
                             linsys="pcg_cuda")
@@ -102,7 +102,7 @@ def test_make_sqp_solver_and_iter_budget(problem):
 
 def test_unported_and_invalid_paths_raise(problem):
     xu, xs, ee = problem
-    args = (iiwa14(torch.float64), CostConfig(), SQPConfig(max_iter=1),
+    args = (iiwa14(torch.float64, device="cpu"), CostConfig(), SQPConfig(max_iter=1),
             PCGConfig(), torch.tensor(xu), torch.zeros((N, 14), dtype=torch.float64),
             torch.tensor(xs), torch.tensor(ee), RHO, DT)
     for linsys in ("ldl", "pcr", "pcr_pallas", "qdldl_host", "pcg_pallas"):
@@ -110,6 +110,13 @@ def test_unported_and_invalid_paths_raise(problem):
             sqp_solve(*args, linsys=linsys)
     with pytest.raises(ValueError, match="unknown linsys"):
         sqp_solve(*args, linsys="cholesky")
+    with pytest.raises(ValueError, match="merit_impl"):
+        sqp_solve(*args, merit_impl="pallas")
+    # the fused route (K1 -> K2) builds the stair preconditioner only; the
+    # split route's K2' takes any 3-band preconditioner but not stair2's 5
     args = args[:3] + (PCGConfig(preconditioner="jacobi"),) + args[4:]
     with pytest.raises(ValueError, match="stair"):
+        sqp_solve(*args, linsys="pcg_cuda", fused=True)
+    args = args[:3] + (PCGConfig(preconditioner="stair2"),) + args[4:]
+    with pytest.raises(ValueError, match="3-band"):
         sqp_solve(*args, linsys="pcg_cuda")

@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Where the port's closed loop spends its time on the card.
+
+Runs chip_smoke.py's closed loop (IIWA-14, N = 64, f32, trace 0_0 rows
+[:200], SQPConfig(max_iter=2, max_time_us=None), PCGConfig(167, 1e-5))
+once to warm up, then traces ``--updates`` control updates with
+torch.profiler and prints: wall time per update, device kernel time per
+update by kernel name, the device's busy share, the host-side CUDA calls
+that wait for the device, and the PCG iterations of the traced solves.
+
+    python3 tools/torch_port_profile_loop.py [--updates 48] [--trace out.json]
+
+Needs a CUDA card; imports nothing of JAX.
+"""
+
+import argparse
+import collections
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--updates", type=int, default=48)
+    ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("torch_port_profile_loop: needs a CUDA device")
+    from mpcgpu_tpu_torch.config import PCGConfig, SimConfig, SQPConfig
+    from mpcgpu_tpu_torch.models import iiwa14
+    from mpcgpu_tpu_torch.sim.mpc import simulate_mpc_ondevice
+    from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
+
+    model = iiwa14(torch.float32)
+    xu, ee = load_xu_traj("0_0")[:200], load_eepos_traj("0_0")[:200]
+
+    def loop():
+        return simulate_mpc_ondevice(
+            model, xu, ee, 64, 1.0 / 64.0,
+            sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
+            pcg_cfg=PCGConfig(max_iter=167, exit_tol=1e-5),
+            sim_cfg=SimConfig(max_control_updates=args.updates))
+
+    loop()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = loop()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    n = args.updates
+    device = collections.Counter()
+    calls = collections.Counter()
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.cuda_time_total
+        if ev.key.startswith(("cuda", "aten::item", "aten::_local_scalar")):
+            calls[ev.key] = ev.count
+        if dev_us and ev.device_type.name == "CUDA":
+            device[ev.key] += dev_us
+    busy = sum(device.values())
+    print(f"{torch.cuda.get_device_name(0)}; {n} updates, wall {wall_us / n:.1f} "
+          f"us/update (under the profiler), device kernel time {busy / n:.1f} "
+          f"us/update, busy share {100 * busy / wall_us:.1f}%")
+    for key, us in device.most_common(15):
+        print(f"  {us / n:10.2f} us/update {100 * us / busy:6.2f}%  {key[:90]}")
+    for key in sorted(calls):
+        print(f"  host call {key}: {calls[key]} ({calls[key] / n:.2f} per update)")
+    iters = out["pcg_iters"].cpu()
+    used = iters[iters >= 0].double()
+    print(f"PCG iterations per solve: mean {float(used.mean()):.2f}, at the cap "
+          f"{int((used == 167).sum())} of {used.numel()}")
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+
+
+if __name__ == "__main__":
+    main()
