@@ -9,9 +9,18 @@ Phases (any failure raises and the script exits non-zero):
 
   1. print the card's name and power limit; build the CUDA kernels from
      mpcgpu_tpu_torch/csrc with nvcc and print the build time;
-  2. hold each kernel (K1 KKT+Schur, K2 PCG+dz, K3 line-search merits, K4
-     plant, K5 KKT blocks, K2' PCG without the dz epilogue, K6 dz) against
-     its plain PyTorch version on the card, at N = 64 and N = 512;
+  2. hold each kernel of the first two slices (K1 KKT+Schur, K2 PCG+dz, K3
+     line-search merits, K4 plant, K5 KKT blocks, K2' PCG without the dz
+     epilogue, K6 dz) against its plain PyTorch version on the card, at
+     N = 64 and N = 512;
+  2b. hold K7 (PCR) against its plain version and the f64 solve on a
+     well-conditioned system (N = 2, 3, 64, 100, 512); on the real Schur
+     system over noise seeds, against the capped PCG's residual in every
+     seed on the calm rows (N = 64) and by medians against its plain
+     version elsewhere (N = 64, 512); hold K8a-c and K3
+     over instances (B = 256, N = 64) against the single-instance kernels
+     bit for bit per instance, and B = 4 instances against the plain
+     versions;
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -27,9 +36,19 @@ Phases (any failure raises and the script exits non-zero):
      fused_dz=False: K1 -> K2' -> K6) and fused=False's first solve against
      the plain and f64 solves; check launches, finiteness and tracking
      errors;
-  5. time the chain per step and the on-device loop per control update
-     (slopes over two lengths, CUDA events), and each kernel (device time
-     of a CUDA graph) against its plain version at N = 64;
+  4b. run the host loop for 48 updates from the calm row CALM_ROW through
+     each direct solver (pcr_cuda: K5 -> K7 -> K3; pcr all plain; ldl;
+     qdldl_host) next to pcg_cuda, hold the exact solvers' tracking to
+     ldl's and pcr_cuda's to the all-plain pcr loop by eight 1-ulp runs,
+     and run the direct-solver tracker script;
+  4c. run the batched solve (B = 256, N = 64, 2 SQP iterations) through
+     make_batched_sqp_solver, and hold eight instances to their single
+     fused solves bit for bit;
+  5. time the chain per step, the on-device loop per control update (the
+     main path and pcr_cuda), the batched solve per SQP iteration against
+     256 single solves (slopes over two lengths, CUDA events), and each
+     kernel (device time of a CUDA graph) against its plain version, its
+     bound and, for K7, the dense library solve;
   6. print one JSON line of kernel results, the card line, and the final
      {"ok": true, ...} line.
 
@@ -62,6 +81,19 @@ ROUTE_UPDATES = 48       # control updates of each split-route run
 ROUTE_SHIFTS = 6         # the shifts those updates make (one per 8 updates)
 LOOP_ENSEMBLE = 8        # runs of the main path from 1-ulp trace changes
 LOOP_SLOPE = (48, 144)   # two loop lengths for the per-update slope
+PCR_SIZES = (2, 3, 64, 100, 512)   # K7 on the well-conditioned system
+# The bundled trace 0_0 (data/trajfiles, made by tools/make_trajfiles.py)
+# runs away to joint speeds of up to 264 rad/s and torques of up to 5335 Nm
+# in rows 16-26, and again in rows 103-114, 199-212, 312-326, 428-438, ...
+# (tools/torch_port_trace_windows.py).  A Schur system over such rows has
+# cond ~1e13, where neither package's f32 PCR keeps a digit.  Rows 350-419
+# stay below 1.3 rad/s and 15 Nm (cond 3.5e4 at N = 64): the direct solvers
+# are held to the reference's criteria there.
+CALM_ROW = 350
+B_MAIN = 256             # instances of the batched solve
+B_PLAIN = 4              # instances held against the plain versions
+BATCH_PICKS = 8          # instances held against their single solves
+TRACKER_STEPS = 65       # trace rows of the direct-solver tracker's run
 # plant windows (time offset, sim time) in s: tests/test_mpc.py's three and
 # one across the knot boundary at 1/64 s
 PLANT_WINDOWS = ((0.0, 5e-4), (2e-3, 2e-3), (1.3e-2, 1.3e-3), (1.5e-2, 2e-3))
@@ -89,6 +121,22 @@ KERNELS = {
     "K6 compute_dz_cuda": (
         "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
         "mpcgpu_tpu/solver/kkt_pallas.py:990 compute_dz_pallas"),
+    "K7 pcr_solve_cuda": (
+        "mpcgpu_tpu_torch/csrc/pcr.cu",
+        "mpcgpu_tpu/ops/pcr_pallas.py:100 pcr_solve_pallas_lanes"),
+    "K8a build_kkt_schur_batched": (
+        "mpcgpu_tpu_torch/csrc/kkt_schur.cu",
+        "mpcgpu_tpu/parallel/batched_fused.py:150 build_kkt_schur_batched"),
+    "K8b pcg_solve_batched": (
+        "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
+        "mpcgpu_tpu/parallel/batched_fused.py:335 pcg_solve_batched_lanes"),
+    "K8c compute_dz_batched": (
+        "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
+        "mpcgpu_tpu/parallel/batched_fused.py:391 compute_dz_batched"),
+    "K3b line_search_merits_batched": (
+        "mpcgpu_tpu_torch/csrc/merit.cu",
+        "mpcgpu_tpu/solver/merit_pallas.py:277 line_search_merits_pallas "
+        "(vmapped, batched_fused.py:499)"),
 }
 
 # The least time the card could take for each kernel's work: the larger of
@@ -118,6 +166,16 @@ KKT_KNOT = 15 * RNEA_DUAL + 6 * 2 * M66 + 7 * 7 * 14 * 2 + 7 * 7 * 14 * 2 + 7 * 
 SCHUR_KNOT = 2 * 14 ** 3 * 2 + 14 * 14 * 7 * 2 + 14 * 14 * 28 * 2 + 4 * 14 ** 3 * 2
 PCG_ITER_KNOT = 2 * 3 * 196 * 2 + 2 * 2 * 14 + 3 * 2 * 14
 DZ_KNOT = 1000
+
+
+# K7 per level and knot: one 14x14 inverse (the least it needs is n^3
+#   multiply-adds, 2 x 14^3 FLOP), six 14x14 products (A, B, L', U' and th's
+#   two terms) and three mat-vecs (v and b's two terms); the last level one
+#   more inverse and a mat-vec; each refinement pass a BTD mat-vec, three
+#   mat-vecs per level and the final one, per knot.
+GJ14 = 2 * 14 ** 3
+MV14 = 2 * 196
+PCR_LEVEL_KNOT = GJ14 + 6 * 2 * 14 ** 3 + 3 * MV14
 
 
 def bound(flops: float, floats: float) -> tuple[float, str]:
@@ -153,6 +211,52 @@ def kernel_bounds(N: int, k2_iters: int, k2p_iters: int, plant_rows: int,
     }
 
 
+def pcr_bound(N: int, refine: int = 1) -> tuple[float, str]:
+    """K7's (bound_ms, bound_by) at N knots: S and b read, x written."""
+    levels = (N - 1).bit_length()
+    flops = N * (levels * PCR_LEVEL_KNOT + GJ14 + MV14
+                 + refine * (3 * MV14 + levels * 3 * MV14 + MV14))
+    return bound(flops, N * (3 * 196 + 14) + N * 14)
+
+
+def batched_bounds(N: int, B: int, k8b_steps: int, num_cand: int = 9) -> dict:
+    """(bound_ms, bound_by) of K8a-c and the batched K3 for B instances: B
+    times the single kernels' work; K8b counts the CG steps this run's
+    instances took (k8b_steps = the sum over instances of iterations + 1)."""
+    model = 1344
+    k1_out = N * (2 * 3 * 196 + 14 + 196 + 196 + 98 + 14)
+    pcg_in = N * (2 * 3 * 196 + 14 + 14)
+    dz_in = N * (196 + 196 + 98 + 14 + 7)
+    return {
+        "K8a build_kkt_schur_batched": bound(
+            B * N * (KKT_KNOT + SCHUR_KNOT), B * (N * (21 + 3) + 1 + k1_out) + model),
+        "K8b pcg_solve_batched": bound(N * PCG_ITER_KNOT * k8b_steps,
+                                       B * (pcg_in + N * 14 + 2)),
+        "K8c compute_dz_batched": bound(B * N * DZ_KNOT,
+                                        B * (N * 14 + dz_in + 1 + N * 21)),
+        "K3b line_search_merits_batched": bound(
+            B * num_cand * N * (ABA + FK + 150),
+            B * (2 * N * 21 + 14 + 3 * N + 2 * num_cand) + model),
+    }
+
+
+def batch_problem(B: int, N: int, torch, device):
+    """B instances: trace 0_0 plus numpy noise (sigma 0.01, seed 0), the
+    same goal window, rho cycling through 1e-3 x (1, 2, 3, 4); f32 tensors on
+    the card."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
+
+    rng = np.random.default_rng(0)
+    xu = load_xu_traj("0_0")[:N][None] + 0.01 * rng.standard_normal((B, N, 21))
+    ee = np.broadcast_to(load_eepos_traj("0_0")[:N], (B, N, 6))
+    rho = 1e-3 * (1 + np.arange(B) % 4)
+    f = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=device)
+    return f(xu), f(xu[:, 0, :14]), f(ee), f(rho)
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -164,16 +268,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def problem(N: int, torch, device, seed: int = 0):
-    """Trace 0_0 plus numpy noise (sigma 0.01; seed 0 as bench.py sets up
-    its chain); f32 tensors on the card."""
+def problem(N: int, torch, device, seed: int = 0, start: int = 0):
+    """Trace 0_0 from row ``start`` plus numpy noise (sigma 0.01; seed 0 as
+    bench.py sets up its chain); f32 tensors on the card."""
     import numpy as np
 
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
-    xu = load_xu_traj("0_0")[:N]
+    xu = load_xu_traj("0_0")[start:start + N]
     xu = xu + 0.01 * np.random.default_rng(seed).standard_normal(xu.shape)
-    ee_full = load_eepos_traj("0_0")
+    ee_full = load_eepos_traj("0_0")[start:]
     f = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
                                device=device)
     return f(xu), f(xu[0, :14]), f(ee_full[:N]), f(ee_full)
@@ -244,6 +348,32 @@ def time_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def once_ms(torch, fn) -> float:
+    """CUDA-event time of one call of fn, with no warm-up: for plain
+    versions whose one call takes seconds."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def slope_us(torch, fn, lo: int, hi: int, runs: int = 3) -> tuple[float, list]:
+    """Median over runs of (t(hi) - t(lo)) / (hi - lo) in us, fn(k) timed by
+    CUDA events after one warm call fn(lo): the per-unit cost with the
+    per-call set-up cancelled."""
+    fn(lo)
+    torch.cuda.synchronize()
+    slopes = []
+    for _ in range(runs):
+        t = {k: once_ms(torch, lambda: fn(k)) * 1e3 for k in (lo, hi)}
+        slopes.append((t[hi] - t[lo]) / (hi - lo))
+    return statistics.median(slopes), slopes
+
+
 def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
     """Median device time of one call of fn: `calls` calls captured in one
     CUDA graph, replayed `reps` times between CUDA events.  For a kernel
@@ -297,8 +427,18 @@ def main() -> int:
     from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
     from mpcgpu_tpu_torch import _kernels
     from mpcgpu_tpu_torch.models import iiwa14
-    from mpcgpu_tpu_torch.ops.btd import btd_matvec
+    from mpcgpu_tpu_torch import track_iiwa_qdldl
+    from mpcgpu_tpu_torch.ops.btd import btd_matvec, btd_to_dense
+    from mpcgpu_tpu_torch.ops.ldl import btd_ldl_solve
     from mpcgpu_tpu_torch.ops.pcg import pcg_solve
+    from mpcgpu_tpu_torch.ops.pcr import pcr_solve_refined
+    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
+    from mpcgpu_tpu_torch.parallel import make_batched_sqp_solver
+    from mpcgpu_tpu_torch.parallel.batched_cuda import (
+        build_kkt_schur_batched, build_kkt_schur_batched_plain, compute_dz_batched,
+        compute_dz_batched_plain, line_search_merits_batched,
+        line_search_merits_batched_plain, pcg_solve_batched,
+        pcg_solve_batched_plain, sqp_solve_batched_fused)
     from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
                                                pcg_dz_solve, pcg_dz_solve_plain,
                                                pcg_solve_cuda)
@@ -317,7 +457,10 @@ def main() -> int:
     wrappers = dict(zip(KERNELS, (build_kkt_schur, pcg_dz_solve,
                                   line_search_merits_fused, simulate_plant,
                                   build_kkt_cuda, pcg_solve_cuda,
-                                  compute_dz_cuda)))
+                                  compute_dz_cuda, pcr_solve_cuda,
+                                  build_kkt_schur_batched, pcg_solve_batched,
+                                  compute_dz_batched,
+                                  line_search_merits_batched)))
 
     def counted(fn, *args, **kw):
         """fn(*args, **kw) with every launch count set to 0 just before it;
@@ -555,6 +698,156 @@ def main() -> int:
                f"{float((a4 - a2).abs().max()):.3e})")
     if failures:
         raise SmokeFailure(f"phase 2: {len(failures)} check(s) failed")
+
+    # ---- phase 2b: K7 and the instance-grid kernels ----------------------
+    print("phase 2b: K7 (PCR) and K8a-c, K3b (instance grid) vs plain versions")
+    # K7 on the well-conditioned system, down to N = 2 and 3, where the
+    # levels without pivoting reach the whole system: within 1e-5 max|x| of
+    # the plain version on the card and of the f64 solve
+    for N in PCR_SIZES:
+        S, _, b = synthetic_btd(N, torch, dev)
+        got = pcr_solve_cuda(S, b)
+        ref = pcr_solve_refined(S, b)
+        f64 = pcr_solve_refined(S.double(), b.double())
+        torch.cuda.synchronize()
+        d, r = rel_err(got, ref)
+        r64 = rel_err(got, f64)[1]
+        if N == N_MAIN:
+            errs["K7 pcr_solve_cuda"] = d
+        expect(r <= 1e-5 and r64 <= 1e-5,
+               f"K7 N={N} well-conditioned: vs plain {r:.3e}, vs f64 {r64:.3e} "
+               f"max|x| (<= 1e-5)")
+    # K7 on the real Schur system over REAL_SEEDS noise seeds, beside the
+    # capped PCG (K2', the chain's settings) and the f64 solve (the block
+    # LDL^T of the same f32 system in f64).  On the calm rows from CALM_ROW
+    # at N_MAIN, the criterion of tests/test_pcr.py: K7's true residual
+    # max|Sx - b| below the capped PCG's in every seed; and K7 within 1e-3
+    # max|x| of the f64 solve in every seed (the plain version on the CPU:
+    # median 3.1e-5), its median distance within 2x the plain version's on
+    # the card.  From row 0 (N_MAIN, N_BIG) the systems have cond ~1e13 and
+    # f32 PCR keeps no digits, in the JAX package too
+    # (tests/test_torch_pcr_f32.py): there the kernel is held to the plain
+    # version by medians (distance and residual within 2x), every solve
+    # finite, and the residuals are printed.
+    for N, start in ((N_MAIN, CALM_ROW), (N_MAIN, 0), (N_BIG, 0)):
+        cost = CostConfig.for_knots(N)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        cap = PCGConfig.tuned_max_iter(N)
+        stats = {w: {"dist": [], "res": []} for w in ("kernel", "plain", "pcg")}
+        all_finite = True
+        for seed in range(REAL_SEEDS):
+            xu_s, xs_s, ee_s, _ = problem(N, torch, dev, seed, start)
+            sys_ = build_kkt_schur(model, cost, xu_s, xs_s, ee_s, rho, DT, 0)
+            S, g = sys_["S"], sys_["gamma"]
+            x64 = btd_ldl_solve(S.double(), g.double())
+            pcg = pcg_solve_cuda(S, sys_["Pinv"], g, torch.zeros_like(g),
+                                 max_iter=cap, exit_tol=1e-5).lam
+            for w, x in (("kernel", pcr_solve_cuda(S, g)),
+                         ("plain", pcr_solve_refined(S, g)), ("pcg", pcg)):
+                all_finite = all_finite and bool(torch.isfinite(x).all())
+                stats[w]["dist"].append(rel_err(x, x64)[1])
+                stats[w]["res"].append(float(
+                    (btd_matvec(S.double(), x.double()) - g.double()).abs().max()))
+        med = {w: {k: statistics.median(v) for k, v in d.items()}
+               for w, d in stats.items()}
+        below = sum(a < b for a, b in zip(stats["kernel"]["res"], stats["pcg"]["res"]))
+        ok = all_finite and med["kernel"]["dist"] <= 2 * med["plain"]["dist"]
+        if start == CALM_ROW:
+            ok = ok and below == REAL_SEEDS and max(stats["kernel"]["dist"]) <= 1e-3
+            rule = ("K7 residual below PCG's in every seed, K7 within 1e-3 of f64 "
+                    "in every seed, median distance <= 2x plain")
+        else:
+            ok = ok and med["kernel"]["res"] <= 2 * med["plain"]["res"]
+            rule = "kernel <= 2x plain in median distance and residual"
+        expect(ok, f"K7 N={N} real system, rows {start}.., {REAL_SEEDS} seeds, "
+               f"medians: distance to f64 kernel {med['kernel']['dist']:.3e} (max "
+               f"{max(stats['kernel']['dist']):.3e}), plain card "
+               f"{med['plain']['dist']:.3e} max|x|; true residual kernel "
+               f"{med['kernel']['res']:.3e}, plain card {med['plain']['res']:.3e}; "
+               f"capped PCG ({cap}, 1e-5) residual {med['pcg']['res']:.3e}, "
+               f"distance {med['pcg']['dist']:.3e}; K7 residual below PCG's in "
+               f"{below}/{REAL_SEEDS} seeds ({rule}; all finite)")
+
+    # K8a-c and the batched K3 at B_MAIN instances of N_MAIN knots: each
+    # instance equal bit for bit to the single-instance kernel (the same
+    # body with an instance offset), and the first B_PLAIN instances against
+    # the plain versions with the single kernels' bounds
+    N, B = N_MAIN, B_MAIN
+    cost = CostConfig.for_knots(N)
+    xu_b, xs_b, ee_b, rho_b = batch_problem(B, N, torch, dev)
+    lam0_b = torch.zeros((B, N, 14), dtype=torch.float32, device=dev)
+    pcg_b = dict(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5)
+    sys_b = build_kkt_schur_batched(model, cost, xu_b, xs_b, ee_b, rho_b, DT)
+    lam_b, it_b, cv_b = pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"],
+                                          lam0_b, **pcg_b)
+    dz_b = compute_dz_batched(sys_b, lam_b, xu_b[:, :, 14:], rho_b, cost.r_cost)
+    m_b, a_b = line_search_merits_batched(model, cost, xu_b, dz_b, xs_b, ee_b, mu, DT)
+    torch.cuda.synchronize()
+    differ = {"K8a": 0, "K8b": 0, "K8c": 0, "K3b": 0}
+    for i in range(B):
+        one = build_kkt_schur(model, cost, xu_b[i], xs_b[i], ee_b[i], rho_b[i], DT, 0)
+        differ["K8a"] += not all(torch.equal(one[k], sys_b[k][i]) for k in one)
+        one_i = {k: v[i] for k, v in sys_b.items()}
+        p1 = pcg_solve_cuda(one_i["S"], one_i["Pinv"], one_i["gamma"], lam0_b[i],
+                            **pcg_b)
+        differ["K8b"] += not (torch.equal(p1.lam, lam_b[i])
+                              and torch.equal(p1.iters, it_b[i])
+                              and torch.equal(p1.converged, cv_b[i]))
+        d1 = compute_dz_cuda(one_i, lam_b[i], xu_b[i, :, 14:], rho_b[i], cost.r_cost)
+        differ["K8c"] += not torch.equal(d1, dz_b[i])
+        m1, a1 = line_search_merits_fused(model, cost, xu_b[i], dz_b[i], xs_b[i],
+                                          ee_b[i], mu, DT)
+        differ["K3b"] += not (torch.equal(m1, m_b[i]) and torch.equal(a1, a_b[i]))
+    expect(all(v == 0 for v in differ.values()),
+           f"K8a/K8b/K8c/K3b B={B} N={N}: instances that differ from the single "
+           f"kernels (K1/K2'/K6/K3) bit for bit: {differ}; PCG iterations "
+           f"{int(it_b.min())}..{int(it_b.max())}")
+    P = B_PLAIN
+    ref_b = build_kkt_schur_batched_plain(model, cost, xu_b[:P], xs_b[:P], ee_b[:P],
+                                          rho_b[:P], DT)
+    worst = 0.0
+    for key in ref_b:
+        for i in range(P):
+            d, r = rel_err(sys_b[key][i], ref_b[key][i])
+            errs["K8a build_kkt_schur_batched"] = max(
+                errs["K8a build_kkt_schur_batched"], d)
+            worst = max(worst, r)
+    expect(worst <= 5e-5, f"K8a B={P}: vs plain per instance and output, worst "
+           f"{worst:.3e} max|ref| (<= 5e-5)")
+    # K8b on well-conditioned systems (as K2 is held): lam within 2e-6, the
+    # fixed-step counts equal, the early exits within 2 iterations
+    syn = [synthetic_btd(N, torch, dev, seed=1 + i) for i in range(P)]
+    Sy, Py, gy = (torch.stack([t[j] for t in syn]) for j in range(3))
+    for tol, cap in ((0.0, 20), (1e-9, 167)):
+        got = pcg_solve_batched(Sy, Py, gy, lam0_b[:P], max_iter=cap, exit_tol=tol)
+        ref = pcg_solve_batched_plain(Sy, Py, gy, lam0_b[:P], max_iter=cap,
+                                      exit_tol=tol)
+        torch.cuda.synchronize()
+        e = max(rel_err(got[0][i], ref[0][i])[1] for i in range(P))
+        errs["K8b pcg_solve_batched"] = max(errs["K8b pcg_solve_batched"],
+                                            rel_err(got[0], ref[0])[0])
+        ik, ip = got[1].tolist(), ref[1].tolist()
+        ok = ik == ip if tol == 0.0 else (
+            all(abs(a - b) <= 2 for a, b in zip(ik, ip)) and bool(got[2].all()))
+        expect(ok and e <= 2e-6, f"K8b B={P} well-conditioned exit_tol={tol:g} "
+               f"cap={cap}: lam vs plain {e:.3e} (<= 2e-6); iterations kernel "
+               f"{ik}, plain {ip}")
+    d8 = compute_dz_batched_plain({k: v[:P] for k, v in sys_b.items()}, lam_b[:P],
+                                  xu_b[:P, :, 14:], rho_b[:P], cost.r_cost)
+    m8, a8 = line_search_merits_batched_plain(model, cost, xu_b[:P], dz_b[:P],
+                                              xs_b[:P], ee_b[:P], mu, DT)
+    torch.cuda.synchronize()
+    d, r = rel_err(dz_b[:P], d8)
+    errs["K8c compute_dz_batched"] = d
+    rel = float(((m_b[:P].double() - m8.double()).abs() / m8.double().abs()).max())
+    errs["K3b line_search_merits_batched"] = float(
+        (m_b[:P].double() - m8.double()).abs().max())
+    expect(r <= 1e-5 and rel <= 1e-4 and torch.equal(a_b[:P], a8),
+           f"K8c / K3b B={P}: dz vs plain {r:.3e} max|ref| (<= 1e-5); merits max "
+           f"relative error {rel:.3e} (<= 1e-4), alphas equal "
+           f"{torch.equal(a_b[:P], a8)}")
+    if failures:
+        raise SmokeFailure(f"phase 2b: {len(failures)} check(s) failed")
 
     # ---- phase 3: the main path -------------------------------------------
     print(f"phase 3: the chain, {CHAIN_STEPS} warm-started steps, N={N_MAIN}")
@@ -841,6 +1134,126 @@ def main() -> int:
     if failures:
         raise SmokeFailure(f"phase 4: {len(failures)} check(s) failed")
 
+    # ---- phase 4b: the direct solvers' closed loop -------------------------
+    # the reference's PCG-vs-QDLDL comparison on the card: the host loop for
+    # ROUTE_UPDATES updates through each direct linsys next to pcg_cuda, on
+    # the calm rows of the trace (from row 0 the line search rejects every
+    # f32 PCR step and the PCR loops keep the warm-start plan)
+    print(f"phase 4b: direct solvers, host loop, N={N_MAIN}, {ROUTE_UPDATES} "
+          f"updates from row {CALM_ROW}")
+    xu_calm = load_xu_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
+    ee_calm = load_eepos_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
+    direct_kw = {"pcg_cuda": {}, "pcr_cuda": {}, "pcr": dict(merit_impl="plain"),
+                 "ldl": {}, "qdldl_host": {}}
+    # kernels each route launches once per SQP iteration (K4 once per update)
+    direct_used = {"pcg_cuda": k1_k3,
+                   "pcr_cuda": ["K5 build_kkt_cuda", "K7 pcr_solve_cuda",
+                                "K3 line_search_merits_fused"],
+                   "pcr": [],
+                   "ldl": ["K5 build_kkt_cuda", "K3 line_search_merits_fused"],
+                   "qdldl_host": ["K5 build_kkt_cuda", "K3 line_search_merits_fused"]}
+    direct_runs, direct_summary = {}, {}
+
+    def host_loop(linsys, xu=None, updates=ROUTE_UPDATES, **kw):
+        return simulate_mpc(model, xu_calm if xu is None else xu, ee_calm, N, DT,
+                            sim_cfg=SimConfig(max_control_updates=updates),
+                            linsys=linsys, **loop_kw, **kw)
+
+    for linsys, kw in direct_kw.items():
+        run, n_d = counted(host_loop, linsys, **kw)
+        s_d = run.summary()
+        it_d = sum(run.sqp_iters)
+        err_d = np.asarray(run.tracking_errors)
+        direct_runs[linsys] = (run, n_d)
+        gave_up = sum(bool(g) for g in run.sqp_exits)
+        direct_summary[linsys] = dict(avg_sqp_time_us=s_d["avg_sqp_time_us"],
+                                      mean_tracking_error=float(err_d.mean()),
+                                      sqp_iters=it_d, gave_up=gave_up)
+        # the loop's warm-up solve (REMOVE_JITTERS) adds up to max_iter
+        # unrecorded iterations
+        warm = loop_kw["sqp_cfg"].max_iter
+        ok = all(it_d <= n_d[k] <= it_d + warm if k in direct_used[linsys]
+                 else n_d[k] == 0 for k in KERNELS if k != "K4 simulate_plant")
+        ok = ok and n_d["K4 simulate_plant"] == ROUTE_UPDATES
+        ok = ok and len(err_d) == ROUTE_SHIFTS and finite(err_d)
+        if linsys != "pcg_cuda":
+            ok = ok and s_d["avg_pcg_iters"] == 1.0
+        expect(ok, f"direct {linsys}: avg_sqp_time_us {s_d['avg_sqp_time_us']:.1f}, "
+               f"mean tracking error {err_d.mean():.6g} over {len(err_d)} shifts, "
+               f"{it_d} SQP iterations, line search gave up in {gave_up} of "
+               f"{ROUTE_UPDATES} solves; launches {n_d} (kernels "
+               f"{direct_used[linsys]} once per SQP iteration and the warm-up's, "
+               f"K4 once per update)")
+    # the exact solvers track alike: pcr_cuda, pcr and qdldl_host within 1%
+    # of ldl's mean tracking error (the plain pcr and ldl loops on the CPU:
+    # 0.12362 and 0.123535, the plain pcg loop 0.125561; from row 0 the PCR
+    # loops, rejecting every step, read 450x below ldl's)
+    m_ldl = direct_summary["ldl"]["mean_tracking_error"]
+    for linsys in ("pcr_cuda", "pcr", "qdldl_host"):
+        m_d = direct_summary[linsys]["mean_tracking_error"]
+        expect(abs(m_d / m_ldl - 1) <= 1e-2,
+               f"direct {linsys} vs ldl: mean tracking error {m_d:.6g} vs "
+               f"{m_ldl:.6g} (within 1%)")
+    # pcr_cuda against the all-plain pcr loop: the band of LOOP_ENSEMBLE
+    # pcr_cuda loops from traces moved by one f32 ulp per entry (the method
+    # of phase 4), widened by its own ratio hi/lo
+    ens_pcr = [direct_summary["pcr_cuda"]["mean_tracking_error"]]
+    rng = np.random.default_rng(3)
+    calm32 = xu_calm.astype(np.float32)
+    for _ in range(LOOP_ENSEMBLE):
+        way = np.where(rng.random(calm32.shape) < 0.5, -np.inf, np.inf).astype(np.float32)
+        run = host_loop("pcr_cuda", xu=np.nextafter(calm32, way).astype(np.float64))
+        ens_pcr.append(float(np.mean(run.tracking_errors)))
+    band_pcr = band(ens_pcr)
+    m_pcr = direct_summary["pcr"]["mean_tracking_error"]
+    expect(band_pcr[0] <= m_pcr <= band_pcr[1],
+           f"direct pcr (all plain) vs pcr_cuda: mean tracking error {m_pcr:.6g}; "
+           f"pcr_cuda under 1-ulp trace changes {min(ens_pcr):.6g}..{max(ens_pcr):.6g} "
+           f"(band {band_pcr[0]:.6g}..{band_pcr[1]:.6g})")
+    # the direct-solver tracker script, on the card by default
+    rows_q, n_q = counted(track_iiwa_qdldl.main,
+                          ["--knots", str(N_MAIN), "--steps", str(TRACKER_STEPS),
+                           "--linsys", "pcr_cuda"])
+    s_q = rows_q[0]
+    expect(n_q["K7 pcr_solve_cuda"] > 0 and s_q["control_updates"] > 0
+           and np.isfinite(s_q["avg_tracking_error"]),
+           f"track_iiwa_qdldl --knots {N_MAIN} --steps {TRACKER_STEPS} --linsys "
+           f"pcr_cuda: {s_q['control_updates']} updates, avg_sqp_time_us "
+           f"{s_q['avg_sqp_time_us']:.1f}, avg_tracking_error "
+           f"{s_q['avg_tracking_error']:.6g}; K7 launched {n_q['K7 pcr_solve_cuda']} times")
+    launches["K7 pcr_solve_cuda"] = direct_runs["pcr_cuda"][1]["K7 pcr_solve_cuda"]
+
+    # ---- phase 4c: the batched solve --------------------------------------
+    print(f"phase 4c: batched SQP solve, B={B_MAIN}, N={N_MAIN}, 2 SQP iterations")
+    sqp_b = SQPConfig(max_iter=2)
+    batched = make_batched_sqp_solver(model, cost, sqp_b, pcg_cfg, DT)
+    res_b, n_b = counted(batched, xu_b, lam0_b, xs_b, ee_b, rho_b)
+    loops_b = int(res_b.sqp_iters.max())
+    k8 = [k for k in KERNELS if k.startswith(("K8", "K3b"))]
+    expect(all(n_b[k] == loops_b for k in k8)
+           and all(n_b[k] == 0 for k in KERNELS if k not in k8)
+           and all(bool(torch.isfinite(t).all())
+                   for t in (res_b.xu, res_b.lam, res_b.rho, res_b.merit)),
+           f"batched (make_batched_sqp_solver, fused='auto'): every instance "
+           f"finite; launches {n_b} (K8a-c, K3b once per SQP iteration, "
+           f"{loops_b}); SQP iterations per instance "
+           f"{sorted(set(res_b.sqp_iters.tolist()))}, gave up "
+           f"{int(res_b.gave_up.sum())}, PCG iterations "
+           f"{int(res_b.pcg_iters[:, 0].min())}..{int(res_b.pcg_iters[:, 0].max())}")
+    picks = [i * (B_MAIN // BATCH_PICKS) for i in range(BATCH_PICKS)]
+    differ = []
+    for i in picks:
+        one = sqp_solve(model, cost, sqp_b, pcg_cfg, xu_b[i], lam0_b[i], xs_b[i],
+                        ee_b[i], rho_b[i], DT, linsys="pcg_cuda")
+        differ += [(i, f) for f in one._fields
+                   if not torch.equal(getattr(res_b, f)[i], getattr(one, f))]
+    expect(not differ, f"batched vs single fused solves (K1 -> K2 -> K3) of "
+           f"instances {picks}: every field bit for bit; differing {differ}")
+    for k in k8:
+        launches[k] = n_b[k]
+    if failures:
+        raise SmokeFailure(f"phase 4b/4c: {len(failures)} check(s) failed")
+
     # ---- phase 5: timing ----------------------------------------------------
     print(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
     lo, hi = SLOPE_STEPS
@@ -868,21 +1281,7 @@ def main() -> int:
     # the on-device closed loop per control update: the slope over two loop
     # lengths cancels the per-run set-up (schedule, first solve)
     lo, hi = LOOP_SLOPE
-    loop_slopes = []
-    loop(lo)
-    torch.cuda.synchronize()
-    for _ in range(3):
-        t = {}
-        for k in (lo, hi):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            loop(k)
-            b.record()
-            torch.cuda.synchronize()
-            t[k] = a.elapsed_time(b) * 1e3
-        loop_slopes.append((t[hi] - t[lo]) / (hi - lo))
-    update_us = statistics.median(loop_slopes)
+    update_us, loop_slopes = slope_us(torch, loop, lo, hi)
     print(f"  on-device loop per control update (slope {lo}->{hi} updates, "
           f"{loop_kw['sqp_cfg'].max_iter} SQP iterations each): {update_us:.1f} us "
           f"(runs: {', '.join(f'{s:.1f}' for s in loop_slopes)}); host loop "
@@ -957,6 +1356,109 @@ def main() -> int:
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None, call_ms=call_ms))
 
+    # K7 at N_MAIN (its row) and N_BIG on the well-conditioned system (its
+    # time does not depend on the values; a dense Cholesky of the real
+    # Schur system would fail in f32), beside the dense library solves of
+    # the same (14N x 14N) matrix: torch.linalg.solve and Cholesky, the
+    # faster one as library_ms (the assembly not timed)
+    k7 = {}
+    for Nk in (N_MAIN, N_BIG):
+        S7, _, b7 = synthetic_btd(Nk, torch, dev)
+        dense, rhs = btd_to_dense(S7), b7.reshape(-1, 1)
+        p1 = time_ms(torch, lambda: pcr_solve_refined(S7, b7), 5)
+        t1 = graph_ms(torch, lambda: pcr_solve_cuda(S7, b7))
+        t2 = graph_ms(torch, lambda: pcr_solve_cuda(S7, b7))
+        p2 = time_ms(torch, lambda: pcr_solve_refined(S7, b7), 5)
+        lib = {"torch.linalg.solve": time_ms(
+                   torch, lambda: torch.linalg.solve_ex(dense, rhs), 5),
+               "torch.linalg.cholesky + torch.cholesky_solve": time_ms(
+                   torch, lambda: torch.cholesky_solve(
+                       rhs, torch.linalg.cholesky_ex(dense).L), 5)}
+        best = min(lib, key=lib.get)
+        k7[Nk] = dict(ms=statistics.median([t1, t2]), plain_ms=statistics.median([p1, p2]),
+                      library_ms=lib[best], library=best, bound=pcr_bound(Nk),
+                      call_ms=time_ms(torch, lambda: pcr_solve_cuda(S7, b7), 20))
+        print(f"  K7 N={Nk}: kernel {k7[Nk]['ms'] * 1e3:.1f} us (device), one call "
+              f"{k7[Nk]['call_ms'] * 1e3:.1f} us, plain {k7[Nk]['plain_ms'] * 1e3:.1f} "
+              f"us, bound {k7[Nk]['bound'][0] * 1e3:.3f} us ({k7[Nk]['bound'][1]}); "
+              + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in lib.items()))
+    name = "K7 pcr_solve_cuda"
+    rows.append(dict(name=name, route="cuda", source=KERNELS[name][0],
+                     replaces=KERNELS[name][1], launches=launches[name],
+                     max_abs_err=errs[name], ms=k7[N_MAIN]["ms"],
+                     plain_ms=k7[N_MAIN]["plain_ms"], bound_ms=k7[N_MAIN]["bound"][0],
+                     bound_by=k7[N_MAIN]["bound"][1],
+                     library_ms=k7[N_MAIN]["library_ms"],
+                     library=k7[N_MAIN]["library"], call_ms=k7[N_MAIN]["call_ms"],
+                     n512={k: (v[0] if k == "bound" else v)
+                           for k, v in k7[N_BIG].items()}))
+
+    # K8a-c and K3b at B_MAIN instances of N_MAIN knots, on phase 2b's inputs
+    # (K8b from the cold start, as the first SQP iteration); each plain
+    # version (B_MAIN single-instance plain calls) is timed once
+    bounds.update(batched_bounds(N_MAIN, B_MAIN, int((it_b.long() + 1).sum())))
+    u_b = xu_b[:, :, 14:]
+    b_pairs = {
+        "K8a build_kkt_schur_batched": (
+            lambda: build_kkt_schur_batched(model, cost, xu_b, xs_b, ee_b, rho_b, DT),
+            lambda: build_kkt_schur_batched_plain(model, cost, xu_b, xs_b, ee_b,
+                                                  rho_b, DT)),
+        "K8b pcg_solve_batched": (
+            lambda: pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"],
+                                      lam0_b, **pcg_b),
+            lambda: pcg_solve_batched_plain(sys_b["S"], sys_b["Pinv"],
+                                            sys_b["gamma"], lam0_b, **pcg_b)),
+        "K8c compute_dz_batched": (
+            lambda: compute_dz_batched(sys_b, lam_b, u_b, rho_b, cost.r_cost),
+            lambda: compute_dz_batched_plain(sys_b, lam_b, u_b, rho_b, cost.r_cost)),
+        "K3b line_search_merits_batched": (
+            lambda: line_search_merits_batched(model, cost, xu_b, dz_b, xs_b, ee_b,
+                                               mu, DT),
+            lambda: line_search_merits_batched_plain(model, cost, xu_b, dz_b, xs_b,
+                                                     ee_b, mu, DT)),
+    }
+    for name, (kern, plain_fn) in b_pairs.items():
+        ms = statistics.median([graph_ms(torch, kern), graph_ms(torch, kern)])
+        plain_ms = once_ms(torch, plain_fn)
+        bound_ms, bound_by = bounds[name]
+        print(f"  {name} (B={B_MAIN}): kernel {ms * 1e3:.1f} us (device), plain "
+              f"{plain_ms * 1e3:.1f} us (one call), bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by})")
+        rows.append(dict(name=name, route="cuda", source=KERNELS[name][0],
+                         replaces=KERNELS[name][1], launches=launches[name],
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+
+    # the pcr_cuda loop per control update (on the device, as the main path,
+    # on the calm rows as phase 4b)
+    pcr_update_us, pcr_slopes = slope_us(
+        torch, lambda k: simulate_mpc_ondevice(
+            model, xu_calm, ee_calm, N_MAIN, DT,
+            sim_cfg=SimConfig(max_control_updates=k), linsys="pcr_cuda", **loop_kw),
+        *LOOP_SLOPE)
+    print(f"  pcr_cuda on-device loop per control update (slope {LOOP_SLOPE}): "
+          f"{pcr_update_us:.1f} us (runs: {', '.join(f'{v:.1f}' for v in pcr_slopes)})")
+    # the batched solve per SQP iteration (slope between 1 and 3 iterations)
+    # against B_MAIN single fused solves of one iteration, one after another
+    def batched_run(iters):
+        make_batched_sqp_solver(model, cost, SQPConfig(max_iter=iters), pcg_cfg,
+                                DT)(xu_b, lam0_b, xs_b, ee_b, rho_b)
+
+    def singles():
+        for i in range(B_MAIN):
+            sqp_solve(model, cost, SQPConfig(max_iter=1), pcg_cfg, xu_b[i], lam0_b[i],
+                      xs_b[i], ee_b[i], rho_b[i], DT, linsys="pcg_cuda")
+
+    batch_iter_us, batch_slopes = slope_us(torch, batched_run, 1, 3)
+    singles()
+    single_us = statistics.median(once_ms(torch, singles) for _ in range(3)) * 1e3
+    batch_solves = B_MAIN / (batch_iter_us * 1e-6)
+    print(f"  batched solve B={B_MAIN}: {batch_iter_us:.1f} us per SQP iteration "
+          f"(runs: {', '.join(f'{v:.1f}' for v in batch_slopes)}) = "
+          f"{batch_solves:.0f} instance-iterations/s; {B_MAIN} single fused "
+          f"one-iteration solves {single_us:.1f} us; ratio "
+          f"{batch_iter_us / single_us:.4f}")
+
     # ---- phase 6: results -----------------------------------------------
     print(json.dumps({"kernels": rows, "chain_step_us": step_us,
                       "mean_pcg_iters": it_k, "plain_mean_pcg_iters": it_p,
@@ -964,6 +1466,11 @@ def main() -> int:
                       "host_avg_sqp_time_us": hs["avg_sqp_time_us"],
                       "loop_mean_tracking_error": float(err_dev.mean()),
                       "adaptive_per_iter_us": ada["per_iter_us"],
+                      "direct_loops": direct_summary,
+                      "pcr_cuda_loop_update_us": pcr_update_us,
+                      "batched_iter_us": batch_iter_us,
+                      "batched_instance_iters_per_s": batch_solves,
+                      "batched_singles_us": single_us,
                       "card": card}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -9,14 +9,18 @@ the model constants and the numpy-only utilities:
   * ``config.py`` CostConfig, PCGConfig, SQPConfig, SimConfig;
   * ``models/``  robot model, spatial algebra, batched rigid-body dynamics;
   * ``ops/``     small-matrix Gauss-Jordan, block-tridiagonal algebra, Schur
-                 condensation, PCG, and the PCG kernels K2 (PCG + dz), K2'
-                 (PCG) and K6 (dz);
+                 condensation, PCG, the direct solvers (block LDL^T, PCR, the
+                 CSC packing), the PCG kernels K2 (PCG + dz), K2' (PCG) and
+                 K6 (dz), and the PCR kernel K7;
+  * ``native/``  the host's sparse and block LDL^T (C++ through ctypes);
   * ``solver/``  KKT assembly, the l1 merit, the KKT kernels K1 (+ Schur) and
                  K5 (blocks), the line-search kernel K3 and the SQP loop;
+  * ``parallel/`` the batched SQP solve and its instance-grid kernels K8;
   * ``sim/``     the closed-loop simulator, the plant kernel K4 and the
                  warm-started chain;
   * ``utils/``   trajectory fixtures, experiment statistics, checkpoints;
-  * ``track_iiwa_pcg.py`` the closed-loop tracker script.
+  * ``track_iiwa_pcg.py``, ``track_iiwa_qdldl.py`` the closed-loop tracker
+                 scripts (PCG, direct solvers).
 
 Public functions keep the JAX package's knot-leading layouts.  Entry points
 build on the card unless the caller asks for the CPU, and every function

@@ -25,7 +25,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("kkt_schur.cu", "pcg_dz.cu", "merit.cu", "plant.cu")
+SOURCES = ("kkt_schur.cu", "pcg_dz.cu", "merit.cu", "plant.cu", "pcr.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,23 +36,26 @@ F = ctypes.c_float
 # argument types of each C entry point (see the csrc/*.cu signatures)
 _SIGNATURES = {
     "kkt_schur.cu": {
-        "kkt_schur_launch": [P, I, P, I, P, F, P, F, F, F,
-                             I, I, I, I, P, P, P, P, P, P, P, P, P],
+        "kkt_schur_launch": [P, I, I, P, I, I, P, F, P, F, F, F,
+                             I, I, I, I, I, P, P, P, P, P, P, P, P, P],
         "kkt_launch": [P, I, P, I, P, F, P, F, F, I, I, I, I,
                        P, P, P, P, P, P],
     },
     "pcg_dz.cu": {
         "pcg_dz_launch": [P, P, P, P, P, P, P, P, P, I, P, F,
                           I, P, I, I, P, P, P, P, P],
-        "pcg_launch": [P, P, P, P, I, P, I, I, P, P, P, P],
-        "dz_launch": [P, P, P, P, P, P, I, P, F, I, P, P],
+        "pcg_launch": [P, P, P, P, I, P, I, I, I, P, P, P, P],
+        "dz_launch": [P, P, P, P, P, P, I, I, P, F, I, I, P, P],
     },
     "merit.cu": {
-        "merit_launch": [P, P, P, P, I, P, F, F, F, F, F,
-                         I, I, I, I, I, P, P, P],
+        "merit_launch": [P, P, P, P, I, I, P, F, F, F, F, F,
+                         I, I, I, I, I, I, P, P, P],
     },
     "plant.cu": {
         "plant_launch": [P, P, I, I, P, P, P, F, I, P, F, P, P],
+    },
+    "pcr.cu": {
+        "pcr_launch": [P, P, I, I, I, P, P, P],
     },
 }
 

@@ -34,6 +34,13 @@
 // Gauss-Newton Q = [[gq gq^T, 0], [0, qd_cost I]], q, A, B and the defect
 // c_{k+1} = x_{k+1} - f(x_k, u_k) (block 0 also c_0 = x_0 - xs), and needs no
 // rho, no inverse and no neighbour, so one launch.  Latency-bound like A.
+//
+// K8a replaces mpcgpu_tpu/parallel/batched_fused.py::build_kkt_schur_batched
+// (K1 over instance groups packed on lanes).  It is K1's three launches over
+// a (knot, instance) grid: instance blockIdx.y offsets its rows of xu and
+// the goal, reads its own rho and writes its own (N, ...) slab of every
+// output, so each instance's result is K1's bit for bit.  B instances give
+// B x N blocks per launch, which fill the card where K1's N blocks do not.
 #include "common.cuh"
 
 using namespace mpc;
@@ -148,8 +155,8 @@ __device__ void fk_dual(const float* m, const float* s, const float* c, int t,
 // not read, xs is read by block 0).
 template <bool kSchur>
 __global__ void __launch_bounds__(256)
-knot_kernel(const float* __restrict__ xu, int xu_stride,
-            const float* __restrict__ goal, int goal_stride,
+knot_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
+            const float* __restrict__ goal, int goal_stride, int goal_bstride,
             const float* __restrict__ xs, const float* __restrict__ rho_p,
             float dt, const float* __restrict__ model, float gravity,
             float qd_cost, float r_cost, int N, int integrator_type, int wrap,
@@ -157,6 +164,15 @@ knot_kernel(const float* __restrict__ xu, int xu_stride,
             float* __restrict__ A_o, float* __restrict__ B_o,
             float* __restrict__ q_o, float* __restrict__ scr) {
   const int k = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+  // instance blockIdx.y (K8a): its own rows, rho and outputs
+  const int b = blockIdx.y;
+  xu += (size_t)b * xu_bstride;
+  goal += (size_t)b * goal_bstride;
+  Q_o += (size_t)b * N * NN;
+  A_o += (size_t)b * N * NN;
+  B_o += (size_t)b * N * NX * NU;
+  q_o += (size_t)b * N * NX;
+  scr += (size_t)b * N * (kSchur ? SCR : NX);
   __shared__ float sm[MODEL_SIZE];
   __shared__ float x[NX], u[NU], xe[NX], gl[3], sq[NQ], cq[NQ], se[NQ], ce[NQ];
   __shared__ float X[NQ * M66], Xp[NQ * M66], IC[NQ * M66], t36[M66];
@@ -261,7 +277,7 @@ knot_kernel(const float* __restrict__ xu, int xu_stride,
     dqdd[e] = -acc;
   }
   __syncthreads();
-  const float rho = *rho_p;
+  const float rho = kSchur ? rho_p[b] : 0.f;
   for (int e = tid; e < NN; e += nth) {
     const int r = e / NX, c = e - r * NX;
     const float eye = r == c ? 1.f : 0.f;
@@ -352,11 +368,19 @@ knot_kernel(const float* __restrict__ xu, int xu_stride,
 }
 
 __global__ void __launch_bounds__(256)
-schur_kernel(const float* __restrict__ xu, int xu_stride,
+schur_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
              const float* __restrict__ Qinv, const float* __restrict__ q,
              const float* __restrict__ scr, int N, float* __restrict__ S,
              float* __restrict__ Pinv, float* __restrict__ gamma) {
   const int k = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+  const int b = blockIdx.y;
+  xu += (size_t)b * xu_bstride;
+  Qinv += (size_t)b * N * NN;
+  q += (size_t)b * N * NX;
+  scr += (size_t)b * N * SCR;
+  S += (size_t)b * N * 3 * NN;
+  Pinv += (size_t)b * N * 3 * NN;
+  gamma += (size_t)b * N * NX;
   __shared__ float aug[NX * 2 * NX], piv[2 * NX], fcol[NX];
   const float* prev = scr + (size_t)(k - 1) * SCR;   // valid for k >= 1
   const float* cur = scr + (size_t)k * SCR;
@@ -390,6 +414,8 @@ schur_kernel(const float* __restrict__ xu, int xu_stride,
 __global__ void __launch_bounds__(256)
 stair_kernel(const float* __restrict__ S, int N, float* __restrict__ Pinv) {
   const int k = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+  S += (size_t)blockIdx.y * N * 3 * NN;
+  Pinv += (size_t)blockIdx.y * N * 3 * NN;
   __shared__ float tl[NN], tr[NN];
   const float* Dk = Pinv + (size_t)k * 3 * NN + NN;
   const float* Sk = S + (size_t)k * 3 * NN;
@@ -425,25 +451,29 @@ stair_kernel(const float* __restrict__ S, int N, float* __restrict__ Pinv) {
 
 }  // namespace
 
+// batch instances side by side (K8a; K1 is batch = 1): instance b reads
+// xu + b xu_bstride, goal + b goal_bstride, rho[b] and writes the b-th
+// (N, ...) slab of every output.
 extern "C" int kkt_schur_launch(
-    const float* xu, int xu_stride, const float* goal, int goal_stride,
-    const float* rho, float dt, const float* model, float gravity,
-    float qd_cost, float r_cost, int N, int integrator_type, int wrap,
-    int terminal_at_last, float* S, float* Pinv, float* gamma, float* Qinv,
-    float* A, float* B, float* q, float* scratch, void* stream) {
+    const float* xu, int xu_stride, int xu_bstride, const float* goal,
+    int goal_stride, int goal_bstride, const float* rho, float dt,
+    const float* model, float gravity, float qd_cost, float r_cost, int N,
+    int batch, int integrator_type, int wrap, int terminal_at_last, float* S,
+    float* Pinv, float* gamma, float* Qinv, float* A, float* B, float* q,
+    float* scratch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  knot_kernel<true><<<N, 256, 0, st>>>(xu, xu_stride, goal, goal_stride,
-                                       nullptr, rho, dt, model, gravity,
-                                       qd_cost, r_cost, N, integrator_type,
-                                       wrap, terminal_at_last, Qinv, A, B, q,
-                                       scratch);
+  const dim3 grid(N, batch);
+  knot_kernel<true><<<grid, 256, 0, st>>>(
+      xu, xu_stride, xu_bstride, goal, goal_stride, goal_bstride, nullptr,
+      rho, dt, model, gravity, qd_cost, r_cost, N, integrator_type, wrap,
+      terminal_at_last, Qinv, A, B, q, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  schur_kernel<<<N, 256, 0, st>>>(xu, xu_stride, Qinv, q, scratch, N, S, Pinv,
-                                  gamma);
+  schur_kernel<<<grid, 256, 0, st>>>(xu, xu_stride, xu_bstride, Qinv, q,
+                                     scratch, N, S, Pinv, gamma);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  stair_kernel<<<N, 256, 0, st>>>(S, N, Pinv);
+  stair_kernel<<<grid, 256, 0, st>>>(S, N, Pinv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,7 +484,7 @@ extern "C" int kkt_launch(const float* xu, int xu_stride, const float* goal,
                           int terminal_at_last, float* Q, float* A, float* B,
                           float* q, float* c, void* stream) {
   knot_kernel<false><<<N, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      xu, xu_stride, goal, goal_stride, xs, nullptr, dt, model, gravity,
+      xu, xu_stride, 0, goal, goal_stride, 0, xs, nullptr, dt, model, gravity,
       qd_cost, 0.f, N, integrator_type, wrap, terminal_at_last, Q, A, B, q, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,10 @@
 // one thread per knot (a block loops over knots when N exceeds its width).
 // A thread forms its own candidate and the next knot's candidate from xu and
 // dz, so the defect needs no sync; the per-knot terms are then summed by a
-// fixed-order block reduction, so the merits are deterministic.
+// fixed-order block reduction, so the merits are deterministic.  The
+// batched solve launches it over a (candidate, instance) grid, the
+// instance in blockIdx.y (the JAX package vmaps the TPU kernel there,
+// batched_fused.py:499); each instance's merits are the single launch's.
 #include "common.cuh"
 
 using namespace mpc;
@@ -25,13 +28,22 @@ namespace {
 __global__ void __launch_bounds__(512)
 merit_kernel(const float* __restrict__ xu, const float* __restrict__ dz,
              const float* __restrict__ xs, const float* __restrict__ goal,
-             int goal_stride, const float* __restrict__ model, float gravity,
-             float qd_cost, float r_cost, float mu, float dt, int N,
-             int integrator_type, int wrap, float* __restrict__ merits,
+             int goal_stride, int goal_bstride,
+             const float* __restrict__ model, float gravity, float qd_cost,
+             float r_cost, float mu, float dt, int N, int integrator_type,
+             int wrap, float* __restrict__ merits,
              float* __restrict__ alphas) {
   __shared__ float sm[MODEL_SIZE];
   __shared__ float red[33];
   const int a = blockIdx.x, tid = threadIdx.x;
+  // instance blockIdx.y (the batched solve; one instance otherwise)
+  const int b = blockIdx.y;
+  xu += (size_t)b * N * W;
+  dz += (size_t)b * N * W;
+  xs += (size_t)b * NX;
+  goal += (size_t)b * goal_bstride;
+  merits += (size_t)b * gridDim.x;
+  alphas += (size_t)b * gridDim.x;
   const float alpha = a == 0 ? 0.f : -ldexpf(1.f, -(a - 1));
   load_model(sm, model);
   __syncthreads();
@@ -76,15 +88,20 @@ merit_kernel(const float* __restrict__ xu, const float* __restrict__ dz,
 
 }  // namespace
 
+// batch instances side by side: instance b reads the b-th (N, W) slab of
+// xu and dz, xs[b], goal + b goal_bstride, and writes row b of merits and
+// alphas (batch, num_cand)
 extern "C" int merit_launch(const float* xu, const float* dz, const float* xs,
                             const float* goal, int goal_stride,
-                            const float* model, float gravity, float qd_cost,
-                            float r_cost, float mu, float dt, int N,
-                            int num_cand, int threads, int integrator_type,
+                            int goal_bstride, const float* model,
+                            float gravity, float qd_cost, float r_cost,
+                            float mu, float dt, int N, int num_cand,
+                            int batch, int threads, int integrator_type,
                             int wrap, float* merits, float* alphas,
                             void* stream) {
-  merit_kernel<<<num_cand, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xu, dz, xs, goal, goal_stride, model, gravity, qd_cost, r_cost, mu, dt,
-      N, integrator_type, wrap, merits, alphas);
+  merit_kernel<<<dim3(num_cand, batch), threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      xu, dz, xs, goal, goal_stride, goal_bstride, model, gravity, qd_cost,
+      r_cost, mu, dt, N, integrator_type, wrap, merits, alphas);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,15 @@
 // K6 is latency-bound: it reads Qinv, A, B (~3 x 14 x 14 x N floats) once and
 // does ~1.5 KFLOP per knot; one block per knot, one thread per output.  Its
 // per-output arithmetic is K2's epilogue (the same device functions).
+//
+// K8b and K8c replace mpcgpu_tpu/parallel/batched_fused.py::
+// pcg_solve_batched_lanes (_make_pcg_kernel_packed: instances packed on
+// lanes with segmented reductions) and compute_dz_batched.  K8b is K2' with
+// one block per instance (blockIdx.x): every block runs its own CG scalars
+// and stops at its own exit, which is what the packed TPU kernel emulates
+// with masks, so each instance's lam, iters and exit flag equal those of
+// K2' bit for bit.  K8c is K6 over a (knot, instance) grid with a
+// per-instance rho.
 #include "common.cuh"
 
 using namespace mpc;
@@ -91,7 +100,9 @@ __device__ inline float dz_du(const float* __restrict__ B, const float* lam,
   return s_r * (r_cost * u[k * u_stride + c] + bt);
 }
 
-template <bool kDz>
+// kBatch: blockIdx.x is an instance (K8b); without it the kernel reads its
+// pointers as given, so K2 and K2' keep them in the parameter bank
+template <bool kDz, bool kBatch>
 __global__ void __launch_bounds__(THREADS)
 pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
               const float* __restrict__ gamma, const float* __restrict__ lam0,
@@ -105,6 +116,15 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
   extern __shared__ float sh[];
   __shared__ float red[33];
   const int n = N * NX, tid = threadIdx.x, nth = blockDim.x;
+  // instance blockIdx.x (K8b): its own system, its own CG scalars and exit
+  const int b = kBatch ? blockIdx.x : 0;
+  if constexpr (kBatch) {
+    S += (size_t)b * N * 3 * NN;
+    Pinv += (size_t)b * N * 3 * NN;
+    gamma += (size_t)b * n;
+    lam0 += (size_t)b * n;
+    lam_o += (size_t)b * n;
+  }
   float* lam = sh;
   float* r = lam + n;
   float* p = r + n;
@@ -179,8 +199,8 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
     for (int i = tid; i < n; i += nth) lam_o[i] = lam[i];
   }
   if (tid == 0) {
-    *iters_o = it;
-    *conv_o = done ? 1 : 0;
+    iters_o[b] = it;
+    conv_o[b] = done ? 1 : 0;
   }
 }
 
@@ -188,10 +208,20 @@ __global__ void __launch_bounds__(32)
 dz_kernel(const float* __restrict__ lam, const float* __restrict__ Qinv,
           const float* __restrict__ A, const float* __restrict__ B,
           const float* __restrict__ q, const float* __restrict__ u,
-          int u_stride, const float* __restrict__ rho_p, float r_cost, int N,
-          float* __restrict__ dz) {
+          int u_stride, int u_bstride, const float* __restrict__ rho_p,
+          float r_cost, int N, float* __restrict__ dz) {
   __shared__ float rhs[NX];
   const int k = blockIdx.x, tid = threadIdx.x;
+  // instance blockIdx.y (K8c; K6 is one instance)
+  const int b = blockIdx.y;
+  lam += (size_t)b * N * NX;
+  Qinv += (size_t)b * N * NN;
+  A += (size_t)b * N * NN;
+  B += (size_t)b * N * NX * NU;
+  q += (size_t)b * N * NX;
+  u += (size_t)b * u_bstride;
+  rho_p += b;
+  dz += (size_t)b * N * W;
   if (tid < NX) rhs[tid] = dz_rhs(A, q, lam, k, tid, N);
   __syncthreads();
   if (tid < NX) {
@@ -202,19 +232,20 @@ dz_kernel(const float* __restrict__ lam, const float* __restrict__ Qinv,
   }
 }
 
-template <bool kDz>
+template <bool kDz, bool kBatch>
 int pcg_launch_impl(const float* S, const float* Pinv, const float* gamma,
                     const float* lam0, const float* Qinv, const float* A,
                     const float* B, const float* q, const float* u,
                     int u_stride, const float* rho, float r_cost, int max_iter,
-                    const float* tol, int rnorm, int N, float* lam, float* dz,
-                    int* iters, int* conv, void* stream) {
+                    const float* tol, int rnorm, int N, int batch, float* lam,
+                    float* dz, int* iters, int* conv, void* stream) {
   const size_t smem = (size_t)5 * N * NX * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      pcg_dz_kernel<kDz>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pcg_dz_kernel<kDz, kBatch>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pcg_dz_kernel<kDz><<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  pcg_dz_kernel<kDz, kBatch><<<batch, THREADS, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       S, Pinv, gamma, lam0, Qinv, A, B, q, u, u_stride, rho, r_cost, max_iter,
       tol, rnorm, N, lam, dz, iters, conv);
   return static_cast<int>(cudaGetLastError());
@@ -229,26 +260,34 @@ extern "C" int pcg_dz_launch(const float* S, const float* Pinv,
                              const float* rho, float r_cost, int max_iter,
                              const float* tol, int rnorm, int N, float* lam,
                              float* dz, int* iters, int* conv, void* stream) {
-  return pcg_launch_impl<true>(S, Pinv, gamma, lam0, Qinv, A, B, q, u,
-                               u_stride, rho, r_cost, max_iter, tol, rnorm, N,
-                               lam, dz, iters, conv, stream);
+  return pcg_launch_impl<true, false>(S, Pinv, gamma, lam0, Qinv, A, B, q, u,
+                                      u_stride, rho, r_cost, max_iter, tol,
+                                      rnorm, N, 1, lam, dz, iters, conv,
+                                      stream);
 }
 
+// batch instances, one block each (K8b; K2' is batch = 1): instance b
+// solves the b-th (N, ...) slab of S, Pinv, gamma, lam0 into lam, iters[b],
+// conv[b]
 extern "C" int pcg_launch(const float* S, const float* Pinv,
                           const float* gamma, const float* lam0, int max_iter,
-                          const float* tol, int rnorm, int N, float* lam,
-                          int* iters, int* conv, void* stream) {
-  return pcg_launch_impl<false>(S, Pinv, gamma, lam0, nullptr, nullptr,
-                                nullptr, nullptr, nullptr, 0, nullptr, 0.f,
-                                max_iter, tol, rnorm, N, lam, nullptr, iters,
-                                conv, stream);
+                          const float* tol, int rnorm, int N, int batch,
+                          float* lam, int* iters, int* conv, void* stream) {
+  const auto launch = batch > 1 ? pcg_launch_impl<false, true>
+                                 : pcg_launch_impl<false, false>;
+  return launch(S, Pinv, gamma, lam0, nullptr, nullptr, nullptr, nullptr,
+                nullptr, 0, nullptr, 0.f, max_iter, tol, rnorm, N, batch, lam,
+                nullptr, iters, conv, stream);
 }
 
+// batch instances side by side (K8c; K6 is batch = 1): instance b reads
+// u + b u_bstride, rho[b] and the b-th (N, ...) slab of the other inputs
 extern "C" int dz_launch(const float* lam, const float* Qinv, const float* A,
                          const float* B, const float* q, const float* u,
-                         int u_stride, const float* rho, float r_cost, int N,
-                         float* dz, void* stream) {
-  dz_kernel<<<N, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      lam, Qinv, A, B, q, u, u_stride, rho, r_cost, N, dz);
+                         int u_stride, int u_bstride, const float* rho,
+                         float r_cost, int N, int batch, float* dz,
+                         void* stream) {
+  dz_kernel<<<dim3(N, batch), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      lam, Qinv, A, B, q, u, u_stride, u_bstride, rho, r_cost, N, dz);
   return static_cast<int>(cudaGetLastError());
 }

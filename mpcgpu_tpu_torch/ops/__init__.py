@@ -1,1 +1,2 @@
-"""Small-matrix, block-tridiagonal and PCG ops (port of mpcgpu_tpu.ops)."""
+"""Small-matrix, block-tridiagonal, PCG and direct-solver ops (port of
+mpcgpu_tpu.ops)."""

@@ -131,7 +131,7 @@ def pcg_solve_cuda(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
     code = _kernels.entry("pcg_dz.cu", "pcg_launch")(
         S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
-        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
+        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N, 1,
         lam.data_ptr(), flags.data_ptr(), flags.data_ptr() + 4,
         _kernels.stream_ptr(dev))
     _kernels.check(code, "pcg_launch")
@@ -161,7 +161,7 @@ def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
     code = _kernels.entry("pcg_dz.cu", "dz_launch")(
         lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(0),
-        rho_t.data_ptr(), float(r_cost), N, dz.data_ptr(),
+        0, rho_t.data_ptr(), float(r_cost), N, 1, dz.data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.check(code, "dz_launch")
     compute_dz_cuda.launches += 1

@@ -1,0 +1,339 @@
+"""K8: the batched SQP solve with the instance as a grid axis.
+
+Port of ``mpcgpu_tpu/parallel/batched_fused.py``.  On the TPU that module
+packs several instances along the 128 lanes of a vreg
+(``instances_per_program``, ``pack_lanes``, ``unpack_lanes``) and runs a
+Pallas grid over instance groups, with segmented reductions that give each
+packed instance its own CG scalars.  On a GPU the instance is simply one
+more grid axis of the single-instance kernels, so the packing has no
+counterpart here and every tensor keeps the (B, N, ...) layout:
+
+  * K8a ``build_kkt_schur_batched``: K1's three launches over a (knot,
+    instance) grid with a per-instance rho (replaces batched_fused.py:150);
+  * K8b ``pcg_solve_batched``: K2' with one block per instance, each with
+    its own CG scalars and its own exit, so every instance's iterations and
+    exit flag are exact (replaces batched_fused.py:335);
+  * K8c ``compute_dz_batched``: K6 over (knot, instance) with a
+    per-instance rho (replaces batched_fused.py:391);
+  * ``line_search_merits_batched``: K3 over (candidate, instance), the
+    batched use of the merit kernel that the JAX package reaches by vmap.
+
+The kernels are the single-instance kernels' bodies with an instance offset
+(``csrc/kkt_schur.cu``, ``pcg_dz.cu``, ``merit.cu``), so each instance's
+result equals the single-instance launch's bit for bit.  Each wrapper runs
+its plain version (a loop of the single-instance plain versions, stacked)
+for CPU tensors and its kernel for CUDA tensors; the plain versions are
+``*_batched_plain``.
+
+``sqp_solve_batched_fused`` keeps the JAX loop's semantics: the fixed PCG
+exit tolerance (no Eisenstat-Walker forcing), a Levenberg-Marquardt rho
+schedule and line search per instance, an instance that gives up frozen
+from then on, per-instance ``sqp_iters``, and iterations while any instance
+is active and ``it < max_iter``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpcgpu_tpu_torch import _kernels
+from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu_tpu_torch.models.robot import RobotModel
+from mpcgpu_tpu_torch.ops.pcg import pcg_solve
+from mpcgpu_tpu_torch.ops.pcg_cuda import (_check_pcg_args, compute_dz_plain)
+from mpcgpu_tpu_torch.solver.kkt_cuda import (_SCRATCH_PER_KNOT, _check_args,
+                                              build_kkt_schur_plain)
+from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merits_plain
+from mpcgpu_tpu_torch.solver.sqp import SQPResult, line_search_update
+
+
+def _stack(results):
+    """A list of per-instance results (dicts or tuples) stacked on axis 0."""
+    if isinstance(results[0], dict):
+        return {k: torch.stack([r[k] for r in results]) for k in results[0]}
+    return tuple(torch.stack(parts) for parts in zip(*results))
+
+
+def _require_batch(model: RobotModel, xu_b, ee_b):
+    """Check the shared kernel inputs; returns (B, N, packed model)."""
+    if model.nq != 7:
+        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+    dev = xu_b.device
+    B, N = xu_b.shape[:2]
+    _kernels.require_knots(N)
+    _kernels.require(xu_b, "xu", (B, N, 21), dev)
+    _kernels.require(ee_b, "ee_goal", (B, N, ee_b.shape[-1]), dev)
+    packed = model.packed()
+    _kernels.require(packed, "model", (packed.numel(),), dev)
+    return B, N, packed
+
+
+def build_kkt_schur_batched_plain(model: RobotModel, cost: CostConfig, xu_b,
+                                  xs_b, ee_b, rho_b, dt: float,
+                                  integrator_type: int = 0,
+                                  angle_wrap: bool = False) -> dict:
+    """``build_kkt_schur_plain`` per instance, stacked."""
+    return _stack([build_kkt_schur_plain(
+        model, cost, xu_b[i], xs_b[i], ee_b[i], rho_b[i], dt, integrator_type,
+        angle_wrap) for i in range(xu_b.shape[0])])
+
+
+def pcg_solve_batched_plain(S, Pinv, gamma, lam0, max_iter: int = 173,
+                            exit_tol=1e-6, exit_criterion: str = "eta"):
+    """``pcg_solve`` per instance, stacked."""
+    return _stack([tuple(pcg_solve(S[i], Pinv[i], gamma[i], lam0[i], max_iter,
+                                   exit_tol, exit_criterion))
+                   for i in range(lam0.shape[0])])
+
+
+def compute_dz_batched_plain(sys: dict, lam, u, rho_b, r_cost: float):
+    """``compute_dz_plain`` per instance, stacked."""
+    return torch.stack([compute_dz_plain({k: v[i] for k, v in sys.items()},
+                                         lam[i], u[i], rho_b[i], r_cost)
+                        for i in range(lam.shape[0])])
+
+
+def line_search_merits_batched_plain(model: RobotModel, cost: CostConfig, xu_b,
+                                     dz_b, xs_b, ee_b, mu: float, dt: float,
+                                     num_alphas: int = 8,
+                                     integrator_type: int = 0,
+                                     angle_wrap: bool = False):
+    """``line_search_merits_plain`` per instance, stacked."""
+    return _stack([line_search_merits_plain(
+        model, cost, xu_b[i], dz_b[i], xs_b[i], ee_b[i], mu, dt, num_alphas,
+        integrator_type, angle_wrap) for i in range(xu_b.shape[0])])
+
+
+def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
+                            ee_b, rho_b, dt: float, integrator_type: int = 0,
+                            angle_wrap: bool = False) -> dict:
+    """K8a: K1 for B instances.  xu_b (B, N, nx+nu), xs_b (B, nx), ee_b
+    (B, N, 6), rho_b (B,) -> S, Pinv (B, N, 3, nx, nx), gamma (B, N, nx),
+    Qinv, A (B, N, nx, nx), B (B, N, nx, nu), q (B, N, nx)."""
+    _check_args(cost, integrator_type)
+    if _kernels.on_cpu(xu_b):
+        return build_kkt_schur_batched_plain(model, cost, xu_b, xs_b, ee_b,
+                                             rho_b, dt, integrator_type,
+                                             angle_wrap)
+    dev = xu_b.device
+    B, N, packed = _require_batch(model, xu_b, ee_b)
+    _kernels.require(rho_b, "rho", (B,), dev)
+    nq = model.nq
+    nx = 2 * nq
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = dict(S=torch.empty((B, N, 3, nx, nx), **f32),
+               Pinv=torch.empty((B, N, 3, nx, nx), **f32),
+               gamma=torch.empty((B, N, nx), **f32),
+               Qinv=torch.empty((B, N, nx, nx), **f32),
+               A=torch.empty((B, N, nx, nx), **f32),
+               B=torch.empty((B, N, nx, nq), **f32),
+               q=torch.empty((B, N, nx), **f32))
+    scratch = torch.empty((B * N * _SCRATCH_PER_KNOT,), **f32)
+    code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch")(
+        xu_b.data_ptr(), xu_b.stride(1), xu_b.stride(0), ee_b.data_ptr(),
+        ee_b.stride(1), ee_b.stride(0), rho_b.data_ptr(), float(dt),
+        packed.data_ptr(), float(model.gravity), float(cost.qd_cost),
+        float(cost.r_cost), N, B, integrator_type, int(angle_wrap),
+        int(cost.terminal_at_last_state), out["S"].data_ptr(),
+        out["Pinv"].data_ptr(), out["gamma"].data_ptr(), out["Qinv"].data_ptr(),
+        out["A"].data_ptr(), out["B"].data_ptr(), out["q"].data_ptr(),
+        scratch.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check(code, "kkt_schur_launch (batched)")
+    build_kkt_schur_batched.launches += 1
+    return out
+
+
+build_kkt_schur_batched.launches = 0
+
+
+def pcg_solve_batched(S, Pinv, gamma, lam0, max_iter: int = 173,
+                      exit_tol=1e-6, exit_criterion: str = "eta"):
+    """K8b: K2' for B instances: S, Pinv (B, N, 3, n, n), gamma and lam0
+    (B, N, n).  Returns (lam (B, N, n), iters (B,) int32, converged (B,)
+    bool).  exit_tol (one for all instances) may be a float or a 0-d
+    tensor."""
+    _check_pcg_args(exit_criterion, max_iter)
+    if _kernels.on_cpu(lam0):
+        return pcg_solve_batched_plain(S, Pinv, gamma, lam0, max_iter, exit_tol,
+                                       exit_criterion)
+    dev = lam0.device
+    B, N, nx = lam0.shape
+    if nx != 14:
+        raise ValueError("the CUDA kernels are built for nx = 14")
+    _kernels.require_knots(N)
+    for name, t, shape in (("S", S, (B, N, 3, nx, nx)),
+                           ("Pinv", Pinv, (B, N, 3, nx, nx)),
+                           ("gamma", gamma, (B, N, nx)), ("lam0", lam0, (B, N, nx))):
+        _kernels.require(t, name, shape, dev)
+    tol_t = _kernels.scalar(exit_tol, dev)
+    lam = torch.empty((B, N, nx), dtype=torch.float32, device=dev)
+    flags = torch.empty((2, B), dtype=torch.int32, device=dev)
+    code = _kernels.entry("pcg_dz.cu", "pcg_launch")(
+        S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
+        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N, B,
+        lam.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "pcg_launch (batched)")
+    pcg_solve_batched.launches += 1
+    return lam, flags[0], flags[1].bool()
+
+
+pcg_solve_batched.launches = 0
+
+
+def compute_dz_batched(sys: dict, lam, u, rho_b, r_cost: float):
+    """K8c: K6 for B instances: dz (B, N, nx+nu) from lam (B, N, nx), K8a's
+    blocks, the controls u (B, N, nu) (rows of unit stride, e.g.
+    ``xu_b[:, :, nx:]``) and rho_b (B,)."""
+    if _kernels.on_cpu(lam):
+        return compute_dz_batched_plain(sys, lam, u, rho_b, r_cost)
+    dev = lam.device
+    B, N, nx = lam.shape
+    nu = u.shape[-1]
+    if nx != 14 or nu != 7:
+        raise ValueError("the CUDA kernels are built for nx = 14, nu = 7")
+    _kernels.require_knots(N)
+    _kernels.require(lam, "lam", (B, N, nx), dev)
+    for name, shape in (("Qinv", (B, N, nx, nx)), ("A", (B, N, nx, nx)),
+                        ("B", (B, N, nx, nu)), ("q", (B, N, nx))):
+        _kernels.require(sys[name], name, shape, dev)
+    if tuple(u.shape) != (B, N, nu) or u.stride(2) != 1 or u.dtype != torch.float32 \
+            or u.device != dev:
+        raise ValueError("u: f32 (B, N, nu) on the card with rows of unit stride")
+    _kernels.require(rho_b, "rho", (B,), dev)
+    dz = torch.empty((B, N, nx + nu), dtype=torch.float32, device=dev)
+    code = _kernels.entry("pcg_dz.cu", "dz_launch")(
+        lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
+        sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(1),
+        u.stride(0), rho_b.data_ptr(), float(r_cost), N, B, dz.data_ptr(),
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "dz_launch (batched)")
+    compute_dz_batched.launches += 1
+    return dz
+
+
+compute_dz_batched.launches = 0
+
+
+def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
+                               xs_b, ee_b, mu: float, dt: float,
+                               num_alphas: int = 8, integrator_type: int = 0,
+                               angle_wrap: bool = False):
+    """K3 for B instances: merits (B, A) of xu_b + alpha dz_b for alpha in
+    (0, -1, -1/2, ..., -1/2^(A-2)), A = num_alphas + 1, and alphas (B, A).
+    ee cost mode only."""
+    if cost.mode != "ee":
+        raise ValueError("line_search_merits_batched supports ee cost mode only")
+    if integrator_type not in (0, 1):
+        raise ValueError(f"integrator_type {integrator_type} not in (0, 1)")
+    if _kernels.on_cpu(xu_b):
+        return line_search_merits_batched_plain(model, cost, xu_b, dz_b, xs_b,
+                                                ee_b, mu, dt, num_alphas,
+                                                integrator_type, angle_wrap)
+    dev = xu_b.device
+    B, N, packed = _require_batch(model, xu_b, ee_b)
+    if not 1 <= num_alphas <= 32:
+        raise ValueError(f"num_alphas must be in 1..32, got {num_alphas}")
+    _kernels.require(dz_b, "dz", (B, N, 21), dev)
+    _kernels.require(xs_b, "xs", (B, 14), dev)
+    A = num_alphas + 1
+    threads = min(512, (N + 31) // 32 * 32)
+    merits = torch.empty((B, A), dtype=torch.float32, device=dev)
+    alphas = torch.empty((B, A), dtype=torch.float32, device=dev)
+    code = _kernels.entry("merit.cu", "merit_launch")(
+        xu_b.data_ptr(), dz_b.data_ptr(), xs_b.data_ptr(), ee_b.data_ptr(),
+        ee_b.stride(1), ee_b.stride(0), packed.data_ptr(), float(model.gravity),
+        float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A, B,
+        threads, integrator_type, int(angle_wrap), merits.data_ptr(),
+        alphas.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check(code, "merit_launch (batched)")
+    line_search_merits_batched.launches += 1
+    return merits, alphas
+
+
+line_search_merits_batched.launches = 0
+
+
+def sqp_solve_batched_fused(
+    model: RobotModel,
+    cost: CostConfig,
+    sqp_cfg: SQPConfig,
+    pcg_cfg: PCGConfig,
+    xu_b, lam_b, xs_b, ee_b, rho_b, dt: float,
+    integrator_type: int = 0,
+    angle_wrap: bool = False,
+) -> SQPResult:
+    """B SQP solves through K8a -> K8b -> K8c -> batched K3 per iteration.
+
+    xu_b (B, N, nx+nu), lam_b (B, N, nx), xs_b (B, nx), ee_b (B, N, 6), rho_b
+    (B,) tensor.  Every SQPResult field gains a leading instance axis.  The
+    loop reads ``all(stop)`` back to the host once per iteration after the
+    first."""
+    if pcg_cfg.preconditioner != "stair":
+        raise ValueError("the batched kernels implement the stair "
+                         "preconditioner only")
+    B = xu_b.shape[0]
+    nx = 2 * model.nq
+    dev, dtype = xu_b.device, xu_b.dtype
+    max_iter = sqp_cfg.max_iter
+    mu = float(sqp_cfg.mu)
+    exit_tol = _kernels.scalar(pcg_cfg.exit_tol, dev, dtype)
+
+    xu, lam = xu_b, lam_b
+    rho = rho_b.to(device=dev, dtype=dtype)
+    drho = torch.ones((B,), dtype=dtype, device=dev)
+    merit = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+    stop = torch.zeros((B,), dtype=torch.bool, device=dev)
+    gave_up_any = torch.zeros((B,), dtype=torch.bool, device=dev)
+    sqp_iters = torch.zeros((B,), dtype=torch.int32, device=dev)
+    pcg_iters = torch.full((B, max_iter), -1, dtype=torch.int32, device=dev)
+    pcg_converged = torch.zeros((B, max_iter), dtype=torch.bool, device=dev)
+    ls_alpha_idx = torch.full((B, max_iter), -1, dtype=torch.int32, device=dev)
+
+    it = 0
+    while it < max_iter and (it == 0 or not bool(stop.all())):
+        sys = build_kkt_schur_batched(model, cost, xu, xs_b, ee_b, rho, dt,
+                                      integrator_type, angle_wrap)
+        lam_new, lin_iters, lin_ok = pcg_solve_batched(
+            sys["S"], sys["Pinv"], sys["gamma"], lam,
+            max_iter=pcg_cfg.max_iter, exit_tol=exit_tol,
+            exit_criterion=pcg_cfg.exit_criterion)
+        dz = compute_dz_batched(sys, lam_new, xu[:, :, nx:], rho, cost.r_cost)
+        merits, alphas = line_search_merits_batched(
+            model, cost, xu, dz, xs_b, ee_b, mu, dt,
+            num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
+            angle_wrap=angle_wrap)
+
+        step = line_search_update(merits, alphas, rho, drho, sqp_cfg)
+        # an instance that gave up earlier is frozen: nothing of it changes
+        frozen = stop
+        take = step.success & ~frozen
+        xu = torch.where(take[:, None, None], xu + step.alpha[:, None, None] * dz, xu)
+        lam = torch.where(frozen[:, None, None], lam, lam_new)
+        rho = torch.where(frozen, rho, step.rho)
+        drho = torch.where(frozen, drho, step.drho)
+        merit = torch.where(frozen, merit, step.merit)
+        stop = frozen | step.stop
+        gave_up_any = gave_up_any | step.stop
+        sqp_iters = sqp_iters + (~frozen).to(torch.int32)
+        for buf, v in ((pcg_iters, lin_iters), (pcg_converged, lin_ok),
+                       (ls_alpha_idx, step.alpha_idx)):
+            buf[:, it] = torch.where(frozen, buf[:, it], v)
+        it += 1
+
+    return SQPResult(xu=xu, lam=lam, rho=rho, drho=drho, sqp_iters=sqp_iters,
+                     merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
+                     pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+
+
+def make_batched_fused_solver(model: RobotModel, cost: CostConfig,
+                              sqp_cfg: SQPConfig, pcg_cfg: PCGConfig, dt: float,
+                              integrator_type: int = 0):
+    """fn(xu_b, lam_b, xs_b, ee_b, rho_b) -> batched SQPResult."""
+
+    def solve(xu_b, lam_b, xs_b, ee_b, rho_b):
+        return sqp_solve_batched_fused(model, cost, sqp_cfg, pcg_cfg, xu_b,
+                                       lam_b, xs_b, ee_b, rho_b, dt,
+                                       integrator_type=integrator_type)
+
+    return solve

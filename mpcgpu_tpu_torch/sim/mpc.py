@@ -248,7 +248,10 @@ def simulate_mpc(
     ``linsys="auto"`` is ``"pcg_cuda"`` on the card (the fused kernels
     K1 -> K2 -> K3) and ``"pcg"`` on the CPU.  (The JAX package's default
     ``"pcg"`` reaches K5 and K3 on the TPU; here ``linsys="pcg"`` on the
-    card does the same.)  ``route`` (merit_impl, fused, fused_dz) goes to
+    card does the same.)  The direct solvers are ``"ldl"``, ``"pcr"``,
+    ``"pcr_cuda"`` (the PCR kernel K7) and ``"qdldl_host"`` (a host round
+    trip per SQP iteration); ``linsys_exit_tol`` replaces the PCG exit
+    tolerance.  ``route`` (merit_impl, fused, fused_dz) goes to
     ``sqp_solve``.  Each solve's wall time is taken after
     ``torch.cuda.synchronize()``.
     """
@@ -539,8 +542,9 @@ def simulate_mpc_ondevice(
     mpcsim.cuh:280-288): the solve time is modelled as base_us + per_iter_us
     * sqp_iters (per_iter_us from ``calibrate_sqp_iteration_us`` when not
     given) and the shift schedule becomes data-dependent on the device.
-    Computes on the model's device; ``linsys="auto"`` and ``route`` as in
-    ``simulate_mpc``.  ``knot_mesh`` (the JAX package's knot-sharded loop)
+    Computes on the model's device; ``linsys`` (the direct solvers
+    included; ``"qdldl_host"`` reads back every SQP iteration by design) and
+    ``route`` as in ``simulate_mpc``.  ``knot_mesh`` (the JAX package's knot-sharded loop)
     is not ported yet.
 
     Returns a dict: tracking_errors (n_shifts,), xs_path (steps, nx),

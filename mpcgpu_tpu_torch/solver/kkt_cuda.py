@@ -96,9 +96,9 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
                q=torch.empty((N, nx), **f32))
     scratch = torch.empty((N * _SCRATCH_PER_KNOT,), **f32)
     code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch")(
-        xu.data_ptr(), xu.stride(0), ee_goal.data_ptr(), ee_goal.stride(0),
-        rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
-        float(cost.qd_cost), float(cost.r_cost), N, integrator_type,
+        xu.data_ptr(), xu.stride(0), 0, ee_goal.data_ptr(), ee_goal.stride(0),
+        0, rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
+        float(cost.qd_cost), float(cost.r_cost), N, 1, integrator_type,
         int(angle_wrap), int(cost.terminal_at_last_state),
         out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
         out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),

@@ -62,9 +62,9 @@ def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
     alphas = torch.empty((A,), dtype=torch.float32, device=dev)
     code = _kernels.entry("merit.cu", "merit_launch")(
         xu.data_ptr(), dz.data_ptr(), xs.data_ptr(), ee_goal.data_ptr(),
-        ee_goal.stride(0), packed.data_ptr(), float(model.gravity),
+        ee_goal.stride(0), 0, packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A,
-        threads, integrator_type, int(angle_wrap), merits.data_ptr(),
+        1, threads, integrator_type, int(angle_wrap), merits.data_ptr(),
         alphas.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(code, "merit_launch")
     line_search_merits_fused.launches += 1

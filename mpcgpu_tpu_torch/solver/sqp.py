@@ -7,8 +7,15 @@ package's ``"pallas"`` / ``"xla"`` are ``"cuda"`` / ``"plain"`` here):
     preconditioner): K1 build_kkt_schur -> K2 pcg_dz_solve, or with
     ``fused_dz=False`` K1 -> K2' pcg_solve_cuda -> K6 compute_dz_cuda;
   * not fused: KKT blocks (K5 build_kkt_cuda when the kernels are in use,
-    else build_kkt) -> form_schur_system -> the linear solve (``"pcg"``:
-    pcg_solve; ``"pcg_cuda"``: K2' pcg_solve_cuda) -> compute_dz;
+    else build_kkt) -> form_schur_system -> the linear solve -> compute_dz.
+    The linear solves: ``"pcg"`` pcg_solve; ``"pcg_cuda"`` K2'
+    pcg_solve_cuda; and the direct solvers, each counted as one iteration
+    that converged: ``"ldl"`` btd_ldl_solve (block LDL^T, tensor ops),
+    ``"pcr"`` pcr_solve_refined (PCR + one refinement, tensor ops),
+    ``"pcr_cuda"`` K7 pcr_solve_cuda (the JAX package's ``"pcr_pallas"``),
+    ``"qdldl_host"`` the reference's host round trip per iteration (S and
+    gamma copied to the host, which synchronizes; the sparse LDL^T of
+    ``native`` in f64; lam copied back);
   * merits: K3 line_search_merits_fused when the kernels are in use, else
     its plain version line_search_merits(include_zero=True).
 
@@ -32,24 +39,78 @@ import torch
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
+from mpcgpu_tpu_torch.native import qdldl_solve_schur_cached
+from mpcgpu_tpu_torch.ops.ldl import btd_ldl_solve
 from mpcgpu_tpu_torch.ops.pcg import pcg_solve
 from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, pcg_dz_solve,
                                            pcg_solve_cuda)
+from mpcgpu_tpu_torch.ops.pcr import pcr_solve_refined
+from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
 from mpcgpu_tpu_torch.ops.schur import compute_dz, form_schur_system
 from mpcgpu_tpu_torch.solver.kkt import build_kkt
 from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_cuda, build_kkt_schur
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_fused,
                                                 line_search_merits_plain)
 
-# linsys values of the JAX package that the port does not have yet, and the
-# ROADMAP.md item that brings each
-_NOT_PORTED = {
-    "pcg_pallas": "queue 1, the fused path is linsys='pcg_cuda'",
-    "ldl": "queue 1 item 7 (direct solvers)",
-    "pcr": "queue 1 item 7 (direct solvers)",
-    "pcr_pallas": "queue 1 item 7 (direct solvers) and queue 2 K7",
-    "qdldl_host": "queue 1 item 7 (direct solvers)",
+# the JAX package's names for linsys values the port spells with "cuda"
+_RENAMED = {"pcg_pallas": "pcg_cuda", "pcr_pallas": "pcr_cuda"}
+
+
+def _qdldl_host(S, gamma):
+    """The reference's per-iteration host round trip (qdldl/sqp.cuh:268-273):
+    S and gamma to the host (a synchronizing copy, by design), the sparse
+    LDL^T with the cached symbolic factorization in f64, lam back in the
+    solve's dtype on the solve's device."""
+    lam = qdldl_solve_schur_cached(S.cpu().numpy(), gamma.cpu().numpy())
+    return torch.from_numpy(lam).to(device=gamma.device, dtype=gamma.dtype)
+
+
+# the direct solvers: (S, gamma) -> lam
+_DIRECT = {
+    "ldl": btd_ldl_solve,
+    "pcr": lambda S, gamma: pcr_solve_refined(S, gamma, refine=1),
+    "pcr_cuda": lambda S, gamma: pcr_solve_cuda(S, gamma, refine=1),
+    "qdldl_host": _qdldl_host,
 }
+
+
+class LineSearchStep(NamedTuple):
+    success: torch.Tensor      # the best candidate lowers the merit
+    alpha: torch.Tensor        # its step length
+    alpha_idx: torch.Tensor    # int32 its index among the alphas (-1 = fail)
+    merit_cur: torch.Tensor    # the current iterate's merit
+    min_merit: torch.Tensor    # the best candidate's merit
+    merit: torch.Tensor        # the merit after the step
+    rho: torch.Tensor          # the next rho
+    drho: torch.Tensor         # the next L-M rho multiplier
+    stop: torch.Tensor         # bool, the step failed and rho exceeded rho_max
+
+
+def line_search_update(merits, alphas, rho, drho, sqp_cfg: SQPConfig) -> LineSearchStep:
+    """One SQP iteration's line-search choice and Levenberg-Marquardt rho
+    schedule, elementwise over any leading instance axes: merits and alphas
+    (..., 1 + num_alphas) with the current iterate's merit (alpha 0) first,
+    rho and drho (...).  Shared by ``sqp_solve`` and the batched loop."""
+    merit_cur = merits[..., 0]
+    best = 1 + torch.argmin(merits[..., 1:], dim=-1, keepdim=True)
+    # gather, not merits[best]: indexing with a tensor reads it back to the
+    # host and synchronizes the stream
+    min_merit = merits.gather(-1, best)[..., 0]
+    success = min_merit < merit_cur
+    drho_fail = torch.clamp(drho * sqp_cfg.rho_factor, min=sqp_cfg.rho_factor)
+    rho_fail = torch.clamp(rho * drho_fail, min=sqp_cfg.rho_min)
+    gave_up = rho_fail > sqp_cfg.rho_max
+    drho_ok = torch.clamp(drho / sqp_cfg.rho_factor, max=1.0 / sqp_cfg.rho_factor)
+    rho_ok = torch.clamp(rho * drho_ok, min=sqp_cfg.rho_min)
+    rho_reset = torch.full_like(rho, sqp_cfg.rho_reset)
+    return LineSearchStep(
+        success=success, alpha=alphas.gather(-1, best)[..., 0],
+        alpha_idx=torch.where(success, best[..., 0] - 1, -1).to(torch.int32),
+        merit_cur=merit_cur, min_merit=min_merit,
+        merit=torch.where(success, min_merit, merit_cur),
+        rho=torch.where(success, rho_ok, torch.where(gave_up, rho_reset, rho_fail)),
+        drho=torch.where(success, drho_ok, drho_fail),
+        stop=~success & gave_up)
 
 
 class SQPResult(NamedTuple):
@@ -93,11 +154,11 @@ def sqp_solve(
     exit once converted to iterations).  merit_impl, fused and fused_dz pick
     the route (module docstring).
     """
-    if linsys in _NOT_PORTED:
+    if linsys in _RENAMED:
         raise NotImplementedError(
-            f"linsys={linsys!r} is not ported yet: see ROADMAP.md "
-            f"{_NOT_PORTED[linsys]}")
-    if linsys not in ("pcg", "pcg_cuda"):
+            f"linsys={linsys!r} is the JAX package's name; the port's kernel "
+            f"route is linsys={_RENAMED[linsys]!r} (see ROADMAP.md)")
+    if linsys not in ("pcg", "pcg_cuda") and linsys not in _DIRECT:
         raise ValueError(f"unknown linsys {linsys!r}")
     if merit_impl == "auto":
         use_kernels = xu.device.type == "cuda" and cost.mode == "ee"
@@ -110,6 +171,9 @@ def sqp_solve(
     if fused and pcg_cfg.preconditioner != "stair":
         raise ValueError("the fused route (K1 -> K2) supports "
                          "preconditioner='stair' only")
+    if fused and linsys in _DIRECT:
+        raise ValueError(f"the fused route solves by PCG; linsys={linsys!r} "
+                         "runs unfused")
 
     dev, dtype = xu.device, xu.dtype
     nx = lam.shape[-1]
@@ -128,6 +192,9 @@ def sqp_solve(
     pcg_iters = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
     pcg_converged = torch.zeros((max_iter,), dtype=torch.bool, device=dev)
     ls_alpha_idx = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
+    # what a direct solve records as its iteration count and exit flag
+    one_iter = torch.ones((), dtype=torch.int32, device=dev)
+    converged = torch.ones((), dtype=torch.bool, device=dev)
 
     it = 0
     while it < iter_bound and (it == 0 or not bool(stop)):
@@ -149,9 +216,13 @@ def sqp_solve(
                            angle_wrap)
             schur = form_schur_system(kkt, rho,
                                       preconditioner=pcg_cfg.preconditioner)
-            solve = pcg_solve_cuda if linsys == "pcg_cuda" else pcg_solve
-            lam, lin_iters, lin_ok = solve(schur.S, schur.Pinv, schur.gamma,
-                                           lam, **pcg_kw)
+            if linsys in _DIRECT:
+                lam = _DIRECT[linsys](schur.S, schur.gamma)
+                lin_iters, lin_ok = one_iter, converged
+            else:
+                solve = pcg_solve_cuda if linsys == "pcg_cuda" else pcg_solve
+                lam, lin_iters, lin_ok = solve(schur.S, schur.Pinv, schur.gamma,
+                                               lam, **pcg_kw)
             dz = compute_dz(kkt, schur, lam)
         search = (line_search_merits_fused if use_kernels
                   else line_search_merits_plain)
@@ -160,43 +231,25 @@ def sqp_solve(
             num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
             angle_wrap=angle_wrap)
 
-        merit_cur = merits[0]
-        best = 1 + torch.argmin(merits[1:], keepdim=True)    # (1,)
-        # gather, not merits[best]: indexing with a tensor reads it back to
-        # the host and synchronizes the stream
-        min_merit = merits.gather(0, best)[0]
-        success = min_merit < merit_cur
-
-        # Levenberg-Marquardt rho schedule
-        drho_fail = torch.clamp(drho * sqp_cfg.rho_factor, min=sqp_cfg.rho_factor)
-        rho_fail = torch.clamp(rho * drho_fail, min=sqp_cfg.rho_min)
-        gave_up = rho_fail > sqp_cfg.rho_max
-        drho_ok = torch.clamp(drho / sqp_cfg.rho_factor, max=1.0 / sqp_cfg.rho_factor)
-        rho_ok = torch.clamp(rho * drho_ok, min=sqp_cfg.rho_min)
-
-        xu = torch.where(success, xu + alphas.gather(0, best)[0] * dz, xu)
-        rho_reset = _kernels.scalar(sqp_cfg.rho_reset, dev, dtype)
-        rho = torch.where(success, rho_ok,
-                          torch.where(gave_up, rho_reset, rho_fail))
-        drho = torch.where(success, drho_ok, drho_fail)
-        merit = torch.where(success, min_merit, merit_cur)
-        stop = ~success & gave_up
+        step = line_search_update(merits, alphas, rho, drho, sqp_cfg)
+        xu = torch.where(step.success, xu + step.alpha * dz, xu)
+        rho, drho, merit, stop = step.rho, step.drho, step.merit, step.stop
         gave_up_any = gave_up_any | stop
 
         # Eisenstat-Walker-style forcing: decay the linear-solve tolerance
         # with the merit-decrease ratio; a failed line search drops straight
         # to full accuracy
         if pcg_cfg.forcing == "ew":
-            ratio = torch.clamp(min_merit / torch.clamp(merit_cur, min=1e-30),
+            ratio = torch.clamp(step.min_merit / torch.clamp(step.merit_cur, min=1e-30),
                                 0.0, 1.0)
             factor = torch.clamp(torch.pow(ratio, pcg_cfg.ew_alpha),
                                  max=pcg_cfg.ew_decay)
             decayed = torch.maximum(exit_tol_target, lin_tol * factor)
-            lin_tol = torch.where(success, decayed, exit_tol_target)
+            lin_tol = torch.where(step.success, decayed, exit_tol_target)
 
         pcg_iters[it] = lin_iters
         pcg_converged[it] = lin_ok
-        ls_alpha_idx[it] = torch.where(success, best[0] - 1, -1).to(torch.int32)
+        ls_alpha_idx[it] = step.alpha_idx
         it += 1
 
     return SQPResult(

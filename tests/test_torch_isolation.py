@@ -33,6 +33,22 @@ stats = simulate_mpc(iiwa14(torch.float64, device="cpu"), load_xu_traj("0_0")[:2
                      sqp_cfg=SQPConfig(max_iter=1), pcg_cfg=PCGConfig(max_iter=20),
                      sim_cfg=SimConfig(max_control_updates=3))
 assert stats.summary()["control_updates"] == 3
+# the direct solvers (the host LDL^T among them) and the batched solve
+from mpcgpu_tpu_torch.config import CostConfig
+from mpcgpu_tpu_torch.parallel import make_batched_sqp_solver
+m = iiwa14(torch.float64, device="cpu")
+xu = torch.tensor(load_xu_traj("0_0")[:4])
+ee = torch.tensor(load_eepos_traj("0_0")[:4])
+for linsys in ("ldl", "pcr", "pcr_cuda", "qdldl_host"):
+    stats = simulate_mpc(m, load_xu_traj("0_0")[:20], load_eepos_traj("0_0")[:20],
+                         4, 1 / 64, sqp_cfg=SQPConfig(max_iter=1), linsys=linsys,
+                         sim_cfg=SimConfig(max_control_updates=1))
+    assert stats.summary()["control_updates"] == 1
+res = make_batched_sqp_solver(m, CostConfig.for_knots(4), SQPConfig(max_iter=1),
+                              PCGConfig(max_iter=5), 1 / 64, fused=True)(
+    xu[None], torch.zeros((1, 4, 14), dtype=torch.float64), xu[None, 0, :14],
+    ee[None], torch.full((1,), 1e-3, dtype=torch.float64))
+assert res.xu.shape == (1, 4, 21)
 ref = (Path.cwd() / "mpcgpu_tpu").resolve()
 bad = sorted(name for name, m in list(sys.modules.items())
              if name.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu")
@@ -65,6 +81,21 @@ def test_port_sources_open_nothing_of_the_jax_package():
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if pattern.search(line)]
     assert not hits, hits
+
+
+def test_host_build_reads_the_ports_own_sources():
+    """The host LDL^T libraries are built from the C++ sources under
+    mpcgpu_tpu_torch/native/ into mpcgpu_tpu_torch/_build/, and nothing is
+    written beside the sources."""
+    from mpcgpu_tpu_torch import native
+
+    port = ROOT / "mpcgpu_tpu_torch"
+    for src in native.SOURCES:
+        path = (native._DIR / src).resolve()
+        assert path.is_file() and port / "native" in path.parents, path
+    for lib in native.build().values():
+        assert port / "_build" in lib.resolve().parents, lib
+    assert not list((port / "native").glob("*.so"))
 
 
 def test_entry_points_default_to_the_card():

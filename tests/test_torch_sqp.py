@@ -105,11 +105,15 @@ def test_unported_and_invalid_paths_raise(problem):
     args = (iiwa14(torch.float64, device="cpu"), CostConfig(), SQPConfig(max_iter=1),
             PCGConfig(), torch.tensor(xu), torch.zeros((N, 14), dtype=torch.float64),
             torch.tensor(xs), torch.tensor(ee), RHO, DT)
-    for linsys in ("ldl", "pcr", "pcr_pallas", "qdldl_host", "pcg_pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # the JAX package's kernel routes are spelled with "cuda" in the port
+    for linsys, port_name in (("pcr_pallas", "pcr_cuda"), ("pcg_pallas", "pcg_cuda")):
+        with pytest.raises(NotImplementedError, match=port_name):
             sqp_solve(*args, linsys=linsys)
     with pytest.raises(ValueError, match="unknown linsys"):
         sqp_solve(*args, linsys="cholesky")
+    # the direct solvers run unfused
+    with pytest.raises(ValueError, match="unfused"):
+        sqp_solve(*args, linsys="ldl", fused=True)
     with pytest.raises(ValueError, match="merit_impl"):
         sqp_solve(*args, merit_impl="pallas")
     # the fused route (K1 -> K2) builds the stair preconditioner only; the
