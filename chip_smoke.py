@@ -21,6 +21,13 @@ Phases (any failure raises and the script exits non-zero):
      over instances (B = 256, N = 64) against the single-instance kernels
      bit for bit per instance, and B = 4 instances against the plain
      versions;
+  2c. hold the knot-sharded path's slab kernels (K9a KKT+Schur on the
+     halo-extended slabs, K9b dz, K9c merit partials, K10a the pipelined CG
+     step) against their plain versions on the card at N = 64 over 4 shards
+     and N = 512 over 8, K9a and K9b against K1 and K6 bit for bit on the
+     interior rows, and the sharded PCG through K10a against K2' on the
+     well-conditioned system (tightly) and on the real system over noise
+     seeds (by medians);
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -44,11 +51,17 @@ Phases (any failure raises and the script exits non-zero):
   4c. run the batched solve (B = 256, N = 64, 2 SQP iterations) through
      make_batched_sqp_solver, and hold eight instances to their single
      fused solves bit for bit;
+  4d. run the knot-sharded SQP solve (sqp_solve_sharded, fused: K9a ->
+     K10a -> K9b -> K9c) at N = 512 over 8 shards and N = 64 over 4 against
+     the single-device pcg_cuda solve and the f64 solve, and 48 knot-sharded
+     on-device control updates at both sizes; check launches, finiteness and
+     tracking;
   5. time the chain per step, the on-device loop per control update (the
-     main path and pcr_cuda), the batched solve per SQP iteration against
-     256 single solves (slopes over two lengths, CUDA events), and each
-     kernel (device time of a CUDA graph) against its plain version, its
-     bound and, for K7, the dense library solve;
+     main path, pcr_cuda and the knot-sharded loops), the batched solve per
+     SQP iteration against 256 single solves, the sharded solve per SQP
+     iteration against the single-device one (slopes over two lengths, CUDA
+     events), and each kernel (device time of a CUDA graph) against its
+     plain version, its bound and, for K7, the dense library solve;
   6. print one JSON line of kernel results, the card line, and the final
      {"ok": true, ...} line.
 
@@ -94,6 +107,16 @@ B_MAIN = 256             # instances of the batched solve
 B_PLAIN = 4              # instances held against the plain versions
 BATCH_PICKS = 8          # instances held against their single solves
 TRACKER_STEPS = 65       # trace rows of the direct-solver tracker's run
+# the knot-sharded path: (N, shards) at full width (L = 64) and beside the
+# single-device main path; the first is this slice's main path
+SHARD_CASES = ((512, 8), (64, 4))
+SHARD_UPDATES = 48       # knot-sharded on-device control updates per case
+SHARD_SLOPE = (16, 48)   # loop lengths for the sharded per-update slope
+# where the sharded solves and loops start (trace, row): on calm rows, as
+# phase 4b.  No 512-knot window of trace 0_0 is calm (rows 350.. leave 316
+# rows, and from row 0 every f32 step of either route is rejected, so the
+# loops would compare equal trivially); trace 3_4 is calm in rows 0-649
+SHARD_START = {512: ("3_4", 0), 64: ("0_0", CALM_ROW)}
 # plant windows (time offset, sim time) in s: tests/test_mpc.py's three and
 # one across the knot boundary at 1/64 s
 PLANT_WINDOWS = ((0.0, 5e-4), (2e-3, 2e-3), (1.3e-2, 1.3e-3), (1.5e-2, 2e-3))
@@ -137,6 +160,18 @@ KERNELS = {
         "mpcgpu_tpu_torch/csrc/merit.cu",
         "mpcgpu_tpu/solver/merit_pallas.py:277 line_search_merits_pallas "
         "(vmapped, batched_fused.py:499)"),
+    "K9a build_kkt_schur_slab": (
+        "mpcgpu_tpu_torch/csrc/kkt_schur.cu",
+        "mpcgpu_tpu/solver/kkt_pallas.py:888 build_kkt_schur_pallas_slab"),
+    "K9b compute_dz_slab": (
+        "mpcgpu_tpu_torch/csrc/pcg_dz.cu",
+        "mpcgpu_tpu/solver/kkt_pallas.py:1020 compute_dz_pallas_slab"),
+    "K9c line_search_merit_partials_slab": (
+        "mpcgpu_tpu_torch/csrc/merit.cu",
+        "mpcgpu_tpu/solver/merit_pallas.py:349 line_search_merit_partials_slab"),
+    "K10a pcg_slab_step_cuda": (
+        "mpcgpu_tpu_torch/csrc/pcg_slab.cu",
+        "mpcgpu_tpu/ops/pcg_pallas.py:252 pcg_slab_step_pallas"),
 }
 
 # The least time the card could take for each kernel's work: the larger of
@@ -240,6 +275,34 @@ def batched_bounds(N: int, B: int, k8b_steps: int, num_cand: int = 9) -> dict:
     }
 
 
+def shard_bounds(N: int, n_shard: int, num_cand: int = 9) -> dict:
+    """(bound_ms, bound_by) of one call of each slab kernel at N knots over
+    n_shard shards (L = N / n_shard): K9a is K1 on n_shard windows of L + 4
+    knots, K9b K6 on N knots with lam_{k+1} and the last flags as inputs,
+    K9c K3's per-knot work on n_shard slabs of L + 1 knots (per-knot terms
+    written, not sums), K10a one CG step: the two banded products, three
+    dots and four axpys per knot, S and Pinv read once, the six vectors read
+    and written once, and the packets."""
+    model = 1344
+    L = N // n_shard
+    ext, e1 = n_shard * (L + 4), n_shard * (L + 1)
+    k1_out = 2 * 3 * 196 + 14 + 196 + 196 + 98 + 14
+    dz_in = N * (196 + 196 + 98 + 14 + 7)
+    return {
+        "K9a build_kkt_schur_slab": bound(ext * (KKT_KNOT + SCHUR_KNOT),
+                                          ext * (21 + 3 + 2 + k1_out) + model + 1),
+        "K9b compute_dz_slab": bound(N * DZ_KNOT,
+                                     2 * N * 14 + N + dz_in + 1 + N * 21),
+        "K9c line_search_merit_partials_slab": bound(
+            num_cand * e1 * (ABA + FK + 150),
+            2 * e1 * 21 + 3 * e1 + model + 2 * num_cand * e1 + num_cand * n_shard),
+        "K10a pcg_slab_step_cuda": bound(
+            N * PCG_ITER_KNOT,
+            N * 2 * 3 * 196 + 12 * N * 14
+            + n_shard * (2 * 6 * 14 + 2 * 3 * 196 + 3 + 2 * 12 * 14 + 3 + 2 + 2)),
+    }
+
+
 def batch_problem(B: int, N: int, torch, device):
     """B instances: trace 0_0 plus numpy noise (sigma 0.01, seed 0), the
     same goal window, rho cycling through 1e-3 x (1, 2, 3, 4); f32 tensors on
@@ -268,16 +331,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def problem(N: int, torch, device, seed: int = 0, start: int = 0):
-    """Trace 0_0 from row ``start`` plus numpy noise (sigma 0.01; seed 0 as
-    bench.py sets up its chain); f32 tensors on the card."""
+def problem(N: int, torch, device, seed: int = 0, start: int = 0,
+            trace: str = "0_0"):
+    """A trace (0_0 by default) from row ``start`` plus numpy noise (sigma
+    0.01; seed 0 as bench.py sets up its chain); f32 tensors on the card."""
     import numpy as np
 
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
-    xu = load_xu_traj("0_0")[start:start + N]
+    xu = load_xu_traj(trace)[start:start + N]
     xu = xu + 0.01 * np.random.default_rng(seed).standard_normal(xu.shape)
-    ee_full = load_eepos_traj("0_0")[start:]
+    ee_full = load_eepos_traj(trace)[start:]
     f = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
                                device=device)
     return f(xu), f(xu[0, :14]), f(ee_full[:N]), f(ee_full)
@@ -440,16 +504,26 @@ def main() -> int:
         line_search_merits_batched_plain, pcg_solve_batched,
         pcg_solve_batched_plain, sqp_solve_batched_fused)
     from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
+                                               compute_dz_slab,
+                                               compute_dz_slab_plain,
                                                pcg_dz_solve, pcg_dz_solve_plain,
                                                pcg_solve_cuda)
+    from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step, slab_state
+    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
+    from mpcgpu_tpu_torch.parallel import KnotMesh, sqp_solve_sharded
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import _pcg_local_pipelined_slab
     from mpcgpu_tpu_torch.sim.mpc import (run_chain, simulate_mpc,
                                           simulate_mpc_ondevice)
     from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant, simulate_plant_plain
     from mpcgpu_tpu_torch.solver.kkt import build_kkt
     from mpcgpu_tpu_torch.solver.sqp import sqp_solve
     from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
-                                                  build_kkt_schur_plain)
-    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_fused,
+                                                  build_kkt_schur_plain,
+                                                  build_kkt_schur_slab,
+                                                  build_kkt_schur_slab_plain)
+    from mpcgpu_tpu_torch.solver.merit import merit_partials
+    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
+                                                    line_search_merits_fused,
                                                     line_search_merits_plain)
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
@@ -460,7 +534,10 @@ def main() -> int:
                                   compute_dz_cuda, pcr_solve_cuda,
                                   build_kkt_schur_batched, pcg_solve_batched,
                                   compute_dz_batched,
-                                  line_search_merits_batched)))
+                                  line_search_merits_batched,
+                                  build_kkt_schur_slab, compute_dz_slab,
+                                  line_search_merit_partials_slab,
+                                  pcg_slab_step_cuda)))
 
     def counted(fn, *args, **kw):
         """fn(*args, **kw) with every launch count set to 0 just before it;
@@ -470,6 +547,11 @@ def main() -> int:
         out = fn(*args, **kw)
         torch.cuda.synchronize()
         return out, {name: w.launches for name, w in wrappers.items()}
+
+    t_start = time.perf_counter()
+
+    def phase(msg: str):
+        print(f"{msg}  [{time.perf_counter() - t_start:.1f} s]", flush=True)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -481,7 +563,7 @@ def main() -> int:
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
     _kernels.libraries()
-    print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
+    phase(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     for src, log in _kernels.build_log.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -498,7 +580,7 @@ def main() -> int:
             failures.append(msg)
 
     # ---- phase 2: kernels against their plain versions --------------------
-    print("phase 2: kernels vs plain versions on the card")
+    phase("phase 2: kernels vs plain versions on the card")
     for N in (N_MAIN, N_BIG):
         cost = CostConfig.for_knots(N)
         xu, xs, ee, _ = problem(N, torch, dev)
@@ -700,7 +782,7 @@ def main() -> int:
         raise SmokeFailure(f"phase 2: {len(failures)} check(s) failed")
 
     # ---- phase 2b: K7 and the instance-grid kernels ----------------------
-    print("phase 2b: K7 (PCR) and K8a-c, K3b (instance grid) vs plain versions")
+    phase("phase 2b: K7 (PCR) and K8a-c, K3b (instance grid) vs plain versions")
     # K7 on the well-conditioned system, down to N = 2 and 3, where the
     # levels without pivoting reach the whole system: within 1e-5 max|x| of
     # the plain version on the card and of the f64 solve
@@ -849,8 +931,160 @@ def main() -> int:
     if failures:
         raise SmokeFailure(f"phase 2b: {len(failures)} check(s) failed")
 
+    # ---- phase 2c: the knot-sharded path's slab kernels --------------------
+    phase("phase 2c: K9a-c, K10a (knot shards) vs plain versions on the card")
+
+    def windows(N: int, S: int, lo: int, hi: int):
+        """(S, L - lo + hi) knot indices of each shard's window: its L knots
+        from row lo to row L - 1 + hi, wrapped around the ring."""
+        L = N // S
+        return torch.tensor((np.arange(S)[:, None] * L + np.arange(lo, L + hi)) % N,
+                            device=dev)
+
+    def slab_pcg(mesh, SS, PP, gg, step, max_iter, exit_tol, exit_criterion="eta"):
+        """The sharded pipelined slab PCG from lam = 0 with the given step
+        (K10a's wrapper or its plain version): (lam, iters, converged)."""
+        N, S = gg.shape[0], mesh.size
+        sc = lambda t: t.reshape(S, N // S, *t.shape[1:])
+        lam, it, done = _pcg_local_pipelined_slab(
+            sc(SS), sc(PP), sc(gg), sc(torch.zeros_like(gg)), max_iter,
+            _kernels.scalar(exit_tol, dev), mesh, exit_criterion, step=step)
+        return lam.reshape(N, -1), int(it[0]), bool(done[0])
+
+    slab_ref = {}     # per case: the inputs phase 5 times the kernels on
+    for N, S in SHARD_CASES:
+        L = N // S
+        main_case = (N, S) == SHARD_CASES[0]
+        cost = CostConfig.for_knots(N)
+        xu, xs, ee, _ = problem(N, torch, dev)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        w = windows(N, S, -2, 2)
+        first, last = (w == 0).float(), (w == N - 1).float()
+        xe, ee_x = xu[w].contiguous(), ee[w].contiguous()
+        # K9a against its plain version per output, and its interior rows
+        # against K1 bit for bit (the same device code on the same rows);
+        # the second case takes the semi-implicit integrator and the
+        # reference's x_{N-2} terminal cost (the runtime last flag)
+        for integ, c9 in ((0, cost), (1, dataclasses.replace(
+                cost, terminal_at_last_state=False))):
+            got = build_kkt_schur_slab(model, c9, xe, ee_x, first, last, rho, DT, integ)
+            ref = build_kkt_schur_slab_plain(model, c9, xe, ee_x, first, last, rho,
+                                             DT, integ)
+            k1 = build_kkt_schur(model, c9, xu, xs, ee, rho, DT, integ)
+            torch.cuda.synchronize()
+            worst, same = 0.0, True
+            for key in got:
+                d, r = rel_err(got[key], ref[key])
+                worst = max(worst, r)
+                if main_case:
+                    errs["K9a build_kkt_schur_slab"] = max(
+                        errs["K9a build_kkt_schur_slab"], d)
+                same = same and torch.equal(
+                    got[key][:, 2:2 + L].reshape(k1[key].shape), k1[key])
+            expect(worst <= 5e-5 and same,
+                   f"K9a N={N} over {S} shards, integrator={integ}, terminal at "
+                   f"x_N-1 {c9.terminal_at_last_state}: vs plain per output, worst "
+                   f"{worst:.3e} max|ref| (<= 5e-5); interior rows == K1 bit for "
+                   f"bit {same}")
+        k1 = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+        sl = {k: v[:, 2:2 + L] for k, v in build_kkt_schur_slab(
+            model, cost, xe, ee_x, first, last, rho, DT).items()}
+        # K9b on K9a's interior blocks and a 20-step PCG lam: against its
+        # plain version, and K6 on K1's blocks bit for bit
+        lam = pcg_solve_cuda(k1["S"], k1["Pinv"], k1["gamma"],
+                             torch.zeros_like(k1["gamma"]), max_iter=20,
+                             exit_tol=0.0).lam
+        lam_s = lam.reshape(S, L, 14)
+        lam_n = torch.roll(lam, -1, 0).reshape(S, L, 14)
+        last_s = (torch.arange(N, device=dev) == N - 1).float().reshape(S, L)
+        u_s = xu.reshape(S, L, 21)[..., 14:]
+        d9 = compute_dz_slab(sl, lam_s, lam_n, last_s, u_s, rho, cost.r_cost)
+        p9 = compute_dz_slab_plain(sl, lam_s, lam_n, last_s, u_s, rho, cost.r_cost)
+        d6 = compute_dz_cuda(k1, lam, xu[:, 14:], rho, cost.r_cost)
+        torch.cuda.synchronize()
+        d, r = rel_err(d9, p9)
+        if main_case:
+            errs["K9b compute_dz_slab"] = d
+        same = torch.equal(d9.reshape(N, 21), d6)
+        expect(r <= 1e-5 and same, f"K9b N={N} over {S} shards: vs plain "
+               f"{r:.3e} max|ref| (<= 1e-5); == K6 bit for bit {same}")
+        # K9c on each shard's L knots and the next shard's first: per-knot
+        # terms against its plain version, and, corrected at the global ends
+        # and summed, against K3's merits (both 1e-4 relative, K3's bound)
+        w1 = windows(N, S, 0, 1)
+        x1, z1, e1 = xu[w1].contiguous(), d6[w1].contiguous(), ee[w1].contiguous()
+        kc, kd, ka = line_search_merit_partials_slab(model, cost, x1, z1, e1, DT)
+        pc, pd, pa = merit_partials(model, cost, x1, z1, e1, DT)
+        m3 = line_search_merits_fused(model, cost, xu, d6, xs, ee, mu, DT)[0]
+        torch.cuda.synchronize()
+        (dc, rc), rd = rel_err(kc, pc), rel_err(kd, pd)[1]
+        if main_case:
+            errs["K9c line_search_merit_partials_slab"] = dc
+        kc, kd = kc[..., :L], kd[..., :L]
+        u_last = xu[-1, 14:] + ka[:, None] * d6[-1, 14:]
+        x0 = (xu[0, :14] + ka[:, None] * d6[0, :14] - xs).abs().sum(-1)
+        m9 = (kc.sum((0, 2)) - 0.5 * cost.r_cost * (u_last * u_last).sum(-1)) \
+            + mu * ((kd.sum((0, 2)) - kd[-1, :, -1]) + x0)
+        r3 = float(((m9.double() - m3.double()).abs() / m3.double().abs()).max())
+        expect(rc <= 1e-4 and rd <= 1e-4 and torch.equal(ka, pa) and r3 <= 1e-4,
+               f"K9c N={N} over {S} shards: per-knot cost {rc:.3e}, defect "
+               f"{rd:.3e} max|ref| vs plain (<= 1e-4), alphas equal "
+               f"{torch.equal(ka, pa)}; assembled merits vs K3 {r3:.3e} (<= 1e-4)")
+        slab_ref[N] = dict(xe=xe, ee=ee_x, first=first, last=last, sl=sl,
+                           lam_s=lam_s, lam_n=lam_n, last_s=last_s, u_s=u_s,
+                           x1=x1, z1=z1, e1=e1, cost=cost, rho=rho, k1=k1)
+
+        # K10a: the sharded PCG loop with K10a against the same loop with
+        # its plain step, and against K2', on the well-conditioned system
+        # (f32 rounding ~1e-7 there): lam within 2e-6, the same iterations
+        mesh = KnotMesh(S)
+        syn = synthetic_btd(N, torch, dev)
+        for crit, tol, cap in (("eta", 0.0, 20), ("eta", 1e-9, 167),
+                               ("rnorm", 1e-5, 167)):
+            a = slab_pcg(mesh, *syn, pcg_slab_step_cuda, cap, tol, crit)
+            b = slab_pcg(mesh, *syn, pcg_slab_step, cap, tol, crit)
+            k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
+                                 exit_tol=tol, exit_criterion=crit)
+            torch.cuda.synchronize()
+            (dp, ep), e2 = rel_err(a[0], b[0]), rel_err(a[0], k2p.lam)[1]
+            if main_case and tol == 0.0:
+                errs["K10a pcg_slab_step_cuda"] = dp
+            ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1] == int(k2p.iters)
+            ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
+            expect(ok, f"K10a N={N} over {S} shards, well-conditioned {crit} "
+                   f"exit_tol={tol:g} cap={cap}: sharded PCG vs its plain step "
+                   f"{ep:.3e}, vs K2' {e2:.3e} (<= 2e-6); iterations K10a {a[1]}, "
+                   f"plain {b[1]}, K2' {int(k2p.iters)} (equal); converged {a[2]}")
+        # on the real system f32 rounding decides the last digits (phase 2):
+        # 20 fixed steps over REAL_SEEDS noise seeds, each held to an f64
+        # run; the median distance of the K10a solve within 2x that of the
+        # same loop with the plain step (K2', classic CG, rounds otherwise:
+        # printed beside them)
+        dist = {"K10a": [], "plain step": [], "K2'": []}
+        for seed in range(REAL_SEEDS):
+            xu_s, xs_s, ee_s, _ = problem(N, torch, dev, seed)
+            sy = build_kkt_schur(model, cost, xu_s, xs_s, ee_s, rho, DT, 0)
+            SS, PP, gg = sy["S"], sy["Pinv"], sy["gamma"]
+            f64 = pcg_solve(SS.double(), PP.double(), gg.double(),
+                            torch.zeros_like(gg.double()), max_iter=20,
+                            exit_tol=0.0).lam
+            for name, lam_ in (
+                    ("K10a", slab_pcg(mesh, SS, PP, gg, pcg_slab_step_cuda, 20, 0.0)[0]),
+                    ("plain step", slab_pcg(mesh, SS, PP, gg, pcg_slab_step, 20, 0.0)[0]),
+                    ("K2'", pcg_solve_cuda(SS, PP, gg, torch.zeros_like(gg),
+                                           max_iter=20, exit_tol=0.0).lam)):
+                dist[name].append(rel_err(lam_, f64)[1])
+        med = {k: statistics.median(v) for k, v in dist.items()}
+        expect(med["K10a"] <= 2 * med["plain step"],
+               f"K10a N={N} over {S} shards, real system, 20 fixed steps, "
+               f"{REAL_SEEDS} seeds: median distance to f64 "
+               + ", ".join(f"{k} {v:.3e}" for k, v in med.items())
+               + " (K10a <= 2x the plain step)")
+    if failures:
+        raise SmokeFailure(f"phase 2c: {len(failures)} check(s) failed")
+
     # ---- phase 3: the main path -------------------------------------------
-    print(f"phase 3: the chain, {CHAIN_STEPS} warm-started steps, N={N_MAIN}")
+    phase(f"phase 3: the chain, {CHAIN_STEPS} warm-started steps, N={N_MAIN}")
     N = N_MAIN
     cost = CostConfig.for_knots(N)
     sqp_cfg = SQPConfig(max_iter=1)
@@ -941,7 +1175,7 @@ def main() -> int:
         raise SmokeFailure(f"phase 3: {len(failures)} check(s) failed")
 
     # ---- phase 4: the closed loop --------------------------------------------
-    print(f"phase 4: closed loop, N={N_MAIN}, trace 0_0[:{LOOP_ROWS}], "
+    phase(f"phase 4: closed loop, N={N_MAIN}, trace 0_0[:{LOOP_ROWS}], "
           f"{LOOP_UPDATES} control updates")
     xu_traj = load_xu_traj("0_0")[:LOOP_ROWS]
     ee_traj = load_eepos_traj("0_0")[:LOOP_ROWS]
@@ -1139,7 +1373,7 @@ def main() -> int:
     # ROUTE_UPDATES updates through each direct linsys next to pcg_cuda, on
     # the calm rows of the trace (from row 0 the line search rejects every
     # f32 PCR step and the PCR loops keep the warm-start plan)
-    print(f"phase 4b: direct solvers, host loop, N={N_MAIN}, {ROUTE_UPDATES} "
+    phase(f"phase 4b: direct solvers, host loop, N={N_MAIN}, {ROUTE_UPDATES} "
           f"updates from row {CALM_ROW}")
     xu_calm = load_xu_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
     ee_calm = load_eepos_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
@@ -1224,7 +1458,7 @@ def main() -> int:
     launches["K7 pcr_solve_cuda"] = direct_runs["pcr_cuda"][1]["K7 pcr_solve_cuda"]
 
     # ---- phase 4c: the batched solve --------------------------------------
-    print(f"phase 4c: batched SQP solve, B={B_MAIN}, N={N_MAIN}, 2 SQP iterations")
+    phase(f"phase 4c: batched SQP solve, B={B_MAIN}, N={N_MAIN}, 2 SQP iterations")
     sqp_b = SQPConfig(max_iter=2)
     batched = make_batched_sqp_solver(model, cost, sqp_b, pcg_cfg, DT)
     res_b, n_b = counted(batched, xu_b, lam0_b, xs_b, ee_b, rho_b)
@@ -1254,8 +1488,110 @@ def main() -> int:
     if failures:
         raise SmokeFailure(f"phase 4b/4c: {len(failures)} check(s) failed")
 
+    # ---- phase 4d: the knot-sharded SQP and closed loop ---------------------
+    phase(f"phase 4d: knot-sharded SQP and closed loop, N={SHARD_CASES[0][0]} "
+          f"over {SHARD_CASES[0][1]} shards and N={SHARD_CASES[1][0]} over "
+          f"{SHARD_CASES[1][1]}, from {SHARD_START}")
+    k9_k10 = [k for k in KERNELS if k.startswith(("K9", "K10"))]
+    shard_summary = {}
+    for N, S in SHARD_CASES:
+        trace, start = SHARD_START[N]
+        cost = CostConfig.for_knots(N)
+        sh_kw = dict(sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
+                     pcg_cfg=PCGConfig(max_iter=PCGConfig.tuned_max_iter(N),
+                                       exit_tol=1e-5))
+        cap = sh_kw["pcg_cfg"].max_iter
+        xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
+        lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+        args = (cost, sh_kw["sqp_cfg"], sh_kw["pcg_cfg"])
+        # one solve of 2 SQP iterations: fused="auto" takes the slab kernels,
+        # pcg_method="pipelined" K10a
+        sh, n_sh = counted(sqp_solve_sharded, model, *args, xu, lam0, xs, ee, RHO0,
+                           DT, KnotMesh(S), pcg_method="pipelined")
+        it_sh = int(sh.sqp_iters)
+        one = sqp_solve(model, *args, xu, lam0, xs, ee, RHO0, DT, linsys="pcg_cuda")
+        plain = sqp_solve(model, *args, xu, lam0, xs, ee, RHO0, DT, linsys="pcg",
+                          merit_impl="plain")
+        sh_plain = sqp_solve_sharded(model, *args, xu, lam0, xs, ee, RHO0, DT,
+                                     KnotMesh(S), fused=False, pcg_method="pipelined")
+        f64 = sqp_solve(m64, *args, xu.double(), lam0.double(), xs.double(),
+                        ee.double(), RHO0, DT, linsys="pcg", merit_impl="plain")
+        torch.cuda.synchronize()
+        want = {k: it_sh for k in k9_k10}
+        want["K10a pcg_slab_step_cuda"] = it_sh * (cap + 1)
+        ok = all(n_sh[k] == want.get(k, 0) for k in KERNELS)
+        ok = ok and all(bool(torch.isfinite(t).all()) for t in
+                        (sh.xu, sh.lam, sh.rho, sh.merit))
+        # the comparison below means something only if the line search takes
+        # a step (from rows that run away no f32 step is taken)
+        ok = ok and bool((sh.ls_alpha_idx >= 0).any())
+        expect(ok, f"sharded SQP N={N} over {S} shards from {trace} row {start}: launches "
+               f"{n_sh} (K9a-c once per SQP iteration, {it_sh}; K10a (cap + 1) "
+               f"times per iteration; nothing else); finite; line search took "
+               f"{sh.ls_alpha_idx.tolist()} (a step)")
+        # the f32 solves of this system differ by rounding (phase 3), and the
+        # pipelined CG rounds otherwise than the classic one (phase 2c): the
+        # sharded kernels' distance to the f64 solve per part is held within
+        # 2x the largest of the single-device kernels', the plain f32 solve's
+        # and the plain sharded (pipelined) solve's, plus 1e-4 for the exit
+        # point of a PCG stopped at 1e-5
+        es, eo = part_errs(sh.xu, f64.xu), part_errs(one.xu, f64.xu)
+        ep, eq = part_errs(plain.xu, f64.xu), part_errs(sh_plain.xu, f64.xu)
+        for key in ("x", "u"):
+            expect(es[key] <= 2 * max(eo[key], ep[key], eq[key]) + 1e-4,
+                   f"sharded SQP N={N} over {S} shards, {key} part: to f64 sharded "
+                   f"{es[key]:.3e}, pcg_cuda {eo[key]:.3e}, plain {ep[key]:.3e}, "
+                   f"plain sharded {eq[key]:.3e} max|{key}| (<= 2x max + 1e-4); "
+                   f"PCG iterations sharded "
+                   f"{sh.pcg_iters.tolist()}, pcg_cuda {one.pcg_iters.tolist()}, "
+                   f"f64 {f64.pcg_iters.tolist()}; line search {sh.ls_alpha_idx.tolist()}, "
+                   f"{one.ls_alpha_idx.tolist()}, {f64.ls_alpha_idx.tolist()}")
+
+        # SHARD_UPDATES on-device control updates, knot-sharded, beside the
+        # single-device main path's loop on the same rows
+        xu_tr = load_xu_traj(trace)[start:start + N + LOOP_ROWS]
+        ee_tr = load_eepos_traj(trace)[start:start + N + LOOP_ROWS]
+
+        def sh_loop(updates, knot_mesh=None):
+            return simulate_mpc_ondevice(
+                model, xu_tr, ee_tr, N, DT,
+                sim_cfg=SimConfig(max_control_updates=updates),
+                knot_mesh=knot_mesh, **sh_kw)
+
+        run, n_run = counted(sh_loop, SHARD_UPDATES, knot_mesh=KnotMesh(S))
+        it_run = int(run["sqp_iters"].sum())
+        want = {k: it_run for k in k9_k10}
+        want["K10a pcg_slab_step_cuda"] = it_run * (cap + 1)
+        want["K4 simulate_plant"] = SHARD_UPDATES
+        err_sh = run["tracking_errors"].double().cpu().numpy()
+        ok = all(n_run[k] == want.get(k, 0) for k in KERNELS)
+        ok = ok and run["control_updates"] == SHARD_UPDATES
+        ok = ok and len(err_sh) == ROUTE_SHIFTS and finite(err_sh, run["xs_path"])
+        single = sh_loop(SHARD_UPDATES)
+        err_1 = single["tracking_errors"].double().cpu().numpy()
+        m_sh, m_1 = float(err_sh.mean()), float(err_1.mean())
+        # calm rows: f32 loops track alike (phase 4b's exact solvers lie
+        # within 0.24% of each other there), so within 1% of the
+        # single-device main path's loop
+        ok = ok and abs(m_sh / m_1 - 1) <= 1e-2
+        expect(ok, f"sharded loop N={N} over {S} shards from {trace} row {start}, "
+               f"{SHARD_UPDATES} updates: launches {n_run} (K9a-c once per SQP "
+               f"iteration, {it_run}; K10a (cap + 1) times; K4 once per update); "
+               f"mean tracking error over {len(err_sh)} shifts {m_sh:.6g} (within "
+               f"1% of the single-device loop's {m_1:.6g}); finite")
+        shard_summary[f"N={N} shards={S}"] = dict(
+            trace=trace, start_row=start, solve_pcg_iters=sh.pcg_iters.tolist(),
+            solve_ls_alpha_idx=sh.ls_alpha_idx.tolist(),
+            loop_mean_tracking_error=m_sh, single_loop_mean_tracking_error=m_1,
+            loop_sqp_iters=it_run)
+        if (N, S) == SHARD_CASES[0]:
+            for k in k9_k10:
+                launches[k] = n_run[k]
+    if failures:
+        raise SmokeFailure(f"phase 4d: {len(failures)} check(s) failed")
+
     # ---- phase 5: timing ----------------------------------------------------
-    print(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
+    phase(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
     lo, hi = SLOPE_STEPS
     slopes, t_lo_all = [], []
     chain("pcg_cuda", lo)
@@ -1459,6 +1795,97 @@ def main() -> int:
           f"one-iteration solves {single_us:.1f} us; ratio "
           f"{batch_iter_us / single_us:.4f}")
 
+    # the slab kernels at both shard cases on phase 2c's inputs; K10a is
+    # timed in its init mode (alpha = beta = 0, the whole step's work, no
+    # exit test), whose state a graph of repeated calls keeps finite; the
+    # plain versions one call at a time
+    shard_rows = {}
+    for N, S in SHARD_CASES:
+        r_ = slab_ref[N]
+        cost, rho, L = r_["cost"], r_["rho"], N // S
+        sc = lambda t: t.reshape(S, L, *t.shape[1:])
+        k1 = r_["k1"]
+        mesh = KnotMesh(S)
+        PL = mesh.send_right(sc(k1["Pinv"])[:, -1])
+        PR = mesh.send_left(sc(k1["Pinv"])[:, 0])
+        st = slab_state(torch.zeros_like(sc(k1["gamma"])), sc(k1["gamma"]))
+        pk = torch.zeros((S, 6, 14), device=dev)
+        tol0 = _kernels.scalar(0.0, dev)
+        st_plain = {k: v.clone() for k, v in st.items()}
+        k10 = lambda step, state: step(state, sc(k1["S"]), sc(k1["Pinv"]), pk, pk,
+                                       PL, PR, state["dots"], 1, tol0, "eta", True)
+        sb = shard_bounds(N, S)
+        pairs_s = {
+            "K9a build_kkt_schur_slab": (
+                lambda: build_kkt_schur_slab(model, cost, r_["xe"], r_["ee"],
+                                             r_["first"], r_["last"], rho, DT),
+                lambda: build_kkt_schur_slab_plain(model, cost, r_["xe"], r_["ee"],
+                                                   r_["first"], r_["last"], rho, DT)),
+            "K9b compute_dz_slab": (
+                lambda: compute_dz_slab(r_["sl"], r_["lam_s"], r_["lam_n"],
+                                        r_["last_s"], r_["u_s"], rho, cost.r_cost),
+                lambda: compute_dz_slab_plain(r_["sl"], r_["lam_s"], r_["lam_n"],
+                                              r_["last_s"], r_["u_s"], rho,
+                                              cost.r_cost)),
+            "K9c line_search_merit_partials_slab": (
+                lambda: line_search_merit_partials_slab(model, cost, r_["x1"],
+                                                        r_["z1"], r_["e1"], DT),
+                lambda: merit_partials(model, cost, r_["x1"], r_["z1"], r_["e1"], DT)),
+            "K10a pcg_slab_step_cuda": (lambda: k10(pcg_slab_step_cuda, st),
+                                        lambda: k10(pcg_slab_step, st_plain)),
+        }
+        for name, (kern, plain_fn) in pairs_s.items():
+            p1 = time_ms(torch, plain_fn, 3)
+            ms = statistics.median([graph_ms(torch, kern), graph_ms(torch, kern)])
+            p2 = time_ms(torch, plain_fn, 3)
+            bound_ms, bound_by = sb[name]
+            shard_rows.setdefault(name, {})[N] = dict(
+                ms=ms, plain_ms=statistics.median([p1, p2]), bound_ms=bound_ms,
+                bound_by=bound_by)
+            print(f"  {name} N={N} over {S} shards: kernel {ms * 1e3:.1f} us "
+                  f"(device), plain {statistics.median([p1, p2]) * 1e3:.1f} us, "
+                  f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    for name, per_n in shard_rows.items():
+        main = per_n[SHARD_CASES[0][0]]
+        rows.append(dict(name=name, route="cuda", source=KERNELS[name][0],
+                         replaces=KERNELS[name][1], launches=launches[name],
+                         max_abs_err=errs[name], ms=main["ms"],
+                         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                         bound_by=main["bound_by"], library_ms=None,
+                         n64=per_n[SHARD_CASES[1][0]]))
+
+    # the knot-sharded solve per SQP iteration (slope between 1 and 3
+    # iterations) against the single-device pcg_cuda solve, and the
+    # knot-sharded on-device loop per control update (slope over two loop
+    # lengths), at both cases from phase 4d's start rows
+    for N, S in SHARD_CASES:
+        trace, start = SHARD_START[N]
+        cost = CostConfig.for_knots(N)
+        pcfg = PCGConfig(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5)
+        xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
+        lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+        sharded_it, sh_runs = slope_us(torch, lambda k: sqp_solve_sharded(
+            model, cost, SQPConfig(max_iter=k), pcfg, xu, lam0, xs, ee, RHO0, DT,
+            KnotMesh(S), pcg_method="pipelined"), 1, 3)
+        single_it, one_runs = slope_us(torch, lambda k: sqp_solve(
+            model, cost, SQPConfig(max_iter=k), pcfg, xu, lam0, xs, ee, RHO0, DT,
+            linsys="pcg_cuda"), 1, 3)
+        upd_us, upd_runs = slope_us(torch, lambda k: simulate_mpc_ondevice(
+            model, load_xu_traj(trace)[start:start + N + LOOP_ROWS],
+            load_eepos_traj(trace)[start:start + N + LOOP_ROWS], N, DT,
+            sim_cfg=SimConfig(max_control_updates=k), knot_mesh=KnotMesh(S),
+            sqp_cfg=SQPConfig(max_iter=2, max_time_us=None), pcg_cfg=pcfg),
+            *SHARD_SLOPE)
+        key = f"N={N} shards={S}"
+        shard_summary[key].update(sqp_iter_us=sharded_it, single_sqp_iter_us=single_it,
+                                  update_us=upd_us)
+        print(f"  sharded N={N} over {S} shards: {sharded_it:.1f} us per SQP "
+              f"iteration (runs {', '.join(f'{v:.1f}' for v in sh_runs)}) against "
+              f"pcg_cuda {single_it:.1f} us (runs "
+              f"{', '.join(f'{v:.1f}' for v in one_runs)}); on-device loop "
+              f"{upd_us:.1f} us per control update (runs "
+              f"{', '.join(f'{v:.1f}' for v in upd_runs)})")
+
     # ---- phase 6: results -----------------------------------------------
     print(json.dumps({"kernels": rows, "chain_step_us": step_us,
                       "mean_pcg_iters": it_k, "plain_mean_pcg_iters": it_p,
@@ -1471,7 +1898,9 @@ def main() -> int:
                       "batched_iter_us": batch_iter_us,
                       "batched_instance_iters_per_s": batch_solves,
                       "batched_singles_us": single_us,
+                      "sharded": shard_summary,
                       "card": card}))
+    phase("chip_smoke: done")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,8 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
-SOURCES = ("kkt_schur.cu", "pcg_dz.cu", "merit.cu", "plant.cu", "pcr.cu")
+SOURCES = ("kkt_schur.cu", "pcg_dz.cu", "merit.cu", "plant.cu", "pcr.cu",
+           "pcg_slab.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,22 +41,31 @@ _SIGNATURES = {
                              I, I, I, I, I, P, P, P, P, P, P, P, P, P],
         "kkt_launch": [P, I, P, I, P, F, P, F, F, I, I, I, I,
                        P, P, P, P, P, P],
+        "kkt_schur_slab_launch": [P, P, I, P, P, F, P, F, F, F, I, I, I, I,
+                                  P, P, P, P, P, P, P, P, P],
     },
     "pcg_dz.cu": {
         "pcg_dz_launch": [P, P, P, P, P, P, P, P, P, I, P, F,
                           I, P, I, I, P, P, P, P, P],
         "pcg_launch": [P, P, P, P, I, P, I, I, I, P, P, P, P],
         "dz_launch": [P, P, P, P, P, P, I, I, P, F, I, I, P, P],
+        "dz_slab_launch": [P, P, P, P, P, P, P, I, P, I, I, P, F, I, I, P, P],
     },
     "merit.cu": {
         "merit_launch": [P, P, P, P, I, I, P, F, F, F, F, F,
                          I, I, I, I, I, I, P, P, P],
+        "merit_partials_launch": [P, P, P, I, I, P, F, F, F, F, I, I, I, I, I,
+                                  P, P, P],
     },
     "plant.cu": {
         "plant_launch": [P, P, I, I, P, P, P, F, I, P, F, P, P],
     },
     "pcr.cu": {
         "pcr_launch": [P, P, I, I, I, P, P, P],
+    },
+    "pcg_slab.cu": {
+        "pcg_slab_launch": [P, P, P, P, P, P, P, P, I, P, P, P, P, P, I, P, P,
+                            P, P, I, I, I, I, P, I, I, P],
     },
 }
 
@@ -162,9 +172,12 @@ def on_cpu(t) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def require(t, name: str, shape: tuple, device, row_major: bool = False):
+def require(t, name: str, shape: tuple, device, row_major: bool = False,
+            slabs: bool = False):
     """Raise unless t is an f32 CUDA tensor on `device` of `shape` that the
-    kernel can read: contiguous, or (row_major) rows of unit stride."""
+    kernel can read: contiguous, or (row_major) rows of unit stride, or
+    (slabs) each index of the leading axis a contiguous block, the blocks
+    t.stride(0) floats apart."""
     import torch
 
     if t.device != device:
@@ -176,6 +189,9 @@ def require(t, name: str, shape: tuple, device, row_major: bool = False):
     if row_major:
         if t.dim() != 2 or t.stride(1) != 1:
             raise ValueError(f"{name}: rows must have unit stride")
+    elif slabs:
+        if not t[0].is_contiguous():
+            raise ValueError(f"{name}: each slab must be contiguous")
     elif not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 

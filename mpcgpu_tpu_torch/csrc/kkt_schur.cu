@@ -41,6 +41,17 @@
 // the goal, reads its own rho and writes its own (N, ...) slab of every
 // output, so each instance's result is K1's bit for bit.  B instances give
 // B x N blocks per launch, which fill the card where K1's N blocks do not.
+//
+// K9a replaces mpcgpu_tpu/solver/kkt_pallas.py::build_kkt_schur_pallas_slab
+// (_make_kkt_schur_kernel with boundary_masks=True), the shard-local kernel
+// of the knot-sharded SQP.  It is K1's three launches over a (knot, shard)
+// grid, each shard a window of Lext = L + 4 knots of the horizon (its own L
+// and two halo knots per side: the stair band at a slab's first knot needs
+// D of the knot before it, which needs T two knots back).  Where K1 tests
+// k == 0 and k == N - 1, K9a also reads two runtime flags per knot, the
+// GLOBAL first and last knot, so a knot at either end of the window or at
+// an end of the horizon takes the same branch; the caller keeps the L
+// interior knots, which are then K1's rows bit for bit.  Bound as K1.
 #include "common.cuh"
 
 using namespace mpc;
@@ -49,6 +60,17 @@ namespace {
 
 constexpr int NN = NX * NX;                  // 196
 constexpr int SCR = 2 * NN + 3 * NX;         // T, AQ, xnext, aqq, brr
+
+// Knot k at the start / end of the horizon.  Without flags (K1, K5, K8a)
+// the launch's N knots are the horizon; with them (K9a) bm points at the
+// window's global-first flags bm[0..N) and global-last flags bm[N..2N), and
+// the window's own ends count as ends too (no neighbour in the window).
+__device__ inline bool first_knot(const float* bm, int k) {
+  return k == 0 || (bm != nullptr && bm[k] != 0.f);
+}
+__device__ inline bool last_knot(const float* bm, int N, int k) {
+  return k == N - 1 || (bm != nullptr && bm[N + k] != 0.f);
+}
 
 // Forward-mode RNEA with one tangent direction t (t < NQ: d/dq_t;
 // NQ <= t < NX: d/dqd_{t-NQ}; t < 0: value only).  X/Xp hold the knot's
@@ -152,22 +174,26 @@ __device__ void fk_dual(const float* m, const float* s, const float* c, int t,
 
 // kSchur: launch A of K1 (Q_o gets (Q + rho I)^{-1}, scr the neighbour
 // scratch).  !kSchur: K5 (Q_o gets Q, scr the defects c (N, NX); rho_p is
-// not read, xs is read by block 0).
+// not read, xs is read by block 0).  bmask: K9a's knot flags (2 N per
+// shard) or nullptr.
 template <bool kSchur>
 __global__ void __launch_bounds__(256)
 knot_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
             const float* __restrict__ goal, int goal_stride, int goal_bstride,
             const float* __restrict__ xs, const float* __restrict__ rho_p,
+            int rho_bstride, const float* __restrict__ bmask,
             float dt, const float* __restrict__ model, float gravity,
             float qd_cost, float r_cost, int N, int integrator_type, int wrap,
             int terminal_at_last, float* __restrict__ Q_o,
             float* __restrict__ A_o, float* __restrict__ B_o,
             float* __restrict__ q_o, float* __restrict__ scr) {
   const int k = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
-  // instance blockIdx.y (K8a): its own rows, rho and outputs
+  // instance or shard blockIdx.y (K8a, K9a): its own rows, rho and outputs
   const int b = blockIdx.y;
   xu += (size_t)b * xu_bstride;
   goal += (size_t)b * goal_bstride;
+  const float* bm = bmask != nullptr ? bmask + (size_t)b * 2 * N : nullptr;
+  const bool last = last_knot(bm, N, k);
   Q_o += (size_t)b * N * NN;
   A_o += (size_t)b * N * NN;
   B_o += (size_t)b * N * NX * NU;
@@ -182,7 +208,8 @@ knot_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
   __shared__ float ee[3], J[3 * NQ];
 
   load_model(sm, model);
-  const int ke = (k == N - 1 && !terminal_at_last) ? N - 2 : k;
+  // the reference's terminal quirk: the last knot's cost at x_{N-2}
+  const int ke = (last && !terminal_at_last && k > 0) ? k - 1 : k;
   for (int i = tid; i < NX; i += nth) {
     x[i] = xu[k * xu_stride + i];
     xe[i] = xu[ke * xu_stride + i];
@@ -277,7 +304,7 @@ knot_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
     dqdd[e] = -acc;
   }
   __syncthreads();
-  const float rho = kSchur ? rho_p[b] : 0.f;
+  const float rho = kSchur ? rho_p[(size_t)b * rho_bstride] : 0.f;
   for (int e = tid; e < NN; e += nth) {
     const int r = e / NX, c = e - r * NX;
     const float eye = r == c ? 1.f : 0.f;
@@ -352,10 +379,10 @@ knot_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
     out[e] = aqa + s_r * bb;                        // T
     out[NN + e] = AQ[e];
     Q_o[(size_t)k * NN + e] = Qi[e];
-    A_o[(size_t)k * NN + e] = k < N - 1 ? A[e] : 0.f;
+    A_o[(size_t)k * NN + e] = last ? 0.f : A[e];
   }
   for (int e = tid; e < NX * NU; e += nth)
-    B_o[(size_t)k * NX * NU + e] = k < N - 1 ? B[e] : 0.f;
+    B_o[(size_t)k * NX * NU + e] = last ? 0.f : B[e];
   if (tid < NX) {
     float aqq = 0.f, bu = 0.f;
     for (int j = 0; j < NX; ++j) aqq += AQ[tid * NX + j] * grad[j];
@@ -370,10 +397,13 @@ knot_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
 __global__ void __launch_bounds__(256)
 schur_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
              const float* __restrict__ Qinv, const float* __restrict__ q,
-             const float* __restrict__ scr, int N, float* __restrict__ S,
-             float* __restrict__ Pinv, float* __restrict__ gamma) {
+             const float* __restrict__ scr, const float* __restrict__ bmask,
+             int N, float* __restrict__ S, float* __restrict__ Pinv,
+             float* __restrict__ gamma) {
   const int k = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   const int b = blockIdx.y;
+  const float* bm = bmask != nullptr ? bmask + (size_t)b * 2 * N : nullptr;
+  const bool has_prev = !first_knot(bm, k), has_next = !last_knot(bm, N, k);
   xu += (size_t)b * xu_bstride;
   Qinv += (size_t)b * N * NN;
   q += (size_t)b * N * NX;
@@ -382,23 +412,23 @@ schur_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
   Pinv += (size_t)b * N * 3 * NN;
   gamma += (size_t)b * N * NX;
   __shared__ float aug[NX * 2 * NX], piv[2 * NX], fcol[NX];
-  const float* prev = scr + (size_t)(k - 1) * SCR;   // valid for k >= 1
+  const float* prev = scr + (size_t)(k - 1) * SCR;   // valid if has_prev
   const float* cur = scr + (size_t)k * SCR;
   const float* Qk = Qinv + (size_t)k * NN;
   float* Sk = S + (size_t)k * 3 * NN;
   for (int e = tid; e < NN; e += nth) {
     const int r = e / NX, c = e - r * NX;
-    const float theta = k >= 1 ? Qk[e] + prev[e] : Qk[e];
-    Sk[e] = k >= 1 ? -prev[NN + e] : 0.f;                    // phi_k
+    const float theta = has_prev ? Qk[e] + prev[e] : Qk[e];
+    Sk[e] = has_prev ? -prev[NN + e] : 0.f;                  // phi_k
     Sk[NN + e] = theta;
-    Sk[2 * NN + e] = k <= N - 2 ? -cur[NN + c * NX + r] : 0.f;  // phi_{k+1}^T
+    Sk[2 * NN + e] = has_next ? -cur[NN + c * NX + r] : 0.f;  // phi_{k+1}^T
     aug[r * 2 * NX + c] = theta;
     aug[r * 2 * NX + NX + c] = r == c ? 1.f : 0.f;
   }
   if (tid < NX) {
     float g = 0.f;
     for (int j = 0; j < NX; ++j) g += Qk[tid * NX + j] * q[k * NX + j];
-    if (k >= 1) {
+    if (has_prev) {
       const float ck = xu[k * xu_stride + tid] - prev[2 * NN + tid];
       g = ((g - ck) - prev[2 * NN + NX + tid]) - prev[2 * NN + 2 * NX + tid];
     }
@@ -412,10 +442,12 @@ schur_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
 }
 
 __global__ void __launch_bounds__(256)
-stair_kernel(const float* __restrict__ S, int N, float* __restrict__ Pinv) {
+stair_kernel(const float* __restrict__ S, const float* __restrict__ bmask,
+             int N, float* __restrict__ Pinv) {
   const int k = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
   S += (size_t)blockIdx.y * N * 3 * NN;
   Pinv += (size_t)blockIdx.y * N * 3 * NN;
+  const float* bm = bmask != nullptr ? bmask + (size_t)blockIdx.y * 2 * N : nullptr;
   __shared__ float tl[NN], tr[NN];
   const float* Dk = Pinv + (size_t)k * 3 * NN + NN;
   const float* Sk = S + (size_t)k * 3 * NN;
@@ -434,12 +466,12 @@ stair_kernel(const float* __restrict__ S, int N, float* __restrict__ Pinv) {
   for (int e = tid; e < NN; e += nth) {
     const int r = e / NX, c = e - r * NX;
     float left = 0.f, right = 0.f;
-    if (k >= 1) {
+    if (!first_knot(bm, k)) {
       const float* Dm = Pinv + (size_t)(k - 1) * 3 * NN + NN;
       for (int j = 0; j < NX; ++j) left += tl[r * NX + j] * Dm[j * NX + c];
       left = -left;
     }
-    if (k <= N - 2) {
+    if (!last_knot(bm, N, k)) {
       const float* Dp = Pinv + (size_t)(k + 1) * 3 * NN + NN;
       for (int j = 0; j < NX; ++j) right += tr[r * NX + j] * Dp[j * NX + c];
       right = -right;
@@ -447,6 +479,30 @@ stair_kernel(const float* __restrict__ S, int N, float* __restrict__ Pinv) {
     Pk[e] = left;
     Pk[2 * NN + e] = right;
   }
+}
+
+int kkt_schur_impl(const float* xu, int xu_stride, int xu_bstride,
+                   const float* goal, int goal_stride, int goal_bstride,
+                   const float* rho, int rho_bstride, const float* bmask,
+                   float dt, const float* model, float gravity, float qd_cost,
+                   float r_cost, int N, int batch, int integrator_type,
+                   int wrap, int terminal_at_last, float* S, float* Pinv,
+                   float* gamma, float* Qinv, float* A, float* B, float* q,
+                   float* scratch, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(N, batch);
+  knot_kernel<true><<<grid, 256, 0, st>>>(
+      xu, xu_stride, xu_bstride, goal, goal_stride, goal_bstride, nullptr,
+      rho, rho_bstride, bmask, dt, model, gravity, qd_cost, r_cost, N,
+      integrator_type, wrap, terminal_at_last, Qinv, A, B, q, scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  schur_kernel<<<grid, 256, 0, st>>>(xu, xu_stride, xu_bstride, Qinv, q,
+                                     scratch, bmask, N, S, Pinv, gamma);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stair_kernel<<<grid, 256, 0, st>>>(S, bmask, N, Pinv);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -461,20 +517,28 @@ extern "C" int kkt_schur_launch(
     int batch, int integrator_type, int wrap, int terminal_at_last, float* S,
     float* Pinv, float* gamma, float* Qinv, float* A, float* B, float* q,
     float* scratch, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N, batch);
-  knot_kernel<true><<<grid, 256, 0, st>>>(
-      xu, xu_stride, xu_bstride, goal, goal_stride, goal_bstride, nullptr,
-      rho, dt, model, gravity, qd_cost, r_cost, N, integrator_type, wrap,
-      terminal_at_last, Qinv, A, B, q, scratch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  schur_kernel<<<grid, 256, 0, st>>>(xu, xu_stride, xu_bstride, Qinv, q,
-                                     scratch, N, S, Pinv, gamma);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stair_kernel<<<grid, 256, 0, st>>>(S, N, Pinv);
-  return static_cast<int>(cudaGetLastError());
+  return kkt_schur_impl(xu, xu_stride, xu_bstride, goal, goal_stride,
+                        goal_bstride, rho, 1, nullptr, dt, model, gravity,
+                        qd_cost, r_cost, N, batch, integrator_type, wrap,
+                        terminal_at_last, S, Pinv, gamma, Qinv, A, B, q,
+                        scratch, stream);
+}
+
+// K9a: shards side by side, each a window of Lext knots: shard b reads
+// rows b Lext .. of xu (rows of NX + NU) and of the goal (rows of
+// goal_stride), its flags bmask + 2 Lext b and the one rho, and writes the
+// b-th (Lext, ...) slab of every output
+extern "C" int kkt_schur_slab_launch(
+    const float* xu, const float* goal, int goal_stride, const float* bmask,
+    const float* rho, float dt, const float* model, float gravity,
+    float qd_cost, float r_cost, int Lext, int n_shard, int integrator_type,
+    int terminal_at_last, float* S, float* Pinv, float* gamma, float* Qinv,
+    float* A, float* B, float* q, float* scratch, void* stream) {
+  return kkt_schur_impl(xu, W, Lext * W, goal, goal_stride,
+                        Lext * goal_stride, rho, 0, bmask, dt, model, gravity,
+                        qd_cost, r_cost, Lext, n_shard, integrator_type, 0,
+                        terminal_at_last, S, Pinv, gamma, Qinv, A, B, q,
+                        scratch, stream);
 }
 
 extern "C" int kkt_launch(const float* xu, int xu_stride, const float* goal,
@@ -484,7 +548,8 @@ extern "C" int kkt_launch(const float* xu, int xu_stride, const float* goal,
                           int terminal_at_last, float* Q, float* A, float* B,
                           float* q, float* c, void* stream) {
   knot_kernel<false><<<N, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      xu, xu_stride, 0, goal, goal_stride, 0, xs, nullptr, dt, model, gravity,
-      qd_cost, 0.f, N, integrator_type, wrap, terminal_at_last, Q, A, B, q, c);
+      xu, xu_stride, 0, goal, goal_stride, 0, xs, nullptr, 0, nullptr, dt,
+      model, gravity, qd_cost, 0.f, N, integrator_type, wrap,
+      terminal_at_last, Q, A, B, q, c);
   return static_cast<int>(cudaGetLastError());
 }

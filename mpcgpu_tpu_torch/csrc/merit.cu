@@ -19,6 +19,16 @@
 // batched solve launches it over a (candidate, instance) grid, the
 // instance in blockIdx.y (the JAX package vmaps the TPU kernel there,
 // batched_fused.py:499); each instance's merits are the single launch's.
+//
+// K9c replaces mpcgpu_tpu/solver/merit_pallas.py::
+// line_search_merit_partials_slab (the same _make_merit_kernel on one knot
+// shard's slab).  It is K3 over a (candidate, shard) grid that writes each
+// knot's cost and defect terms instead of summing them: the sum, the
+// boundary corrections (the global last knot's control term and defect,
+// the initial-state residual) and the cross-shard sum are the caller's.  A
+// shard's slab is its L knots plus its right neighbour's first knot, so the
+// defect of its last knot sees the next candidate.  Per knot the terms are
+// K3's arithmetic; bound as K3.
 #include "common.cuh"
 
 using namespace mpc;
@@ -32,18 +42,22 @@ merit_kernel(const float* __restrict__ xu, const float* __restrict__ dz,
              const float* __restrict__ model, float gravity, float qd_cost,
              float r_cost, float mu, float dt, int N, int integrator_type,
              int wrap, float* __restrict__ merits,
-             float* __restrict__ alphas) {
+             float* __restrict__ alphas, float* __restrict__ part) {
   __shared__ float sm[MODEL_SIZE];
   __shared__ float red[33];
   const int a = blockIdx.x, tid = threadIdx.x;
-  // instance blockIdx.y (the batched solve; one instance otherwise)
+  // instance or shard blockIdx.y (the batched solve, K9c; one instance
+  // otherwise)
   const int b = blockIdx.y;
   xu += (size_t)b * N * W;
   dz += (size_t)b * N * W;
-  xs += (size_t)b * NX;
   goal += (size_t)b * goal_bstride;
-  merits += (size_t)b * gridDim.x;
   alphas += (size_t)b * gridDim.x;
+  // K9c: each knot's (cost, defect) into part (shards, 2, candidates, N)
+  float* part_cost = part != nullptr
+      ? part + ((size_t)b * 2 * gridDim.x + a) * N : nullptr;
+  float* part_defect = part != nullptr ? part_cost + (size_t)gridDim.x * N
+                                       : nullptr;
   const float alpha = a == 0 ? 0.f : -ldexpf(1.f, -(a - 1));
   load_model(sm, model);
   __syncthreads();
@@ -56,10 +70,10 @@ merit_kernel(const float* __restrict__ xu, const float* __restrict__ dz,
       s[j] = sinf(x[j]);
       c[j] = cosf(x[j]);
     }
+    float d = 0.f;
     if (k < N - 1) {
       aba(sm, s, c, x + NQ, x + NX, gravity, qdd);
       integrate(x, x + NQ, qdd, dt, integrator_type, wrap, xn);
-      float d = 0.f;
       for (int i = 0; i < NX; ++i) {
         const float xk1 = xu[(k + 1) * W + i] + alpha * dz[(k + 1) * W + i];
         d += fabsf(xk1 - xn[i]);
@@ -74,15 +88,22 @@ merit_kernel(const float* __restrict__ xu, const float* __restrict__ dz,
     }
     for (int j = 0; j < NQ; ++j) qdp += x[NQ + j] * x[NQ + j];
     for (int j = 0; j < NU; ++j) up += x[NX + j] * x[NX + j];
-    cost_sum += 0.5f * (pos + qd_cost * qdp + (k < N - 1 ? r_cost * up : 0.f));
+    const float cost_k = 0.5f * (pos + qd_cost * qdp + (k < N - 1 ? r_cost * up : 0.f));
+    cost_sum += cost_k;
+    if (part != nullptr) {
+      part_cost[k] = cost_k;
+      part_defect[k] = d;
+    }
   }
+  if (tid == 0) alphas[a] = alpha;
+  if (part != nullptr) return;
   const float cost_tot = block_sum(cost_sum, red);
   const float defect_tot = block_sum(defect_sum, red);
   if (tid == 0) {
+    xs += (size_t)b * NX;
     float x0 = 0.f;
     for (int i = 0; i < NX; ++i) x0 += fabsf(xu[i] + alpha * dz[i] - xs[i]);
-    merits[a] = cost_tot + mu * (defect_tot + x0);
-    alphas[a] = alpha;
+    merits[(size_t)b * gridDim.x + a] = cost_tot + mu * (defect_tot + x0);
   }
 }
 
@@ -102,6 +123,22 @@ extern "C" int merit_launch(const float* xu, const float* dz, const float* xs,
   merit_kernel<<<dim3(num_cand, batch), threads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       xu, dz, xs, goal, goal_stride, goal_bstride, model, gravity, qd_cost,
-      r_cost, mu, dt, N, integrator_type, wrap, merits, alphas);
+      r_cost, mu, dt, N, integrator_type, wrap, merits, alphas, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9c: shards side by side: shard b reads the b-th (N, W) slab of xu and dz
+// (its L knots and the next shard's first) and goal + b goal_bstride, and
+// writes part[b] (2, num_cand, N): each knot's cost, then its defect (0 at
+// the slab's last knot), and the candidates' alphas (n_shard, num_cand)
+extern "C" int merit_partials_launch(
+    const float* xu, const float* dz, const float* goal, int goal_stride,
+    int goal_bstride, const float* model, float gravity, float qd_cost,
+    float r_cost, float dt, int N, int num_cand, int n_shard, int threads,
+    int integrator_type, float* part, float* alphas, void* stream) {
+  merit_kernel<<<dim3(num_cand, n_shard), threads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      xu, dz, nullptr, goal, goal_stride, goal_bstride, model, gravity,
+      qd_cost, r_cost, 0.f, dt, N, integrator_type, 0, nullptr, alphas, part);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,6 +45,16 @@
 // with masks, so each instance's lam, iters and exit flag equal those of
 // K2' bit for bit.  K8c is K6 over a (knot, instance) grid with a
 // per-instance rho.
+//
+// K9b replaces mpcgpu_tpu/solver/kkt_pallas.py::compute_dz_pallas_slab
+// (_make_dz_kernel with boundary_masks=True), the dz recovery of one knot
+// shard's slab in the knot-sharded SQP.  It is K6 over a (knot, shard) grid
+// where lam_{k+1} comes from a second input, the shard's lam shifted by one
+// knot with the right neighbour's first row appended (the halo the caller
+// exchanged), and "k is the last knot" from a runtime flag per knot.  The
+// blocks Qinv, A, B, q are read in place from K9a's halo-extended slabs (a
+// knot stride between shards).  Its dz equals K6's on the same rows bit for
+// bit (the same device functions); latency-bound as K6.
 #include "common.cuh"
 
 using namespace mpc;
@@ -68,14 +78,15 @@ __device__ inline float btd_row(const float* __restrict__ M, const float* x,
   return (c + l) + r;
 }
 
-// Right-hand side of dx at row (k, c): (q_k - lam_k)_c + (A_k^T lam_{k+1})_c.
+// Right-hand side of dx at row (k, c): (q_k - lam_k)_c + (A_k^T lam_{k+1})_c,
+// lam_n the row lam_{k+1} (not read at the last knot, has_next false).
 __device__ inline float dz_rhs(const float* __restrict__ A,
                                const float* __restrict__ q, const float* lam,
-                               int k, int c, int N) {
+                               const float* lam_n, bool has_next, int k, int c) {
   float at = 0.f;
-  if (k < N - 1) {
+  if (has_next) {
     const float* Ak = A + (size_t)k * NN;
-    for (int j = 0; j < NX; ++j) at += Ak[j * NX + c] * lam[(k + 1) * NX + j];
+    for (int j = 0; j < NX; ++j) at += Ak[j * NX + c] * lam_n[j];
   }
   return (q[k * NX + c] - lam[k * NX + c]) + at;
 }
@@ -90,13 +101,14 @@ __device__ inline float dz_dx(const float* __restrict__ Qinv, const float* rhs,
 }
 
 // du_k[c] = s_r (r_cost u_k[c] + (B_k^T lam_{k+1})_c), 0 at the last knot.
-__device__ inline float dz_du(const float* __restrict__ B, const float* lam,
-                              const float* __restrict__ u, int u_stride,
-                              float r_cost, float s_r, int k, int c, int N) {
-  if (k >= N - 1) return 0.f;
+__device__ inline float dz_du(const float* __restrict__ B, const float* lam_n,
+                              bool has_next, const float* __restrict__ u,
+                              int u_stride, float r_cost, float s_r, int k,
+                              int c) {
+  if (!has_next) return 0.f;
   const float* Bk = B + (size_t)k * NX * NU;
   float bt = 0.f;
-  for (int j = 0; j < NX; ++j) bt += Bk[j * NU + c] * lam[(k + 1) * NX + j];
+  for (int j = 0; j < NX; ++j) bt += Bk[j * NU + c] * lam_n[j];
   return s_r * (r_cost * u[k * u_stride + c] + bt);
 }
 
@@ -183,7 +195,7 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
     const float s_r = 1.f / (r_cost + *rho_p);
     for (int i = tid; i < n; i += nth) {
       const int k = i / NX, c = i - k * NX;
-      z[i] = dz_rhs(A, q, lam, k, c, N);
+      z[i] = dz_rhs(A, q, lam, lam + (k + 1) * NX, k < N - 1, k, c);
       lam_o[i] = lam[i];
     }
     __syncthreads();
@@ -193,7 +205,8 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
     }
     for (int i = tid; i < N * NU; i += nth) {
       const int k = i / NU, c = i - k * NU;
-      dz[k * W + NX + c] = dz_du(B, lam, u, u_stride, r_cost, s_r, k, c, N);
+      dz[k * W + NX + c] = dz_du(B, lam + (k + 1) * NX, k < N - 1, u, u_stride,
+                                 r_cost, s_r, k, c);
     }
   } else {
     for (int i = tid; i < n; i += nth) lam_o[i] = lam[i];
@@ -204,31 +217,41 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
   }
 }
 
+// lam_next, lastm: K9b's lam_{k+1} rows and last-knot flags (N per shard),
+// or nullptr (K6, K8c: the next row of lam, and k = N - 1).  The blocks of
+// instance b start sys_nstride knots after those of instance b - 1.
 __global__ void __launch_bounds__(32)
-dz_kernel(const float* __restrict__ lam, const float* __restrict__ Qinv,
+dz_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next,
+          const float* __restrict__ lastm, const float* __restrict__ Qinv,
           const float* __restrict__ A, const float* __restrict__ B,
-          const float* __restrict__ q, const float* __restrict__ u,
-          int u_stride, int u_bstride, const float* __restrict__ rho_p,
-          float r_cost, int N, float* __restrict__ dz) {
+          const float* __restrict__ q, int sys_nstride,
+          const float* __restrict__ u, int u_stride, int u_bstride,
+          const float* __restrict__ rho_p, int rho_bstride, float r_cost,
+          int N, float* __restrict__ dz) {
   __shared__ float rhs[NX];
   const int k = blockIdx.x, tid = threadIdx.x;
-  // instance blockIdx.y (K8c; K6 is one instance)
+  // instance or shard blockIdx.y (K8c, K9b; K6 is one instance)
   const int b = blockIdx.y;
   lam += (size_t)b * N * NX;
-  Qinv += (size_t)b * N * NN;
-  A += (size_t)b * N * NN;
-  B += (size_t)b * N * NX * NU;
-  q += (size_t)b * N * NX;
+  Qinv += (size_t)b * sys_nstride * NN;
+  A += (size_t)b * sys_nstride * NN;
+  B += (size_t)b * sys_nstride * NX * NU;
+  q += (size_t)b * sys_nstride * NX;
   u += (size_t)b * u_bstride;
-  rho_p += b;
+  rho_p += (size_t)b * rho_bstride;
   dz += (size_t)b * N * W;
-  if (tid < NX) rhs[tid] = dz_rhs(A, q, lam, k, tid, N);
+  const float* lam_n = lam_next != nullptr
+      ? lam_next + ((size_t)b * N + k) * NX : lam + (k + 1) * NX;
+  const bool has_next = lastm != nullptr ? lastm[(size_t)b * N + k] == 0.f
+                                         : k < N - 1;
+  if (tid < NX) rhs[tid] = dz_rhs(A, q, lam, lam_n, has_next, k, tid);
   __syncthreads();
   if (tid < NX) {
     dz[k * W + tid] = dz_dx(Qinv, rhs, k, tid);
   } else if (tid < W) {
     const float s_r = 1.f / (r_cost + *rho_p);
-    dz[k * W + tid] = dz_du(B, lam, u, u_stride, r_cost, s_r, k, tid - NX, N);
+    dz[k * W + tid] = dz_du(B, lam_n, has_next, u, u_stride, r_cost, s_r, k,
+                            tid - NX);
   }
 }
 
@@ -288,6 +311,22 @@ extern "C" int dz_launch(const float* lam, const float* Qinv, const float* A,
                          float r_cost, int N, int batch, float* dz,
                          void* stream) {
   dz_kernel<<<dim3(N, batch), 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      lam, Qinv, A, B, q, u, u_stride, u_bstride, rho, r_cost, N, dz);
+      lam, nullptr, nullptr, Qinv, A, B, q, N, u, u_stride, u_bstride, rho, 1,
+      r_cost, N, dz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9b: shards side by side: shard b reads the b-th (L, ...) slab of lam,
+// lam_next and lastm, the blocks from knot b sys_nstride on, u + b u_bstride
+// and the one rho, and writes the b-th (L, NX + NU) slab of dz
+extern "C" int dz_slab_launch(const float* lam, const float* lam_next,
+                              const float* lastm, const float* Qinv,
+                              const float* A, const float* B, const float* q,
+                              int sys_nstride, const float* u, int u_stride,
+                              int u_bstride, const float* rho, float r_cost,
+                              int L, int n_shard, float* dz, void* stream) {
+  dz_kernel<<<dim3(L, n_shard), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      lam, lam_next, lastm, Qinv, A, B, q, sys_nstride, u, u_stride,
+      u_bstride, rho, 0, r_cost, L, dz);
   return static_cast<int>(cudaGetLastError());
 }

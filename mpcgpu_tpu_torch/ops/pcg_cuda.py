@@ -1,13 +1,15 @@
 """K2 (warm-started stair PCG with the dz recovery as its epilogue), K2' (the
-same PCG without the epilogue) and K6 (the dz recovery alone).
+same PCG without the epilogue), K6 (the dz recovery alone) and K9b (K6 on the
+knot shards' slabs).
 
 Ports of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_dz_solve_pallas_lanes`` (K2),
 ``pcg_solve_pallas_lanes`` / ``pcg_solve_pallas`` (K2') and
-``mpcgpu_tpu/solver/kkt_pallas.py::compute_dz_pallas`` (K6); the CUDA
-kernels are in ``csrc/pcg_dz.cu``.  K2 and K6 take the K1 output dict
-(``solver/kkt_cuda.py``) in knot-leading layout; K2' takes the standard
-(N, 3, n, n) BTD operands.  Each wrapper runs its plain version for CPU
-tensors and its kernel for CUDA tensors.
+``mpcgpu_tpu/solver/kkt_pallas.py::compute_dz_pallas`` (K6) and
+``compute_dz_pallas_slab`` (K9b); the CUDA kernels are in
+``csrc/pcg_dz.cu``.  K2 and K6 take the K1 output dict
+(``solver/kkt_cuda.py``) in knot-leading layout, K9b K9a's with a leading
+shard axis; K2' takes the standard (N, 3, n, n) BTD operands.  Each wrapper
+runs its plain version for CPU tensors and its kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -169,3 +171,67 @@ def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
 
 
 compute_dz_cuda.launches = 0
+
+
+def compute_dz_slab_plain(sys: dict, lam, lam_next, last_mask, u, rho,
+                          r_cost: float):
+    """K9b's plain version: per knot, with lam_+ the row of lam_next and
+    nothing of it at a knot whose last flag is set,
+    dx = Qinv (q - lam + A^T lam_+), du = (r_cost u + B^T lam_+) / (r_cost +
+    rho) (0 at the last knot)."""
+    has_next = (last_mask == 0)[..., None]
+    at = torch.einsum("...ji,...j->...i", sys["A"], lam_next)
+    rhs = torch.where(has_next, (sys["q"] - lam) + at, sys["q"] - lam)
+    dx = torch.einsum("...ij,...j->...i", sys["Qinv"], rhs)
+    bt = torch.einsum("...ji,...j->...i", sys["B"], lam_next)
+    du = (r_cost * u + bt) / (r_cost + rho)
+    return torch.cat([dx, torch.where(has_next, du, torch.zeros_like(du))], -1)
+
+
+def compute_dz_slab(sys: dict, lam, lam_next, last_mask, u, rho, r_cost: float):
+    """K9b: dz (n_shard, L, nx+nu) of every knot shard's slab.
+
+    sys holds Qinv, A, B, q (n_shard, L, ...), which on the card may be the
+    interior of K9a's halo-extended output (each shard's rows contiguous);
+    lam (n_shard, L, nx) the shard's costate rows; lam_next the same rows
+    shifted one knot on, with the right neighbour's first row last;
+    last_mask (n_shard, L) nonzero at the global last knot; u (n_shard, L,
+    nu) the controls (rows of unit stride, e.g. ``xu[..., nx:]``).  rho may be
+    a float or a 0-d tensor."""
+    if _kernels.on_cpu(lam):
+        return compute_dz_slab_plain(sys, lam, lam_next, last_mask, u, rho,
+                                     r_cost)
+    dev = lam.device
+    n_shard, L, nx = lam.shape
+    nu = u.shape[-1]
+    if nx != 14 or nu != 7:
+        raise ValueError("the CUDA kernels are built for nx = 14, nu = 7")
+    for name, t in (("lam", lam), ("lam_next", lam_next)):
+        _kernels.require(t, name, (n_shard, L, nx), dev)
+    _kernels.require(last_mask, "last_mask", (n_shard, L), dev)
+    blocks = (("Qinv", (nx, nx)), ("A", (nx, nx)), ("B", (nx, nu)), ("q", (nx,)))
+    knot_stride = None
+    for name, shape in blocks:
+        t = sys[name]
+        _kernels.require(t, name, (n_shard, L) + shape, dev, slabs=True)
+        per_knot = t[0, 0].numel()
+        if t.stride(0) % per_knot or knot_stride not in (None, t.stride(0) // per_knot):
+            raise ValueError("Qinv, A, B, q: the same knot stride between shards")
+        knot_stride = t.stride(0) // per_knot
+    if tuple(u.shape) != (n_shard, L, nu) or u.stride(2) != 1 \
+            or u.dtype != torch.float32 or u.device != dev:
+        raise ValueError("u: f32 (n_shard, L, nu) on the card with rows of unit stride")
+    rho_t = _kernels.scalar(rho, dev)
+    dz = torch.empty((n_shard, L, nx + nu), dtype=torch.float32, device=dev)
+    code = _kernels.entry("pcg_dz.cu", "dz_slab_launch")(
+        lam.data_ptr(), lam_next.data_ptr(), last_mask.data_ptr(),
+        sys["Qinv"].data_ptr(), sys["A"].data_ptr(), sys["B"].data_ptr(),
+        sys["q"].data_ptr(), knot_stride, u.data_ptr(), u.stride(1), u.stride(0),
+        rho_t.data_ptr(), float(r_cost), L, n_shard, dz.data_ptr(),
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "dz_slab_launch")
+    compute_dz_slab.launches += 1
+    return dz
+
+
+compute_dz_slab.launches = 0

@@ -1,5 +1,7 @@
-"""Batched instances (port of mpcgpu_tpu.parallel's single-device batching):
-the instance-grid kernels K8 and the batched SQP solvers."""
+"""Batched instances and the knot-sharded path (port of
+mpcgpu_tpu.parallel): the instance-grid kernels K8 and the batched SQP
+solvers; the knot meshes (one device, or one shard per process), the
+knot-sharded PCG and SQP and their slab kernels K9a-c, K10a."""
 
 from mpcgpu_tpu_torch.parallel.batched import make_batched_sqp_solver
 from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
@@ -8,8 +10,20 @@ from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
                                                     make_batched_fused_solver,
                                                     pcg_solve_batched,
                                                     sqp_solve_batched_fused)
+from mpcgpu_tpu_torch.parallel.distributed import (DistKnotMesh,
+                                                   initialize_distributed,
+                                                   make_host_aligned_mesh)
+from mpcgpu_tpu_torch.parallel.mesh import KnotMesh, make_mesh
+from mpcgpu_tpu_torch.parallel.pcg_sharded import (btd_matvec_halo,
+                                                   pcg_solve_sharded,
+                                                   pcg_solve_two_slab)
+from mpcgpu_tpu_torch.parallel.sqp_sharded import (make_sharded_sqp_solver,
+                                                   sqp_solve_sharded)
 
-__all__ = ["build_kkt_schur_batched", "compute_dz_batched",
-           "line_search_merits_batched", "make_batched_fused_solver",
-           "make_batched_sqp_solver", "pcg_solve_batched",
-           "sqp_solve_batched_fused"]
+__all__ = ["DistKnotMesh", "KnotMesh", "btd_matvec_halo",
+           "build_kkt_schur_batched", "compute_dz_batched",
+           "initialize_distributed", "line_search_merits_batched",
+           "make_batched_fused_solver", "make_batched_sqp_solver",
+           "make_host_aligned_mesh", "make_mesh", "make_sharded_sqp_solver",
+           "pcg_solve_batched", "pcg_solve_sharded", "pcg_solve_two_slab",
+           "sqp_solve_batched_fused", "sqp_solve_sharded"]

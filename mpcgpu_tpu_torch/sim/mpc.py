@@ -14,7 +14,8 @@ Port of ``mpcgpu_tpu/sim/mpc.py``, the equivalent of simulateMPC
     nothing back per control step (constant frequency: the shift schedule is
     precomputed on the host; adaptive frequency: the solve time is modelled
     as base_us + per_iter_us * sqp_iters and the schedule stays on the
-    device);
+    device); with ``knot_mesh``, every solve knot-sharded
+    (``parallel/sqp_sharded.py``);
   * ``run_chain``: the warm-started chain that ``bench.py`` times (no plant).
 
 The plant is K4 (``sim/plant_cuda.py::simulate_plant``) on CUDA tensors and
@@ -39,6 +40,7 @@ from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
 from mpcgpu_tpu_torch.models import dynamics
 from mpcgpu_tpu_torch.models.robot import RobotModel
+from mpcgpu_tpu_torch.parallel.sqp_sharded import make_sharded_sqp_solver
 from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant
 from mpcgpu_tpu_torch.solver.sqp import make_sqp_solver, sqp_solve
 
@@ -530,6 +532,7 @@ def simulate_mpc_ondevice(
     per_iter_us: Optional[float] = None,
     base_us: float = 0.0,
     knot_mesh=None,
+    pcg_method: str = "pipelined",
     **route,
 ):
     """The whole closed-loop tracking run as device work with no read-back
@@ -544,18 +547,24 @@ def simulate_mpc_ondevice(
     given) and the shift schedule becomes data-dependent on the device.
     Computes on the model's device; ``linsys`` (the direct solvers
     included; ``"qdldl_host"`` reads back every SQP iteration by design) and
-    ``route`` as in ``simulate_mpc``.  ``knot_mesh`` (the JAX package's knot-sharded loop)
-    is not ported yet.
+    ``route`` as in ``simulate_mpc``.
+
+    ``knot_mesh`` (a ``parallel.KnotMesh``, or a ``DistKnotMesh`` with every
+    process running the loop): every solve runs knot-sharded,
+    ``sqp_solve_sharded`` with ``pcg_method`` and ``route``'s ``fused``
+    (default "auto": the slab kernels on the card); ``linsys`` is then not
+    read.  Adaptive mode with a mesh needs an explicit ``per_iter_us``
+    (the calibration times the single-device solver).
 
     Returns a dict: tracking_errors (n_shifts,), xs_path (steps, nx),
     sqp_iters (steps,), pcg_iters (steps, max_iter), final_tracking_error
     (), control_updates; adaptive mode adds sim_times_us (steps,) and
     per_iter_us.
     """
-    if knot_mesh is not None:
-        raise NotImplementedError(
-            "the knot-sharded closed loop is not ported yet: see ROADMAP.md "
-            "queue 1 item 10 (multi-device)")
+    if knot_mesh is not None and not sim_cfg.const_update_freq \
+            and per_iter_us is None:
+        raise ValueError("adaptive mode with knot_mesh requires an explicit "
+                         "per_iter_us (calibrate the sharded solver once)")
     N = knot_points
     nq = model.nq
     nx = 2 * nq
@@ -574,8 +583,13 @@ def simulate_mpc_ondevice(
     xs0 = xu0[0, :nx]
     lam0 = torch.zeros((N, nx), dtype=dtype, device=dev)
     rho0 = _kernels.scalar(1e-3, dev, dtype)
-    solve = make_sqp_solver(model, cost, sqp_cfg, pcg_cfg, timestep,
-                            linsys=linsys, **route)
+    if knot_mesh is not None:
+        solve = make_sharded_sqp_solver(model, cost, sqp_cfg, pcg_cfg, timestep,
+                                        knot_mesh, pcg_method=pcg_method,
+                                        **route)
+    else:
+        solve = make_sqp_solver(model, cost, sqp_cfg, pcg_cfg, timestep,
+                                linsys=linsys, **route)
 
     if not sim_cfg.const_update_freq:
         if per_iter_us is None:

@@ -1,17 +1,19 @@
-"""K1 (KKT assembly + Schur condensation + stair preconditioner in one call)
-and K5 (the KKT blocks alone).
+"""K1 (KKT assembly + Schur condensation + stair preconditioner in one call),
+K5 (the KKT blocks alone) and K9a (K1 on the knot shards' halo-extended
+slabs).
 
-Ports of ``mpcgpu_tpu/solver/kkt_pallas.py::build_kkt_schur_pallas`` and
-``build_kkt_pallas``; the CUDA kernels are in ``csrc/kkt_schur.cu``.  K1's
-outputs are knot-leading:
+Ports of ``mpcgpu_tpu/solver/kkt_pallas.py::build_kkt_schur_pallas``,
+``build_kkt_pallas`` and ``build_kkt_schur_pallas_slab``; the CUDA kernels
+are in ``csrc/kkt_schur.cu``.  K1's outputs are knot-leading:
 
   S, Pinv (N, 3, nx, nx); gamma (N, nx); Qinv, A (N, nx, nx); B (N, nx, nu);
   q (N, nx)
 
-A and B at the last knot are not part of the QP and are zero.  K5 returns
-the ``KKTBlocks`` of the plain ``build_kkt``.  ``build_kkt_schur`` and
-``build_kkt_cuda`` run their plain versions for CPU tensors and their
-kernels for CUDA tensors.
+A and B at the last knot are not part of the QP and are zero.  K9a's are the
+same with a leading shard axis, (n_shard, Lext, ...).  K5 returns the
+``KKTBlocks`` of the plain ``build_kkt``.  ``build_kkt_schur``,
+``build_kkt_cuda`` and ``build_kkt_schur_slab`` run their plain versions for
+CPU tensors and their kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from mpcgpu_tpu_torch.config import CostConfig
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.schur import form_schur_system
-from mpcgpu_tpu_torch.solver.kkt import KKTBlocks, build_kkt
+from mpcgpu_tpu_torch.ops.smallmat import gj_inverse
+from mpcgpu_tpu_torch.solver.kkt import (KKTBlocks, build_kkt,
+                                         euler_step_and_jacobians,
+                                         tracking_cost_grad_hess)
 
 # floats of per-knot scratch the kernel hands from launch A to launch B:
 # T (nx^2), A Qinv (nx^2), xnext, A Qinv q, B Rinv r (nx each)
@@ -150,3 +155,117 @@ def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: flo
 
 
 build_kkt_cuda.launches = 0
+
+
+def _shift(t, axis: int):
+    """t moved one knot along ``axis`` (knot k gets knot k-1; zeros at 0)."""
+    return torch.cat([torch.zeros_like(t.narrow(axis, 0, 1)),
+                      t.narrow(axis, 0, t.shape[axis] - 1)], dim=axis)
+
+
+def build_kkt_schur_slab_plain(model: RobotModel, cost: CostConfig, xu_ext,
+                               ee_ext, first_mask, last_mask, rho, dt,
+                               integrator_type: int = 0) -> dict:
+    """K9a's plain version, in the kernel's order: per knot the KKT blocks
+    (``euler_step_and_jacobians``, ``tracking_cost_grad_hess``) and Qinv by
+    Gauss-Jordan, then the Schur blocks and the stair bands from the
+    neighbours in the window, where a knot at a window's end or with its
+    global first / last flag has no neighbour on that side."""
+    nx = 2 * model.nq
+    Lext = xu_ext.shape[-2]
+    lane = torch.arange(Lext, device=xu_ext.device)
+    has_prev = (first_mask == 0) & (lane > 0)
+    has_next = (last_mask == 0) & (lane < Lext - 1)
+    x, u = xu_ext[..., :nx], xu_ext[..., nx:]
+    xnext, A, B = euler_step_and_jacobians(model, x, u, dt, integrator_type)
+    x_eval = x
+    if not cost.terminal_at_last_state:
+        # the reference's terminal quirk: the last knot's cost at x_{N-2}
+        x_prev = torch.cat([x[..., :1, :], x[..., :-1, :]], dim=-2)
+        x_eval = torch.where(~has_next[..., None], x_prev, x)
+    Q, q, R, r = tracking_cost_grad_hess(model, cost, x_eval, u, ee_ext)
+    rho = torch.as_tensor(rho, dtype=Q.dtype, device=Q.device)
+    eye = lambda m: torch.eye(m, dtype=Q.dtype, device=Q.device)
+    Qinv = gj_inverse(Q + rho * eye(nx))
+    Rinv = gj_inverse(R + rho * eye(R.shape[-1]))
+    AQ = A @ Qinv
+    BR = B @ Rinv
+    T = AQ @ A.transpose(-1, -2) + BR @ B.transpose(-1, -2)
+    hp3, hn3 = has_prev[..., None, None], has_next[..., None, None]
+    hp2 = has_prev[..., None]
+    zero = torch.zeros_like(Qinv)
+    theta = torch.where(hp3, Qinv + _shift(T, -3), Qinv)
+    phi = torch.where(hp3, -_shift(AQ, -3), zero)
+    phiT = torch.where(hn3, -AQ.transpose(-1, -2), zero)
+    g = torch.einsum("...ij,...j->...i", Qinv, q)
+    c = x - _shift(xnext, -2)
+    aqq = torch.einsum("...ij,...j->...i", AQ, q)
+    brr = torch.einsum("...ij,...j->...i", BR, r)
+    gamma = torch.where(hp2, ((g - c) - _shift(aqq, -2)) - _shift(brr, -2), g)
+    D = gj_inverse(theta)
+    left = torch.where(hp3, -((D @ phi) @ _shift(D, -3)), zero)
+    D_next = torch.cat([D[..., 1:, :, :], torch.zeros_like(D[..., :1, :, :])], -3)
+    right = torch.where(hn3, -((D @ phiT) @ D_next), zero)
+    last3 = ~hn3
+    return dict(S=torch.stack([phi, theta, phiT], dim=-3),
+                Pinv=torch.stack([left, D, right], dim=-3), gamma=gamma,
+                Qinv=Qinv, A=torch.where(last3, torch.zeros_like(A), A),
+                B=torch.where(last3, torch.zeros_like(B), B), q=q)
+
+
+def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
+                         first_mask, last_mask, rho, dt: float,
+                         integrator_type: int = 0) -> dict:
+    """K9a: K1 on n_shard windows of the horizon at once.
+
+    xu_ext (n_shard, Lext, nx+nu), ee_ext (n_shard, Lext, 6): each shard's
+    knots with two halo knots per side; first_mask, last_mask (n_shard,
+    Lext): nonzero at the GLOBAL first / last knot.  Returns K1's outputs
+    per window, (n_shard, Lext, ...); a window's interior rows are the
+    horizon's rows (the caller drops the halo knots).  ee cost mode only;
+    rho may be a float or a 0-d tensor.
+    """
+    _check_args(cost, integrator_type)
+    if _kernels.on_cpu(xu_ext):
+        return build_kkt_schur_slab_plain(model, cost, xu_ext, ee_ext,
+                                          first_mask, last_mask, rho, dt,
+                                          integrator_type)
+    if model.nq != 7:
+        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+    dev = xu_ext.device
+    n_shard, Lext = xu_ext.shape[:2]
+    if Lext < 2:
+        raise ValueError(f"windows of {Lext} knots; K9a takes >= 2")
+    nq = model.nq
+    nx = 2 * nq
+    _kernels.require(xu_ext, "xu_ext", (n_shard, Lext, 3 * nq), dev)
+    _kernels.require(ee_ext, "ee_ext", (n_shard, Lext, ee_ext.shape[-1]), dev)
+    packed = model.packed()
+    _kernels.require(packed, "model", (packed.numel(),), dev)
+    bmask = torch.stack([first_mask, last_mask], dim=1).to(torch.float32)
+    rho_t = _kernels.scalar(rho, dev)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    lead = (n_shard, Lext)
+    out = dict(S=torch.empty(lead + (3, nx, nx), **f32),
+               Pinv=torch.empty(lead + (3, nx, nx), **f32),
+               gamma=torch.empty(lead + (nx,), **f32),
+               Qinv=torch.empty(lead + (nx, nx), **f32),
+               A=torch.empty(lead + (nx, nx), **f32),
+               B=torch.empty(lead + (nx, nq), **f32),
+               q=torch.empty(lead + (nx,), **f32))
+    scratch = torch.empty((n_shard * Lext * _SCRATCH_PER_KNOT,), **f32)
+    code = _kernels.entry("kkt_schur.cu", "kkt_schur_slab_launch")(
+        xu_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1), bmask.data_ptr(),
+        rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
+        float(cost.qd_cost), float(cost.r_cost), Lext, n_shard,
+        integrator_type, int(cost.terminal_at_last_state),
+        out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
+        out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
+        out["q"].data_ptr(), scratch.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check(code, "kkt_schur_slab_launch")
+    build_kkt_schur_slab.launches += 1
+    return out
+
+
+build_kkt_schur_slab.launches = 0

@@ -25,6 +25,11 @@ def tracking_cost(model: RobotModel, cost: CostConfig, xu, goal):
 
     with no control term at the last knot.
     """
+    return torch.sum(tracking_cost_per_knot(model, cost, xu, goal), dim=-1)
+
+
+def tracking_cost_per_knot(model: RobotModel, cost: CostConfig, xu, goal):
+    """The terms J_k of ``tracking_cost``, (..., N, w) -> (..., N)."""
     nq = model.nq
     N = xu.shape[-2]
     q, qd, u = xu[..., :nq], xu[..., nq : 2 * nq], xu[..., 2 * nq :]
@@ -40,8 +45,7 @@ def tracking_cost(model: RobotModel, cost: CostConfig, xu, goal):
         raise ValueError(f"unknown cost mode {cost.mode!r}")
     u_pen = cost.r_cost * torch.sum(u**2, dim=-1)
     u_mask = torch.arange(N, device=xu.device) < N - 1
-    per_knot = 0.5 * (pos_err + qd_pen + torch.where(u_mask, u_pen, 0.0))
-    return torch.sum(per_knot, dim=-1)
+    return 0.5 * (pos_err + qd_pen + torch.where(u_mask, u_pen, 0.0))
 
 
 def constraint_l1(model: RobotModel, xu, xs, dt, include_x0: bool,
@@ -89,3 +93,27 @@ def line_search_merits(model: RobotModel, cost: CostConfig, xu, dz, xs, ee_goal,
                             include_x0=True, integrator_type=integrator_type,
                             angle_wrap=angle_wrap)
     return merits, alphas
+
+
+def merit_partials(model: RobotModel, cost: CostConfig, xu, dz, ee_goal, dt,
+                   num_alphas: int = 8, integrator_type: int = 0,
+                   angle_wrap: bool = False):
+    """Each knot's merit terms at every candidate xu + alpha dz, alpha in
+    (0, -1, -1/2, ..., -1/2^(num_alphas-1)): the cost J_k and the defect
+    |x_{k+1} - f(x_k, u_k)|_1 (0 at the last knot), with the candidates
+    after any leading axes of xu (..., N, w).  Returns (cost (..., A, N),
+    defect (..., A, N), alphas (A,)): the plain version of K9c, which sums
+    nothing, so that a knot shard's slab (its knots and its right
+    neighbour's first) gives its part of the merits."""
+    from mpcgpu_tpu_torch.solver.kkt import integrator_step
+
+    nx = 2 * model.nq
+    alphas = line_search_alphas(num_alphas, True, xu.dtype, xu.device)
+    cand = xu[..., None, :, :] + alphas[:, None, None] * dz[..., None, :, :]
+    cost_k = tracking_cost_per_knot(model, cost, cand, ee_goal[..., None, :, :])
+    x, u = cand[..., :nx], cand[..., nx:]
+    xnext = integrator_step(model, x[..., :-1, :], u[..., :-1, :], dt,
+                            integrator_type, angle_wrap)
+    defect = torch.sum(torch.abs(x[..., 1:, :] - xnext), dim=-1)
+    defect = torch.cat([defect, torch.zeros_like(defect[..., :1])], dim=-1)
+    return cost_k, defect, alphas

@@ -4,12 +4,15 @@ Counterpart of ``examples/track_iiwa_pcg.py`` for the port: loads the
 recorded start/goal trajectory pair, sweeps PCG exit tolerances, runs the
 closed-loop MPC tracker, and writes per-run .result files plus an
 ``_overall_stats.csv`` (track_iiwa_pcg.cu:39-175).  The flags and defaults
-are the JAX tracker's, without ``--knot-shards``; ``--device`` (default
-cuda) picks where the tracker runs.  Both loops run ``linsys="auto"``: the
-kernels' fused PCG on the card, the plain PCG on the CPU.
+are the JAX tracker's; ``--device`` (default cuda) picks where the tracker
+runs.  Both loops run ``linsys="auto"``: the kernels' fused PCG on the card,
+the plain PCG on the CPU.  ``--knot-shards S`` (with ``--ondevice``) runs
+every solve knot-sharded over a virtual mesh of S shards on the one device
+(``parallel/sqp_sharded.py``, the pipelined slab PCG: on the card the slab
+kernels K9a-c and K10a).
 
 Usage:  python -m mpcgpu_tpu_torch.track_iiwa_pcg [--knots 32] [--steps 200]
-        [--ondevice] [--save] [--device cuda]
+        [--ondevice [--knot-shards S]] [--save] [--device cuda]
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 
 from mpcgpu_tpu_torch.config import PCGConfig, SimConfig, SQPConfig
 from mpcgpu_tpu_torch.models import iiwa14
+from mpcgpu_tpu_torch.parallel.mesh import make_mesh
 from mpcgpu_tpu_torch.sim.mpc import simulate_mpc, simulate_mpc_ondevice
 from mpcgpu_tpu_torch.utils.experiment import (dump_tracking_data, print_stats,
                                                write_overall_stats_csv)
@@ -54,6 +58,9 @@ def parse_args(argv=None):
     ap.add_argument("--linsys", default="auto",
                     help="linear solver: auto (pcg_cuda on the card, pcg on "
                          "the CPU), pcg, pcg_cuda")
+    ap.add_argument("--knot-shards", type=int, default=0,
+                    help="with --ondevice: run every solve knot-sharded over "
+                         "this many shards of a virtual mesh on the device")
     ap.add_argument("--ondevice", action="store_true",
                     help="run the closed loop as device work with no "
                          "read-back per control step")
@@ -74,6 +81,8 @@ def parse_args(argv=None):
 
 def main(argv=None):
     ap, args = parse_args(argv)
+    if args.knot_shards and not args.ondevice:
+        ap.error("--knot-shards needs --ondevice")
     device = torch.device(args.device)
     model = iiwa14(torch.float32, device=device)
     if args.grid:
@@ -98,13 +107,17 @@ def main(argv=None):
 
     if args.ondevice:
         xu_traj, ee_traj = load_pair(traj_names[0])
+        mesh_kw = {}
+        if args.knot_shards:
+            mesh_kw = dict(knot_mesh=make_mesh(1, args.knot_shards),
+                           pcg_method="pipelined_slab")
         for tol in args.tols or [1e-5]:
             kw = dict(sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
                       pcg_cfg=PCGConfig(max_iter=PCGConfig.tuned_max_iter(args.knots),
                                         exit_tol=tol,
                                         exit_criterion=args.exit_criterion,
                                         forcing=args.forcing),
-                      linsys=args.linsys)
+                      linsys=args.linsys, **mesh_kw)
             # the first run builds the kernels; the second is timed
             simulate_mpc_ondevice(model, xu_traj, ee_traj, args.knots, 1.0 / 64.0, **kw)
             sync()

@@ -1,0 +1,113 @@
+"""The knot-sharded path across two processes over gloo, on the CPU.
+
+Two worker processes (which import torch and never jax) initialize
+``torch.distributed`` through ``initialize_distributed`` and build a
+``DistKnotMesh``, one shard each: ring sends by ``batch_isend_irecv``, psum
+by ``all_reduce``.  Each worker solves a small SPD block-tridiagonal system
+with every sharded PCG method against a dense numpy solve, then one sharded
+SQP solve at N = 16, f64 (unfused, and fused through the plain slab
+versions), which must equal the same solve on a ``KnotMesh(2)`` in the same
+process bit for bit: every collective is the same sum or copy of the same
+two shards (a sum of two terms does not depend on its order)."""
+
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_WORKER = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+from mpcgpu_tpu_torch.models import iiwa14
+from mpcgpu_tpu_torch.parallel import (KnotMesh, initialize_distributed,
+                                       make_host_aligned_mesh,
+                                       pcg_solve_sharded, sqp_solve_sharded)
+from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
+
+coord, nproc, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+initialize_distributed(coord, num_processes=nproc, process_id=rank, device="cpu")
+mesh = make_host_aligned_mesh()
+assert (mesh.size, mesh.rank, mesh.backend) == (nproc, rank, "gloo")
+
+# a small SPD block-tridiagonal system, the same on every process
+N, n = 8, 4
+rng = np.random.default_rng(0)
+theta = np.stack([a @ a.T + 4.0 * np.eye(n) for a in rng.standard_normal((N, n, n))])
+phi = 0.1 * rng.standard_normal((N, n, n))
+phi[0] = 0.0
+S = np.zeros((N, 3, n, n))
+S[:, 1], S[:, 0] = theta, phi
+S[:-1, 2] = np.swapaxes(phi[1:], -1, -2)
+Pinv = np.zeros_like(S)
+Pinv[:, 1] = np.linalg.inv(theta)
+gamma = rng.standard_normal((N, n))
+dense = np.zeros((N * n, N * n))
+for k in range(N):
+    dense[k * n:(k + 1) * n, k * n:(k + 1) * n] = theta[k]
+    if k > 0:
+        dense[k * n:(k + 1) * n, (k - 1) * n:k * n] = phi[k]
+        dense[(k - 1) * n:k * n, k * n:(k + 1) * n] = phi[k].T
+ref = np.linalg.solve(dense, gamma.ravel()).reshape(N, n)
+t = torch.tensor
+for method in ("classic", "pipelined", "pipelined_slab"):
+    out = pcg_solve_sharded(t(S), t(Pinv), t(gamma), torch.zeros(N, n,
+                            dtype=torch.float64), mesh, max_iter=100,
+                            exit_tol=1e-20, method=method)
+    assert bool(out.converged), method
+    np.testing.assert_allclose(out.lam.numpy(), ref, rtol=0, atol=1e-10)
+
+# one sharded SQP solve, equal to the one-process virtual mesh's bit for bit
+Nq = 16
+rng = np.random.default_rng(0)
+xu = t(load_xu_traj("0_0")[350:350 + Nq] + 0.01 * rng.standard_normal((Nq, 21)))
+ee = t(load_eepos_traj("0_0")[350:350 + Nq])
+args = (iiwa14(torch.float64, device="cpu"), CostConfig.for_knots(Nq),
+        SQPConfig(max_iter=2), PCGConfig(max_iter=60, exit_tol=1e-8), xu,
+        torch.zeros((Nq, 14), dtype=torch.float64), xu[0, :14].clone(), ee,
+        1e-3, 1 / 64)
+for fused in (False, True):
+    a = sqp_solve_sharded(*args, mesh, fused=fused, pcg_method="pipelined")
+    b = sqp_solve_sharded(*args, KnotMesh(nproc), fused=fused,
+                          pcg_method="pipelined")
+    differ = [f for f in a._fields if not torch.equal(getattr(a, f), getattr(b, f))]
+    assert not differ, (fused, differ)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu"))
+assert not bad, bad
+dist.destroy_process_group()
+print(f"proc {rank}: distributed ok, sends {mesh.n_send} psums {mesh.n_psum}",
+      flush=True)
+"""
+
+
+def test_two_process_gloo_knot_mesh(tmp_path):
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    script = tmp_path / "worker.py"
+    script.write_text(_WORKER)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen([sys.executable, str(script), coord, "2", str(rank)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              env=env, text=True, cwd=ROOT)
+             for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"proc {rank} failed:\n{out}"
+        assert "distributed ok" in out, out

@@ -49,6 +49,17 @@ res = make_batched_sqp_solver(m, CostConfig.for_knots(4), SQPConfig(max_iter=1),
     xu[None], torch.zeros((1, 4, 14), dtype=torch.float64), xu[None, 0, :14],
     ee[None], torch.full((1,), 1e-3, dtype=torch.float64))
 assert res.xu.shape == (1, 4, 21)
+# the knot-sharded path: the closed loop over a virtual mesh through the
+# slab kernels' plain versions, and the modules of the distributed mesh
+from mpcgpu_tpu_torch.parallel import DistKnotMesh, KnotMesh
+from mpcgpu_tpu_torch.sim.mpc import simulate_mpc_ondevice
+run = simulate_mpc_ondevice(m, load_xu_traj("0_0")[:20], load_eepos_traj("0_0")[:20],
+                            4, 1 / 64, sqp_cfg=SQPConfig(max_iter=1),
+                            pcg_cfg=PCGConfig(max_iter=5),
+                            sim_cfg=SimConfig(max_control_updates=2),
+                            knot_mesh=KnotMesh(2), fused=True,
+                            pcg_method="pipelined_slab")
+assert run["control_updates"] == 2
 ref = (Path.cwd() / "mpcgpu_tpu").resolve()
 bad = sorted(name for name, m in list(sys.modules.items())
              if name.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu")

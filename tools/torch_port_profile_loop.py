@@ -5,10 +5,16 @@ Runs chip_smoke.py's closed loop (IIWA-14, N = 64, f32, trace 0_0 rows
 [:200], SQPConfig(max_iter=2, max_time_us=None), PCGConfig(167, 1e-5))
 once to warm up, then traces ``--updates`` control updates with
 torch.profiler and prints: wall time per update, device kernel time per
-update by kernel name, the device's busy share, the host-side CUDA calls
-that wait for the device, and the PCG iterations of the traced solves.
+update by kernel name, the device's busy share, the kernel launches and the
+host-side CUDA calls that wait for the device, and the PCG iterations of
+the traced solves.  ``--knots`` / ``--knot-shards`` / ``--traj`` /
+``--start`` run another horizon, knot-sharded over a virtual mesh on the
+card (phase 4d of chip_smoke.py: ``--knots 512 --knot-shards 8 --traj
+3_4``), from rows start .. start + N + 136 of the trace, with the tuned
+PCG cap of N.
 
     python3 tools/torch_port_profile_loop.py [--updates 48] [--trace out.json]
+        [--knots 64] [--knot-shards 0] [--traj 0_0] [--start 0]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -26,6 +32,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--updates", type=int, default=48)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--knots", type=int, default=64)
+    ap.add_argument("--knot-shards", type=int, default=0,
+                    help="run every solve knot-sharded over this many shards")
+    ap.add_argument("--traj", default="0_0")
+    ap.add_argument("--start", type=int, default=0)
     args = ap.parse_args()
 
     import torch
@@ -35,18 +46,22 @@ def main():
         sys.exit("torch_port_profile_loop: needs a CUDA device")
     from mpcgpu_tpu_torch.config import PCGConfig, SimConfig, SQPConfig
     from mpcgpu_tpu_torch.models import iiwa14
+    from mpcgpu_tpu_torch.parallel import KnotMesh
     from mpcgpu_tpu_torch.sim.mpc import simulate_mpc_ondevice
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     model = iiwa14(torch.float32)
-    xu, ee = load_xu_traj("0_0")[:200], load_eepos_traj("0_0")[:200]
+    N, rows = args.knots, slice(args.start, args.start + args.knots + 136)
+    xu, ee = load_xu_traj(args.traj)[rows], load_eepos_traj(args.traj)[rows]
+    cap = PCGConfig.tuned_max_iter(N)
+    mesh = dict(knot_mesh=KnotMesh(args.knot_shards)) if args.knot_shards else {}
 
     def loop():
         return simulate_mpc_ondevice(
-            model, xu, ee, 64, 1.0 / 64.0,
+            model, xu, ee, N, 1.0 / 64.0,
             sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
-            pcg_cfg=PCGConfig(max_iter=167, exit_tol=1e-5),
-            sim_cfg=SimConfig(max_control_updates=args.updates))
+            pcg_cfg=PCGConfig(max_iter=cap, exit_tol=1e-5),
+            sim_cfg=SimConfig(max_control_updates=args.updates), **mesh)
 
     loop()
     torch.cuda.synchronize()
@@ -58,6 +73,7 @@ def main():
     n = args.updates
     device = collections.Counter()
     calls = collections.Counter()
+    launches = 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
@@ -66,10 +82,12 @@ def main():
             calls[ev.key] = ev.count
         if dev_us and ev.device_type.name == "CUDA":
             device[ev.key] += dev_us
+            launches += ev.count
     busy = sum(device.values())
     print(f"{torch.cuda.get_device_name(0)}; {n} updates, wall {wall_us / n:.1f} "
           f"us/update (under the profiler), device kernel time {busy / n:.1f} "
-          f"us/update, busy share {100 * busy / wall_us:.1f}%")
+          f"us/update, busy share {100 * busy / wall_us:.1f}%, "
+          f"{launches / n:.1f} kernel launches per update")
     for key, us in device.most_common(15):
         print(f"  {us / n:10.2f} us/update {100 * us / busy:6.2f}%  {key[:90]}")
     for key in sorted(calls):
@@ -77,7 +95,7 @@ def main():
     iters = out["pcg_iters"].cpu()
     used = iters[iters >= 0].double()
     print(f"PCG iterations per solve: mean {float(used.mean()):.2f}, at the cap "
-          f"{int((used == 167).sum())} of {used.numel()}")
+          f"{int((used == cap).sum())} of {used.numel()}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
