@@ -27,7 +27,12 @@ Phases (any failure raises and the script exits non-zero):
      and N = 512 over 8, K9a and K9b against K1 and K6 bit for bit on the
      interior rows, and the sharded PCG through K10a against K2' on the
      well-conditioned system (tightly) and on the real system over noise
-     seeds (by medians);
+     seeds (by medians); check that K9a's corner blocks at the horizon's
+     ends are exactly 0; hold K10b (the s-step basis and Gram kernel) and
+     the coefficient step against their plain versions on both systems, and
+     the s-step PCG through them against the same loop with the plain steps
+     and against K2' (well-conditioned: counts within s, both exits before
+     the cap) and over noise seeds by medians (real);
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -54,13 +59,20 @@ Phases (any failure raises and the script exits non-zero):
   4d. run the knot-sharded SQP solve (sqp_solve_sharded, fused: K9a ->
      K10a -> K9b -> K9c) at N = 512 over 8 shards and N = 64 over 4 against
      the single-device pcg_cuda solve and the f64 solve, and 48 knot-sharded
-     on-device control updates at both sizes; check launches, finiteness and
-     tracking;
+     on-device control updates at both sizes; then the same at the solve's
+     default pcg_method ("auto" -> "ca_slab": K9a -> K10b + the coefficient
+     step -> K9b -> K9c); check launches, finiteness and tracking;
+  4e. the batched closed loop (BASELINE config 3: 256 instances, N = 64,
+     trace 0_0 from the calm row, 48 updates) through
+     simulate_mpc_ondevice_batched (K8a-c, K3b, K4b); K4b against K4 on all
+     256 instances bit for bit, and four instances against the single
+     on-device loop from the same starts bit for bit;
   5. time the chain per step, the on-device loop per control update (the
      main path, pcr_cuda and the knot-sharded loops), the batched solve per
      SQP iteration against 256 single solves, the sharded solve per SQP
      iteration against the single-device one (slopes over two lengths, CUDA
-     events), and each kernel (device time of a CUDA graph) against its
+     events) for the pipelined and the s-step PCG, the batched closed loop
+     per update, and each kernel (device time of a CUDA graph) against its
      plain version, its bound and, for K7, the dense library solve;
   6. print one JSON line of kernel results, the card line, and the final
      {"ok": true, ...} line.
@@ -112,6 +124,11 @@ TRACKER_STEPS = 65       # trace rows of the direct-solver tracker's run
 SHARD_CASES = ((512, 8), (64, 4))
 SHARD_UPDATES = 48       # knot-sharded on-device control updates per case
 SHARD_SLOPE = (16, 48)   # loop lengths for the sharded per-update slope
+CA_S = 4                 # the s-step PCG's s (the solve's default pcg_s_steps)
+CA_CAP = 10 ** 6         # an iteration cap no kernel-vs-plain call reaches
+BATCH_UPDATES = 48       # updates of the batched closed loop (phase 4e)
+BATCH_LOOP_PICKS = 4     # its instances held against single loops
+BATCH_SLOPE = (16, 48)   # loop lengths for the batched per-update slope
 # where the sharded solves and loops start (trace, row): on calm rows, as
 # phase 4b.  No 512-knot window of trace 0_0 is calm (rows 350.. leave 316
 # rows, and from row 0 every f32 step of either route is rejected, so the
@@ -172,6 +189,17 @@ KERNELS = {
     "K10a pcg_slab_step_cuda": (
         "mpcgpu_tpu_torch/csrc/pcg_slab.cu",
         "mpcgpu_tpu/ops/pcg_pallas.py:252 pcg_slab_step_pallas"),
+    "K10b ca_basis_cuda": (
+        "mpcgpu_tpu_torch/csrc/pcg_ca.cu",
+        "mpcgpu_tpu/ops/pcg_pallas.py:365 pcg_ca_basis_pallas"),
+    "K10b' ca_coeff_step_cuda": (
+        "mpcgpu_tpu_torch/csrc/pcg_ca.cu",
+        "mpcgpu_tpu/parallel/pcg_sharded.py:497-510 (XLA around K10b: "
+        "_ca_coeff_iters, the recovery, _ca_next_scale; no pallas_call site)"),
+    "K4b simulate_plant_batched": (
+        "mpcgpu_tpu_torch/csrc/plant.cu",
+        "mpcgpu_tpu/sim/plant_pallas.py:132 simulate_plant_pallas "
+        "(vmapped, sim/mpc.py:881-883)"),
 }
 
 # The least time the card could take for each kernel's work: the larger of
@@ -192,6 +220,7 @@ KERNELS = {
 #   K2 per iteration: two BTD matvecs (2 x 3 x 14^2 x 2 per knot), two dots
 #     and three axpys over 14 per knot; the dz recovery ~1000 per knot.
 PEAK_F32 = 67e12
+PEAK_F64 = 34e12         # outside the tensor cores (H100 SXM data sheet)
 PEAK_BYTES = 3.35e12
 MV6, M66, MM4 = 72, 432, 128
 RNEA_DUAL = 7 * (7 * MV6 + 3 * 30 + 2 * MV6)
@@ -213,9 +242,10 @@ MV14 = 2 * 196
 PCR_LEVEL_KNOT = GJ14 + 6 * 2 * 14 ** 3 + 3 * MV14
 
 
-def bound(flops: float, floats: float) -> tuple[float, str]:
-    """(least time in ms, "operations" or "bytes") for f32 work."""
-    t_ops, t_bytes = flops / PEAK_F32, 4 * floats / PEAK_BYTES
+def bound(flops: float, floats: float, peak: float = PEAK_F32) -> tuple[float, str]:
+    """(least time in ms, "operations" or "bytes") for work of `flops` at
+    `peak` (f32 by default) on `floats` 4-byte words."""
+    t_ops, t_bytes = flops / peak, 4 * floats / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -301,6 +331,38 @@ def shard_bounds(N: int, n_shard: int, num_cand: int = 9) -> dict:
             N * 2 * 3 * 196 + 12 * N * 14
             + n_shard * (2 * 6 * 14 + 2 * 3 * 196 + 3 + 2 * 12 * 14 + 3 + 2 + 2)),
     }
+
+
+def ca_bounds(N: int, n_shard: int, s: int = CA_S) -> dict:
+    """(bound_ms, bound_by) of one call of K10b and of the coefficient step
+    at N knots over n_shard shards, their operations in f64: K10b's 4s
+    banded products on the extended slab of L + 2h knots (h = 2s+1) and its
+    2m^2+2m+1 dot products over the L local knots, S and Pinv on the
+    extended slab, p and z extended, r read once, Y and Ytil and the parts
+    (f64, two words each) written once; the coefficient step's four m-term
+    combinations per row and its s iterations in m dimensions, Y and Ytil
+    and the summed parts read, x and r read, x, r, z, p and the packets
+    written."""
+    L = N // n_shard
+    h = m = 2 * s + 1
+    Le, P = L + 2 * h, 2 * m * m + 2 * m + 1
+    return {
+        "K10b ca_basis_cuda": bound(
+            n_shard * (4 * s * Le * 3 * 196 * 2 + P * L * 14 * 2),
+            n_shard * (2 * Le * 3 * 196 + 2 * Le * 14 + L * 14
+                       + 2 * (2 * m * L * 14 + P) + 2 * 2 + 2), PEAK_F64),
+        "K10b' ca_coeff_step_cuda": bound(
+            n_shard * (4 * m * L * 14 * 2 + s * (4 * m * m * 2 + 12 * m)),
+            n_shard * (2 * (2 * m * L * 14 + P + 2) + 6 * L * 14 + 2 + 1
+                       + 4 * h * 14), PEAK_F64),
+    }
+
+
+def plant_batched_bound(B: int, plant_rows: int, plant_substeps: int) -> tuple:
+    """K4b's (bound_ms, bound_by): B times K4's work (kernel_bounds), the
+    model's dynamics floats and the window's three scalars read once."""
+    return bound(B * plant_substeps * (ABA + 14 * 20 + 28),
+                 B * (14 + 7 * plant_rows + 14) + 4 * 7 * 36 + 3)
 
 
 def batch_problem(B: int, N: int, torch, device):
@@ -508,13 +570,22 @@ def main() -> int:
                                                compute_dz_slab_plain,
                                                pcg_dz_solve, pcg_dz_solve_plain,
                                                pcg_solve_cuda)
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
     from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step, slab_state
     from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
-    from mpcgpu_tpu_torch.parallel import KnotMesh, sqp_solve_sharded
-    from mpcgpu_tpu_torch.parallel.pcg_sharded import _pcg_local_pipelined_slab
+    from mpcgpu_tpu_torch.parallel import (KnotMesh, pcg_solve_sharded,
+                                           sqp_solve_sharded)
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import (_ca_halo_blocks, _ca_init,
+                                                       _pcg_local_ca_slab,
+                                                       _pcg_local_pipelined_slab)
     from mpcgpu_tpu_torch.sim.mpc import (run_chain, simulate_mpc,
-                                          simulate_mpc_ondevice)
-    from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant, simulate_plant_plain
+                                          simulate_mpc_ondevice,
+                                          simulate_mpc_ondevice_batched)
+    from mpcgpu_tpu_torch.sim.plant_cuda import (simulate_plant,
+                                                 simulate_plant_batched,
+                                                 simulate_plant_batched_plain,
+                                                 simulate_plant_plain)
     from mpcgpu_tpu_torch.solver.kkt import build_kkt
     from mpcgpu_tpu_torch.solver.sqp import sqp_solve
     from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
@@ -537,7 +608,8 @@ def main() -> int:
                                   line_search_merits_batched,
                                   build_kkt_schur_slab, compute_dz_slab,
                                   line_search_merit_partials_slab,
-                                  pcg_slab_step_cuda)))
+                                  pcg_slab_step_cuda, ca_basis_cuda,
+                                  ca_coeff_step_cuda, simulate_plant_batched)))
 
     def counted(fn, *args, **kw):
         """fn(*args, **kw) with every launch count set to 0 just before it;
@@ -932,7 +1004,7 @@ def main() -> int:
         raise SmokeFailure(f"phase 2b: {len(failures)} check(s) failed")
 
     # ---- phase 2c: the knot-sharded path's slab kernels --------------------
-    phase("phase 2c: K9a-c, K10a (knot shards) vs plain versions on the card")
+    phase("phase 2c: K9a-c, K10a, K10b (knot shards) vs plain versions on the card")
 
     def windows(N: int, S: int, lo: int, hi: int):
         """(S, L - lo + hi) knot indices of each shard's window: its L knots
@@ -949,6 +1021,43 @@ def main() -> int:
         lam, it, done = _pcg_local_pipelined_slab(
             sc(SS), sc(PP), sc(gg), sc(torch.zeros_like(gg)), max_iter,
             _kernels.scalar(exit_tol, dev), mesh, exit_criterion, step=step)
+        return lam.reshape(N, -1), int(it[0]), bool(done[0])
+
+    tol0 = _kernels.scalar(0.0, dev)
+
+    def clone_state(st):
+        return {k: v.clone() for k, v in st.items()}
+
+    def ca_setup(mesh, SS, PP, gg):
+        """The s-step state after one outer step of the plain version from
+        lam = 0 (so g != 1), and K10b's inputs for the next: (st, (S, Pinv,
+        SL, SR, PL, PR, fl, fr))."""
+        N, S_ = gg.shape[0], mesh.size
+        sc = lambda t: t.reshape(S_, N // S_, *t.shape[1:])
+        S_l, P_l, g_l = sc(SS), sc(PP), sc(gg)
+        h = 2 * CA_S + 1
+        blocks = (S_l, P_l, *_ca_halo_blocks(S_l, h, mesh),
+                  *_ca_halo_blocks(P_l, h, mesh))
+        lam0 = torch.zeros_like(g_l)
+        st = ca_state(lam0, *_ca_init(S_l, P_l, g_l, lam0, mesh), tol0, "eta", CA_S)
+        packets = lambda: (mesh.send_right(st["pkt"][:, 0]),
+                           mesh.send_left(st["pkt"][:, 1]))
+        ca_basis(st, *blocks, *packets(), CA_CAP, CA_S)
+        ca_coeff_step(st, mesh.psum(st["parts"]), CA_CAP, tol0, "eta", CA_S)
+        return st, blocks + packets()
+
+    def ca_pcg(mesh, SS, PP, gg, kernels, max_iter, exit_tol, exit_criterion="eta"):
+        """The sharded s-step PCG from lam = 0 through K10b and the
+        coefficient step (kernels) or their plain versions: (lam, iters,
+        converged)."""
+        N, S_ = gg.shape[0], mesh.size
+        sc = lambda t: t.reshape(S_, N // S_, *t.shape[1:])
+        steps = (dict(basis=ca_basis_cuda, coeff=ca_coeff_step_cuda) if kernels
+                 else dict(basis=ca_basis, coeff=ca_coeff_step))
+        lam, it, done = _pcg_local_ca_slab(
+            sc(SS), sc(PP), sc(gg), sc(torch.zeros_like(gg)), max_iter,
+            _kernels.scalar(exit_tol, dev), mesh, exit_criterion, s_steps=CA_S,
+            **steps)
         return lam.reshape(N, -1), int(it[0]), bool(done[0])
 
     slab_ref = {}     # per case: the inputs phase 5 times the kernels on
@@ -1080,6 +1189,100 @@ def main() -> int:
                f"{REAL_SEEDS} seeds: median distance to f64 "
                + ", ".join(f"{k} {v:.3e}" for k, v in med.items())
                + " (K10a <= 2x the plain step)")
+
+        # K9a's blocks at the horizon's ends: the s-step and pipelined forms
+        # rely on these corner blocks to cancel the ring-wrap rows
+        corners = torch.stack([sl["S"][0, 0, 0], sl["Pinv"][0, 0, 0],
+                               sl["S"][-1, -1, 2], sl["Pinv"][-1, -1, 2]])
+        nz = int(torch.count_nonzero(corners))
+        expect(nz == 0, f"K9a N={N} over {S} shards: corner blocks S[0,0], "
+               f"Pinv[0,0], S[N-1,2], Pinv[N-1,2] exactly 0 ({nz} nonzero entries)")
+        # K10b and the coefficient step against their plain versions at the
+        # second outer step of a solve (g != 1): both do the s-step algebra
+        # in f64 from the f32 state, in their own orders, so each output is
+        # held to the same step from the state in f64: the kernel's max|d| /
+        # max|ref| within 2x the plain step's + 1e-6
+        f64s = lambda st: {k: v.double() if v.is_floating_point() else v.clone()
+                           for k, v in st.items()}
+        for label, sys3 in (("well-conditioned", syn),
+                            ("real", (k1["S"], k1["Pinv"], k1["gamma"]))):
+            st, ins = ca_setup(mesh, *sys3)
+            got, ref, exact = clone_state(st), clone_state(st), f64s(st)
+            ca_basis_cuda(got, *ins, CA_CAP, CA_S)
+            ca_basis(ref, *ins, CA_CAP, CA_S)
+            ca_basis(exact, *(v.double() for v in ins), CA_CAP, CA_S)
+            torch.cuda.synchronize()
+            outs_b = ("Y", "Yt", "parts")
+            eb = {k: (rel_err(got[k], exact[k])[1], rel_err(ref[k], exact[k])[1])
+                  for k in outs_b}
+            if main_case and label == "real":
+                errs["K10b ca_basis_cuda"] = max(rel_err(got[k], ref[k])[0]
+                                                 for k in outs_b)
+            expect(all(a <= 2 * b + 1e-6 for a, b in eb.values()),
+                   f"K10b N={N} over {S} shards, {label} system: to the f64 step, "
+                   "kernel / plain " + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b)
+                                                 in eb.items())
+                   + " max|ref| (kernel <= 2x plain + 1e-6)")
+            tot = mesh.psum(ref["parts"])
+            got, ref2, exact = clone_state(ref), clone_state(ref), f64s(ref)
+            ca_coeff_step_cuda(got, tot, CA_CAP, tol0, "eta", CA_S)
+            ca_coeff_step(ref2, tot, CA_CAP, tol0, "eta", CA_S)
+            ca_coeff_step(exact, tot.double(), CA_CAP, tol0.double(), "eta", CA_S)
+            torch.cuda.synchronize()
+            outs_c = ("x", "r", "z", "p", "pkt", "scal")
+            ec = {k: (rel_err(got[k], exact[k])[1], rel_err(ref2[k], exact[k])[1])
+                  for k in outs_c}
+            if main_case and label == "real":
+                errs["K10b' ca_coeff_step_cuda"] = max(rel_err(got[k], ref2[k])[0]
+                                                       for k in outs_c)
+            same = all(torch.equal(got[k], ref2[k]) for k in ("iters", "done"))
+            expect(all(a <= 2 * b + 1e-6 for a, b in ec.values()) and same,
+                   f"K10b' (coefficient step) N={N} over {S} shards, {label} system: "
+                   "to the f64 step, kernel / plain "
+                   + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in ec.items())
+                   + f" max|ref| (kernel <= 2x plain + 1e-6); iters, done equal {same}")
+        # the s-step PCG through the kernels on the well-conditioned system
+        # against the same loop with the plain steps and against K2' (lam
+        # within 2e-6, the same iterations, the exits before the cap; rnorm
+        # at 1e-4: the s-step r.r recurrence has a cancellation floor, and
+        # at 1e-5 on this system it never fires, ROADMAP.md queue 3)
+        for crit, tol, cap in (("eta", 0.0, 20), ("eta", 1e-9, 167),
+                               ("rnorm", 1e-4, 167)):
+            a = ca_pcg(mesh, *syn, True, cap, tol, crit)
+            b = ca_pcg(mesh, *syn, False, cap, tol, crit)
+            k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
+                                 exit_tol=tol, exit_criterion=crit)
+            torch.cuda.synchronize()
+            ep, e2 = rel_err(a[0], b[0])[1], rel_err(a[0], k2p.lam)[1]
+            ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1]
+            ok = ok and abs(a[1] - int(k2p.iters)) <= CA_S
+            ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
+            ok = ok and (tol == 0.0 or a[1] < cap)
+            expect(ok, f"s-step PCG (K10b) N={N} over {S} shards, well-conditioned "
+                   f"{crit} exit_tol={tol:g} cap={cap}: vs the plain steps {ep:.3e}, "
+                   f"vs K2' {e2:.3e} (<= 2e-6); iterations K10b {a[1]}, plain "
+                   f"{b[1]}, K2' {int(k2p.iters)} (within {CA_S}); converged {a[2]}")
+        dist = {"K10b": [], "plain steps": [], "K10a": [], "K2'": []}
+        for seed in range(REAL_SEEDS):
+            xu_s, xs_s, ee_s, _ = problem(N, torch, dev, seed)
+            sy = build_kkt_schur(model, cost, xu_s, xs_s, ee_s, rho, DT, 0)
+            SS, PP, gg = sy["S"], sy["Pinv"], sy["gamma"]
+            f64 = pcg_solve(SS.double(), PP.double(), gg.double(),
+                            torch.zeros_like(gg.double()), max_iter=20,
+                            exit_tol=0.0).lam
+            for name, lam_ in (
+                    ("K10b", ca_pcg(mesh, SS, PP, gg, True, 20, 0.0)[0]),
+                    ("plain steps", ca_pcg(mesh, SS, PP, gg, False, 20, 0.0)[0]),
+                    ("K10a", slab_pcg(mesh, SS, PP, gg, pcg_slab_step_cuda, 20, 0.0)[0]),
+                    ("K2'", pcg_solve_cuda(SS, PP, gg, torch.zeros_like(gg),
+                                           max_iter=20, exit_tol=0.0).lam)):
+                dist[name].append(rel_err(lam_, f64)[1])
+        med = {k: statistics.median(v) for k, v in dist.items()}
+        expect(med["K10b"] <= 2 * med["plain steps"],
+               f"s-step PCG (K10b) N={N} over {S} shards, real system, 20 fixed "
+               f"steps, {REAL_SEEDS} seeds: median distance to f64 "
+               + ", ".join(f"{k} {v:.3e}" for k, v in med.items())
+               + " (K10b <= 2x the plain steps)")
     if failures:
         raise SmokeFailure(f"phase 2c: {len(failures)} check(s) failed")
 
@@ -1492,7 +1695,7 @@ def main() -> int:
     phase(f"phase 4d: knot-sharded SQP and closed loop, N={SHARD_CASES[0][0]} "
           f"over {SHARD_CASES[0][1]} shards and N={SHARD_CASES[1][0]} over "
           f"{SHARD_CASES[1][1]}, from {SHARD_START}")
-    k9_k10 = [k for k in KERNELS if k.startswith(("K9", "K10"))]
+    k9_k10 = [k for k in KERNELS if k.startswith(("K9", "K10a"))]
     shard_summary = {}
     for N, S in SHARD_CASES:
         trace, start = SHARD_START[N]
@@ -1552,11 +1755,11 @@ def main() -> int:
         xu_tr = load_xu_traj(trace)[start:start + N + LOOP_ROWS]
         ee_tr = load_eepos_traj(trace)[start:start + N + LOOP_ROWS]
 
-        def sh_loop(updates, knot_mesh=None):
+        def sh_loop(updates, knot_mesh=None, **kw):
             return simulate_mpc_ondevice(
                 model, xu_tr, ee_tr, N, DT,
                 sim_cfg=SimConfig(max_control_updates=updates),
-                knot_mesh=knot_mesh, **sh_kw)
+                knot_mesh=knot_mesh, **sh_kw, **kw)
 
         run, n_run = counted(sh_loop, SHARD_UPDATES, knot_mesh=KnotMesh(S))
         it_run = int(run["sqp_iters"].sum())
@@ -1579,16 +1782,160 @@ def main() -> int:
                f"iteration, {it_run}; K10a (cap + 1) times; K4 once per update); "
                f"mean tracking error over {len(err_sh)} shifts {m_sh:.6g} (within "
                f"1% of the single-device loop's {m_1:.6g}); finite")
+
+        # the solve's default: pcg_method "auto" -> "ca_slab", K10b and the
+        # coefficient step once per outer step of s iterations on K9a's
+        # blocks, ceil(cap / s) outer steps enqueued per SQP iteration
+        outer = -(-cap // CA_S)
+        k10b = ["K10b ca_basis_cuda", "K10b' ca_coeff_step_cuda"]
+        ca, n_ca = counted(sqp_solve_sharded, model, *args, xu, lam0, xs, ee, RHO0,
+                           DT, KnotMesh(S))
+        it_ca = int(ca.sqp_iters)
+        want = {k: it_ca for k in k9_k10 if k.startswith("K9")}
+        want.update({k: it_ca * outer for k in k10b})
+        ok = all(n_ca[k] == want.get(k, 0) for k in KERNELS)
+        ok = ok and all(bool(torch.isfinite(t).all()) for t in
+                        (ca.xu, ca.lam, ca.rho, ca.merit))
+        expect(ok, f"sharded SQP at its default (ca_slab) N={N} over {S} shards: "
+               f"launches {n_ca} (K9a-c once per SQP iteration, {it_ca}; K10b and "
+               f"the coefficient step {outer} times per iteration; nothing else); "
+               "finite")
+        # as pipelined_slab above, and against the plain sharded s-step solve
+        # (fused=False, "ca"): the PCG counts within s of pcg_cuda's, its
+        # line-search choices, and the distance to f64 per part within 2x
+        # the largest of the other f32 solves' + 1e-4
+        ca_plain = sqp_solve_sharded(model, *args, xu, lam0, xs, ee, RHO0, DT,
+                                     KnotMesh(S), fused=False, pcg_method="ca")
+        ec, er = part_errs(ca.xu, f64.xu), part_errs(ca_plain.xu, f64.xu)
+        near = all(abs(a - b) <= CA_S for a, b in
+                   zip(ca.pcg_iters.tolist(), one.pcg_iters.tolist()))
+        same_ls = ca.ls_alpha_idx.tolist() == one.ls_alpha_idx.tolist()
+        for key in ("x", "u"):
+            lim = 2 * max(er[key], eo[key], ep[key], eq[key], es[key]) + 1e-4
+            expect(near and same_ls and ec[key] <= lim,
+                   f"sharded SQP (ca_slab) N={N} over {S} shards, {key} part: to f64 "
+                   f"{ec[key]:.3e}; plain s-step {er[key]:.3e}, pipelined_slab "
+                   f"{es[key]:.3e}, pcg_cuda {eo[key]:.3e}, plain {ep[key]:.3e}, plain "
+                   f"sharded {eq[key]:.3e} max|{key}| (<= 2x max + 1e-4); PCG "
+                   f"iterations {ca.pcg_iters.tolist()} (pcg_cuda "
+                   f"{one.pcg_iters.tolist()}, within {CA_S}; plain s-step "
+                   f"{ca_plain.pcg_iters.tolist()}); line search "
+                   f"{ca.ls_alpha_idx.tolist()} (pcg_cuda {one.ls_alpha_idx.tolist()}, "
+                   f"equal {same_ls})")
+        # the s-step collectives and launches per outer step, counted on a
+        # solve of the real system by the difference of two caps
+        k1_sh = build_kkt_schur(model, cost, xu, xs, ee,
+                                torch.full((), RHO0, device=dev), DT, 0)
+        per = {}
+        for k_cap in (8, 16):
+            m_ = KnotMesh(S)
+            _, n_ = counted(pcg_solve_sharded, k1_sh["S"], k1_sh["Pinv"],
+                            k1_sh["gamma"], lam0, m_, max_iter=k_cap, exit_tol=0.0,
+                            method="ca_slab")
+            per[k_cap] = (m_.n_send, m_.n_psum, *(n_[k] for k in k10b))
+        per_outer = [(b - a) / 2 for a, b in zip(per[8], per[16])]
+        expect(per_outer == [2, 1, 1, 1],
+               f"s-step PCG N={N} over {S} shards, per outer step of {CA_S} "
+               f"iterations: sends, psums, K10b, coefficient-step launches "
+               f"{per_outer} (2, 1, 1, 1)")
+        ca_run, n_ca_run = counted(sh_loop, SHARD_UPDATES, knot_mesh=KnotMesh(S),
+                                   pcg_method="ca_slab")
+        it_cr = int(ca_run["sqp_iters"].sum())
+        want = {k: it_cr for k in k9_k10 if k.startswith("K9")}
+        want.update({k: it_cr * outer for k in k10b})
+        want["K4 simulate_plant"] = SHARD_UPDATES
+        err_ca = ca_run["tracking_errors"].double().cpu().numpy()
+        m_ca = float(err_ca.mean())
+        ok = all(n_ca_run[k] == want.get(k, 0) for k in KERNELS)
+        ok = ok and len(err_ca) == ROUTE_SHIFTS and finite(err_ca, ca_run["xs_path"])
+        ok = ok and abs(m_ca / m_1 - 1) <= 1e-2
+        expect(ok, f"sharded loop through ca_slab N={N} over {S} shards, "
+               f"{SHARD_UPDATES} updates: launches {n_ca_run}; mean tracking error "
+               f"{m_ca:.6g} (within 1% of the single-device loop's {m_1:.6g}); "
+               "finite")
         shard_summary[f"N={N} shards={S}"] = dict(
             trace=trace, start_row=start, solve_pcg_iters=sh.pcg_iters.tolist(),
             solve_ls_alpha_idx=sh.ls_alpha_idx.tolist(),
             loop_mean_tracking_error=m_sh, single_loop_mean_tracking_error=m_1,
-            loop_sqp_iters=it_run)
+            loop_sqp_iters=it_run, ca_solve_pcg_iters=ca.pcg_iters.tolist(),
+            ca_solve_ls_alpha_idx=ca.ls_alpha_idx.tolist(),
+            ca_x_err=ec["x"], ca_u_err=ec["u"], ca_loop_mean_tracking_error=m_ca,
+            ca_per_outer_step=per_outer)
         if (N, S) == SHARD_CASES[0]:
             for k in k9_k10:
                 launches[k] = n_run[k]
+            for k in k10b:
+                launches[k] = n_ca_run[k]
     if failures:
         raise SmokeFailure(f"phase 4d: {len(failures)} check(s) failed")
+
+    # ---- phase 4e: the batched closed loop -----------------------------------
+    phase(f"phase 4e: batched closed loop, B={B_MAIN}, N={N_MAIN}, trace 0_0 from "
+          f"row {CALM_ROW}, {BATCH_UPDATES} updates")
+    N = N_MAIN
+    cost = CostConfig.for_knots(N)
+    bl_kw = dict(sqp_cfg=SQPConfig(max_iter=2),
+                 pcg_cfg=PCGConfig(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5))
+    # K4b against K4 on every instance, bit for bit (the same device code),
+    # and against its plain version on B_PLAIN instances (1e-4 relative)
+    plant_args = (2e-3, 2e-3, DT, 10, 2e-4)
+    xs4b = xs_b + 0.01 * torch.tensor(np.random.default_rng(2).standard_normal(
+        (B_MAIN, 14)), dtype=torch.float32, device=dev)
+    k4b = simulate_plant_batched(model, xs4b, xu_b, *plant_args)
+    k4 = torch.stack([simulate_plant(model, xs4b[i], xu_b[i], *plant_args)
+                      for i in range(B_MAIN)])
+    p4b = simulate_plant_batched_plain(model, xs4b[:B_PLAIN], xu_b[:B_PLAIN],
+                                       *plant_args)
+    torch.cuda.synchronize()
+    d4, r4 = rel_err(k4b[:B_PLAIN], p4b)
+    errs["K4b simulate_plant_batched"] = d4
+    expect(torch.equal(k4b, k4) and r4 <= 1e-4,
+           f"K4b B={B_MAIN}: == K4 per instance bit for bit {torch.equal(k4b, k4)}; "
+           f"vs plain on {B_PLAIN} instances {r4:.3e} max|ref| (<= 1e-4)")
+    # the loop, as a user calls it; then BATCH_LOOP_PICKS instances against
+    # the single on-device loop from the same start (the trace with its
+    # first state moved to the instance's), bit for bit
+    bl, n_bl = counted(simulate_mpc_ondevice_batched, model, xu_calm, ee_calm, N, DT,
+                       B_MAIN, sim_cfg=SimConfig(max_control_updates=BATCH_UPDATES),
+                       **bl_kw)
+    k8 = [k for k in KERNELS if k.startswith(("K8", "K3b"))]
+    it_bl = n_bl[k8[0]]
+    ok = all(n_bl[k] == it_bl for k in k8) and BATCH_UPDATES <= it_bl <= 2 * BATCH_UPDATES
+    ok = ok and n_bl["K4b simulate_plant_batched"] == BATCH_UPDATES
+    ok = ok and all(n_bl[k] == 0 for k in KERNELS
+                    if k not in k8 and k != "K4b simulate_plant_batched")
+    err_b = bl["tracking_errors"]
+    ok = ok and tuple(err_b.shape) == (B_MAIN, BATCH_UPDATES) and finite(err_b)
+    spread = float(err_b[:, -1].max() - err_b[:, -1].min())
+    ok = ok and bl["control_updates"] == BATCH_UPDATES and spread > 0
+    expect(ok, f"batched loop B={B_MAIN}: launches {n_bl} (K8a-c, K3b once per "
+           f"batched SQP iteration, {it_bl}; K4b once per update); errors "
+           f"{tuple(err_b.shape)} finite; last-update spread over instances "
+           f"{spread:.3e} (> 0); {int(bl['shift_mask'].sum())} shifts")
+    launches["K4b simulate_plant_batched"] = n_bl["K4b simulate_plant_batched"]
+    gen = torch.Generator(device=dev)      # the function's draw of the starts
+    gen.manual_seed(0)
+    starts = torch.tensor(xu_calm[0, :14], dtype=torch.float32, device=dev) \
+        + 0.05 * torch.randn((B_MAIN, 14), generator=gen, dtype=torch.float32,
+                             device=dev)
+    differ = []
+    picks = [i * (B_MAIN - 1) // (BATCH_LOOP_PICKS - 1) for i in range(BATCH_LOOP_PICKS)]
+    for i in picks:
+        xu_i = xu_calm.copy()
+        xu_i[0, :14] = starts[i].double().cpu().numpy()
+        one = simulate_mpc_ondevice(model, xu_i, ee_calm, N, DT,
+                                    sim_cfg=SimConfig(max_control_updates=BATCH_UPDATES),
+                                    **bl_kw)
+        if not (torch.equal(err_b[i][bl["shift_mask"]], one["tracking_errors"])
+                and torch.equal(bl["final_tracking_error"][i],
+                                one["final_tracking_error"])):
+            differ.append(i)
+    expect(not differ, f"batched loop vs single on-device loops of instances "
+           f"{picks}: tracking errors and final error bit for bit; differing {differ}")
+    batch_summary = dict(mean_tracking_error=float(err_b.mean()),
+                         last_update_spread=spread, sqp_iterations=it_bl)
+    if failures:
+        raise SmokeFailure(f"phase 4e: {len(failures)} check(s) failed")
 
     # ---- phase 5: timing ----------------------------------------------------
     phase(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
@@ -1886,6 +2233,102 @@ def main() -> int:
               f"{upd_us:.1f} us per control update (runs "
               f"{', '.join(f'{v:.1f}' for v in upd_runs)})")
 
+    # K10b and the coefficient step per call (one outer step of s
+    # iterations) at both shard cases, on phase 2c's real system at its
+    # second outer step: device time of a CUDA graph (the coefficient step
+    # advances its state each call, never to the cap), the plain versions
+    # one call at a time
+    ca_rows = {}
+    for N, S in SHARD_CASES:
+        k1 = slab_ref[N]["k1"]
+        mesh = KnotMesh(S)
+        st, ins = ca_setup(mesh, k1["S"], k1["Pinv"], k1["gamma"])
+        tot = mesh.psum(st["parts"])
+        st_k, st_p = clone_state(st), clone_state(st)
+        cb = ca_bounds(N, S)
+        pairs_ca = {
+            "K10b ca_basis_cuda": (
+                lambda: ca_basis_cuda(st_k, *ins, CA_CAP, CA_S),
+                lambda: ca_basis(st_p, *ins, CA_CAP, CA_S)),
+            "K10b' ca_coeff_step_cuda": (
+                lambda: ca_coeff_step_cuda(st_k, tot, CA_CAP, tol0, "eta", CA_S),
+                lambda: ca_coeff_step(st_p, tot, CA_CAP, tol0, "eta", CA_S)),
+        }
+        for name, (kern, plain_fn) in pairs_ca.items():
+            p1 = time_ms(torch, plain_fn, 3)
+            ms = statistics.median([graph_ms(torch, kern), graph_ms(torch, kern)])
+            p2 = time_ms(torch, plain_fn, 3)
+            bound_ms, bound_by = cb[name]
+            ca_rows.setdefault(name, {})[N] = dict(
+                ms=ms, plain_ms=statistics.median([p1, p2]), bound_ms=bound_ms,
+                bound_by=bound_by)
+            print(f"  {name} N={N} over {S} shards: kernel {ms * 1e3:.1f} us "
+                  f"(device), plain {statistics.median([p1, p2]) * 1e3:.1f} us, "
+                  f"bound {bound_ms * 1e3:.3f} us ({bound_by})")
+    for name, per_n in ca_rows.items():
+        main = per_n[SHARD_CASES[0][0]]
+        rows.append(dict(name=name, route="cuda", source=KERNELS[name][0],
+                         replaces=KERNELS[name][1], launches=launches[name],
+                         max_abs_err=errs[name], ms=main["ms"],
+                         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                         bound_by=main["bound_by"], library_ms=None,
+                         n64=per_n[SHARD_CASES[1][0]]))
+
+    # the sharded solve at its default (ca_slab) per SQP iteration and its
+    # on-device loop per update, as above
+    for N, S in SHARD_CASES:
+        trace, start = SHARD_START[N]
+        cost = CostConfig.for_knots(N)
+        pcfg = PCGConfig(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5)
+        xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
+        lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+        ca_it, ca_runs = slope_us(torch, lambda k: sqp_solve_sharded(
+            model, cost, SQPConfig(max_iter=k), pcfg, xu, lam0, xs, ee, RHO0, DT,
+            KnotMesh(S)), 1, 3)
+        ca_upd, ca_upd_runs = slope_us(torch, lambda k: simulate_mpc_ondevice(
+            model, load_xu_traj(trace)[start:start + N + LOOP_ROWS],
+            load_eepos_traj(trace)[start:start + N + LOOP_ROWS], N, DT,
+            sim_cfg=SimConfig(max_control_updates=k), knot_mesh=KnotMesh(S),
+            pcg_method="ca_slab", sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
+            pcg_cfg=pcfg), *SHARD_SLOPE)
+        key = f"N={N} shards={S}"
+        shard_summary[key].update(ca_sqp_iter_us=ca_it, ca_update_us=ca_upd)
+        print(f"  sharded N={N} over {S} shards, ca_slab: {ca_it:.1f} us per SQP "
+              f"iteration (runs {', '.join(f'{v:.1f}' for v in ca_runs)}) against "
+              f"pipelined_slab {shard_summary[key]['sqp_iter_us']:.1f} and pcg_cuda "
+              f"{shard_summary[key]['single_sqp_iter_us']:.1f}; on-device loop "
+              f"{ca_upd:.1f} us per control update (runs "
+              f"{', '.join(f'{v:.1f}' for v in ca_upd_runs)}; pipelined_slab "
+              f"{shard_summary[key]['update_us']:.1f})")
+
+    # K4b at B_MAIN instances (phase 4e's inputs) against its plain version
+    # (B_MAIN plain plants, one call), and the batched loop per update
+    # (slope over two loop lengths) in instance-updates/s
+    k4b_bound = plant_batched_bound(B_MAIN, len({
+        min(int((2e-3 + i * 2e-4) / DT), N_MAIN - 1) for i in range(11)}), 11)
+    k4b_ms = statistics.median([graph_ms(torch, lambda: simulate_plant_batched(
+        model, xs4b, xu_b, *plant_args)) for _ in range(2)])
+    k4b_plain = once_ms(torch, lambda: simulate_plant_batched_plain(
+        model, xs4b, xu_b, *plant_args))
+    print(f"  K4b simulate_plant_batched (B={B_MAIN}): kernel {k4b_ms * 1e3:.1f} us "
+          f"(device), plain {k4b_plain * 1e3:.1f} us (one call), bound "
+          f"{k4b_bound[0] * 1e3:.4f} us ({k4b_bound[1]})")
+    rows.append(dict(name="K4b simulate_plant_batched", route="cuda",
+                     source=KERNELS["K4b simulate_plant_batched"][0],
+                     replaces=KERNELS["K4b simulate_plant_batched"][1],
+                     launches=launches["K4b simulate_plant_batched"],
+                     max_abs_err=errs["K4b simulate_plant_batched"], ms=k4b_ms,
+                     plain_ms=k4b_plain, bound_ms=k4b_bound[0],
+                     bound_by=k4b_bound[1], library_ms=None))
+    bl_upd, bl_runs = slope_us(torch, lambda k: simulate_mpc_ondevice_batched(
+        model, xu_calm, ee_calm, N_MAIN, DT, B_MAIN,
+        sim_cfg=SimConfig(max_control_updates=k), **bl_kw), *BATCH_SLOPE)
+    batch_summary.update(update_us=bl_upd,
+                         instance_updates_per_s=B_MAIN / (bl_upd * 1e-6))
+    print(f"  batched loop B={B_MAIN}: {bl_upd:.1f} us per control update (runs "
+          f"{', '.join(f'{v:.1f}' for v in bl_runs)}) = "
+          f"{batch_summary['instance_updates_per_s']:.0f} instance-updates/s")
+
     # ---- phase 6: results -----------------------------------------------
     print(json.dumps({"kernels": rows, "chain_step_us": step_us,
                       "mean_pcg_iters": it_k, "plain_mean_pcg_iters": it_p,
@@ -1899,6 +2342,7 @@ def main() -> int:
                       "batched_instance_iters_per_s": batch_solves,
                       "batched_singles_us": single_us,
                       "sharded": shard_summary,
+                      "batched_loop": batch_summary,
                       "card": card}))
     phase("chip_smoke: done")
     print(card_line())

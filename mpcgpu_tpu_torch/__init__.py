@@ -16,8 +16,8 @@ the model constants and the numpy-only utilities:
   * ``solver/``  KKT assembly, the l1 merit, the KKT kernels K1 (+ Schur) and
                  K5 (blocks), the line-search kernel K3 and the SQP loop;
   * ``parallel/`` the batched SQP solve and its instance-grid kernels K8;
-  * ``sim/``     the closed-loop simulator, the plant kernel K4 and the
-                 warm-started chain;
+  * ``sim/``     the closed-loop simulators (one loop, B loops at once), the
+                 plant kernels K4 / K4b and the warm-started chain;
   * ``utils/``   trajectory fixtures, experiment statistics, checkpoints;
   * ``track_iiwa_pcg.py``, ``track_iiwa_qdldl.py`` the closed-loop tracker
                  scripts (PCG, direct solvers).
@@ -38,4 +38,15 @@ from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-__all__ = ["CostConfig", "PCGConfig", "SimConfig", "SQPConfig"]
+
+def __getattr__(name):
+    # the JAX package's top-level simulators, loaded on first use
+    if name in ("simulate_mpc", "simulate_mpc_ondevice",
+                "simulate_mpc_ondevice_batched"):
+        from mpcgpu_tpu_torch.sim import mpc
+        return getattr(mpc, name)
+    raise AttributeError(name)
+
+
+__all__ = ["CostConfig", "PCGConfig", "SimConfig", "SQPConfig", "simulate_mpc",
+           "simulate_mpc_ondevice", "simulate_mpc_ondevice_batched"]

@@ -26,7 +26,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 SOURCES = ("kkt_schur.cu", "pcg_dz.cu", "merit.cu", "plant.cu", "pcr.cu",
-           "pcg_slab.cu")
+           "pcg_slab.cu", "pcg_ca.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -58,7 +58,7 @@ _SIGNATURES = {
                                   P, P, P],
     },
     "plant.cu": {
-        "plant_launch": [P, P, I, I, P, P, P, F, I, P, F, P, P],
+        "plant_launch": [P, I, P, I, I, I, P, P, P, F, I, P, F, P, I, P],
     },
     "pcr.cu": {
         "pcr_launch": [P, P, I, I, I, P, P, P],
@@ -66,6 +66,12 @@ _SIGNATURES = {
     "pcg_slab.cu": {
         "pcg_slab_launch": [P, P, P, P, P, P, P, P, I, P, P, P, P, P, I, P, P,
                             P, P, I, I, I, I, P, I, I, P],
+    },
+    "pcg_ca.cu": {
+        "ca_basis_launch": [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P,
+                            P, I, I, I, I, P],
+        "ca_coeff_launch": [P, P, P, P, P, P, P, I, P, P, P, P, I, I, I, I, P,
+                            I, P],
     },
 }
 
@@ -173,17 +179,18 @@ def on_cpu(t) -> bool:
 
 
 def require(t, name: str, shape: tuple, device, row_major: bool = False,
-            slabs: bool = False):
-    """Raise unless t is an f32 CUDA tensor on `device` of `shape` that the
-    kernel can read: contiguous, or (row_major) rows of unit stride, or
-    (slabs) each index of the leading axis a contiguous block, the blocks
-    t.stride(0) floats apart."""
+            slabs: bool = False, dtype=None):
+    """Raise unless t is a CUDA tensor of `dtype` (default f32) on `device`
+    of `shape` that the kernel can read: contiguous, or (row_major) rows of
+    unit stride, or (slabs) each index of the leading axis a contiguous
+    block, the blocks t.stride(0) elements apart."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}; the CUDA kernels take float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if row_major:

@@ -18,6 +18,13 @@
 // memory.  Its value is that the whole period is one launch instead of one
 // per substep, and that the scalars (t_off, sim_time, timestep) are read on
 // the device, so the caller never synchronizes.
+//
+// K4b, the same kernel over instances, replaces the TPU kernel vmapped over
+// the instances of the batched closed loop (mpcgpu_tpu/sim/mpc.py::
+// _ondevice_scan_batched_fused, sim/mpc.py:881-883): the instance is the
+// grid's axis (block b rolls instance b's state under its own plan, the
+// period's scalars shared), so each instance runs K4's body on its own SM
+// and equals K4 bit for bit.
 #include "common.cuh"
 
 using namespace mpc;
@@ -25,8 +32,9 @@ using namespace mpc;
 namespace {
 
 __global__ void __launch_bounds__(32)
-plant_kernel(const float* __restrict__ xs, const float* __restrict__ plan,
-             int plan_stride, int N, const float* __restrict__ t_off_p,
+plant_kernel(const float* __restrict__ xs, int xs_bstride,
+             const float* __restrict__ plan, int plan_stride, int plan_bstride,
+             int N, const float* __restrict__ t_off_p,
              const float* __restrict__ sim_time_p,
              const float* __restrict__ timestep_p, float sim_step, int n_steps,
              const float* __restrict__ model, float gravity,
@@ -35,6 +43,9 @@ plant_kernel(const float* __restrict__ xs, const float* __restrict__ plan,
   load_model(sm, model, DYN_SIZE);
   __syncthreads();
   if (threadIdx.x != 0) return;
+  xs += (size_t)blockIdx.x * xs_bstride;
+  plan += (size_t)blockIdx.x * plan_bstride;
+  out += (size_t)blockIdx.x * NX;
   const float t_off = *t_off_p, sim_time = *sim_time_p, timestep = *timestep_p;
   float q[NQ], qd[NQ], s[NQ], c[NQ], qdd[NQ];
   for (int j = 0; j < NQ; ++j) {
@@ -64,13 +75,17 @@ plant_kernel(const float* __restrict__ xs, const float* __restrict__ plan,
 
 }  // namespace
 
-extern "C" int plant_launch(const float* xs, const float* plan,
-                            int plan_stride, int N, const float* t_off,
-                            const float* sim_time, const float* timestep,
-                            float sim_step, int n_steps, const float* model,
-                            float gravity, float* out, void* stream) {
-  plant_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      xs, plan, plan_stride, N, t_off, sim_time, timestep, sim_step, n_steps,
-      model, gravity, out);
+// batch instances, one block each: instance b's state xs + b xs_bstride,
+// its plan + b plan_bstride (N rows of plan_stride floats), its result at
+// out + b NX; t_off, sim_time and timestep are shared device scalars
+extern "C" int plant_launch(const float* xs, int xs_bstride, const float* plan,
+                            int plan_stride, int plan_bstride, int N,
+                            const float* t_off, const float* sim_time,
+                            const float* timestep, float sim_step, int n_steps,
+                            const float* model, float gravity, float* out,
+                            int batch, void* stream) {
+  plant_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      xs, xs_bstride, plan, plan_stride, plan_bstride, N, t_off, sim_time,
+      timestep, sim_step, n_steps, model, gravity, out);
   return static_cast<int>(cudaGetLastError());
 }

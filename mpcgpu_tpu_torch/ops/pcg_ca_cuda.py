@@ -1,0 +1,111 @@
+"""K10b and the coefficient step: one outer step of the s-step CG on every
+knot shard's slab, the per-shard compute of the knot-sharded PCG
+(``parallel/pcg_sharded.py``, ``method="ca_slab"``).
+
+K10b is the port of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_ca_basis_pallas``;
+the coefficient step is the port of the XLA ops around it (the coefficient
+iterations, the recovery and the next basis scale).  The CUDA kernels are
+``csrc/pcg_ca.cu`` and the plain versions ``ops/pcg_ca.py::ca_basis`` and
+``ca_coeff_step`` (the state and the steps are described there).  Each
+wrapper runs its plain version for CPU tensors and its kernel, one block per
+shard, for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpcgpu_tpu_torch import _kernels
+from mpcgpu_tpu_torch.ops.pcg_ca import WORK, ca_basis, ca_coeff_step, n_parts
+
+MAX_S = 8      # csrc/pcg_ca.cu's MAX_S
+SMEM = 232448  # the shared memory a block may use: K10b's four f64 vectors
+
+
+def _require_state(st: dict, s: int) -> tuple:
+    """Raise unless the state's tensors are what the kernels take; returns
+    (device, n_shard, L)."""
+    dev = st["x"].device
+    n_shard, L, n = st["x"].shape
+    h = m = 2 * s + 1
+    if n != 14:
+        raise ValueError("the CUDA kernels are built for nx = 14")
+    if not 1 <= s <= MAX_S:
+        raise ValueError(f"s_steps = {s}; the kernels take 1 <= s <= {MAX_S}")
+    L_max = SMEM // (4 * n * 8) - 2 * h
+    if not h <= L <= L_max:
+        raise ValueError(f"slab of {L} knots; the s-step kernels take "
+                         f"{h} <= L <= {L_max} at s = {s}")
+    for name in ("x", "r", "z", "p"):
+        _kernels.require(st[name], name, (n_shard, L, n), dev)
+    for name in ("Y", "Yt"):
+        _kernels.require(st[name], name, (n_shard, m, L, n), dev, dtype=WORK)
+    _kernels.require(st["pkt"], "pkt", (n_shard, 2, 2, h, n), dev)
+    _kernels.require(st["parts"], "parts", (n_shard, n_parts(s)), dev, dtype=WORK)
+    _kernels.require(st["scal"], "scal", (n_shard, 2), dev, dtype=WORK)
+    for name in ("iters", "done"):
+        t = st[name]
+        if t.dtype != torch.int32 or tuple(t.shape) != (n_shard,) or t.device != dev:
+            raise ValueError(f"{name}: int32 ({n_shard},) on the card")
+    return dev, n_shard, L
+
+
+def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
+                  s: int) -> None:
+    """K10b, in place on ``st``; arguments as ``ops/pcg_ca.py::ca_basis``.
+    On the card S and Pinv may be slabs of a larger tensor (K9a's
+    halo-extended output): each shard's rows contiguous, the shards
+    S.stride(0) floats apart."""
+    if _kernels.on_cpu(st["x"]):
+        ca_basis(st, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter, s)
+        return
+    dev, n_shard, L = _require_state(st, s)
+    h = 2 * s + 1
+    for name, t in (("S", S), ("Pinv", Pinv)):
+        _kernels.require(t, name, (n_shard, L, 3, 14, 14), dev, slabs=True)
+    if S.stride(0) != Pinv.stride(0):
+        raise ValueError("S and Pinv: the same stride between shards")
+    for name, t in (("SL", SL), ("SR", SR), ("PL", PL), ("PR", PR)):
+        _kernels.require(t, name, (n_shard, h, 3, 14, 14), dev)
+    for name, t in (("fl", fl), ("fr", fr)):
+        _kernels.require(t, name, (n_shard, 2, h, 14), dev)
+    code = _kernels.entry("pcg_ca.cu", "ca_basis_launch")(
+        st["p"].data_ptr(), st["z"].data_ptr(), st["r"].data_ptr(),
+        S.data_ptr(), Pinv.data_ptr(), S.stride(0), SL.data_ptr(),
+        SR.data_ptr(), PL.data_ptr(), PR.data_ptr(), fl.data_ptr(),
+        fr.data_ptr(), st["scal"].data_ptr(), st["iters"].data_ptr(),
+        st["done"].data_ptr(), st["Y"].data_ptr(), st["Yt"].data_ptr(),
+        st["parts"].data_ptr(), L, s, n_shard, int(max_iter),
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "ca_basis_launch")
+    ca_basis_cuda.launches += 1
+
+
+def ca_coeff_step_cuda(st: dict, tot, max_iter: int, exit_tol,
+                       exit_criterion: str, s: int) -> None:
+    """The coefficient step, in place on ``st``; arguments as
+    ``ops/pcg_ca.py::ca_coeff_step``.  On the card tot may be a broadcast
+    view (the mesh's psum): rows of unit stride."""
+    if exit_criterion not in ("eta", "rnorm"):
+        raise ValueError(f"unknown exit_criterion {exit_criterion!r}")
+    if _kernels.on_cpu(st["x"]):
+        ca_coeff_step(st, tot, max_iter, exit_tol, exit_criterion, s)
+        return
+    dev, n_shard, L = _require_state(st, s)
+    if tuple(tot.shape) != (n_shard, n_parts(s)) or tot.stride(1) != 1 \
+            or tot.dtype != WORK or tot.device != dev:
+        raise ValueError(f"tot: f64 ({n_shard}, {n_parts(s)}) on the card, rows "
+                         "of unit stride")
+    tol_t = _kernels.scalar(exit_tol, dev)
+    code = _kernels.entry("pcg_ca.cu", "ca_coeff_launch")(
+        *(st[k].data_ptr() for k in ("x", "r", "z", "p", "Y", "Yt")),
+        tot.data_ptr(), tot.stride(0), st["scal"].data_ptr(),
+        st["iters"].data_ptr(), st["done"].data_ptr(), st["pkt"].data_ptr(),
+        L, s, n_shard, int(max_iter), tol_t.data_ptr(),
+        int(exit_criterion == "rnorm"), _kernels.stream_ptr(dev))
+    _kernels.check(code, "ca_coeff_launch")
+    ca_coeff_step_cuda.launches += 1
+
+
+ca_basis_cuda.launches = 0
+ca_coeff_step_cuda.launches = 0

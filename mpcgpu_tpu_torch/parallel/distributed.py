@@ -120,5 +120,5 @@ def make_host_aligned_mesh(n_knot_per_host: Optional[int] = None) -> DistKnotMes
         raise NotImplementedError(
             f"a knot axis of {n_knot_per_host} of {mesh.size} processes needs "
             "the instance axis, which is not ported yet; see ROADMAP.md queue "
-            "1 item 10")
+            "1, the instance axis (items 9 and 10, last)")
     return mesh

@@ -76,5 +76,6 @@ def make_mesh(n_instance: int = 1, n_knot: int = 1) -> KnotMesh:
         raise NotImplementedError(
             "make_mesh(n_instance > 1): the instance axis (the instance-"
             "sharded batched solve, batched_fused.py:576-621) is not ported "
-            "yet; see ROADMAP.md queue 1 item 10")
+            "yet; see ROADMAP.md queue 1, the instance axis (items 9 and 10, "
+            "last)")
     return KnotMesh(n_knot)

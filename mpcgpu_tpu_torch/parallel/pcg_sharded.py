@@ -26,16 +26,48 @@ Exit semantics are the JAX loops': |eta| < tol ("eta") or ||r||^2 < tol^2
 exit fires.  The loop runs its ``max_iter`` iterations with a device ``done``
 flag that masks the steps after the exit, so a solve reads nothing back to
 the host.  The pipelined forms need L >= 2 (two-row packets) and fall back to
-classic below it.  ``"ca"`` / ``"ca_slab"`` (the s-step form and its basis
-kernel) are not ported yet.
+classic below it.
+
+  * ``"ca"``: the communication-avoiding s-step CG, s iterations per outer
+    step of ONE wide exchange (2 sends of (2, h, n) packets: the p and z
+    rows, h = 2s+1 deep) and ONE psum of the packed Gram parts; the h-deep
+    S / Pinv halo blocks are exchanged once per solve.  The bases are built
+    on the slab extended by h knots per side with zero ends (the error at
+    the ends moves one knot inward per application and never reaches the
+    local knots), and at the global ends the ring-wrap rows meet the zero
+    corner blocks as above.  The s iterations then run in 2s+1-dimensional
+    coefficient space on every shard alike (``ops/pcg_ca.py``).  The s-step
+    algebra (bases, Gram parts, coefficient iterations, the recovery's
+    sums) runs in f64 whatever the system's precision, where the JAX
+    package's runs in f32: in f32 the monomial basis loses the relations the
+    recurrences assume, and the solve drifts far from CG's (``csrc/
+    pcg_ca.cu``, ROADMAP.md queue 3);
+  * ``"ca_slab"``: the same algebra with each outer step's per-shard
+    compute in two launches: K10b (the bases and the Gram parts,
+    ``ops/pcg_ca_cuda.py``), the psum, then the coefficient step (the s
+    iterations, the recovery, the next scale and the next packets), so the
+    scalars stay on the device.
+
+The s-step forms need L >= 2s+1 and fall back to pipelined below it.  All
+forms enqueue their whole cap: ``max_iter`` iterations, or ceil(max_iter /
+s) outer steps.
 """
 
 from __future__ import annotations
+
+import math
+from functools import partial
 
 import torch
 
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.ops.pcg import PCGResult
+from mpcgpu_tpu_torch.ops.pcg_ca import (WORK, basis_chains, ca_state,
+                                         gram_parts, split_parts)
+from mpcgpu_tpu_torch.ops.pcg_ca import ca_coeff_iters as _ca_coeff_iters
+from mpcgpu_tpu_torch.ops.pcg_ca import ca_next_scale as _ca_next_scale
+from mpcgpu_tpu_torch.ops.pcg_ca import ca_shift_matrix as _ca_shift_matrix
+from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
 from mpcgpu_tpu_torch.ops.pcg_slab import band_rows, exit_fired, slab_state
 from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
 from mpcgpu_tpu_torch.parallel.mesh import KnotMesh
@@ -171,22 +203,113 @@ def _pcg_local_pipelined_slab(S_loc, Pinv_loc, gamma_loc, lam_loc,
     return st["x"], st["iters"], exit_fired(tot, exit_tol, exit_criterion)
 
 
+def _ca_halo_blocks(M, h: int, mesh):
+    """The h rows of M (n_local, L, ...) of the left and of the right
+    neighbour: the loop-invariant halo of the s-step forms."""
+    return mesh.send_right(M[:, -h:]), mesh.send_left(M[:, :h])
+
+
+def _ca_init(S_loc, Pinv_loc, gamma_loc, lam_loc, mesh):
+    """The true r0 and z0 = Pinv r0 through one-row halos and the summed
+    (r0.z0, r0.r0), as the other forms' init (the exit test before any
+    iteration)."""
+    r0 = gamma_loc - btd_matvec_halo(S_loc, lam_loc, mesh)
+    z0 = btd_matvec_halo(Pinv_loc, r0, mesh)
+    tot0 = mesh.psum(torch.stack([(r0 * z0).sum((1, 2)), (r0 * r0).sum((1, 2))], 1))
+    return r0, z0, tot0
+
+
+def _pcg_local_ca(S_loc, Pinv_loc, gamma_loc, lam_loc, max_iter: int, exit_tol,
+                  mesh, exit_criterion: str = "eta", s_steps: int = 4):
+    """The s-step CG in plain torch (module docstring): per outer step 2 sends
+    of (2, h, n) packets, the basis chains on the extended slab, 1 psum of
+    the Gram parts, the coefficient iterations and the recovery."""
+    s = s_steps
+    h = 2 * s + 1
+    L = gamma_loc.shape[1]
+    dt = gamma_loc.dtype
+    SL, SR = _ca_halo_blocks(S_loc, h, mesh)
+    PL, PR = _ca_halo_blocks(Pinv_loc, h, mesh)
+    S_ext = torch.cat([SL, S_loc, SR], 1).to(WORK)
+    P_ext = torch.cat([PL, Pinv_loc, PR], 1).to(WORK)
+    T = _ca_shift_matrix(s, WORK, gamma_loc.device)
+
+    def exit_test(eta, rr):
+        if exit_criterion == "rnorm":
+            return rr < exit_tol * exit_tol
+        return torch.abs(eta) < exit_tol
+
+    r, z, tot0 = _ca_init(S_loc, Pinv_loc, gamma_loc, lam_loc, mesh)
+    x, p = lam_loc, z
+    eta = tot0[:, 0].to(WORK)
+    g = torch.ones_like(eta)
+    it = torch.zeros_like(eta, dtype=torch.int32)
+    done = exit_test(tot0[:, 0], tot0[:, 1])
+    for _ in range(math.ceil(max_iter / s)):
+        run = ~done & (it < max_iter)
+        fl = mesh.send_right(torch.stack([p[:, L - h:], z[:, L - h:]], 1))
+        fr = mesh.send_left(torch.stack([p[:, :h], z[:, :h]], 1))
+        p_ext = torch.cat([fl[:, 0], p, fr[:, 0]], 1).to(WORK)
+        z_ext = torch.cat([fl[:, 1], z, fr[:, 1]], 1).to(WORK)
+        Ys, Yts = basis_chains(S_ext, P_ext, p_ext, z_ext, (1 / g)[:, None, None], s)
+        Y = torch.stack(Ys, 1)[:, :, h:h + L]
+        Yt = torch.stack(Yts, 1)[:, :, h:h + L]
+        G, b, F, f, rr0 = split_parts(mesh.psum(gram_parts(Y, Yt, r.to(WORK))), s)
+        e, a, c, eta, it, done = _ca_coeff_iters(
+            G, b, F, f, rr0, g[:, None, None] * T, eta, it, done, s, max_iter,
+            exit_test)
+        comb = lambda w, B: torch.einsum("sa,salk->slk", w, B)
+        x = _keep(run, (x + comb(e, Y)).to(dt), x)
+        r = _keep(run, (r - comb(e, Yt)).to(dt), r)
+        z, p = _keep(run, comb(c, Y).to(dt), z), _keep(run, comb(a, Y).to(dt), p)
+        g = _keep(run, _ca_next_scale(G, g, s), g)
+    return x, it, done
+
+
+def _pcg_local_ca_slab(S_loc, Pinv_loc, gamma_loc, lam_loc, max_iter: int,
+                       exit_tol, mesh, exit_criterion: str = "eta",
+                       s_steps: int = 4, basis=ca_basis_cuda,
+                       coeff=ca_coeff_step_cuda):
+    """The s-step CG with each outer step's per-shard compute in K10b and the
+    coefficient step: 2 sends, one K10b launch, 1 psum, one coefficient-step
+    launch.  S_loc and Pinv_loc may be slabs of a larger tensor (K9a's
+    output, read in place).  ``basis`` and ``coeff`` are the steps' wrappers
+    (``ops/pcg_ca.py::ca_basis`` and ``ca_coeff_step`` drive the same loop
+    with the plain steps on any device)."""
+    s = s_steps
+    h = 2 * s + 1
+    SL, SR = _ca_halo_blocks(S_loc, h, mesh)
+    PL, PR = _ca_halo_blocks(Pinv_loc, h, mesh)
+    r0, z0, tot0 = _ca_init(S_loc, Pinv_loc, gamma_loc, lam_loc, mesh)
+    st = ca_state(lam_loc, r0, z0, tot0, exit_tol, exit_criterion, s)
+    for _ in range(math.ceil(max_iter / s)):
+        fl = mesh.send_right(st["pkt"][:, 0])
+        fr = mesh.send_left(st["pkt"][:, 1])
+        basis(st, S_loc, Pinv_loc, SL, SR, PL, PR, fl, fr, max_iter, s)
+        coeff(st, mesh.psum(st["parts"]), max_iter, exit_tol, exit_criterion, s)
+    return st["x"], st["iters"], st["done"] != 0
+
+
 _IMPLS = {"classic": _pcg_local, "pipelined": _pcg_local_pipelined,
-          "pipelined_slab": _pcg_local_pipelined_slab}
+          "pipelined_slab": _pcg_local_pipelined_slab, "ca": _pcg_local_ca,
+          "ca_slab": _pcg_local_ca_slab}
 
 
-def local_pcg(method: str, L: int):
-    """The per-shard body of ``method`` for slabs of L knots: the pipelined
-    forms fall back to classic at L < 2, as in the JAX package."""
-    if method in ("ca", "ca_slab"):
-        raise NotImplementedError(
-            f"pcg method {method!r}: the s-step CA PCG and its basis kernel K10b "
-            "(mpcgpu_tpu/ops/pcg_pallas.py:365 pcg_ca_basis_pallas) are not "
-            "ported yet; see ROADMAP.md queue 1 item 10")
+def local_pcg(method: str, L: int, s_steps: int = 4):
+    """The per-shard body of ``method`` for slabs of L knots, as the JAX
+    package routes it: the s-step forms fall back to pipelined at
+    L < 2 s_steps + 1 (their packets are 2s+1 rows deep), the pipelined
+    forms to classic at L < 2."""
     if method not in _IMPLS:
         raise ValueError(f"unknown pcg method {method!r}")
+    if s_steps < 1:
+        raise ValueError(f"s_steps must be >= 1, got {s_steps}")
+    if method.startswith("ca") and L < 2 * s_steps + 1:
+        method = "pipelined"
     if method.startswith("pipelined") and L < 2:
         method = "classic"
+    if method.startswith("ca"):
+        return partial(_IMPLS[method], s_steps=s_steps)
     return _IMPLS[method]
 
 
@@ -199,8 +322,10 @@ def pcg_solve_sharded(S, Pinv, gamma, lam0, mesh, max_iter: int = 173,
     Shapes as in ``ops/pcg.py`` (full (N, ...) arrays, N divisible by the
     mesh's size; on a ``DistKnotMesh`` every process passes the full arrays
     and gets the full result).  method: "pipelined" (default),
-    "pipelined_slab" (K10a on CUDA tensors) or "classic"; "ca" and
-    "ca_slab" raise.  exit_tol may be a float or a 0-d tensor."""
+    "pipelined_slab" (K10a on CUDA tensors), "classic", "ca" or "ca_slab"
+    (the s-step forms with s = ``s_steps``; "ca_slab" through K10b and the
+    coefficient step on CUDA tensors).  exit_tol may be a float or a 0-d
+    tensor."""
     if knot_axis != "knot":
         raise ValueError(f"the knot meshes have one axis, 'knot'; got {knot_axis!r}")
     if exit_criterion not in ("eta", "rnorm"):
@@ -208,7 +333,7 @@ def pcg_solve_sharded(S, Pinv, gamma, lam0, mesh, max_iter: int = 173,
     N = gamma.shape[0]
     if N % mesh.size:
         raise ValueError(f"N={N} not divisible by {mesh.size} knot shards")
-    impl = local_pcg(method, N // mesh.size)
+    impl = local_pcg(method, N // mesh.size, s_steps)
     tol = _kernels.scalar(exit_tol, gamma.device, gamma.dtype)
     lam, iters, done = impl(mesh.scatter(S), mesh.scatter(Pinv),
                             mesh.scatter(gamma), mesh.scatter(lam0), max_iter,

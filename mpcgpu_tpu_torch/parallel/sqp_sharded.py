@@ -17,10 +17,12 @@ Two routes for the shard-local compute:
     or no preconditioner, ``compute_dz`` and the merits, with a sharded PCG
     (``parallel/pcg_sharded.py``);
   * fused: each shard's slab extended by two halo knots per side through
-    K9a (``build_kkt_schur_slab``), the pipelined PCG through K10a fed K9a's
-    blocks in place, dz through K9b (``compute_dz_slab``), and the merits'
-    per-knot terms through K9c (``line_search_merit_partials_slab``), summed
-    with the boundary corrections and one psum.
+    K9a (``build_kkt_schur_slab``), the PCG fed K9a's blocks in place (by
+    default the s-step CG through K10b and its coefficient step; the
+    pipelined CG through K10a), dz through K9b (``compute_dz_slab``), and
+    the merits' per-knot terms through K9c
+    (``line_search_merit_partials_slab``), summed with the boundary
+    corrections and one psum.
 
 ``fused="auto"`` takes the fused route when the tensors are on the card and
 the shape qualifies (ee cost, stair preconditioner, L >= 2), else the
@@ -82,6 +84,8 @@ def _resolve_route(xu, cost: CostConfig, pcg_cfg: PCGConfig, L: int, fused,
     if pcg_method == "auto":
         pcg_method = ("ca_slab" if fused and L >= 2 * pcg_s_steps + 1
                       else "pipelined")
+    if pcg_method.startswith("ca") and L < 2 * pcg_s_steps + 1:
+        pcg_method = "pipelined"       # the packets carry 2s+1 rows a side
     if fused and pcg_method == "pipelined":
         pcg_method = "pipelined_slab"
     return bool(fused), pcg_method
@@ -107,11 +111,13 @@ def sqp_solve_sharded(
     ``sqp_solve``'s).  fused: the kernels' slab route ("auto": on the card
     when the shape qualifies; module docstring).  pcg_method: "pipelined"
     (Chronopoulos-Gear; on the fused route its slab kernel K10a),
-    "pipelined_slab", "classic"; "auto" resolves as the JAX package does,
-    to "ca_slab" on the fused route when L >= 2 pcg_s_steps + 1, else
-    "pipelined".  The s-step forms "ca" / "ca_slab" raise
-    NotImplementedError until their basis kernel is ported.  rho may be a
-    float or a 0-d tensor.  Returns an ``SQPResult`` over the full arrays.
+    "pipelined_slab", "classic", the s-step "ca" / "ca_slab" (s =
+    pcg_s_steps; on the fused route "ca_slab" runs K10b and its coefficient
+    step on K9a's blocks in place); "auto" resolves as the JAX package
+    does, to "ca_slab" on the fused route when L >= 2 pcg_s_steps + 1, else
+    "pipelined", and the s-step forms fall back to "pipelined" below that
+    width.  rho may be a float or a 0-d tensor.  Returns an ``SQPResult``
+    over the full arrays.
     """
     if knot_axis != "knot":
         raise ValueError(f"the knot meshes have one axis, 'knot'; got {knot_axis!r}")
@@ -127,7 +133,7 @@ def sqp_solve_sharded(
     L = N // n_shard
     fused, pcg_method = _resolve_route(xu, cost, pcg_cfg, L, fused, pcg_method,
                                       pcg_s_steps)
-    solve_lin = local_pcg(pcg_method, L)
+    solve_lin = local_pcg(pcg_method, L, pcg_s_steps)
     max_iter = sqp_cfg.max_iter
     iter_bound = max_iter if iter_budget is None else min(max_iter, int(iter_budget))
     mu = float(sqp_cfg.mu)
@@ -322,7 +328,7 @@ def make_sharded_sqp_solver(model: RobotModel, cost: CostConfig,
                             sqp_cfg: SQPConfig, pcg_cfg: PCGConfig, dt: float,
                             mesh, integrator_type: int = 0,
                             fused: bool | str = "auto",
-                            pcg_method: str = "auto"):
+                            pcg_method: str = "auto", pcg_s_steps: int = 4):
     """A solver fn(xu, lam, xs, ee_goal, rho[, iter_budget]) -> SQPResult
     over ``mesh`` with the model, configuration and route bound."""
 
@@ -331,6 +337,6 @@ def make_sharded_sqp_solver(model: RobotModel, cost: CostConfig,
                                  ee_goal, rho, dt, mesh,
                                  integrator_type=integrator_type,
                                  iter_budget=iter_budget, fused=fused,
-                                 pcg_method=pcg_method)
+                                 pcg_method=pcg_method, pcg_s_steps=pcg_s_steps)
 
     return solve

@@ -16,11 +16,16 @@ Port of ``mpcgpu_tpu/sim/mpc.py``, the equivalent of simulateMPC
     as base_us + per_iter_us * sqp_iters and the schedule stays on the
     device); with ``knot_mesh``, every solve knot-sharded
     (``parallel/sqp_sharded.py``);
+  * ``simulate_mpc_ondevice_batched``: B such loops from perturbed starts at
+    once on the shared constant-frequency schedule, every update one
+    batched solve (``parallel/batched_cuda.py``, K8a-c and K3b) and one
+    plant launch over the instances (K4b);
   * ``run_chain``: the warm-started chain that ``bench.py`` times (no plant).
 
-The plant is K4 (``sim/plant_cuda.py::simulate_plant``) on CUDA tensors and
-its plain version ``simulate_plant_plain`` (the JAX package's
-``_simulate_plant``) on CPU tensors.  Every entry point computes on the
+The plant is K4 (``sim/plant_cuda.py::simulate_plant``; K4b
+``simulate_plant_batched`` over instances) on CUDA tensors and its plain
+version ``simulate_plant_plain`` (the JAX package's ``_simulate_plant``) on
+CPU tensors.  Every entry point computes on the
 model's device.
 """
 
@@ -38,21 +43,33 @@ import torch
 
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
-from mpcgpu_tpu_torch.models import dynamics
 from mpcgpu_tpu_torch.models.robot import RobotModel
+from mpcgpu_tpu_torch.parallel.batched_cuda import sqp_solve_batched_fused
 from mpcgpu_tpu_torch.parallel.sqp_sharded import make_sharded_sqp_solver
-from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant
+from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant, simulate_plant_batched
 from mpcgpu_tpu_torch.solver.sqp import make_sqp_solver, sqp_solve
 
 
 def _ee_xyz(model: RobotModel, q):
-    return dynamics.fk_ee_xyz(model, q)
+    """The end-effector position of q (..., nq): the joint transforms applied
+    to the homogeneous origin from the last to the first, each product
+    written out elementwise, so that it rounds alike at any batch shape (a
+    batched matrix product and a single one round differently on the card,
+    and B loops at once must track as B single loops)."""
+    H = model.hom_xmats(q)
+    v = H[..., -1, :, 3]
+    for k in range(model.nq - 2, -1, -1):
+        Hk = H[..., k, :, :]
+        v = ((Hk[..., 0] * v[..., 0:1] + Hk[..., 1] * v[..., 1:2])
+             + Hk[..., 2] * v[..., 2:3]) + Hk[..., 3] * v[..., 3:4]
+    return v[..., :3]
 
 
 def _tracking_error(model: RobotModel, xs, ee_goal):
     """L1 ee position error of the measured state against the goal window's
-    first row (mpcsim.cuh:300-309), a 0-d tensor."""
-    return (_ee_xyz(model, xs[:model.nq]) - ee_goal[0, :3]).abs().sum()
+    first row (mpcsim.cuh:300-309): xs (..., nx), ee_goal (..., N, 6) ->
+    (...)."""
+    return (_ee_xyz(model, xs[..., :model.nq]) - ee_goal[..., 0, :3]).abs().sum(-1)
 
 
 def _resolve_linsys(linsys: str, device) -> str:
@@ -69,20 +86,21 @@ def _sync(device) -> None:
 
 
 def _pin_state(xu, xs):
-    """xu with its first state row set to the measured state (mpcsim.cuh:348);
-    a new tensor, since the old plan may still drive the plant."""
+    """xu (..., N, nx+nu) with its first state row set to the measured state
+    xs (..., nx) (mpcsim.cuh:348); a new tensor, since the old plan may
+    still drive the plant."""
     xu = xu.clone()
-    xu[0, :xs.shape[0]] = xs
+    xu[..., 0, :xs.shape[-1]] = xs
     return xu
 
 
 def _shift_all(xu, lam, ee_goal, backfill_xu, backfill_goal):
-    """Warm-start shift: plan, goal and multipliers move left one knot; the
-    tails are backfilled (xu and goal from the given rows, lam duplicated)."""
-    xu = torch.cat([xu[1:], backfill_xu[None]])
-    ee_goal = torch.cat([ee_goal[1:], backfill_goal[None]])
-    lam = torch.cat([lam[1:], lam[-1:]])
-    return xu, lam, ee_goal
+    """Warm-start shift: plan, goal and multipliers (..., N, .) move left one
+    knot; the tails are backfilled (xu and goal from the given rows, shared
+    by every instance, lam duplicated)."""
+    tail = lambda v, row: torch.cat([v[..., 1:, :], row.expand_as(v[..., :1, :])], -2)
+    return (tail(xu, backfill_xu), tail(lam, lam[..., -1:, :]),
+            tail(ee_goal, backfill_goal))
 
 
 def _shift_rule(clock, shifted, sim_time, timestep, threshold):
@@ -118,19 +136,21 @@ def _backfill(xu_traj, ee_traj, nq: int, offsets, N: int):
 
 
 def _control_update(model, res, xs, xu_old, ee_goal, t_off, sim_t, timestep,
-                    n_sub, sim_step, shift=None, when=None):
+                    n_sub, sim_step, shift=None, when=None, record=False):
     """One control update after the solve ``res`` (mpcsim.cuh:280-348): K4
     rolls the plant over sim_t under the previous plan xu_old, offset by the
     previous sim time t_off; with ``shift = (tail, goal_tail)`` the tracking
     error is taken against the goal before it moves, and plan, goal and
     multipliers shift (where the 0-d bool tensor ``when`` holds, if given);
     then the plan's first state is pinned to the measured state.  Returns
-    (xs, xu, lam, ee_goal, err); err is None without a shift."""
+    (xs, xu, lam, ee_goal, err); err is None without a shift unless
+    ``record``."""
     xs = simulate_plant(model, xs, xu_old, t_off, sim_t, timestep, n_sub,
                         sim_step)
     xu, lam, err = res.xu, res.lam, None
-    if shift is not None:
+    if shift is not None or record:
         err = _tracking_error(model, xs, ee_goal)
+    if shift is not None:
         moved = _shift_all(xu, lam, ee_goal, *shift)
         if when is not None:
             moved = tuple(torch.where(when, a, b)
@@ -440,11 +460,13 @@ def _ondevice_schedule(xu_traj, ee_traj, N, nq, timestep, period_s,
 
 
 def _ondevice_scan(model, solve, timestep, period_s, n_sub, sim_step, xu0,
-                   lam0, xs0, ee0, rho0, shift_flags, tails, goal_tails):
+                   lam0, xs0, ee0, rho0, shift_flags, tails, goal_tails,
+                   every_err=False):
     """Constant-frequency core: per control step one solve and one
     ``_control_update`` on the host's schedule, with no read-back.  Returns
-    (outs, final_err): outs holds err (n_shifts,), xs (steps, nx),
-    sqp_iters (steps,), pcg_iters (steps, max_iter)."""
+    (outs, final_err): outs holds err (n_shifts,; (steps,) with
+    ``every_err``), xs (steps, nx), sqp_iters (steps,), pcg_iters (steps,
+    max_iter)."""
     dev, dtype = xu0.device, xu0.dtype
     period = _kernels.scalar(period_s, dev, dtype)
     step_t = _kernels.scalar(timestep, dev, dtype)
@@ -455,7 +477,8 @@ def _ondevice_scan(model, solve, timestep, period_s, n_sub, sim_step, xu0,
         res = solve(xu, lam, xs, ee_goal, rho)
         xs, xu, lam, ee_goal, err = _control_update(
             model, res, xs, xu_old, ee_goal, t_off, period, step_t, n_sub,
-            sim_step, (tails[i], goal_tails[i]) if do_shift else None)
+            sim_step, (tails[i], goal_tails[i]) if do_shift else None,
+            record=every_err)
         if err is not None:
             errs.append(err)
         xu_old, rho, t_off = res.xu, res.rho, period
@@ -633,6 +656,151 @@ def simulate_mpc_ondevice(
         final_tracking_error=final_err,
         control_updates=len(shift_flags),
     )
+
+
+# ---------------------------------------------------------------------------
+# B closed loops at once
+# ---------------------------------------------------------------------------
+
+
+def _ondevice_scan_batched_fused(model, cost, sqp_cfg, pcg_cfg, timestep,
+                                 period_s, n_sub, sim_step, xu0_b, lam0_b,
+                                 xs0_b, ee0_b, rho0_b, shift_flags, tails,
+                                 goal_tails):
+    """B closed loops on the instance-grid kernels: per control update one
+    batched solve (``sqp_solve_batched_fused``: K8a-c, K3b), one K4b launch
+    under every instance's previous plan, every instance's tracking error,
+    the shared shift where the schedule says, and the measured states
+    pinned; nothing is read back beyond the solve's stop flag.  Returns
+    (outs, final_err) in the JAX scan's layout: err (B, steps), xs (B,
+    steps, nx), sqp_iters (B, steps), pcg_iters (B, steps, max_iter);
+    final_err (B,)."""
+    dev, dtype = xu0_b.device, xu0_b.dtype
+    period = _kernels.scalar(period_s, dev, dtype)
+    step_t = _kernels.scalar(timestep, dev, dtype)
+    t_off = _kernels.scalar(0.0, dev, dtype)
+    xu, xu_old, lam, xs, ee_goal, rho = xu0_b, xu0_b, lam0_b, xs0_b, ee0_b, rho0_b
+    keys = ("err", "xs", "sqp_iters", "pcg_iters")
+    outs = {k: [] for k in keys}
+    for i, do_shift in enumerate(shift_flags):
+        res = sqp_solve_batched_fused(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs,
+                                      ee_goal, rho, timestep)
+        xs = simulate_plant_batched(model, xs, xu_old, t_off, period, step_t,
+                                    n_sub, sim_step)
+        err = _tracking_error(model, xs, ee_goal)
+        xu, lam = res.xu, res.lam
+        if do_shift:
+            xu, lam, ee_goal = _shift_all(xu, lam, ee_goal, tails[i], goal_tails[i])
+        xu = _pin_state(xu, xs)
+        xu_old, rho, t_off = res.xu, res.rho, period
+        for k, v in zip(keys, (err, xs, res.sqp_iters, res.pcg_iters)):
+            outs[k].append(v)
+    outs = {k: torch.stack(v, 1) for k, v in outs.items()}
+    return outs, _tracking_error(model, xs, ee_goal)
+
+
+def _ondevice_run_batched(model, cost, sqp_cfg, pcg_cfg, linsys, timestep,
+                          period_s, n_sub, sim_step, xu0, ee0, xs0_b,
+                          shift_flags, tails, goal_tails):
+    """B closed loops from the starts xs0_b (B, nx), each from the first
+    window xu0 (N, nx+nu), ee0 (N, 6) with its start pinned, lam = 0 and
+    rho = 1e-3, on the shared schedule (``_ondevice_schedule``).  On CUDA
+    tensors with ee cost, the stair preconditioner and linsys "pcg" or
+    "pcg_cuda", the instance-grid scan (``_ondevice_scan_batched_fused``);
+    otherwise ``_ondevice_scan`` per instance with the unfused solve, the
+    counterpart of the JAX package's vmap.  Returns (outs, final_err) as
+    ``_ondevice_scan_batched_fused``, outs with the shared shift mask
+    ``shifted`` (steps,)."""
+    B, nx = xs0_b.shape
+    dev, dtype = xu0.device, xu0.dtype
+    shifted = torch.tensor(shift_flags, dtype=torch.bool, device=dev)
+    xu0_b = _pin_state(xu0.expand(B, *xu0.shape), xs0_b)
+    lam0_b = xu0.new_zeros((B, xu0.shape[0], nx))
+    ee0_b = ee0.expand(B, *ee0.shape).contiguous()
+    rho0_b = torch.full((B,), 1e-3, dtype=dtype, device=dev)
+    if (dev.type == "cuda" and cost.mode == "ee"
+            and pcg_cfg.preconditioner == "stair" and linsys in ("pcg", "pcg_cuda")):
+        outs, final_err = _ondevice_scan_batched_fused(
+            model, cost, sqp_cfg, pcg_cfg, timestep, period_s, n_sub, sim_step,
+            xu0_b, lam0_b, xs0_b, ee0_b, rho0_b, shift_flags, tails, goal_tails)
+    else:
+        solve = make_sqp_solver(model, cost, sqp_cfg, pcg_cfg, timestep,
+                                linsys=linsys, fused=False)
+        runs = [_ondevice_scan(model, solve, timestep, period_s, n_sub, sim_step,
+                               xu0_b[i], lam0_b[i], xs0_b[i], ee0_b[i], rho0_b[i],
+                               shift_flags, tails, goal_tails, every_err=True)
+                for i in range(B)]
+        outs = {k: torch.stack([o[k] for o, _ in runs]) for k in runs[0][0]}
+        final_err = torch.stack([fe for _, fe in runs])
+    outs["shifted"] = shifted
+    return outs, final_err
+
+
+def simulate_mpc_ondevice_batched(
+    model: RobotModel,
+    xu_traj: np.ndarray,
+    eepos_traj: np.ndarray,
+    knot_points: int,
+    timestep: float,
+    batch: int,
+    perturb_scale: float = 0.05,
+    seed: int = 0,
+    cost: Optional[CostConfig] = None,
+    sqp_cfg: SQPConfig = SQPConfig(max_iter=2),
+    pcg_cfg: Optional[PCGConfig] = None,
+    sim_cfg: SimConfig = SimConfig(),
+    linsys: str = "auto",
+    dtype=None,
+    instance_mesh=None,
+):
+    """Scenario-parallel closed-loop MPC: ``batch`` tracking runs from
+    perturbed starts as device work, on the shared constant-frequency shift
+    schedule.  The starts are the trajectory's first state plus
+    ``perturb_scale`` times standard normals drawn from a ``torch.Generator``
+    seeded with ``seed`` on the model's device; these are not the JAX
+    package's ``jax.random`` draws for the same seed.  On the card (ee cost,
+    stair preconditioner, linsys "pcg" / "pcg_cuda" or "auto") every update
+    solves all instances through the instance-grid kernels and rolls their
+    plants in one K4b launch; otherwise each instance runs the unfused
+    on-device loop.  ``instance_mesh`` (the instance axis over devices)
+    raises NotImplementedError.
+
+    Returns a dict: tracking_errors (batch, steps), shift_mask (steps,) (the
+    shared schedule), final_tracking_error (batch,), control_updates.
+    """
+    if instance_mesh is not None:
+        raise NotImplementedError(
+            "simulate_mpc_ondevice_batched(instance_mesh=): the instance axis "
+            "is not ported yet; see ROADMAP.md queue 1, the instance axis "
+            "(items 9 and 10, last)")
+    if not sim_cfg.const_update_freq:
+        raise ValueError("on-device sim supports const_update_freq mode only")
+    N = knot_points
+    nq = model.nq
+    nx = 2 * nq
+    dev = model.xc.device
+    dtype = model.dtype if dtype is None else dtype
+    cost = cost or CostConfig.for_knots(N)
+    pcg_cfg = pcg_cfg or PCGConfig(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5)
+    linsys = _resolve_linsys(linsys, dev)
+    period_s = sim_cfg.simulation_period_us * 1e-6
+    shift_threshold = sim_cfg.shift_threshold_frac * timestep
+    xu_traj_t = torch.tensor(xu_traj, dtype=dtype, device=dev)
+    ee_traj_t = torch.tensor(eepos_traj, dtype=dtype, device=dev)
+    shift_flags, tails, goal_tails = _ondevice_schedule(
+        xu_traj_t, ee_traj_t, N, nq, timestep, period_s, shift_threshold,
+        sim_cfg.max_control_updates)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dx0 = perturb_scale * torch.randn((batch, nx), generator=gen, dtype=dtype,
+                                      device=dev)
+    outs, final_err = _ondevice_run_batched(
+        model, cost, sqp_cfg, pcg_cfg, linsys, timestep, period_s,
+        int(period_s / sim_cfg.sim_step_time), sim_cfg.sim_step_time,
+        xu_traj_t[:N], ee_traj_t[:N], xu_traj_t[0, :nx] + dx0, shift_flags,
+        tails, goal_tails)
+    return dict(tracking_errors=outs["err"], shift_mask=outs["shifted"],
+                final_tracking_error=final_err, control_updates=len(shift_flags))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,14 @@
-"""K4: the plant rolled through one control period in one launch.
+"""K4: the plant rolled through one control period in one launch; K4b: the
+same over instances.
 
-Port of ``mpcgpu_tpu/sim/plant_pallas.py::simulate_plant_pallas``; the CUDA
-kernel is ``csrc/plant.cu``.  ``simulate_plant`` runs the plain version
-``simulate_plant_plain`` (the JAX package's ``sim/mpc.py::_simulate_plant``)
-for CPU tensors and the kernel for CUDA tensors.
+Port of ``mpcgpu_tpu/sim/plant_pallas.py::simulate_plant_pallas`` and of its
+vmap over the instances of the batched closed loop
+(``mpcgpu_tpu/sim/mpc.py:881-883``); the CUDA kernel is ``csrc/plant.cu``.
+``simulate_plant`` runs the plain version ``simulate_plant_plain`` (the JAX
+package's ``sim/mpc.py::_simulate_plant``) for CPU tensors and the kernel
+for CUDA tensors; ``simulate_plant_batched`` runs ``simulate_plant_plain``
+per instance for CPU tensors and the kernel over an instance grid for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -43,6 +48,34 @@ def simulate_plant_plain(model: RobotModel, xs, xu_plan, time_offset_s,
     return torch.cat([q, qd])
 
 
+def _launch(model: RobotModel, xs, xu_plan, time_offset_s, sim_time_s,
+            timestep, n_steps: int, sim_step: float):
+    """K4 over the leading instance axis of xs (B, 14) and xu_plan (B, N, 21);
+    returns (B, 14)."""
+    dev = xs.device
+    B, N = xu_plan.shape[:2]
+    if model.nq != 7:
+        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+    _kernels.require_knots(N)
+    _kernels.require(xs, "xs", (B, 14), dev, row_major=True)
+    if tuple(xu_plan.shape) != (B, N, 21) or xu_plan.stride(2) != 1:
+        raise ValueError(f"xu_plan: ({B}, {N}, 21) with rows of unit stride")
+    _kernels.require(xu_plan[0], "xu_plan", (N, 21), dev, row_major=True)
+    packed = model.packed()
+    _kernels.require(packed, "model", (packed.numel(),), dev)
+    scal = [_kernels.scalar(v, dev) for v in (time_offset_s, sim_time_s, timestep)]
+    out = torch.empty((B, 14), dtype=torch.float32, device=dev)
+    code = _kernels.entry("plant.cu", "plant_launch")(
+        xs.data_ptr(), xs.stride(0), xu_plan.data_ptr(), xu_plan.stride(1),
+        xu_plan.stride(0), N, *(t.data_ptr() for t in scal), float(sim_step),
+        int(n_steps), packed.data_ptr(), float(model.gravity), out.data_ptr(), B,
+        _kernels.stream_ptr(dev))
+    _kernels.check(code, "plant_launch")
+    return out
+
+
 def simulate_plant(model: RobotModel, xs, xu_plan, time_offset_s, sim_time_s,
                    timestep, n_steps: int, sim_step: float):
     """K4: ``simulate_plant_plain`` in one launch.  xs (nx,), xu_plan
@@ -52,27 +85,36 @@ def simulate_plant(model: RobotModel, xs, xu_plan, time_offset_s, sim_time_s,
     if _kernels.on_cpu(xs):
         return simulate_plant_plain(model, xs, xu_plan, time_offset_s,
                                     sim_time_s, timestep, n_steps, sim_step)
-    dev = xs.device
-    N = xu_plan.shape[0]
-    if model.nq != 7:
-        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
-    if n_steps < 0:
-        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
-    _kernels.require_knots(N)
-    _kernels.require(xs, "xs", (14,), dev)
-    _kernels.require(xu_plan, "xu_plan", (N, 21), dev, row_major=True)
-    packed = model.packed()
-    _kernels.require(packed, "model", (packed.numel(),), dev)
-    scal = [_kernels.scalar(v, dev) for v in (time_offset_s, sim_time_s, timestep)]
-    out = torch.empty((14,), dtype=torch.float32, device=dev)
-    code = _kernels.entry("plant.cu", "plant_launch")(
-        xs.data_ptr(), xu_plan.data_ptr(), xu_plan.stride(0), N,
-        *(t.data_ptr() for t in scal), float(sim_step), int(n_steps),
-        packed.data_ptr(), float(model.gravity), out.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "plant_launch")
+    out = _launch(model, xs[None], xu_plan[None], time_offset_s, sim_time_s,
+                  timestep, n_steps, sim_step)[0]
     simulate_plant.launches += 1
     return out
 
 
+def simulate_plant_batched_plain(model: RobotModel, xs_b, plans, time_offset_s,
+                                 sim_time_s, timestep, n_steps: int,
+                                 sim_step: float):
+    """K4b's plain version: ``simulate_plant_plain`` per instance, stacked."""
+    return torch.stack([simulate_plant_plain(model, xs_b[i], plans[i],
+                                             time_offset_s, sim_time_s,
+                                             timestep, n_steps, sim_step)
+                        for i in range(xs_b.shape[0])])
+
+
+def simulate_plant_batched(model: RobotModel, xs_b, plans, time_offset_s,
+                           sim_time_s, timestep, n_steps: int, sim_step: float):
+    """K4b: B plants rolled through the same window in one launch, each as
+    K4 rolls one.  xs_b (B, nx), plans (B, N, nx+nu); the window's scalars
+    as ``simulate_plant``'s, shared by the instances.  Returns (B, nx)."""
+    if _kernels.on_cpu(xs_b):
+        return simulate_plant_batched_plain(model, xs_b, plans, time_offset_s,
+                                            sim_time_s, timestep, n_steps,
+                                            sim_step)
+    out = _launch(model, xs_b, plans, time_offset_s, sim_time_s, timestep,
+                  n_steps, sim_step)
+    simulate_plant_batched.launches += 1
+    return out
+
+
 simulate_plant.launches = 0
+simulate_plant_batched.launches = 0

@@ -60,6 +60,21 @@ run = simulate_mpc_ondevice(m, load_xu_traj("0_0")[:20], load_eepos_traj("0_0")[
                             knot_mesh=KnotMesh(2), fused=True,
                             pcg_method="pipelined_slab")
 assert run["control_updates"] == 2
+# the s-step sharded PCG (K10b and the coefficient step's plain versions)
+# at L = 9 >= 2s+1, and the batched closed loop (K4b's plain version)
+run = simulate_mpc_ondevice(m, load_xu_traj("0_0")[:40], load_eepos_traj("0_0")[:40],
+                            18, 1 / 64, sqp_cfg=SQPConfig(max_iter=1),
+                            pcg_cfg=PCGConfig(max_iter=8),
+                            sim_cfg=SimConfig(max_control_updates=1),
+                            knot_mesh=KnotMesh(2), fused=True, pcg_method="ca_slab")
+assert run["control_updates"] == 1
+from mpcgpu_tpu_torch import simulate_mpc_ondevice_batched
+run = simulate_mpc_ondevice_batched(m, load_xu_traj("0_0")[:20],
+                                    load_eepos_traj("0_0")[:20], 4, 1 / 64, 2,
+                                    sqp_cfg=SQPConfig(max_iter=1),
+                                    pcg_cfg=PCGConfig(max_iter=5),
+                                    sim_cfg=SimConfig(max_control_updates=2))
+assert run["tracking_errors"].shape == (2, 2)
 ref = (Path.cwd() / "mpcgpu_tpu").resolve()
 bad = sorted(name for name, m in list(sys.modules.items())
              if name.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu")

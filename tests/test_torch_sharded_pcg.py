@@ -144,10 +144,18 @@ def test_two_slab_and_mesh_sizes(system, jax_refs):
                                    rtol=0, atol=1e-8)
 
 
-def test_unported_methods_and_meshes_raise(system):
+def test_unported_methods_and_meshes_raise(system, jax_refs):
+    """The s-step methods are ported: at L = 16 (2 shards, s = 4) they run
+    and converge to the single-device solve (tests/test_torch_ca_pcg.py
+    holds them to the JAX package); the instance axis still raises, and so
+    does a mesh that does not divide N."""
+    single = jax_refs["eta"][0]
     for method in ("ca", "ca_slab"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(system, method, "eta")
+        got = _port(system, method, "eta", mesh=KnotMesh(2))
+        assert bool(got.converged) and int(got.iters) < MAX_ITER
+        assert abs(int(got.iters) - int(single.iters)) <= 4
+        np.testing.assert_allclose(got.lam.numpy(), np.asarray(single.lam),
+                                   rtol=0, atol=1e-7)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_mesh(n_instance=2, n_knot=4)
     with pytest.raises(ValueError, match="divisible"):

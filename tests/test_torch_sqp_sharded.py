@@ -132,12 +132,15 @@ def test_iter_budget(problem):
 
 def test_pcg_methods_of_the_route(problem):
     """"auto" resolves as in the JAX package: to the s-step "ca_slab" on the
-    fused route when a slab holds its 2s+1 halo (L = 16 here), which is not
-    ported yet and raises rather than run another method; "ca" raises."""
+    fused route when a slab holds its 2s+1 halo (L = 16 here: one psum per
+    outer step, so fewer than the per-iteration forms' one per CG
+    iteration), and "ca" below that width (L = 4) falls back to
+    "pipelined"; both give the JAX solve's counts and choices."""
     args = _port_args(problem)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sqp_solve_sharded(*args, KnotMesh(2), fused=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sqp_solve_sharded(*args, KnotMesh(8), pcg_method="ca")
+    ref = _jax_solve(problem)
+    mesh = KnotMesh(2)
+    _check(sqp_solve_sharded(*args, mesh, fused=True), ref)
+    assert 0 < mesh.n_psum < 2 * (PCG["max_iter"] + 1)
+    _check(sqp_solve_sharded(*args, KnotMesh(8), pcg_method="ca"), ref)
     with pytest.raises(ValueError, match="stair"):
         sqp_solve_sharded(*_port_args(problem, "jacobi"), KnotMesh(8), fused=True)

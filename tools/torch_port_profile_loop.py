@@ -11,10 +11,14 @@ the traced solves.  ``--knots`` / ``--knot-shards`` / ``--traj`` /
 ``--start`` run another horizon, knot-sharded over a virtual mesh on the
 card (phase 4d of chip_smoke.py: ``--knots 512 --knot-shards 8 --traj
 3_4``), from rows start .. start + N + 136 of the trace, with the tuned
-PCG cap of N.
+PCG cap of N; ``--pcg-method`` picks the sharded PCG (``ca_slab``: the
+s-step kernels).  ``--batch B`` traces the batched loop instead
+(``simulate_mpc_ondevice_batched``, B instances; phase 4e: ``--batch 256
+--start 350``).
 
     python3 tools/torch_port_profile_loop.py [--updates 48] [--trace out.json]
-        [--knots 64] [--knot-shards 0] [--traj 0_0] [--start 0]
+        [--knots 64] [--knot-shards 0] [--pcg-method pipelined] [--batch 0]
+        [--traj 0_0] [--start 0]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -35,6 +39,10 @@ def main():
     ap.add_argument("--knots", type=int, default=64)
     ap.add_argument("--knot-shards", type=int, default=0,
                     help="run every solve knot-sharded over this many shards")
+    ap.add_argument("--pcg-method", default="pipelined",
+                    help="the knot-sharded PCG method (simulate_mpc_ondevice)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="trace the batched loop over this many instances")
     ap.add_argument("--traj", default="0_0")
     ap.add_argument("--start", type=int, default=0)
     args = ap.parse_args()
@@ -47,21 +55,25 @@ def main():
     from mpcgpu_tpu_torch.config import PCGConfig, SimConfig, SQPConfig
     from mpcgpu_tpu_torch.models import iiwa14
     from mpcgpu_tpu_torch.parallel import KnotMesh
-    from mpcgpu_tpu_torch.sim.mpc import simulate_mpc_ondevice
+    from mpcgpu_tpu_torch.sim.mpc import (simulate_mpc_ondevice,
+                                          simulate_mpc_ondevice_batched)
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     model = iiwa14(torch.float32)
     N, rows = args.knots, slice(args.start, args.start + args.knots + 136)
     xu, ee = load_xu_traj(args.traj)[rows], load_eepos_traj(args.traj)[rows]
     cap = PCGConfig.tuned_max_iter(N)
-    mesh = dict(knot_mesh=KnotMesh(args.knot_shards)) if args.knot_shards else {}
+    mesh = dict(knot_mesh=KnotMesh(args.knot_shards),
+                pcg_method=args.pcg_method) if args.knot_shards else {}
+    kw = dict(sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
+              pcg_cfg=PCGConfig(max_iter=cap, exit_tol=1e-5),
+              sim_cfg=SimConfig(max_control_updates=args.updates))
 
     def loop():
-        return simulate_mpc_ondevice(
-            model, xu, ee, N, 1.0 / 64.0,
-            sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
-            pcg_cfg=PCGConfig(max_iter=cap, exit_tol=1e-5),
-            sim_cfg=SimConfig(max_control_updates=args.updates), **mesh)
+        if args.batch:
+            return simulate_mpc_ondevice_batched(model, xu, ee, N, 1.0 / 64.0,
+                                                 args.batch, **kw)
+        return simulate_mpc_ondevice(model, xu, ee, N, 1.0 / 64.0, **mesh, **kw)
 
     loop()
     torch.cuda.synchronize()
@@ -92,10 +104,11 @@ def main():
         print(f"  {us / n:10.2f} us/update {100 * us / busy:6.2f}%  {key[:90]}")
     for key in sorted(calls):
         print(f"  host call {key}: {calls[key]} ({calls[key] / n:.2f} per update)")
-    iters = out["pcg_iters"].cpu()
-    used = iters[iters >= 0].double()
-    print(f"PCG iterations per solve: mean {float(used.mean()):.2f}, at the cap "
-          f"{int((used == cap).sum())} of {used.numel()}")
+    if not args.batch:
+        iters = out["pcg_iters"].cpu()
+        used = iters[iters >= 0].double()
+        print(f"PCG iterations per solve: mean {float(used.mean()):.2f}, at the "
+              f"cap {int((used == cap).sum())} of {used.numel()}")
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
