@@ -12,7 +12,9 @@ Phases (any failure raises and the script exits non-zero):
   2. hold each kernel of the first two slices (K1 KKT+Schur, K2 PCG+dz, K3
      line-search merits, K4 plant, K5 KKT blocks, K2' PCG without the dz
      epilogue, K6 dz) against its plain PyTorch version on the card, at
-     N = 64 and N = 512;
+     N = 64 and N = 512, and K2 / K2' (one thread-block cluster per solve)
+     also at the ragged N = 2, 37, 100; print K2's cluster plan and
+     cudaOccupancyMaxActiveClusters at each N;
   2b. hold K7 (PCR) against its plain version and the f64 solve on a
      well-conditioned system (N = 2, 3, 64, 100, 512); on the real Schur
      system over noise seeds, against the capped PCG's residual in every
@@ -73,7 +75,8 @@ Phases (any failure raises and the script exits non-zero):
      iteration against the single-device one (slopes over two lengths, CUDA
      events) for the pipelined and the s-step PCG, the batched closed loop
      per update, and each kernel (device time of a CUDA graph) against its
-     plain version, its bound and, for K7, the dense library solve;
+     plain version, its bound and, for K7, the dense library solve (K2,
+     K2' and K8b also per CG iteration);
   6. print one JSON line of kernel results, the card line, and the final
      {"ok": true, ...} line.
 
@@ -107,6 +110,7 @@ ROUTE_SHIFTS = 6         # the shifts those updates make (one per 8 updates)
 LOOP_ENSEMBLE = 8        # runs of the main path from 1-ulp trace changes
 LOOP_SLOPE = (48, 144)   # two loop lengths for the per-update slope
 PCR_SIZES = (2, 3, 64, 100, 512)   # K7 on the well-conditioned system
+K2_RAGGED = (2, 37, 100)  # K2 / K2' beside N_MAIN, N_BIG: ragged cluster plans
 # The bundled trace 0_0 (data/trajfiles, made by tools/make_trajfiles.py)
 # runs away to joint speeds of up to 264 rad/s and torques of up to 5335 Nm
 # in rows 16-26, and again in rows 103-114, 199-212, 312-326, 428-438, ...
@@ -568,7 +572,9 @@ def main() -> int:
     from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
                                                compute_dz_slab,
                                                compute_dz_slab_plain,
-                                               pcg_dz_solve, pcg_dz_solve_plain,
+                                               k2_cluster_occupancy,
+                                               k2_cluster_plan, pcg_dz_solve,
+                                               pcg_dz_solve_plain,
                                                pcg_solve_cuda)
     from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
     from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
@@ -651,34 +657,24 @@ def main() -> int:
         if not ok:
             failures.append(msg)
 
-    # ---- phase 2: kernels against their plain versions --------------------
-    phase("phase 2: kernels vs plain versions on the card")
-    for N in (N_MAIN, N_BIG):
+    def k2_well_conditioned(N: int):
+        """K2 and K2' on a well-conditioned system (synthetic_btd, with K1's
+        blocks for the dz epilogue): f32 rounding stays near 1e-7 there
+        (<= 2.7e-7 kernel vs plain, every part), so both are held to 2e-6
+        per part, and the exit fires before the cap by either criterion.
+        The fixed-step case runs min(20, 2N) steps: at N = 2 (28 unknowns)
+        f32 CG on this system turns NaN from step 17 on, in the plain
+        version too (eta reaches 0, then beta = 0 / 0)."""
         cost = CostConfig.for_knots(N)
         xu, xs, ee, _ = problem(N, torch, dev)
         rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
-        for integ in (0, 1):
-            got = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, integ)
-            ref = build_kkt_schur_plain(model, cost, xu, xs, ee, rho, DT, integ)
-            torch.cuda.synchronize()
-            for key in ("S", "Pinv", "gamma", "Qinv", "A", "B", "q"):
-                d, r = rel_err(got[key], ref[key])
-                if N == N_MAIN:
-                    errs["K1 build_kkt_schur"] = max(errs["K1 build_kkt_schur"], d)
-                expect(r <= 5e-5, f"K1 N={N} integrator={integ} {key}: "
-                       f"max|d|={d:.3e} = {r:.3e} max|ref| (<= 5e-5)")
         lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
         u = xu[:, 14:]
         k2 = lambda s_, **kw: (pcg_dz_solve(s_, lam0, u, rho, cost.r_cost, **kw),
                                pcg_dz_solve_plain(s_, lam0, u, rho, cost.r_cost, **kw))
-
-        # K2 on a well-conditioned system (synthetic_btd, with K1's blocks
-        # for the dz epilogue): f32 rounding stays near 1e-7 there (<= 2.7e-7
-        # kernel vs plain, every part), so both are held to 2e-6 per part,
-        # and the exit fires before the cap by either criterion.
         syn = dict(build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0))
         syn["S"], syn["Pinv"], syn["gamma"] = synthetic_btd(N, torch, dev)
-        for crit, tol, cap in (("eta", 0.0, 20), ("eta", 1e-9, 167),
+        for crit, tol, cap in (("eta", 0.0, min(20, 2 * N)), ("eta", 1e-9, 167),
                                ("rnorm", 1e-5, 167)):
             got, ref = k2(syn, max_iter=cap, exit_tol=tol, exit_criterion=crit)
             e = parts(got, ref)
@@ -706,6 +702,30 @@ def main() -> int:
                 expect(abs(ik - ip) <= 2 and ik < cap and bool(got[3]) and bool(ref[3]),
                        f"{case}: iters kernel {ik}, plain {ip} (differ by <= 2, "
                        f"< cap); converged kernel {bool(got[3])}, plain {bool(ref[3])}")
+
+    # ---- phase 2: kernels against their plain versions --------------------
+    phase("phase 2: kernels vs plain versions on the card")
+    for N in (N_MAIN, N_BIG):
+        cost = CostConfig.for_knots(N)
+        xu, xs, ee, _ = problem(N, torch, dev)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        for integ in (0, 1):
+            got = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, integ)
+            ref = build_kkt_schur_plain(model, cost, xu, xs, ee, rho, DT, integ)
+            torch.cuda.synchronize()
+            for key in ("S", "Pinv", "gamma", "Qinv", "A", "B", "q"):
+                d, r = rel_err(got[key], ref[key])
+                if N == N_MAIN:
+                    errs["K1 build_kkt_schur"] = max(errs["K1 build_kkt_schur"], d)
+                expect(r <= 5e-5, f"K1 N={N} integrator={integ} {key}: "
+                       f"max|d|={d:.3e} = {r:.3e} max|ref| (<= 5e-5)")
+        lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+        u = xu[:, 14:]
+        k2 = lambda s_, **kw: (pcg_dz_solve(s_, lam0, u, rho, cost.r_cost, **kw),
+                               pcg_dz_solve_plain(s_, lam0, u, rho, cost.r_cost, **kw))
+
+        # K2 and K2' on a well-conditioned system (k2_well_conditioned)
+        k2_well_conditioned(N)
 
         # K2 on the real Schur system, fixed step counts (exit_tol=0), over
         # REAL_SEEDS noise seeds (seed 0 is the main path's).  Here f32
@@ -850,6 +870,18 @@ def main() -> int:
         expect(torch.equal(a4, a2), f"K4 N={N}: one 2 ms window == two 1 ms "
                f"windows bit for bit ({torch.equal(a4, a2)}, max|d| "
                f"{float((a4 - a2).abs().max()):.3e})")
+    # K2 / K2' at ragged N (N not a multiple of the knots per CTA; at N = 100
+    # the last CTA holds no knot), held as at N_MAIN and N_BIG; the cluster
+    # plan of every size and how many such clusters the card holds at once
+    for N in sorted({*K2_RAGGED, N_MAIN, N_BIG}):
+        plan = k2_cluster_plan(N)
+        print(f"  K2 plan N={N}: cluster {plan.cluster} CTAs x "
+              f"{plan.knots_per_cta} knots, {plan.smem_bytes} B shared memory "
+              f"per CTA; cudaOccupancyMaxActiveClusters K2 "
+              f"{k2_cluster_occupancy(N, dz=True)}, K2' "
+              f"{k2_cluster_occupancy(N, dz=False)}")
+    for N in K2_RAGGED:
+        k2_well_conditioned(N)
     if failures:
         raise SmokeFailure(f"phase 2: {len(failures)} check(s) failed")
 
@@ -2038,6 +2070,13 @@ def main() -> int:
                          launches=launches[name], max_abs_err=errs[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by, library_ms=None, call_ms=call_ms))
+        # K2 / K2': the device time per CG iteration (the solve's cost
+        # beyond its iterations is ~8 us: the loads of S and Pinv)
+        steps = {"K2 pcg_dz_solve": int(k2_iters), "K2' pcg_solve_cuda": k2p_iters}
+        if name in steps:
+            rows[-1]["us_per_iter"] = ms * 1e3 / max(steps[name], 1)
+            print(f"    {name}: {rows[-1]['us_per_iter']:.3f} us per CG "
+                  f"iteration ({steps[name]} iterations)")
 
     # K7 at N_MAIN (its row) and N_BIG on the well-conditioned system (its
     # time does not depend on the values; a dense Cholesky of the real
@@ -2111,6 +2150,13 @@ def main() -> int:
                          replaces=KERNELS[name][1], launches=launches[name],
                          max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        if name == "K8b pcg_solve_batched":
+            # per CG iteration of the slowest instance (the clusters run in
+            # waves: cudaOccupancyMaxActiveClusters at a time)
+            rows[-1]["us_per_iter"] = ms * 1e3 / max(int(it_b.max()), 1)
+            print(f"    {name}: {rows[-1]['us_per_iter']:.3f} us per CG iteration "
+                  f"of the slowest instance ({int(it_b.max())} iterations; "
+                  f"{int(it_b.sum())} over the {B_MAIN} instances)")
 
     # the pcr_cuda loop per control update (on the device, as the main path,
     # on the calm rows as phase 4b)

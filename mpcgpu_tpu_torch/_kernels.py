@@ -46,8 +46,9 @@ _SIGNATURES = {
     },
     "pcg_dz.cu": {
         "pcg_dz_launch": [P, P, P, P, P, P, P, P, P, I, P, F,
-                          I, P, I, I, P, P, P, P, P],
-        "pcg_launch": [P, P, P, P, I, P, I, I, I, P, P, P, P],
+                          I, P, I, I, I, I, I, P, P, P, P, P],
+        "pcg_launch": [P, P, P, P, I, P, I, I, I, I, I, I, P, P, P, P],
+        "pcg_cluster_occupancy": [I, I, I, I, P],
         "dz_launch": [P, P, P, P, P, P, I, I, P, F, I, I, P, P],
         "dz_slab_launch": [P, P, P, P, P, P, P, I, P, I, I, P, F, I, I, P, P],
     },

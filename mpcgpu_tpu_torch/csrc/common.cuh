@@ -127,8 +127,8 @@ __device__ inline void fk_ee(const float* m, const float* s, const float* c,
 }
 
 // Articulated-body forward dynamics (Featherstone RBDA Table 7.1), one
-// sample per thread: the same recursion as
-// mpcgpu_tpu_torch/models/dynamics.py::forward_dynamics_aba.
+// sample per thread (K3, K9c; the plant runs aba_warp below): the same
+// recursion as mpcgpu_tpu_torch/models/dynamics.py::forward_dynamics_aba.
 __device__ inline void aba(const float* m, const float* s, const float* c,
                            const float* qd, const float* u, float gravity,
                            float* qdd) {
@@ -192,6 +192,209 @@ __device__ inline void aba(const float* m, const float* s, const float* c,
     for (int i = 0; i < 6; ++i) apar[i] = ap[i];
     apar[2] += qdd[j];
   }
+}
+
+// Shared-memory workspace of aba_warp (one per warp).
+struct AbaWarpWs {
+  float sc[2 * NQ];            // sin q, cos q
+  float X[NQ * M66];           // every joint's transform of this state
+  float v[NQ * 6], cb[NQ * 6], pA[NQ * 6], U[NQ * 6];
+  float dinv[NQ], uu[NQ];      // 1 / d and u - pA[2] of every link
+  float IA[M66], IaX[M66], pa[6];
+};
+
+// component i of a x b (3-vectors)
+__device__ inline float cross3_i(const float* a, const float* b, int i) {
+  const int i1 = i == 2 ? 0 : i + 1, i2 = i == 0 ? 2 : i - 1;
+  return a[i1] * b[i2] - a[i2] * b[i1];
+}
+
+// aba's recursion by one warp (all 32 lanes call).  q, qd in shared memory
+// (NQ floats each), u_lane the control of joint `lane` (lanes < NQ); qdd
+// (shared) written by lane 0.  Once per call, on all lanes: sin and cos,
+// the NQ transforms X_j (252 entries), and after the velocity chain the
+// bias terms cb and pA of every link (one lane per link).  The velocity and
+// acceleration chains run on lane 0 from registers (six independent 6-term
+// sums per link).  Eliminating link j, tip to base, takes two steps over
+// the lanes: Ia X (two entries of one row per lane) and pa, with Ia = IA -
+// U (U / d)^T formed row by row where used (every lane forms 1 / d itself),
+// then the parent's IA = I + X^T Ia X (21 entries of the symmetric matrix,
+// each mirrored) and pA (6).  Deterministic: every entry is one lane's
+// fixed-order sum.  The divisions by d are products with 1 / d, so its
+// last bits differ from aba's.
+__device__ inline void aba_warp(const float* m, const float* q,
+                                const float* qd, float u_lane, float gravity,
+                                float* qdd, AbaWarpWs& w) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const float* I = m + OFF_I;
+  if (lane < NQ) {
+    w.sc[lane] = sinf(q[lane]);
+    w.sc[NQ + lane] = cosf(q[lane]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < (NQ * M66 + 31) / 32; ++r) {
+    const int e = lane + 32 * r;
+    if (e < NQ * M66) {
+      const int j = e / M66;
+      w.X[e] = m[OFF_XC + e] + w.sc[j] * m[OFF_XS + e] + w.sc[NQ + j] * m[OFF_XCOS + e];
+    }
+  }
+  __syncwarp();
+  // velocities, base to tip, on lane 0: v_j = X_j v_{j-1} + e_z qd_j
+  if (lane == 0) {
+    float v[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float* Xj = w.X + j * M66;
+      float vn[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        float acc = 0.f;
+        if (j > 0) {
+#pragma unroll
+          for (int k = 0; k < 6; ++k) acc += Xj[i * 6 + k] * v[k];
+        }
+        vn[i] = acc;
+      }
+      vn[2] += qd[j];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        v[i] = vn[i];
+        w.v[j * 6 + i] = vn[i];
+      }
+    }
+  }
+  __syncwarp();
+  // every link on its own lane: cb = v x (e_z qd) and pA = v x* (I v) =
+  // [w x fw + vo x fv; w x fv]; the tip's IA = I on the other lanes
+  if (lane < NQ) {
+    const int j = lane;
+    const float* vj = w.v + j * 6;
+    const float* Ij = I + j * M66;
+    const float s = qd[j];
+    float v6[6], f[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v6[k] = vj[k];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) {
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) acc += Ij[a * 6 + k] * v6[k];
+      f[a] = acc;
+    }
+    float* cb = w.cb + j * 6;
+    cb[0] = s * v6[1];
+    cb[1] = s * -v6[0];
+    cb[2] = 0.f;
+    cb[3] = s * v6[4];
+    cb[4] = s * -v6[3];
+    cb[5] = 0.f;
+    float* pA = w.pA + j * 6;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      pA[i] = cross3_i(v6, f, i) + cross3_i(v6 + 3, f + 3, i);
+      pA[3 + i] = cross3_i(v6, f + 3, i);
+    }
+  } else {
+    for (int e = lane - NQ; e < M66; e += 32 - NQ) w.IA[e] = I[(NQ - 1) * M66 + e];
+  }
+  __syncwarp();
+  // articulated inertias, tip to base; this lane's upper-triangle entry
+  // (lanes 0..20) or pA row (lanes 21..26) of the parent step
+  int ta = 0, tb = lane;
+  while (tb >= 6 - ta && ta < 6) {
+    tb -= 6 - ta;
+    ++ta;
+  }
+  tb += ta;
+  const bool tri = lane < 21;
+  if (!tri) {
+    ta = lane - 21 < 6 ? lane - 21 : 0;
+    tb = 0;
+  }
+  for (int j = NQ - 1; j >= 0; --j) {
+    const float* Xj = w.X + j * M66;
+    // this link's U = IA[:, 2], 1 / d, and uu = u_j - pA_j[2], on every lane
+    const float dinv = __frcp_rn(w.IA[2 * 6 + 2]);
+    const float uuj = __shfl_sync(full, u_lane, j) - w.pA[j * 6 + 2];
+    if (lane < 6) w.U[j * 6 + lane] = w.IA[lane * 6 + 2];
+    if (lane == 0) {
+      w.dinv[j] = dinv;
+      w.uu[j] = uuj;
+    }
+    if (j == 0) break;
+    // Ia X and pa: lane 3a + c (< 18) forms row a of Ia = IA - U (U / d)^T
+    // and the entries (a, c) and (a, c + 3) of Ia X; lane 18 + a forms row
+    // a of Ia and pa[a] (one uniform instruction stream)
+    if (lane < 24) {
+      const bool ix = lane < 18;
+      const int a = ix ? lane / 3 : lane - 18, c = ix ? lane - 3 * a : 0;
+      const float* col0 = ix ? Xj + c : w.cb + j * 6;
+      const float* col1 = ix ? Xj + c + 3 : w.cb + j * 6;
+      const int stride = ix ? 6 : 1;
+      const float ua = w.IA[a * 6 + 2];
+      float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const float ia = w.IA[a * 6 + k] - ua * (w.IA[k * 6 + 2] * dinv);
+        acc0 += ia * col0[k * stride];
+        acc1 += ia * col1[k * stride];
+      }
+      if (ix) {
+        w.IaX[a * 6 + c] = acc0;
+        w.IaX[a * 6 + c + 3] = acc1;
+      } else {
+        w.pa[a] = (w.pA[j * 6 + a] + acc0) + ua * (uuj * dinv);
+      }
+    }
+    __syncwarp();
+    // the parent's IA = I + X^T (Ia X) and pA += X^T pa
+    if (lane < 27) {
+      const float* vec = tri ? w.IaX + tb : w.pa;
+      const int stride = tri ? 6 : 1;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) acc += Xj[k * 6 + ta] * vec[k * stride];
+      const float base = tri ? I[(j - 1) * M66 + ta * 6 + tb] : w.pA[(j - 1) * 6 + ta];
+      const float val = base + acc;
+      if (tri) {
+        w.IA[ta * 6 + tb] = val;
+        w.IA[tb * 6 + ta] = val;
+      } else {
+        w.pA[(j - 1) * 6 + ta] = val;
+      }
+    }
+    __syncwarp();
+  }
+  __syncwarp();
+  // accelerations, base to tip, on lane 0: a_j = X_j a_{j-1} + cb_j,
+  // qdd_j = (uu_j - U_j . a_j) / d_j, a_j[2] += qdd_j
+  if (lane == 0) {
+    float a[6] = {0.f, 0.f, 0.f, 0.f, 0.f, gravity};
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float* Xj = w.X + j * M66;
+      float ap[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) acc += Xj[i * 6 + k] * a[k];
+        ap[i] = acc + w.cb[j * 6 + i];
+      }
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) dot += w.U[j * 6 + i] * ap[i];
+      const float qj = (w.uu[j] - dot) * w.dinv[j];
+      qdd[j] = qj;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) a[i] = ap[i];
+      a[2] += qj;
+    }
+  }
+  __syncwarp();
 }
 
 // The reference's angleWrap: a reflection at +-3.14159.

@@ -12,12 +12,16 @@
 // What bounds it on an H100: latency, nothing else.  The work is one serial
 // chain of ~11 ABA passes at the default 2 ms period (~20 KFLOP each) on
 // 14 + 7 N + 3 floats of input and the model's X matrices and inertias
-// (1008 floats); no two substeps can overlap.  Design: one
-// block, the substep loop inside the kernel, one thread running the ABA of
-// common.cuh (one running articulated inertia) on the model in shared
-// memory.  Its value is that the whole period is one launch instead of one
-// per substep, and that the scalars (t_off, sim_time, timestep) are read on
-// the device, so the caller never synchronizes.
+// (1008 floats); no two substeps can overlap.  Design: one warp, the
+// substep loop inside the kernel, the model in shared memory, and the ABA
+// spread over the warp (common.cuh::aba_warp): per substep the seven joint
+// transforms and the links' bias terms are formed once, all at once,
+// instead of in each of the three passes; the articulated-inertia pass
+// spreads each link's 6x6 products over the lanes (the symmetric inertia by
+// its upper triangle); the velocity and acceleration chains run on one lane
+// from registers; each substep's controls are loaded a substep ahead.  The
+// whole period is one launch, and the scalars (t_off, sim_time, timestep)
+// are read on the device, so the caller never synchronizes.
 //
 // K4b, the same kernel over instances, replaces the TPU kernel vmapped over
 // the instances of the batched closed loop (mpcgpu_tpu/sim/mpc.py::
@@ -40,36 +44,45 @@ plant_kernel(const float* __restrict__ xs, int xs_bstride,
              const float* __restrict__ model, float gravity,
              float* __restrict__ out) {
   __shared__ float sm[DYN_SIZE];      // ABA reads no 4x4 transform
+  __shared__ float st[3 * NQ];        // q, qd, qdd
+  __shared__ AbaWarpWs ws;
   load_model(sm, model, DYN_SIZE);
-  __syncthreads();
-  if (threadIdx.x != 0) return;
+  const int lane = threadIdx.x;
   xs += (size_t)blockIdx.x * xs_bstride;
   plan += (size_t)blockIdx.x * plan_bstride;
   out += (size_t)blockIdx.x * NX;
   const float t_off = *t_off_p, sim_time = *sim_time_p, timestep = *timestep_p;
-  float q[NQ], qd[NQ], s[NQ], c[NQ], qdd[NQ];
-  for (int j = 0; j < NQ; ++j) {
-    q[j] = xs[j];
-    qd[j] = xs[NQ + j];
+  // joint `lane`'s position, velocity and the control of the substep
+  // (lanes 0..NQ-1); the next substep's control is loaded a substep ahead
+  const auto control = [&](int i) {
+    const float off = sim_step * static_cast<float>(i);
+    const int idx = min(static_cast<int>((t_off + off) / timestep), N - 1);
+    return lane < NQ ? plan[(size_t)idx * plan_stride + NX + lane] : 0.f;
+  };
+  float q = 0.f, qd = 0.f, u = control(0);
+  if (lane < NQ) {
+    q = xs[lane];
+    qd = xs[NQ + lane];
   }
   for (int i = 0; i <= n_steps; ++i) {
     const float off = sim_step * static_cast<float>(i);
-    const int idx = min(static_cast<int>((t_off + off) / timestep), N - 1);
-    const float* u = plan + (size_t)idx * plan_stride + NX;
-    for (int j = 0; j < NQ; ++j) {
-      s[j] = sinf(q[j]);
-      c[j] = cosf(q[j]);
+    const float u_next = i < n_steps ? control(i + 1) : 0.f;
+    if (lane < NQ) {
+      st[lane] = q;
+      st[NQ + lane] = qd;
     }
-    aba(sm, s, c, qd, u, gravity, qdd);
+    __syncwarp();
+    aba_warp(sm, st, st + NQ, u, gravity, st + 2 * NQ, ws);
     const float dt = fminf(fmaxf(sim_time - off, 0.f), sim_step);
-    for (int j = 0; j < NQ; ++j) {
-      q[j] = q[j] + dt * qd[j];
-      qd[j] = qd[j] + dt * qdd[j];
+    if (lane < NQ) {
+      q = q + dt * qd;
+      qd = qd + dt * st[2 * NQ + lane];
     }
+    u = u_next;
   }
-  for (int j = 0; j < NQ; ++j) {
-    out[j] = q[j];
-    out[NQ + j] = qd[j];
+  if (lane < NQ) {
+    out[lane] = q;
+    out[NQ + lane] = qd;
   }
 }
 

@@ -10,9 +10,13 @@ Ports of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_dz_solve_pallas_lanes`` (K2),
 (``solver/kkt_cuda.py``) in knot-leading layout, K9b K9a's with a leading
 shard axis; K2' takes the standard (N, 3, n, n) BTD operands.  Each wrapper
 runs its plain version for CPU tensors and its kernel for CUDA tensors.
+K2, K2' and K8b (``parallel/batched_cuda.py``) run one thread-block
+cluster per solve, laid out by ``k2_cluster_plan(N)``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +24,62 @@ from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.ops.pcg import PCGResult, pcg_solve
 from mpcgpu_tpu_torch.ops.schur import SchurSystem, compute_dz
 from mpcgpu_tpu_torch.solver.kkt import KKTBlocks
+
+
+# K2's cluster plan (csrc/pcg_dz.cu): the knots a CTA aims at, the largest
+# cluster (16 is above the portable 8), the most knots per CTA (16 x 32 =
+# MAX_KNOTS), and the knot stride of S and Pinv in a CTA's shared memory
+K2_TARGET_KNOTS = 8
+K2_MAX_CLUSTER = 16
+K2_MAX_KP = 32
+_KNOT_STRIDE = 590
+
+
+class K2Plan(NamedTuple):
+    cluster: int          # CTAs of the cluster (a power of two <= 16)
+    knots_per_cta: int    # ceil(N / cluster)
+    smem_bytes: int       # dynamic shared memory of one CTA
+
+
+def k2_threads(kp: int) -> int:
+    """Threads of one CTA: one per own row (14 kp), in whole warps."""
+    return max(32, -(-14 * kp // 32) * 32)
+
+
+def k2_smem_bytes(kp: int) -> int:
+    """One CTA's dynamic shared memory at kp knots (``k2_smem_floats`` of
+    csrc/pcg_dz.cu): two mbarriers, S and Pinv, r and p with a halo row on
+    each side, lam, z, Sp, the neighbours' boundary rows of Sp and z, and
+    the warp parts of the three sums from every CTA."""
+    nw = k2_threads(kp) // 32
+    return 4 * (4 + 2 * _KNOT_STRIDE * kp + 2 * 14 * (kp + 2) + 3 * 14 * kp
+                + 4 * 14 + 3 * K2_MAX_CLUSTER * nw)
+
+
+def k2_cluster_plan(N: int) -> K2Plan:
+    """The cluster K2, K2' and K8b launch for N knots: the smallest power of
+    two C >= N / K2_TARGET_KNOTS, at most 16, and ceil(N / C) knots per
+    CTA.  A fixed function of N, so the three kernels split the knots, and
+    so round, alike."""
+    _kernels.require_knots(N)
+    want = -(-N // K2_TARGET_KNOTS)
+    cluster = 1
+    while cluster < want and cluster < K2_MAX_CLUSTER:
+        cluster *= 2
+    kp = -(-N // cluster)
+    return K2Plan(cluster, kp, k2_smem_bytes(kp))
+
+
+def k2_cluster_occupancy(N: int, dz: bool = True) -> int:
+    """``cudaOccupancyMaxActiveClusters`` for K2 (dz) or K2' at N knots'
+    plan: how many such clusters the card holds at once."""
+    plan = k2_cluster_plan(N)
+    out = torch.zeros((), dtype=torch.int32)
+    code = _kernels.entry("pcg_dz.cu", "pcg_cluster_occupancy")(
+        plan.cluster, plan.knots_per_cta, plan.smem_bytes, int(dz),
+        out.data_ptr())
+    _kernels.check(code, "pcg_cluster_occupancy")
+    return int(out)
 
 
 def compute_dz_plain(sys: dict, lam, u, rho, r_cost: float):
@@ -94,6 +154,7 @@ def pcg_dz_solve(sys: dict, lam0, u, rho, r_cost: float, max_iter: int = 173,
     rho_t = _kernels.scalar(rho, dev)
     tol_t = _kernels.scalar(exit_tol, dev)
 
+    plan = k2_cluster_plan(N)
     lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
     dz = torch.empty((N, nx + nu), dtype=torch.float32, device=dev)
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
@@ -102,7 +163,7 @@ def pcg_dz_solve(sys: dict, lam0, u, rho, r_cost: float, max_iter: int = 173,
         lam0.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(0),
         rho_t.data_ptr(), float(r_cost), int(max_iter), tol_t.data_ptr(),
-        int(exit_criterion == "rnorm"), N, lam.data_ptr(), dz.data_ptr(),
+        int(exit_criterion == "rnorm"), N, *plan, lam.data_ptr(), dz.data_ptr(),
         flags.data_ptr(), flags.data_ptr() + 4, _kernels.stream_ptr(dev))
     _kernels.check(code, "pcg_dz_launch")
     pcg_dz_solve.launches += 1
@@ -129,12 +190,13 @@ def pcg_solve_cuda(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
     N, nx = lam0.shape
     _require_system(S, Pinv, gamma, lam0, dev)
     tol_t = _kernels.scalar(exit_tol, dev)
+    plan = k2_cluster_plan(N)
     lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
     code = _kernels.entry("pcg_dz.cu", "pcg_launch")(
         S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
-        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N, 1,
-        lam.data_ptr(), flags.data_ptr(), flags.data_ptr() + 4,
+        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
+        *plan, 1, lam.data_ptr(), flags.data_ptr(), flags.data_ptr() + 4,
         _kernels.stream_ptr(dev))
     _kernels.check(code, "pcg_launch")
     pcg_solve_cuda.launches += 1

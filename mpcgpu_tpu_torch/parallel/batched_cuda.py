@@ -10,7 +10,7 @@ counterpart here and every tensor keeps the (B, N, ...) layout:
 
   * K8a ``build_kkt_schur_batched``: K1's three launches over a (knot,
     instance) grid with a per-instance rho (replaces batched_fused.py:150);
-  * K8b ``pcg_solve_batched``: K2' with one block per instance, each with
+  * K8b ``pcg_solve_batched``: K2' with one cluster per instance, each with
     its own CG scalars and its own exit, so every instance's iterations and
     exit flag are exact (replaces batched_fused.py:335);
   * K8c ``compute_dz_batched``: K6 over (knot, instance) with a
@@ -40,7 +40,8 @@ from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.pcg import pcg_solve
-from mpcgpu_tpu_torch.ops.pcg_cuda import (_check_pcg_args, compute_dz_plain)
+from mpcgpu_tpu_torch.ops.pcg_cuda import (_check_pcg_args, compute_dz_plain,
+                                           k2_cluster_plan)
 from mpcgpu_tpu_torch.solver.kkt_cuda import (_SCRATCH_PER_KNOT, _check_args,
                                               build_kkt_schur_plain)
 from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merits_plain
@@ -166,12 +167,13 @@ def pcg_solve_batched(S, Pinv, gamma, lam0, max_iter: int = 173,
                            ("gamma", gamma, (B, N, nx)), ("lam0", lam0, (B, N, nx))):
         _kernels.require(t, name, shape, dev)
     tol_t = _kernels.scalar(exit_tol, dev)
+    plan = k2_cluster_plan(N)
     lam = torch.empty((B, N, nx), dtype=torch.float32, device=dev)
     flags = torch.empty((2, B), dtype=torch.int32, device=dev)
     code = _kernels.entry("pcg_dz.cu", "pcg_launch")(
         S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
-        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N, B,
-        lam.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
+        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
+        *plan, B, lam.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.check(code, "pcg_launch (batched)")
     pcg_solve_batched.launches += 1

@@ -14,11 +14,13 @@ card (phase 4d of chip_smoke.py: ``--knots 512 --knot-shards 8 --traj
 PCG cap of N; ``--pcg-method`` picks the sharded PCG (``ca_slab``: the
 s-step kernels).  ``--batch B`` traces the batched loop instead
 (``simulate_mpc_ondevice_batched``, B instances; phase 4e: ``--batch 256
---start 350``).
+--start 350``).  ``--chain`` traces ``--updates`` steps of chip_smoke.py's
+warm-started chain instead (phase 3: ``run_chain``, SQPConfig(max_iter=1),
+the noisy trace ``chip_smoke.problem`` makes).
 
     python3 tools/torch_port_profile_loop.py [--updates 48] [--trace out.json]
         [--knots 64] [--knot-shards 0] [--pcg-method pipelined] [--batch 0]
-        [--traj 0_0] [--start 0]
+        [--traj 0_0] [--start 0] [--chain]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -45,6 +47,8 @@ def main():
                     help="trace the batched loop over this many instances")
     ap.add_argument("--traj", default="0_0")
     ap.add_argument("--start", type=int, default=0)
+    ap.add_argument("--chain", action="store_true",
+                    help="trace the warm-started chain (one SQP iteration a step)")
     args = ap.parse_args()
 
     import torch
@@ -69,7 +73,22 @@ def main():
               pcg_cfg=PCGConfig(max_iter=cap, exit_tol=1e-5),
               sim_cfg=SimConfig(max_control_updates=args.updates))
 
+    if args.chain:
+        import chip_smoke
+        from mpcgpu_tpu_torch.config import CostConfig
+        from mpcgpu_tpu_torch.sim.mpc import run_chain
+
+        dev = torch.device("cuda", 0)
+        cmodel = iiwa14(torch.float32, device=dev)
+        cxu, cxs, _, cee = chip_smoke.problem(N, torch, dev)
+        clam = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+
     def loop():
+        if args.chain:
+            return run_chain(cmodel, CostConfig.for_knots(N),
+                             SQPConfig(max_iter=1), kw["pcg_cfg"], cxu, clam,
+                             cxs, cee, chip_smoke.RHO0, chip_smoke.DT,
+                             args.updates, linsys="pcg_cuda", merit_impl="cuda")
         if args.batch:
             return simulate_mpc_ondevice_batched(model, xu, ee, N, 1.0 / 64.0,
                                                  args.batch, **kw)
@@ -96,15 +115,20 @@ def main():
             device[ev.key] += dev_us
             launches += ev.count
     busy = sum(device.values())
-    print(f"{torch.cuda.get_device_name(0)}; {n} updates, wall {wall_us / n:.1f} "
-          f"us/update (under the profiler), device kernel time {busy / n:.1f} "
-          f"us/update, busy share {100 * busy / wall_us:.1f}%, "
-          f"{launches / n:.1f} kernel launches per update")
+    what = "chain steps" if args.chain else "updates"
+    print(f"{torch.cuda.get_device_name(0)}; {n} {what}, wall {wall_us / n:.1f} "
+          f"us each (under the profiler), device kernel time {busy / n:.1f} "
+          f"us each, busy share {100 * busy / wall_us:.1f}%, "
+          f"{launches / n:.1f} kernel launches each")
     for key, us in device.most_common(15):
         print(f"  {us / n:10.2f} us/update {100 * us / busy:6.2f}%  {key[:90]}")
     for key in sorted(calls):
         print(f"  host call {key}: {calls[key]} ({calls[key] / n:.2f} per update)")
-    if not args.batch:
+    if args.chain:
+        iters = out.pcg_iters.cpu().double()
+        print(f"PCG iterations per step: mean {float(iters.mean()):.2f}, at the "
+              f"cap {int((iters == cap).sum())} of {iters.numel()}")
+    elif not args.batch:
         iters = out["pcg_iters"].cpu()
         used = iters[iters >= 0].double()
         print(f"PCG iterations per solve: mean {float(used.mean()):.2f}, at the "
