@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +112,7 @@ LOOP_ENSEMBLE = 8        # runs of the main path from 1-ulp trace changes
 LOOP_SLOPE = (48, 144)   # two loop lengths for the per-update slope
 PCR_SIZES = (2, 3, 64, 100, 512)   # K7 on the well-conditioned system
 K2_RAGGED = (2, 37, 100)  # K2 / K2' beside N_MAIN, N_BIG: ragged cluster plans
+KKT_RAGGED = (16, 33)     # K1 / K3 beside N_MAIN, N_BIG: ragged windows and rounds
 # The bundled trace 0_0 (data/trajfiles, made by tools/make_trajfiles.py)
 # runs away to joint speeds of up to 264 rad/s and torques of up to 5335 Nm
 # in rows 16-26, and again in rows 103-114, 199-212, 312-326, 428-438, ...
@@ -532,6 +534,36 @@ def graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def ptxas_summary(log: str) -> list:
+    """One line per kernel of an nvcc -Xptxas -v log: its name (and template
+    argument), registers, stack frame and spill stores and loads."""
+    out, name, props = [], "?", ""
+    for line in log.splitlines():
+        sym = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if sym:
+            # the length-prefixed identifier that ends in "kernel", and its
+            # template argument (ILi32E, ILb1E)
+            text = sym.group(1)
+            # (a digit run may carry a hash's last digits before the length)
+            for m in re.finditer(r"(?<!\d)(\d+)(?=[A-Za-z_])", text):
+                run = m.group(1)
+                lengths = [int(run[j:]) for j in range(len(run))]
+                hits = [text[m.end():m.end() + n] for n in lengths
+                        if text[m.end():m.end() + n].endswith("kernel")]
+                if hits:
+                    ident = hits[0]
+                    arg = re.match(r"IL[ib](\d+)E", text[m.end() + len(ident):])
+                    name = ident + (f"<{arg.group(1)}>" if arg else "")
+                    break
+        elif "spill" in line:
+            props = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, {props}")
+            name, props = "?", ""
+    return out
+
+
 def rel_err(got, ref) -> tuple[float, float]:
     """(max |got - ref|, that over max |ref|)."""
     d = float((got.double() - ref.double()).abs().max())
@@ -597,11 +629,13 @@ def main() -> int:
     from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
                                                   build_kkt_schur_plain,
                                                   build_kkt_schur_slab,
-                                                  build_kkt_schur_slab_plain)
+                                                  build_kkt_schur_slab_plain,
+                                                  kkt_window_plan)
     from mpcgpu_tpu_torch.solver.merit import merit_partials
     from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
                                                     line_search_merits_fused,
-                                                    line_search_merits_plain)
+                                                    line_search_merits_plain,
+                                                    merit_team_plan)
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     # each kernel's wrapper, whose .launches counts its launches
@@ -643,9 +677,8 @@ def main() -> int:
     _kernels.libraries()
     phase(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     for src, log in _kernels.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+        for line in ptxas_summary(log):
+            print(f"  ptxas {src}: {line}")
 
     model = iiwa14(torch.float32, device=dev)
     mu = SQPConfig().mu
@@ -882,6 +915,38 @@ def main() -> int:
               f"{k2_cluster_occupancy(N, dz=False)}")
     for N in K2_RAGGED:
         k2_well_conditioned(N)
+    # K1 and K3 at ragged N (the last window of K1, the last round of K3's
+    # samples partly filled), held to their plain versions as at N_MAIN and
+    # N_BIG; the window and team plans of every size
+    for N in sorted({*KKT_RAGGED, N_MAIN, N_BIG}):
+        wp, tp = kkt_window_plan(N), merit_team_plan(N, (SQPConfig().num_alphas + 1) * N)
+        print(f"  K1 plan N={N}: {wp.ctas} windows of {wp.window} knots, "
+              f"{wp.window + 3} knot groups of 3 warps and {wp.smem_bytes} B "
+              f"shared memory per "
+              f"CTA; K3 plan: teams of {tp.team} lanes, {tp.samples} samples "
+              f"a block, {tp.smem_bytes} B")
+    rng3 = np.random.default_rng(3)
+    for N in KKT_RAGGED:
+        cost = CostConfig.for_knots(N)
+        xu, xs, ee, _ = problem(N, torch, dev)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        for integ in (0, 1):
+            got = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, integ)
+            ref = build_kkt_schur_plain(model, cost, xu, xs, ee, rho, DT, integ)
+            torch.cuda.synchronize()
+            worst = max(rel_err(got[key], ref[key])[1] for key in got)
+            expect(worst <= 5e-5, f"K1 N={N} integrator={integ}: worst output "
+                   f"{worst:.3e} max|ref| (<= 5e-5)")
+        dz = torch.tensor(0.05 * rng3.standard_normal((N, 21)), dtype=torch.float32,
+                          device=dev)
+        m_got, a_got = line_search_merits_fused(model, cost, xu, dz, xs, ee, mu, DT)
+        m_ref, a_ref = line_search_merits_plain(model, cost, xu, dz, xs, ee, mu, DT)
+        torch.cuda.synchronize()
+        rel = float(((m_got.double() - m_ref.double()).abs()
+                     / m_ref.double().abs()).max())
+        expect(rel <= 1e-4 and torch.equal(a_got, a_ref),
+               f"K3 N={N}: merits max relative error {rel:.3e} (<= 1e-4), "
+               f"alphas equal {torch.equal(a_got, a_ref)}")
     if failures:
         raise SmokeFailure(f"phase 2: {len(failures)} check(s) failed")
 

@@ -126,41 +126,74 @@ __device__ inline void fk_ee(const float* m, const float* s, const float* c,
   ee[2] = T[11];
 }
 
+// a / b, correctly rounded.  A zero dividend over a finite nonzero divisor
+// gives the signed zero the division gives, without the division's slow
+// path (which a zero dividend takes, as a denormal one does).
+__device__ inline float div_rn(float a, float b) {
+  if (a == 0.f && b != 0.f && isfinite(b))
+    return __int_as_float((__float_as_int(a) ^ __float_as_int(b)) & 0x80000000);
+  return a / b;
+}
+
+// aba's per-link vectors, in floats of its vec
+constexpr int ABA_CB = 0;                 // cb (NQ x 6)
+constexpr int ABA_PA = ABA_CB + NQ * 6;   // pA
+constexpr int ABA_U = ABA_PA + NQ * 6;    // U
+constexpr int ABA_D = ABA_U + NQ * 6;     // d
+constexpr int ABA_UU = ABA_D + NQ;        // uu
+constexpr int ABA_VEC = ABA_UU + NQ;
+
 // Articulated-body forward dynamics (Featherstone RBDA Table 7.1), one
 // sample per thread (K3, K9c; the plant runs aba_warp below): the same
 // recursion as mpcgpu_tpu_torch/models/dynamics.py::forward_dynamics_aba.
+// The per-link vectors cb, pA, U, d, uu go to vec (ABA_VEC floats of the
+// caller's memory, e.g. the thread's shared memory), the 6x6 matrices stay
+// in registers.
 __device__ inline void aba(const float* m, const float* s, const float* c,
-                           const float* qd, const float* u, float gravity,
-                           float* qdd) {
-  float cb[NQ][6], pA[NQ][6], U[NQ][6], d[NQ], uu[NQ];
+                               const float* qd, const float* u, float gravity,
+                               float* qdd, float* vec) {
+  float* cb = vec + ABA_CB;
+  float* pA = vec + ABA_PA;
+  float* U = vec + ABA_U;
+  float* d = vec + ABA_D;
+  float* uu = vec + ABA_UU;
   float X[M66], v[6], vp[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const float* I = m + OFF_I;
   for (int j = 0; j < NQ; ++j) {
     xmat(m, j, s[j], c[j], X);
     mv6(X, vp, v);
     v[2] += qd[j];
-    for (int i = 0; i < 6; ++i) cb[j][i] = 0.f;
-    cross_ez_add(v, qd[j], cb[j]);
+    float cbj[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    cross_ez_add(v, qd[j], cbj);
     float Iv[6];
     mv6(I + j * M66, v, Iv);
-    for (int i = 0; i < 6; ++i) pA[j][i] = 0.f;
-    crf_add(v, Iv, pA[j]);
-    for (int i = 0; i < 6; ++i) vp[i] = v[i];
+    float pAj[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    crf_add(v, Iv, pAj);
+    for (int i = 0; i < 6; ++i) {
+      cb[j * 6 + i] = cbj[i];
+      pA[j * 6 + i] = pAj[i];
+      vp[i] = v[i];
+    }
   }
   float IA[M66], Ia[M66], IaX[M66];
   for (int e = 0; e < M66; ++e) IA[e] = I[(NQ - 1) * M66 + e];
   for (int j = NQ - 1; j >= 0; --j) {
-    for (int i = 0; i < 6; ++i) U[j][i] = IA[i * 6 + 2];
-    d[j] = IA[2 * 6 + 2];
-    uu[j] = u[j] - pA[j][2];
+    float Uj[6];
+    for (int i = 0; i < 6; ++i) Uj[i] = IA[i * 6 + 2];
+    const float dj = IA[2 * 6 + 2];
+    const float uuj = u[j] - pA[j * 6 + 2];
+    for (int i = 0; i < 6; ++i) U[j * 6 + i] = Uj[i];
+    d[j] = dj;
+    uu[j] = uuj;
     if (j > 0) {
       for (int a = 0; a < 6; ++a)
         for (int b = 0; b < 6; ++b)
-          Ia[a * 6 + b] = IA[a * 6 + b] - U[j][a] * U[j][b] / d[j];
-      float pa[6], t[6];
-      mv6(Ia, cb[j], t);
-      float ud = uu[j] / d[j];
-      for (int i = 0; i < 6; ++i) pa[i] = pA[j][i] + t[i] + U[j][i] * ud;
+          Ia[a * 6 + b] = IA[a * 6 + b] - div_rn(Uj[a] * Uj[b], dj);
+      float pa[6], t[6], cbj[6];
+      for (int i = 0; i < 6; ++i) cbj[i] = cb[j * 6 + i];
+      mv6(Ia, cbj, t);
+      float ud = div_rn(uuj, dj);
+      for (int i = 0; i < 6; ++i) pa[i] = pA[j * 6 + i] + t[i] + Uj[i] * ud;
       xmat(m, j, s[j], c[j], X);
       for (int a = 0; a < 6; ++a)
         for (int b = 0; b < 6; ++b) {
@@ -176,7 +209,7 @@ __device__ inline void aba(const float* m, const float* s, const float* c,
           IA[a * 6 + b] = Ip[a * 6 + b] + acc;
         }
       mv6t(X, pa, t);
-      for (int i = 0; i < 6; ++i) pA[j - 1][i] += t[i];
+      for (int i = 0; i < 6; ++i) pA[(j - 1) * 6 + i] += t[i];
     }
   }
   float ap[6], apar[6] = {0.f, 0.f, 0.f, 0.f, 0.f, gravity};
@@ -185,10 +218,10 @@ __device__ inline void aba(const float* m, const float* s, const float* c,
     mv6(X, apar, ap);
     float dot = 0.f;
     for (int i = 0; i < 6; ++i) {
-      ap[i] += cb[j][i];
-      dot += U[j][i] * ap[i];
+      ap[i] += cb[j * 6 + i];
+      dot += U[j * 6 + i] * ap[i];
     }
-    qdd[j] = (uu[j] - dot) / d[j];
+    qdd[j] = div_rn(uu[j] - dot, d[j]);
     for (int i = 0; i < 6; ++i) apar[i] = ap[i];
     apar[2] += qdd[j];
   }
@@ -395,6 +428,35 @@ __device__ inline void aba_warp(const float* m, const float* q,
     }
   }
   __syncwarp();
+}
+
+// for (int e = first; e < n; e += stride) with compile-time n and stride,
+// unrolled so that a lane's entries overlap
+#define FOR_STRIDED(e, first, n, stride)                                   \
+  _Pragma("unroll") for (int e##_r = 0; e##_r < ((n) + (stride) - 1) / (stride); \
+                         ++e##_r)                                          \
+    if (const int e = (first) + e##_r * (stride); e < (n))
+
+// A thread's entries e = first, first + stride, ... < n of a map: every
+// value f(e) is computed before the first put(e, value).  Buffers that share
+// one shared-memory array cannot be told apart by the compiler, so a store
+// inside the loop would make the next entry's loads wait for it; this way a
+// thread's entries overlap.
+template <int n, int stride, class F, class Put>
+__device__ inline void map_entries(int first, F f, Put put) {
+  constexpr int R = (n + stride - 1) / stride;
+  using V = decltype(f(0));
+  V val[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = first + r * stride;
+    if (e < n) val[r] = f(e);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int e = first + r * stride;
+    if (e < n) put(e, val[r]);
+  }
 }
 
 // The reference's angleWrap: a reflection at +-3.14159.

@@ -8,15 +8,17 @@ packed instance its own CG scalars.  On a GPU the instance is simply one
 more grid axis of the single-instance kernels, so the packing has no
 counterpart here and every tensor keeps the (B, N, ...) layout:
 
-  * K8a ``build_kkt_schur_batched``: K1's three launches over a (knot,
-    instance) grid with a per-instance rho (replaces batched_fused.py:150);
+  * K8a ``build_kkt_schur_batched``: K1's launch over a (window, instance)
+    grid with K1's windows and a per-instance rho (replaces
+    batched_fused.py:150);
   * K8b ``pcg_solve_batched``: K2' with one cluster per instance, each with
     its own CG scalars and its own exit, so every instance's iterations and
     exit flag are exact (replaces batched_fused.py:335);
   * K8c ``compute_dz_batched``: K6 over (knot, instance) with a
     per-instance rho (replaces batched_fused.py:391);
   * ``line_search_merits_batched``: K3 over (candidate, instance), the
-    batched use of the merit kernel that the JAX package reaches by vmap.
+    batched use of the merit kernel that the JAX package reaches by vmap,
+    with K3's team rule.
 
 The kernels are the single-instance kernels' bodies with an instance offset
 (``csrc/kkt_schur.cu``, ``pcg_dz.cu``, ``merit.cu``), so each instance's
@@ -42,9 +44,11 @@ from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.pcg import pcg_solve
 from mpcgpu_tpu_torch.ops.pcg_cuda import (_check_pcg_args, compute_dz_plain,
                                            k2_cluster_plan)
-from mpcgpu_tpu_torch.solver.kkt_cuda import (_SCRATCH_PER_KNOT, _check_args,
-                                              build_kkt_schur_plain)
-from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merits_plain
+from mpcgpu_tpu_torch.solver.kkt_cuda import (_check_args, build_kkt_schur_plain,
+                                              kkt_window_plan)
+from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_plain,
+                                                merit_span_scratch,
+                                                merit_team_plan)
 from mpcgpu_tpu_torch.solver.sqp import SQPResult, line_search_update
 
 
@@ -129,16 +133,16 @@ def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
                A=torch.empty((B, N, nx, nx), **f32),
                B=torch.empty((B, N, nx, nq), **f32),
                q=torch.empty((B, N, nx), **f32))
-    scratch = torch.empty((B * N * _SCRATCH_PER_KNOT,), **f32)
+    plan = kkt_window_plan(N)
     code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch")(
         xu_b.data_ptr(), xu_b.stride(1), xu_b.stride(0), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), rho_b.data_ptr(), float(dt),
         packed.data_ptr(), float(model.gravity), float(cost.qd_cost),
-        float(cost.r_cost), N, B, integrator_type, int(angle_wrap),
-        int(cost.terminal_at_last_state), out["S"].data_ptr(),
-        out["Pinv"].data_ptr(), out["gamma"].data_ptr(), out["Qinv"].data_ptr(),
-        out["A"].data_ptr(), out["B"].data_ptr(), out["q"].data_ptr(),
-        scratch.data_ptr(), _kernels.stream_ptr(dev))
+        float(cost.r_cost), N, B, plan.window, plan.smem_bytes,
+        integrator_type, int(angle_wrap), int(cost.terminal_at_last_state),
+        out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
+        out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
+        out["q"].data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(code, "kkt_schur_launch (batched)")
     build_kkt_schur_batched.launches += 1
     return out
@@ -239,15 +243,16 @@ def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
     _kernels.require(dz_b, "dz", (B, N, 21), dev)
     _kernels.require(xs_b, "xs", (B, 14), dev)
     A = num_alphas + 1
-    threads = min(512, (N + 31) // 32 * 32)
+    plan = merit_team_plan(N, A * N * B)
     merits = torch.empty((B, A), dtype=torch.float32, device=dev)
     alphas = torch.empty((B, A), dtype=torch.float32, device=dev)
     code = _kernels.entry("merit.cu", "merit_launch")(
         xu_b.data_ptr(), dz_b.data_ptr(), xs_b.data_ptr(), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A, B,
-        threads, integrator_type, int(angle_wrap), merits.data_ptr(),
-        alphas.data_ptr(), _kernels.stream_ptr(dev))
+        *plan, integrator_type, int(angle_wrap), merits.data_ptr(),
+        alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A * B),
+        _kernels.stream_ptr(dev))
     _kernels.check(code, "merit_launch (batched)")
     line_search_merits_batched.launches += 1
     return merits, alphas

@@ -9,7 +9,9 @@ raises instead of falling back.  The knot-sharded solves take a
 ``DistKnotMesh`` wherever they take a ``KnotMesh``.
 
 Usage, one process per shard (ranks 0 .. n-1), each with the same full
-inputs; each returns the same full result:
+inputs; each returns the same full result.  Like the port's other entry
+points, the group defaults to the card (NCCL); a CPU run asks for gloo
+with ``device="cpu"``:
 
     initialize_distributed("localhost:29500", num_processes=n, process_id=rank)
     mesh = make_host_aligned_mesh()
@@ -28,19 +30,25 @@ def initialize_distributed(
     coordinator_address: Optional[str] = None,
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
-    device="cpu",
+    device="cuda",
 ) -> None:
     """``torch.distributed.init_process_group`` over TCP at
-    ``coordinator_address`` ("host:port"), gloo for ``device`` "cpu" and
-    NCCL for "cuda"; a no-op for one process and no coordinator."""
+    ``coordinator_address`` ("host:port"): NCCL for ``device`` "cuda" (the
+    default), gloo for "cpu"; a no-op for one process and no coordinator."""
     if coordinator_address is None and num_processes in (None, 1):
         return
+    dist.init_process_group(process_group_backend(device),
+                            init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id)
+
+
+def process_group_backend(device) -> str:
+    """The backend of a group whose processes compute on ``device``: "nccl"
+    for the card, "gloo" for the CPU; anything else raises."""
     kind = torch.device(device).type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    dist.init_process_group("gloo" if kind == "cpu" else "nccl",
-                            init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+    return "gloo" if kind == "cpu" else "nccl"
 
 
 class DistKnotMesh:
@@ -59,7 +67,7 @@ class DistKnotMesh:
         self.n_send = 0
 
     def _check(self, x):
-        want = "gloo" if x.device.type == "cpu" else "nccl"
+        want = process_group_backend(x.device)
         if self.backend != want:
             raise ValueError(f"{x.device} tensors go over {want}; this process "
                              f"group runs {self.backend}")

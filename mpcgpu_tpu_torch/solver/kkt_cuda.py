@@ -14,9 +14,17 @@ same with a leading shard axis, (n_shard, Lext, ...).  K5 returns the
 ``KKTBlocks`` of the plain ``build_kkt``.  ``build_kkt_schur``,
 ``build_kkt_cuda`` and ``build_kkt_schur_slab`` run their plain versions for
 CPU tensors and their kernels for CUDA tensors.
+
+Each kernel is one launch of windows of ``kkt_window_plan(N).window``
+consecutive knots per CTA, a group of 3 warps per knot (K1, K8a, K9a: with
+two halo knots on the left and one on the right; K5: none).  The window is a fixed
+function of N, so K1, K8a (``parallel/batched_cuda.py``) and K9a (N = the
+shard's Lext) cut a horizon alike.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -29,9 +37,41 @@ from mpcgpu_tpu_torch.solver.kkt import (KKTBlocks, build_kkt,
                                          euler_step_and_jacobians,
                                          tracking_cost_grad_hess)
 
-# floats of per-knot scratch the kernel hands from launch A to launch B:
-# T (nx^2), A Qinv (nx^2), xnext, A Qinv q, B Rinv r (nx each)
-_SCRATCH_PER_KNOT = 2 * 14 * 14 + 3 * 14
+# csrc/kkt_schur.cu's shared memory, in floats: the packed model, a knot's
+# slot (T, A Qinv, Qinv, D, xnext, A Qinv q, B Rinv r, q) and one knot
+# group's working set of the knot stage; the most knot groups (of 3 warps)
+# a CTA takes
+_MODEL_FLOATS = 1344
+_SLOT_FLOATS = 4 * 14 * 14 + 4 * 14
+_WS_FLOATS = 1778
+KKT_MAX_GROUPS = 7
+# the knots a CTA owns (halo knots aside), for every N
+KKT_WINDOW = 4
+
+
+class KKTPlan(NamedTuple):
+    window: int       # Kc: the knots a CTA owns
+    ctas: int         # ceil(N / Kc) per instance or shard
+    smem_bytes: int   # dynamic shared memory of a K1 / K8a / K9a CTA
+
+
+def kkt_smem_bytes(window: int, schur: bool = True) -> int:
+    """Dynamic shared memory of one CTA (``kkt_smem_floats`` of
+    csrc/kkt_schur.cu): the model, and per knot group (K1 / K8a / K9a:
+    window + 3, K5: window) a working set and, with the Schur stages, a
+    knot's slot."""
+    groups = window + 3 if schur else window
+    return 4 * (_MODEL_FLOATS + groups * ((_SLOT_FLOATS if schur else 0)
+                                          + _WS_FLOATS))
+
+
+def kkt_window_plan(N: int) -> KKTPlan:
+    """The windows K1, K5, K8a and K9a launch for N knots: Kc = min(N,
+    KKT_WINDOW) knots per CTA, ceil(N / Kc) CTAs.  A fixed function of N, so
+    every caller cuts the horizon, and rounds, alike."""
+    _kernels.require_knots(N)
+    window = min(N, KKT_WINDOW)
+    return KKTPlan(window, -(-N // window), kkt_smem_bytes(window))
 
 
 def _check_args(cost: CostConfig, integrator_type: int) -> None:
@@ -99,15 +139,16 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
                A=torch.empty((N, nx, nx), **f32),
                B=torch.empty((N, nx, nq), **f32),
                q=torch.empty((N, nx), **f32))
-    scratch = torch.empty((N * _SCRATCH_PER_KNOT,), **f32)
+    plan = kkt_window_plan(N)
     code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch")(
         xu.data_ptr(), xu.stride(0), 0, ee_goal.data_ptr(), ee_goal.stride(0),
         0, rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
-        float(cost.qd_cost), float(cost.r_cost), N, 1, integrator_type,
-        int(angle_wrap), int(cost.terminal_at_last_state),
-        out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
-        out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
-        out["q"].data_ptr(), scratch.data_ptr(), _kernels.stream_ptr(dev))
+        float(cost.qd_cost), float(cost.r_cost), N, 1, plan.window,
+        plan.smem_bytes, integrator_type, int(angle_wrap),
+        int(cost.terminal_at_last_state), out["S"].data_ptr(),
+        out["Pinv"].data_ptr(), out["gamma"].data_ptr(), out["Qinv"].data_ptr(),
+        out["A"].data_ptr(), out["B"].data_ptr(), out["q"].data_ptr(),
+        _kernels.stream_ptr(dev))
     _kernels.check(code, "kkt_schur_launch")
     build_kkt_schur.launches += 1
     return out
@@ -118,7 +159,8 @@ build_kkt_schur.launches = 0
 
 def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: float,
                    integrator_type: int = 0, angle_wrap: bool = False) -> KKTBlocks:
-    """K5: the KKT blocks of ``build_kkt`` (ee cost mode) in one launch.
+    """K5: the KKT blocks of ``build_kkt`` (ee cost mode) in one launch
+    (K1's windows, no halo).
 
     Q (N, nx, nx), q (N, nx), A (N-1, nx, nx), B (N-1, nx, nu) and c (N, nx)
     come from the kernel; R = r_cost I and r = r_cost u[:-1] are formed here
@@ -141,10 +183,12 @@ def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: flo
     A = torch.empty((N, nx, nx), **f32)
     B = torch.empty((N, nx, nq), **f32)
     c = torch.empty((N, nx), **f32)
+    window = kkt_window_plan(N).window
     code = _kernels.entry("kkt_schur.cu", "kkt_launch")(
         xu.data_ptr(), xu.stride(0), ee_goal.data_ptr(), ee_goal.stride(0),
         xs.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
-        float(cost.qd_cost), N, integrator_type, int(angle_wrap),
+        float(cost.qd_cost), N, window, kkt_smem_bytes(window, schur=False),
+        integrator_type, int(angle_wrap),
         int(cost.terminal_at_last_state), Q.data_ptr(), A.data_ptr(),
         B.data_ptr(), q.data_ptr(), c.data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(code, "kkt_launch")
@@ -234,8 +278,8 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
         raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
     dev = xu_ext.device
     n_shard, Lext = xu_ext.shape[:2]
-    if Lext < 2:
-        raise ValueError(f"windows of {Lext} knots; K9a takes >= 2")
+    if not 2 <= Lext <= _kernels.MAX_KNOTS:
+        raise ValueError(f"shards of {Lext} knots; K9a takes 2..{_kernels.MAX_KNOTS}")
     nq = model.nq
     nx = 2 * nq
     _kernels.require(xu_ext, "xu_ext", (n_shard, Lext, 3 * nq), dev)
@@ -254,15 +298,15 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
                A=torch.empty(lead + (nx, nx), **f32),
                B=torch.empty(lead + (nx, nq), **f32),
                q=torch.empty(lead + (nx,), **f32))
-    scratch = torch.empty((n_shard * Lext * _SCRATCH_PER_KNOT,), **f32)
+    plan = kkt_window_plan(Lext)
     code = _kernels.entry("kkt_schur.cu", "kkt_schur_slab_launch")(
         xu_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1), bmask.data_ptr(),
         rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
-        float(cost.qd_cost), float(cost.r_cost), Lext, n_shard,
-        integrator_type, int(cost.terminal_at_last_state),
+        float(cost.qd_cost), float(cost.r_cost), Lext, n_shard, plan.window,
+        plan.smem_bytes, integrator_type, int(cost.terminal_at_last_state),
         out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
         out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
-        out["q"].data_ptr(), scratch.data_ptr(), _kernels.stream_ptr(dev))
+        out["q"].data_ptr(), _kernels.stream_ptr(dev))
     _kernels.check(code, "kkt_schur_slab_launch")
     build_kkt_schur_slab.launches += 1
     return out

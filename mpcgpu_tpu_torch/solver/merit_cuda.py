@@ -6,9 +6,16 @@ and ``line_search_merit_partials_slab``; the CUDA kernel is
 ``csrc/merit.cu``.  ``line_search_merits_fused`` and
 ``line_search_merit_partials_slab`` run their plain versions for CPU tensors
 and the kernel for CUDA tensors.
+
+The kernel gives each (candidate, knot) sample a team of G lanes, P samples
+a block, as ``merit_team_plan`` says for the launch's sample count (one
+rule for K3, K3b in ``parallel/batched_cuda.py`` and K9c); the merits do not
+depend on G or P, since each term is summed as one thread would sum it.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -16,6 +23,81 @@ from mpcgpu_tpu_torch.config import CostConfig
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.solver.merit import line_search_merits, merit_partials
+
+# csrc/merit.cu's shared memory, in floats: the packed model, one sample's
+# state (odd stride; G = 1: one thread's per-link vectors), block_sum's 33
+_MODEL_FLOATS = 1344
+_SAMPLE_STRIDE = 691
+_VEC_STRIDE = 141
+MERIT_TEAMS = (1, 2, 4, 8, 16, 32)
+# the most threads of a block: teams, and G <= 2 (G = 1: its registers hold
+# the 6x6 matrices; 128 G threads)
+MERIT_MAX_THREADS = 512
+MERIT_MAX_THREADS_G1 = 128
+MERIT_SMEM_LIMIT = 232_448      # one block's shared memory on an H100
+# (team lanes G, samples per block P) up to MERIT_SMALL_SAMPLES samples
+# (candidates x knots x instances) and above: teams of 16 where a launch is
+# latency-bound, a thread per sample where it is issue-bound (the fastest at
+# N = 64 for one instance and for 256, tools/torch_port_kernel_ab.py
+# --team-sweep)
+MERIT_SMALL_SAMPLES = 4096
+MERIT_SMALL = (16, 32)
+MERIT_LARGE = (1, 64)
+
+
+# per device: the scratch of the launches whose knots span more than one
+# block (each block's per-knot terms, and one counter per candidate and
+# instance that the kernel leaves zero), grown as needed
+_SPAN_SCRATCH = {}
+
+
+def merit_span_scratch(dev, N: int, samples: int, rows: int):
+    """(terms, done) pointers for a launch of ``rows`` candidates x
+    instances at N knots, P = samples per block: 0, 0 when one block holds
+    the knots."""
+    if N <= samples:
+        return 0, 0
+    terms, done = _SPAN_SCRATCH.get(dev, (None, None))
+    if terms is None or terms.numel() < 2 * N * rows:
+        terms = torch.empty((2 * N * rows,), dtype=torch.float32, device=dev)
+    if done is None or done.numel() < rows:
+        done = torch.zeros((rows,), dtype=torch.int32, device=dev)
+    _SPAN_SCRATCH[dev] = (terms, done)
+    return terms.data_ptr(), done.data_ptr()
+
+
+class MeritPlan(NamedTuple):
+    team: int         # G: lanes per (candidate, knot) sample
+    samples: int      # P: samples in flight per block (P G threads)
+    smem_bytes: int   # dynamic shared memory of one block
+
+
+def merit_max_threads(team: int) -> int:
+    return MERIT_MAX_THREADS_G1 * team if team <= 2 else MERIT_MAX_THREADS
+
+
+def merit_smem_bytes(team: int, samples: int, N: int) -> int:
+    """Dynamic shared memory of one block of csrc/merit.cu
+    (``merit_smem_floats``): the model, the samples' state (G = 1: their
+    per-link vectors), each knot's cost and defect, block_sum's 33 floats."""
+    stride = _VEC_STRIDE if team == 1 else _SAMPLE_STRIDE
+    return 4 * (_MODEL_FLOATS + samples * stride + 2 * N + 33)
+
+
+def merit_team_plan(N: int, num_samples: int) -> MeritPlan:
+    """The teams and rounds of a merit launch of num_samples samples
+    (candidates x knots x instances or shards) at N knots: MERIT_SMALL up to
+    MERIT_SMALL_SAMPLES, MERIT_LARGE above, P cut to at most ceil(N / 32) 32,
+    merit_max_threads(G) / G and what fits the shared memory (in multiples
+    of 32)."""
+    team, samples = MERIT_SMALL if num_samples <= MERIT_SMALL_SAMPLES else MERIT_LARGE
+    if team not in MERIT_TEAMS:
+        raise ValueError(f"team of {team} lanes; the kernel takes {MERIT_TEAMS}")
+    stride = _VEC_STRIDE if team == 1 else _SAMPLE_STRIDE
+    fit = (MERIT_SMEM_LIMIT // 4 - _MODEL_FLOATS - 2 * N - 33) // stride
+    samples = min(samples, merit_max_threads(team) // team, -(-N // 32) * 32,
+                  fit // 32 * 32)
+    return MeritPlan(team, samples, merit_smem_bytes(team, samples, N))
 
 
 def line_search_merits_plain(model: RobotModel, cost: CostConfig, xu, dz, xs,
@@ -60,15 +142,16 @@ def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
     _kernels.require(packed, "model", (packed.numel(),), dev)
 
     A = num_alphas + 1
-    threads = min(512, (N + 31) // 32 * 32)
+    plan = merit_team_plan(N, A * N)
     merits = torch.empty((A,), dtype=torch.float32, device=dev)
     alphas = torch.empty((A,), dtype=torch.float32, device=dev)
     code = _kernels.entry("merit.cu", "merit_launch")(
         xu.data_ptr(), dz.data_ptr(), xs.data_ptr(), ee_goal.data_ptr(),
         ee_goal.stride(0), 0, packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A,
-        1, threads, integrator_type, int(angle_wrap), merits.data_ptr(),
-        alphas.data_ptr(), _kernels.stream_ptr(dev))
+        1, *plan, integrator_type, int(angle_wrap), merits.data_ptr(),
+        alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A),
+        _kernels.stream_ptr(dev))
     _kernels.check(code, "merit_launch")
     line_search_merits_fused.launches += 1
     return merits, alphas
@@ -106,14 +189,14 @@ def line_search_merit_partials_slab(model: RobotModel, cost: CostConfig, xu_ext,
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)
     A = num_alphas + 1
-    threads = min(512, (Le + 31) // 32 * 32)
+    plan = merit_team_plan(Le, A * Le * n_shard)
     part = torch.empty((n_shard, 2, A, Le), dtype=torch.float32, device=dev)
     alphas = torch.empty((n_shard, A), dtype=torch.float32, device=dev)
     code = _kernels.entry("merit.cu", "merit_partials_launch")(
         xu_ext.data_ptr(), dz_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1),
         ee_ext.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(dt), Le, A, n_shard,
-        threads, integrator_type, part.data_ptr(), alphas.data_ptr(),
+        *plan, integrator_type, part.data_ptr(), alphas.data_ptr(),
         _kernels.stream_ptr(dev))
     _kernels.check(code, "merit_partials_launch")
     line_search_merit_partials_slab.launches += 1

@@ -16,6 +16,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _WORKER = r"""
@@ -111,3 +113,27 @@ def test_two_process_gloo_knot_mesh(tmp_path):
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"proc {rank} failed:\n{out}"
         assert "distributed ok" in out, out
+
+
+def test_initialize_distributed_defaults_to_the_card(monkeypatch):
+    """The entry point's default group runs on the card (NCCL); gloo only
+    when a CPU run asks for it.  The group itself is not started: the call
+    is recorded."""
+    import torch.distributed as dist
+
+    from mpcgpu_tpu_torch.parallel import distributed
+
+    calls = []
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    distributed.initialize_distributed("localhost:29500", num_processes=2,
+                                       process_id=1)
+    distributed.initialize_distributed("localhost:29500", num_processes=2,
+                                       process_id=0, device="cpu")
+    distributed.initialize_distributed()         # one process: nothing
+    assert [c[0] for c in calls] == ["nccl", "gloo"]
+    assert calls[0][1] == dict(init_method="tcp://localhost:29500",
+                               world_size=2, rank=1)
+    assert distributed.process_group_backend("cuda:0") == "nccl"
+    with pytest.raises(ValueError, match="unsupported device"):
+        distributed.process_group_backend("meta")

@@ -1,24 +1,48 @@
 #!/usr/bin/env python3
-"""Device times of K2, K2', K4, K8b and K4b for one source tree.
+"""Device times, and outputs for a bitwise A/B, of the port's kernels for one
+source tree.
 
-    python3 tools/torch_port_kernel_ab.py TREE
+    python3 tools/torch_port_kernel_ab.py TREE [--save FILE]
+    python3 tools/torch_port_kernel_ab.py --compare FILE_A FILE_B
+    python3 tools/torch_port_kernel_ab.py . --window-sweep --team-sweep --cluster-sweep
 
 TREE is the root of a checkout (this one: ``.``; an earlier commit unpacked
 with ``git archive <commit> | tar -x -C devscratch/parent``).  The script
 imports that tree's ``mpcgpu_tpu_torch`` and ``chip_smoke``, builds its
-kernels (into TREE's own ``_build/<hash>``) and prints one line: each
-kernel's device time (a CUDA graph of 20 calls, ``chip_smoke.graph_ms``)
-at the main path's shapes: K2 / K2' at N = 64 on the real Schur system
-from a cold start (PCG cap 167, exit_tol 1e-5), K4 one 2 ms period at a
-2 ms offset, K8b / K4b at B = 256.  To compare two trees on one card, run
-them in turns in one chip call (parent, change, change, parent):
+kernels (into TREE's own ``_build/<hash>``) and prints each kernel's device
+time (a CUDA graph of 20 calls, ``chip_smoke.graph_ms``) at the main path's
+shapes, one line per group:
 
-    for t in devscratch/parent . . devscratch/parent; do
-        python3 tools/torch_port_kernel_ab.py $t; done
+  * K1 at N = 64 and 512, K5 at 64, K8a at B = 256, K9a at N = 512 over 8
+    shards and 64 over 4 (windows of L + 4 knots), on trace 0_0 + noise;
+  * K3 at N = 64 and 512, K3b at B = 256, K9c at 512 / 8 and 64 / 4, on a
+    seeded numpy step dz;
+  * K2 / K2' at N = 64 on the real Schur system from a cold start (PCG cap
+    167, exit_tol 1e-5), K4 one 2 ms period at a 2 ms offset, K8b / K4b at
+    B = 256.
 
-``--cluster-sweep`` (a tree with the cluster K2) also times K2' at N = 64
-launched by hand with clusters of 2, 4, 8 and 16 CTAs, the choice that
-``ops/pcg_cuda.py::k2_cluster_plan`` fixes at 8.
+Every input is made from a seed, so two trees see the same inputs; --save
+writes every output of the first two groups (CPU tensors, ``torch.save``),
+and --compare prints, per kernel and output, "bitwise equal" or the largest
+difference.  To compare two trees on one card, run them in turns in one chip
+call (parent, change, change, parent) and compare the saved outputs:
+
+    python3 tools/torch_port_kernel_ab.py devscratch/parent --save devscratch/ab/parent.pt
+    python3 tools/torch_port_kernel_ab.py . --save devscratch/ab/change.pt
+    python3 tools/torch_port_kernel_ab.py .
+    python3 tools/torch_port_kernel_ab.py devscratch/parent
+    python3 tools/torch_port_kernel_ab.py --compare devscratch/ab/parent.pt devscratch/ab/change.pt
+
+(The saved outputs at B = 256 take ~100 MB.)
+
+``--window-sweep`` times K1 (N = 64, 512) and K8a (B = 256) with windows of
+2, 3 and 4 knots (``solver/kkt_cuda.py::KKT_WINDOW``), ``--team-sweep`` K3
+(N = 64) and K3b (B = 256) with teams of 1..32 lanes and 32, 64 or 128
+samples a block (``solver/merit_cuda.py::merit_team_plan``); both print whether each
+result equals the default plan's bit for bit.  ``--cluster-sweep`` times K2'
+at N = 64 launched by hand with clusters of 2, 4, 8 and 16 CTAs, the choice
+that ``ops/pcg_cuda.py::k2_cluster_plan`` fixes at 8.  The sweeps need a
+tree of this slice or later.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -26,10 +50,37 @@ Needs a CUDA card; imports nothing of JAX.
 import sys
 from pathlib import Path
 
+FLAGS = ("--cluster-sweep", "--window-sweep", "--team-sweep")
+
+
+def compare(path_a: str, path_b: str) -> None:
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+    print(f"compare {path_a} (reference) with {path_b}:")
+    for key in a:
+        x, y = a[key].double(), b[key].double()
+        if torch.equal(a[key], b[key]):
+            print(f"  {key}: bitwise equal")
+            continue
+        d = (x - y).abs()
+        rel = float(d.max()) / max(float(x.abs().max()), 1e-30)
+        print(f"  {key}: largest difference {float(d.max()):.3e} = {rel:.3e} "
+              f"max|ref| ({int((d > 0).sum())} of {d.numel()} entries differ)")
+
 
 def main():
-    args = [a for a in sys.argv[1:] if a != "--cluster-sweep"]
-    tree = Path(args[0] if args else ".").resolve()
+    args = sys.argv[1:]
+    if args[:1] == ["--compare"]:
+        compare(args[1], args[2])
+        return
+    save = None
+    if "--save" in args:
+        i = args.index("--save")
+        save = args[i + 1]
+        del args[i:i + 2]
+    pos = [a for a in args if a not in FLAGS]
+    tree = Path(pos[0] if pos else ".").resolve()
     sys.path.insert(0, str(tree))
     import numpy as np
     import torch
@@ -39,19 +90,100 @@ def main():
     from mpcgpu_tpu_torch.models import iiwa14
     from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve, pcg_solve_cuda
     from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
+                                                        line_search_merits_batched,
                                                         pcg_solve_batched)
     from mpcgpu_tpu_torch.sim.plant_cuda import (simulate_plant,
                                                  simulate_plant_batched)
-    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
+                                                  build_kkt_schur_slab)
+    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
+                                                    line_search_merits_fused)
 
     if not torch.cuda.is_available():
         sys.exit("torch_port_kernel_ab: needs a CUDA device")
     dev = torch.device("cuda", 0)
     N, B = c.N_MAIN, c.B_MAIN
-    cost = CostConfig.for_knots(N)
     m = iiwa14(torch.float32, device=dev)
-    xu, xs, ee, _ = c.problem(N, torch, dev)
+    mu = 1.0
+    rng = np.random.default_rng(2)
+    on_dev = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    outs = {}
+
+    def keep(name, res):
+        if isinstance(res, dict):
+            for k, v in res.items():
+                outs[f"{name} {k}"] = v.detach().cpu()
+        elif isinstance(res, (tuple, list)):
+            for i, v in enumerate(res):
+                outs[f"{name} [{i}]"] = v.detach().cpu()
+        else:
+            outs[name] = res.detach().cpu()
+
+    def windows(n, S, lo, hi):
+        L = n // S
+        return torch.tensor((np.arange(S)[:, None] * L + np.arange(lo, L + hi)) % n,
+                            device=dev)
+
+    # the KKT kernels
+    inputs = {}
+    for n in (N, c.N_BIG):
+        cost = CostConfig.for_knots(n)
+        xu, xs, ee, _ = c.problem(n, torch, dev)
+        dz = on_dev(0.05 * rng.standard_normal((n, 21)))
+        inputs[n] = (cost, xu, xs, ee, dz)
     rho = torch.full((), c.RHO0, device=dev)
+    times = {}
+    for n in (N, c.N_BIG):
+        cost, xu, xs, ee, _ = inputs[n]
+        k1 = lambda: build_kkt_schur(m, cost, xu, xs, ee, rho, c.DT, 0)
+        keep(f"K1 N={n}", k1())
+        times[f"K1 N={n}"] = c.graph_ms(torch, k1)
+    cost, xu, xs, ee, dz = inputs[N]
+    k5 = lambda: build_kkt_cuda(m, cost, xu, xs, ee, c.DT, 0)
+    keep(f"K5 N={N}", {k: getattr(k5(), k) for k in ("Q", "q", "A", "B", "c")})
+    times[f"K5 N={N}"] = c.graph_ms(torch, k5)
+    xu_b, xs_b, ee_b, rho_b = c.batch_problem(B, N, torch, dev)
+    k8a = lambda: build_kkt_schur_batched(m, cost, xu_b, xs_b, ee_b, rho_b, c.DT)
+    keep(f"K8a B={B}", k8a())
+    times[f"K8a B={B}"] = c.graph_ms(torch, k8a, calls=5)
+    for n, S in c.SHARD_CASES:
+        cost_n, xu_n, _, ee_n, dz_n = inputs[n]
+        w = windows(n, S, -2, 2)
+        first, last = (w == 0).float(), (w == n - 1).float()
+        xe, ee_x = xu_n[w].contiguous(), ee_n[w].contiguous()
+        k9a = lambda: build_kkt_schur_slab(m, cost_n, xe, ee_x, first, last, rho, c.DT)
+        keep(f"K9a N={n}/{S}", k9a())
+        times[f"K9a N={n}/{S}"] = c.graph_ms(torch, k9a)
+    print(f"{tree.name or tree}: " + ", ".join(
+        f"{k} {v * 1e3:.1f} us" for k, v in times.items()) + f"; {c.card_line()}",
+          flush=True)
+
+    # the merit kernels
+    times = {}
+    for n in (N, c.N_BIG):
+        cost_n, xu_n, xs_n, ee_n, dz_n = inputs[n]
+        k3 = lambda: line_search_merits_fused(m, cost_n, xu_n, dz_n, xs_n, ee_n, mu, c.DT)
+        keep(f"K3 N={n}", k3())
+        times[f"K3 N={n}"] = c.graph_ms(torch, k3)
+    dz_b = on_dev(0.05 * rng.standard_normal((B, N, 21)))
+    k3b = lambda: line_search_merits_batched(m, cost, xu_b, dz_b, xs_b, ee_b, mu, c.DT)
+    keep(f"K3b B={B}", k3b())
+    times[f"K3b B={B}"] = c.graph_ms(torch, k3b)
+    for n, S in c.SHARD_CASES:
+        cost_n, xu_n, _, ee_n, dz_n = inputs[n]
+        w1 = windows(n, S, 0, 1)
+        x1, z1, e1 = xu_n[w1].contiguous(), dz_n[w1].contiguous(), ee_n[w1].contiguous()
+        k9c = lambda: line_search_merit_partials_slab(m, cost_n, x1, z1, e1, c.DT)
+        keep(f"K9c N={n}/{S}", k9c())
+        times[f"K9c N={n}/{S}"] = c.graph_ms(torch, k9c)
+    print(f"{tree.name or tree}: " + ", ".join(
+        f"{k} {v * 1e3:.1f} us" for k, v in times.items()) + f"; {c.card_line()}",
+          flush=True)
+    if save is not None:
+        Path(save).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outs, save)
+
+    # K2, K2', K4, K8b, K4b
     s = build_kkt_schur(m, cost, xu, xs, ee, rho, c.DT, 0)
     lam = torch.zeros_like(s["gamma"])
     kw = dict(max_iter=167, exit_tol=1e-5)
@@ -64,7 +196,6 @@ def main():
                                    dtype=torch.float32, device=dev)
     k4 = c.graph_ms(torch, lambda: simulate_plant(m, xs4, xu, 2e-3, 2e-3, c.DT,
                                                   10, 2e-4))
-    xu_b, xs_b, ee_b, rho_b = c.batch_problem(B, N, torch, dev)
     sb = build_kkt_schur_batched(m, cost, xu_b, xs_b, ee_b, rho_b, c.DT)
     l0 = torch.zeros((B, N, 14), device=dev)
     k8b = c.graph_ms(torch, lambda: pcg_solve_batched(
@@ -77,6 +208,45 @@ def main():
           f"{k4 * 1e3:.1f} us, K8b {k8b * 1e3:.1f} us (B={B}, iterations "
           f"{int(itb.min())}..{int(itb.max())}, {int(itb.sum())} in all), K4b "
           f"{k4b * 1e3:.1f} us; {c.card_line()}", flush=True)
+
+    if "--window-sweep" in sys.argv:
+        from mpcgpu_tpu_torch.solver import kkt_cuda
+
+        default = kkt_cuda.KKT_WINDOW
+        cases = {f"K1 N={n}": (lambda n=n: build_kkt_schur(
+            m, inputs[n][0], inputs[n][1], inputs[n][2], inputs[n][3], rho, c.DT, 0))
+            for n in (N, c.N_BIG)}
+        cases[f"K8a B={B}"] = k8a
+        for Kc in (2, 3, 4):
+            kkt_cuda.KKT_WINDOW = Kc
+            for name, fn in cases.items():
+                res = fn()
+                same = all(torch.equal(v.cpu(), outs[f"{name} {k}"]) for k, v in res.items())
+                ms = c.graph_ms(torch, fn, calls=5 if name.startswith("K8a") else 20)
+                plan = kkt_cuda.kkt_window_plan(int(name.split("=")[1]) if "N=" in name else N)
+                print(f"  window sweep {name} Kc={Kc}: {ms * 1e3:.1f} us ({plan.ctas} "
+                      f"CTAs per instance, {plan.smem_bytes} B shared memory each); "
+                      f"bitwise equal to Kc={default}: {same}", flush=True)
+        kkt_cuda.KKT_WINDOW = default
+    if "--team-sweep" in sys.argv:
+        from mpcgpu_tpu_torch.solver import merit_cuda
+
+        default = merit_cuda.MERIT_SMALL, merit_cuda.MERIT_LARGE
+        cases = {f"K3 N={N}": lambda: line_search_merits_fused(
+            m, cost, xu, inputs[N][4], xs, ee, mu, c.DT), f"K3b B={B}": k3b}
+        for g in merit_cuda.MERIT_TEAMS:
+            for P in (32, 64, 128):
+                if P * g > merit_cuda.merit_max_threads(g):
+                    continue
+                merit_cuda.MERIT_SMALL = merit_cuda.MERIT_LARGE = (g, P)
+                for name, fn in cases.items():
+                    res = fn()
+                    same = all(torch.equal(v.cpu(), outs[f"{name} [{i}]"])
+                               for i, v in enumerate(res))
+                    ms = c.graph_ms(torch, fn)
+                    print(f"  team sweep {name} G={g} P={P}: {ms * 1e3:.1f} us; "
+                          f"bitwise equal to the default plan: {same}", flush=True)
+        merit_cuda.MERIT_SMALL, merit_cuda.MERIT_LARGE = default
     if "--cluster-sweep" in sys.argv:
         from mpcgpu_tpu_torch import _kernels
         from mpcgpu_tpu_torch.ops.pcg_cuda import k2_smem_bytes
