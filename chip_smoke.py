@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any failure raises and the script exits non-zero):
 
   1. print the card's name and power limit; build the CUDA kernels from
-     mpcgpu_tpu_torch/csrc with nvcc and print the build time;
+     mpcgpu_tpu_torch/csrc with nvcc and print the build time, each
+     kernel's registers and spills, and the plans of K7 (one launch per
+     solve) and K10b (a thread-block cluster per shard);
   2. hold each kernel of the first two slices (K1 KKT+Schur, K2 PCG+dz, K3
      line-search merits, K4 plant, K5 KKT blocks, K2' PCG without the dz
      epilogue, K6 dz) against its plain PyTorch version on the card, at
@@ -34,7 +36,11 @@ Phases (any failure raises and the script exits non-zero):
      the coefficient step against their plain versions on both systems, and
      the s-step PCG through them against the same loop with the plain steps
      and against K2' (well-conditioned: counts within s, both exits before
-     the cap) and over noise seeds by medians (real);
+     the cap) and over noise seeds by medians (real); hold K10b, the
+     coefficient step and the s-step PCG at N = 512 on one shard (the
+     plan's largest slab, S and Pinv read from L2), and the fused sharded
+     SQP's default route on one shard against pcg_cuda at N = 508, the
+     largest slab K9a takes;
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -594,7 +600,7 @@ def main() -> int:
     from mpcgpu_tpu_torch.ops.ldl import btd_ldl_solve
     from mpcgpu_tpu_torch.ops.pcg import pcg_solve
     from mpcgpu_tpu_torch.ops.pcr import pcr_solve_refined
-    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
+    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_plan, pcr_solve_cuda
     from mpcgpu_tpu_torch.parallel import make_batched_sqp_solver
     from mpcgpu_tpu_torch.parallel.batched_cuda import (
         build_kkt_schur_batched, build_kkt_schur_batched_plain, compute_dz_batched,
@@ -609,7 +615,8 @@ def main() -> int:
                                                pcg_dz_solve_plain,
                                                pcg_solve_cuda)
     from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
-    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import (ca_basis_cuda, ca_cluster_plan,
+                                                  ca_coeff_step_cuda)
     from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step, slab_state
     from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
     from mpcgpu_tpu_torch.parallel import (KnotMesh, pcg_solve_sharded,
@@ -679,6 +686,11 @@ def main() -> int:
     for src, log in _kernels.build_log.items():
         for line in ptxas_summary(log):
             print(f"  ptxas {src}: {line}")
+    # the plans of K7 (one launch per solve) and K10b (a cluster per shard)
+    for N in PCR_SIZES:
+        print(f"  K7 plan N={N}: {pcr_plan(N)}")
+    for N, S in SHARD_CASES + ((N_BIG, 1),):
+        print(f"  K10b plan N={N} over {S} shards: {ca_cluster_plan(N // S, CA_S)}")
 
     model = iiwa14(torch.float32, device=dev)
     mu = SQPConfig().mu
@@ -966,8 +978,8 @@ def main() -> int:
         if N == N_MAIN:
             errs["K7 pcr_solve_cuda"] = d
         expect(r <= 1e-5 and r64 <= 1e-5,
-               f"K7 N={N} well-conditioned: vs plain {r:.3e}, vs f64 {r64:.3e} "
-               f"max|x| (<= 1e-5)")
+               f"K7 N={N} well-conditioned ({pcr_plan(N)}): vs plain {r:.3e}, vs "
+               f"f64 {r64:.3e} max|x| (<= 1e-5)")
     # K7 on the real Schur system over REAL_SEEDS noise seeds, beside the
     # capped PCG (K2', the chain's settings) and the f64 solve (the block
     # LDL^T of the same f32 system in f64).  On the calm rows from CALM_ROW
@@ -1157,6 +1169,52 @@ def main() -> int:
             **steps)
         return lam.reshape(N, -1), int(it[0]), bool(done[0])
 
+    f64s = lambda st: {k: v.double() if v.is_floating_point() else v.clone()
+                       for k, v in st.items()}
+
+    def ca_kernel_checks(mesh, N, S, label, sys3, record):
+        """K10b and the coefficient step against their plain versions at the
+        second outer step of a solve (g != 1): both do the s-step algebra in
+        f64 from the f32 state, in their own orders, so each output is held
+        to the same step from the state in f64: the kernel's max|d| /
+        max|ref| within 2x the plain step's + 1e-6.  ``record``: the kernels'
+        max|d| against the plain versions go to the kernels line."""
+        st, ins = ca_setup(mesh, *sys3)
+        got, ref, exact = clone_state(st), clone_state(st), f64s(st)
+        ca_basis_cuda(got, *ins, CA_CAP, CA_S)
+        ca_basis(ref, *ins, CA_CAP, CA_S)
+        ca_basis(exact, *(v.double() for v in ins), CA_CAP, CA_S)
+        torch.cuda.synchronize()
+        outs_b = ("Y", "Yt", "parts")
+        eb = {k: (rel_err(got[k], exact[k])[1], rel_err(ref[k], exact[k])[1])
+              for k in outs_b}
+        if record:
+            errs["K10b ca_basis_cuda"] = max(rel_err(got[k], ref[k])[0]
+                                             for k in outs_b)
+        expect(all(a <= 2 * b + 1e-6 for a, b in eb.values()),
+               f"K10b N={N} over {S} shards ({ca_cluster_plan(N // S, CA_S)}), "
+               f"{label} system: to the f64 step, kernel / plain "
+               + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in eb.items())
+               + " max|ref| (kernel <= 2x plain + 1e-6)")
+        tot = mesh.psum(ref["parts"])
+        got, ref2, exact = clone_state(ref), clone_state(ref), f64s(ref)
+        ca_coeff_step_cuda(got, tot, CA_CAP, tol0, "eta", CA_S)
+        ca_coeff_step(ref2, tot, CA_CAP, tol0, "eta", CA_S)
+        ca_coeff_step(exact, tot.double(), CA_CAP, tol0.double(), "eta", CA_S)
+        torch.cuda.synchronize()
+        outs_c = ("x", "r", "z", "p", "pkt", "scal")
+        ec = {k: (rel_err(got[k], exact[k])[1], rel_err(ref2[k], exact[k])[1])
+              for k in outs_c}
+        if record:
+            errs["K10b' ca_coeff_step_cuda"] = max(rel_err(got[k], ref2[k])[0]
+                                                   for k in outs_c)
+        same = all(torch.equal(got[k], ref2[k]) for k in ("iters", "done"))
+        expect(all(a <= 2 * b + 1e-6 for a, b in ec.values()) and same,
+               f"K10b' (coefficient step) N={N} over {S} shards, {label} system: "
+               "to the f64 step, kernel / plain "
+               + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in ec.items())
+               + f" max|ref| (kernel <= 2x plain + 1e-6); iters, done equal {same}")
+
     slab_ref = {}     # per case: the inputs phase 5 times the kernels on
     for N, S in SHARD_CASES:
         L = N // S
@@ -1294,50 +1352,9 @@ def main() -> int:
         nz = int(torch.count_nonzero(corners))
         expect(nz == 0, f"K9a N={N} over {S} shards: corner blocks S[0,0], "
                f"Pinv[0,0], S[N-1,2], Pinv[N-1,2] exactly 0 ({nz} nonzero entries)")
-        # K10b and the coefficient step against their plain versions at the
-        # second outer step of a solve (g != 1): both do the s-step algebra
-        # in f64 from the f32 state, in their own orders, so each output is
-        # held to the same step from the state in f64: the kernel's max|d| /
-        # max|ref| within 2x the plain step's + 1e-6
-        f64s = lambda st: {k: v.double() if v.is_floating_point() else v.clone()
-                           for k, v in st.items()}
         for label, sys3 in (("well-conditioned", syn),
                             ("real", (k1["S"], k1["Pinv"], k1["gamma"]))):
-            st, ins = ca_setup(mesh, *sys3)
-            got, ref, exact = clone_state(st), clone_state(st), f64s(st)
-            ca_basis_cuda(got, *ins, CA_CAP, CA_S)
-            ca_basis(ref, *ins, CA_CAP, CA_S)
-            ca_basis(exact, *(v.double() for v in ins), CA_CAP, CA_S)
-            torch.cuda.synchronize()
-            outs_b = ("Y", "Yt", "parts")
-            eb = {k: (rel_err(got[k], exact[k])[1], rel_err(ref[k], exact[k])[1])
-                  for k in outs_b}
-            if main_case and label == "real":
-                errs["K10b ca_basis_cuda"] = max(rel_err(got[k], ref[k])[0]
-                                                 for k in outs_b)
-            expect(all(a <= 2 * b + 1e-6 for a, b in eb.values()),
-                   f"K10b N={N} over {S} shards, {label} system: to the f64 step, "
-                   "kernel / plain " + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b)
-                                                 in eb.items())
-                   + " max|ref| (kernel <= 2x plain + 1e-6)")
-            tot = mesh.psum(ref["parts"])
-            got, ref2, exact = clone_state(ref), clone_state(ref), f64s(ref)
-            ca_coeff_step_cuda(got, tot, CA_CAP, tol0, "eta", CA_S)
-            ca_coeff_step(ref2, tot, CA_CAP, tol0, "eta", CA_S)
-            ca_coeff_step(exact, tot.double(), CA_CAP, tol0.double(), "eta", CA_S)
-            torch.cuda.synchronize()
-            outs_c = ("x", "r", "z", "p", "pkt", "scal")
-            ec = {k: (rel_err(got[k], exact[k])[1], rel_err(ref2[k], exact[k])[1])
-                  for k in outs_c}
-            if main_case and label == "real":
-                errs["K10b' ca_coeff_step_cuda"] = max(rel_err(got[k], ref2[k])[0]
-                                                       for k in outs_c)
-            same = all(torch.equal(got[k], ref2[k]) for k in ("iters", "done"))
-            expect(all(a <= 2 * b + 1e-6 for a, b in ec.values()) and same,
-                   f"K10b' (coefficient step) N={N} over {S} shards, {label} system: "
-                   "to the f64 step, kernel / plain "
-                   + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in ec.items())
-                   + f" max|ref| (kernel <= 2x plain + 1e-6); iters, done equal {same}")
+            ca_kernel_checks(mesh, N, S, label, sys3, main_case and label == "real")
         # the s-step PCG through the kernels on the well-conditioned system
         # against the same loop with the plain steps and against K2' (lam
         # within 2e-6, the same iterations, the exits before the cap; rnorm
@@ -1380,6 +1397,69 @@ def main() -> int:
                f"steps, {REAL_SEEDS} seeds: median distance to f64 "
                + ", ".join(f"{k} {v:.3e}" for k, v in med.items())
                + " (K10b <= 2x the plain steps)")
+    # N_BIG on one shard (L = N_BIG, s = CA_S): the plan's largest slab, S and
+    # Pinv read from L2 (ca_cluster_plan), from phase 4d's calm start: K10b
+    # and the coefficient step against their plain versions as above, and
+    # the sharded s-step PCG through them against K2' on the well-conditioned
+    # system (as above).  The fused sharded SQP at its default route ("auto"
+    # -> "ca_slab") runs at the largest one-shard slab K9a takes (its slab
+    # holds the shard's knots and 4 halo knots, at most MAX_KNOTS): N_BIG - 4,
+    # against pcg_cuda as phase 4d holds it: K10b and the coefficient step
+    # launched per outer step, the PCG counts within s of pcg_cuda's, the
+    # same line-search choices, the distance to the f64 solve per part
+    # within 2x the larger of pcg_cuda's and the plain f32 solve's + 1e-4
+    N, S = N_BIG, 1
+    trace, start = SHARD_START[N]
+    cost = CostConfig.for_knots(N)
+    xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
+    rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+    k1 = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+    ca_kernel_checks(KnotMesh(S), N, S, f"{trace} row {start}",
+                     (k1["S"], k1["Pinv"], k1["gamma"]), False)
+    syn = synthetic_btd(N, torch, dev)
+    a = ca_pcg(KnotMesh(S), *syn, True, 167, 1e-9)
+    k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=167, exit_tol=1e-9)
+    torch.cuda.synchronize()
+    e2 = rel_err(a[0], k2p.lam)[1]
+    expect(e2 <= 2e-6 and abs(a[1] - int(k2p.iters)) <= CA_S and a[2]
+           and bool(k2p.converged),
+           f"s-step PCG (K10b) N={N} over {S} shard, well-conditioned eta "
+           f"exit_tol=1e-09 cap=167: vs K2' {e2:.3e} (<= 2e-6); iterations K10b "
+           f"{a[1]}, K2' {int(k2p.iters)} (within {CA_S}); converged {a[2]}")
+    N = N_BIG - 4
+    cost = CostConfig.for_knots(N)
+    xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
+    sh_kw = (cost, SQPConfig(max_iter=2, max_time_us=None),
+             PCGConfig(max_iter=PCGConfig.tuned_max_iter(N_BIG), exit_tol=1e-5))
+    lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+    ca1, n_ca1 = counted(sqp_solve_sharded, model, *sh_kw, xu, lam0, xs, ee, RHO0,
+                         DT, KnotMesh(S))
+    one = sqp_solve(model, *sh_kw, xu, lam0, xs, ee, RHO0, DT, linsys="pcg_cuda")
+    plain = sqp_solve(model, *sh_kw, xu, lam0, xs, ee, RHO0, DT, linsys="pcg",
+                      merit_impl="plain")
+    f64 = sqp_solve(iiwa14(torch.float64, device=dev), *sh_kw, xu.double(),
+                    lam0.double(), xs.double(), ee.double(), RHO0, DT,
+                    linsys="pcg", merit_impl="plain")
+    torch.cuda.synchronize()
+    it1, outer = int(ca1.sqp_iters), -(-sh_kw[2].max_iter // CA_S)
+    want = {k: it1 for k in KERNELS if k.startswith("K9")}
+    want.update({"K10b ca_basis_cuda": it1 * outer,
+                 "K10b' ca_coeff_step_cuda": it1 * outer})
+    ec, eo, ep = (part_errs(r_.xu, f64.xu) for r_ in (ca1, one, plain))
+    near = all(abs(a - b) <= CA_S for a, b in
+               zip(ca1.pcg_iters.tolist(), one.pcg_iters.tolist()))
+    same_ls = ca1.ls_alpha_idx.tolist() == one.ls_alpha_idx.tolist()
+    ok = all(n_ca1[k] == want.get(k, 0) for k in KERNELS) and near and same_ls
+    ok = ok and all(bool(torch.isfinite(t).all()) for t in (ca1.xu, ca1.lam))
+    ok = ok and all(ec[k] <= 2 * max(eo[k], ep[k]) + 1e-4 for k in ("x", "u"))
+    expect(ok, f"sharded SQP at its default (ca_slab) N={N} over {S} shard from "
+           f"{trace} row {start}: launches {n_ca1} (K9a-c once per SQP iteration, "
+           f"{it1}; K10b and the coefficient step {outer} times per iteration); "
+           f"to f64 x {ec['x']:.3e}, u {ec['u']:.3e} (pcg_cuda {eo['x']:.3e}, "
+           f"{eo['u']:.3e}; plain {ep['x']:.3e}, {ep['u']:.3e}; <= 2x max + 1e-4); "
+           f"PCG iterations {ca1.pcg_iters.tolist()} (pcg_cuda "
+           f"{one.pcg_iters.tolist()}, within {CA_S}); line search "
+           f"{ca1.ls_alpha_idx.tolist()} (pcg_cuda {one.ls_alpha_idx.tolist()})")
     if failures:
         raise SmokeFailure(f"phase 2c: {len(failures)} check(s) failed")
 

@@ -62,7 +62,8 @@ _SIGNATURES = {
         "plant_launch": [P, I, P, I, I, I, P, P, P, F, I, P, F, P, I, P],
     },
     "pcr.cu": {
-        "pcr_launch": [P, P, I, I, I, P, P, P],
+        "pcr_launch": [P, P, I, I, I, I, I, I, P, P, P],
+        "pcr_coop_occupancy": [I, P],
     },
     "pcg_slab.cu": {
         "pcg_slab_launch": [P, P, P, P, P, P, P, P, I, P, P, P, P, P, I, P, P,
@@ -70,7 +71,7 @@ _SIGNATURES = {
     },
     "pcg_ca.cu": {
         "ca_basis_launch": [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P,
-                            P, I, I, I, I, P],
+                            P, I, I, I, I, I, I, I, I, I, P],
         "ca_coeff_launch": [P, P, P, P, P, P, P, I, P, P, P, P, I, I, I, I, P,
                             I, P],
     },

@@ -11,6 +11,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace mpc {
 
 constexpr int NQ = 7;
@@ -428,6 +430,74 @@ __device__ inline void aba_warp(const float* m, const float* q,
     }
   }
   __syncwarp();
+}
+
+// Hopper's asynchronous remote stores: a 4-byte st.async into a CTA of the
+// cluster completes its bytes on that CTA's mbarrier
+__device__ inline uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ inline uint32_t cluster_u32(const void* ptr, int cta) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_u32(ptr)), "r"(cta));
+  return out;
+}
+
+__device__ inline void st_async(uint32_t addr, float v, uint32_t mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+      :: "r"(addr), "r"(__float_as_uint(v)), "r"(mbar) : "memory");
+}
+
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ inline void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete.  A round
+// that never completes (a fault of the kernel) traps after 2^26 polls, so
+// the launch fails instead of hanging the card.
+__device__ inline void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t ok = 0;
+  for (uint32_t n = 0; !ok; ++n) {
+    if (n == (1u << 26)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// the 8-byte st.async (an f64) into a CTA of the cluster
+__device__ inline void st_async64(uint32_t addr, double v, uint32_t mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n"
+      :: "r"(addr), "l"(__double_as_longlong(v)), "r"(mbar) : "memory");
+}
+
+// The cluster barrier in two halves: every thread of every CTA arrives
+// (releasing its prior writes to the cluster) and later waits (acquiring
+// every CTA's), so work can go on between the two.
+__device__ inline void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // for (int e = first; e < n; e += stride) with compile-time n and stride,

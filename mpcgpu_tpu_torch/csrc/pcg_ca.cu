@@ -48,25 +48,78 @@
 // card's f64 units make this nearly free: the work is bytes-bound.
 //
 // What bounds them on an H100: latency.  K10b reads the extended S and
-// Pinv (2 x 3 x 14^2 x (L + 2h) floats, 386 KB at L = 64, s = 4) once per
-// product from L2, 16 dependent products separated by block barriers, then
-// 181 dot products over the shard's L x 14 rows; one block per shard keeps
-// the two chains' working vectors in shared memory (each product reads its
-// blocks once for both chains) and gives each dot product a warp.  The
-// coefficient step is a few hundred dependent flops in one warp, then an
-// m-term combination per row.
+// Pinv (2 x 3 x 14^2 x (L + 2h) floats, 386 KB at L = 64, s = 4) and does
+// 2s+1 dependent banded products (4s block-row products per row in all),
+// then 181 dot products over the shard's L x 14 rows; the work is ~0.5
+// MFLOP per shard at L = 64.  The coefficient step is a few hundred
+// dependent flops in one warp, then an m-term combination per row.
+//
+// K10b's design: ONE THREAD-BLOCK CLUSTER PER SHARD (grid (C, n_shard), the
+// cluster along x), laid out by ops/pcg_ca_cuda.py::ca_cluster_plan(L, s),
+// a fixed function of (L, s): C CTAs (a power of two <= 16; 16 is a
+// non-portable cluster size, which the launch requests), ke = ceil((L +
+// 2h) / C) extended knots per CTA (only the trailing CTAs hold fewer, or
+// none), two threads per own row (V's chain and W's) or, where they do not
+// fit, one for both, and whether the CTA keeps its knots' S and Pinv in
+// shared memory (loaded once per call by 16-byte loads and widened to f64
+// there, so that no product converts; transposed and padded to
+// CA_KNOT_STRIDE entries a knot as K2 keeps them, so that consecutive
+// threads read consecutive words) or reads them from global memory (L2)
+// where they do not fit (L = 512 on one shard).  A CTA keeps the four f64
+// working vectors of its knots with one halo row on each side.  After each
+// product the threads of its edge knots push their rows of the product
+// (the V and, while it lasts, the W chain) into the neighbours' halo rows
+// with the 8-byte st.async, completing on the neighbour's mbarrier of that
+// phase (two, alternating): no cluster barrier per phase.  One buffer per
+// array suffices: a CTA writes phase t + 2's rows into a neighbour only
+// after reading that neighbour's phase t + 1 rows, which the neighbour's
+// edge threads push after reading the rows of phase t (as K2's rounds).
+// Each row's product is the parent's in the same order (a band's row and x
+// loaded before the fma chain), so Y and Ytil are the same bits.  The Gram
+// in one pass: each CTA keeps its local rows of Z = [Y | Ytil | r] (f64,
+// 2m + 1 columns) in shared memory; thread d forms part d over the CTA's
+// local rows (row r_lo + 4q + a into accumulator a, then ((a0 + a1) + (a2 +
+// a3))); after a cluster barrier, rank 0 adds the C partials in rank order
+// through distributed shared memory and writes `parts`; a second barrier
+// keeps every CTA resident until rank 0 has read them.  Y and Ytil still go
+// to global memory once: the coefficient step reads them after the mesh's
+// psum.
+#include <cooperative_groups.h>
+
 #include <cfloat>
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 using namespace mpc;
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NN = NX * NX;
 constexpr int MAX_S = 8;
 constexpr int MAX_M = 2 * MAX_S + 1;
+
+// K10b's cluster plan limits (ops/pcg_ca_cuda.py): the largest cluster,
+// the most threads of a CTA (two, or one, per own row), and the stride of
+// a knot's S (or Pinv) in a CTA's shared memory, f64 entries (590 = 18 x 32
+// + 14, as K2's)
+constexpr int CA_MAX_CLUSTER = 16;
+constexpr int CA_MAX_THREADS = 512;
+constexpr int CA_KNOT_STRIDE = 590;
+constexpr int CA_LOAD_BATCH = 8;    // block entries a thread loads at once
+
+// bytes of a CTA's dynamic shared memory at ke knots (see ca_cluster_plan):
+// two mbarriers, the four f64 vectors with a halo row on each side, Z's
+// rows of the own knots, the CTA's Gram partials, and (blocks) the own
+// knots' S and Pinv, transposed, in f64
+__host__ __device__ constexpr int ca_smem_bytes(int ke, int s, int blocks) {
+  return 16 + 8 * (4 * (ke + 2) * NX + ke * NX * (4 * s + 3)
+                   + 2 * (2 * s + 1) * (2 * s + 1) + 2 * (2 * s + 1) + 1)
+         + blocks * 8 * 2 * CA_KNOT_STRIDE * ke;
+}
 
 // knot k's three blocks on the extended slab: the left halo's h rows, the
 // shard's L rows, the right halo's h rows
@@ -78,36 +131,51 @@ __device__ inline const float* ext_block(const float* left, const float* loc,
   return right + (size_t)(k - h - L) * 3 * NN;
 }
 
-// row c of the banded product at extended knot k with zero ends, for xa and
-// (two) xb, the blocks read once: (centre + left) + right, in f64
-__device__ inline void band_ext(const float* M3, const double* xa,
-                                const double* xb, bool two, int k, int Le,
-                                int c, double* ya, double* yb) {
-  double ca = 0.0, la = 0.0, ra = 0.0, cb = 0.0, lb = 0.0, rb = 0.0;
-  const float* m1 = M3 + NN + c * NX;
-  for (int j = 0; j < NX; ++j) {
-    ca += m1[j] * xa[k * NX + j];
-    if (two) cb += m1[j] * xb[k * NX + j];
-  }
-  if (k > 0) {
-    const float* m0 = M3 + c * NX;
-    for (int j = 0; j < NX; ++j) {
-      la += m0[j] * xa[(k - 1) * NX + j];
-      if (two) lb += m0[j] * xb[(k - 1) * NX + j];
-    }
-  }
-  if (k < Le - 1) {
-    const float* m2 = M3 + 2 * NN + c * NX;
-    for (int j = 0; j < NX; ++j) {
-      ra += m2[j] * xa[(k + 1) * NX + j];
-      if (two) rb += m2[j] * xb[(k + 1) * NX + j];
-    }
-  }
-  *ya = (ca + la) + ra;
-  *yb = (cb + lb) + rb;
+// entry (i, j) of band b of a knot's blocks: transposed in shared memory
+// (kT: f64, at b NN + j NX + i) or row-major in global memory (f32)
+template <bool kT>
+__device__ inline double band_at(const std::conditional_t<kT, double, float>* M,
+                                 int b, int i, int j) {
+  return kT ? M[b * NN + j * NX + i] : M[b * NN + i * NX + j];
 }
 
-__global__ void __launch_bounds__(1024)
+// sum_j M_b[i][j] x[j] in j order, x (NX, f64) 16-byte aligned: the row of
+// the band and x loaded first, then the fma chain
+template <bool kT>
+__device__ inline double band_dot(const std::conditional_t<kT, double, float>* M,
+                                  int b, int i, const double* x) {
+  double mv[NX];
+  double2 xv[NX / 2];
+#pragma unroll
+  for (int j = 0; j < NX; ++j) mv[j] = band_at<kT>(M, b, i, j);
+#pragma unroll
+  for (int jj = 0; jj < NX / 2; ++jj) xv[jj] = reinterpret_cast<const double2*>(x)[jj];
+  double acc = 0.0;
+#pragma unroll
+  for (int jj = 0; jj < NX / 2; ++jj) {
+    acc += mv[2 * jj] * xv[jj].x;
+    acc += mv[2 * jj + 1] * xv[jj].y;
+  }
+  return acc;
+}
+
+// row i of the banded product at extended knot k (own knot kk, rows kk + 1
+// of the halo-extended vector x; the rows start 16-byte aligned) with zero
+// ends: (centre + left) + right in f64, each sum in the parent's order
+template <bool kT>
+__device__ inline double band_row(const std::conditional_t<kT, double, float>* M,
+                                  const double* x, int kk, int i, int k, int Le) {
+  const double* xr = x + kk * NX;
+  const double c = band_dot<kT>(M, 1, i, xr + NX);
+  const double l = k > 0 ? band_dot<kT>(M, 0, i, xr) : 0.0;
+  const double r = k < Le - 1 ? band_dot<kT>(M, 2, i, xr + 2 * NX) : 0.0;
+  return (c + l) + r;
+}
+
+// kBlocks: S and Pinv of the own knots in shared memory (else read from
+// global memory); ke extended knots per CTA
+template <bool kBlocks>
+__global__ void __launch_bounds__(CA_MAX_THREADS, 1)
 ca_basis_kernel(const float* __restrict__ p, const float* __restrict__ z,
                 const float* __restrict__ r, const float* __restrict__ S,
                 const float* __restrict__ Pinv, int sys_bstride,
@@ -115,13 +183,17 @@ ca_basis_kernel(const float* __restrict__ p, const float* __restrict__ z,
                 const float* __restrict__ PL, const float* __restrict__ PR,
                 const float* __restrict__ fl, const float* __restrict__ fr,
                 const double* __restrict__ scal, const int* __restrict__ iters,
-                const int* __restrict__ done, double* Y, double* Yt,
-                double* __restrict__ parts, int L, int s, int max_iter) {
-  extern __shared__ double sh[];
-  const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+                const int* __restrict__ done, double* __restrict__ Y,
+                double* __restrict__ Yt, double* __restrict__ parts, int L,
+                int s, int max_iter, int ke) {
+  extern __shared__ __align__(16) double sh[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y, tid = threadIdx.x, nth = blockDim.x, nw = nth >> 5;
   if (done[b] != 0 || iters[b] >= max_iter) return;   // the same for all
-  const int h = 2 * s + 1, m = 2 * s + 1, Le = L + 2 * h;
-  const int n = L * NX, ne = Le * NX, mm = m * m, np = 2 * mm + 2 * m + 1;
+  const int h = 2 * s + 1, m = 2 * s + 1, Le = L + 2 * h, zc = 2 * m + 1;
+  const int n = L * NX, mm = m * m, np = 2 * mm + 2 * m + 1;
   p += (size_t)b * n;
   z += (size_t)b * n;
   r += (size_t)b * n;
@@ -136,83 +208,214 @@ ca_basis_kernel(const float* __restrict__ p, const float* __restrict__ z,
   Y += (size_t)b * m * n;
   Yt += (size_t)b * m * n;
   parts += (size_t)b * np;
-  const double ginv = 1.0 / scal[2 * b + 1];
+  // this CTA's extended knots [k0, k0 + nk); its neighbours
+  const int k0 = rank * ke, nk = max(0, min(ke, Le - k0));
+  const bool has_left = nk > 0 && k0 > 0, has_right = nk > 0 && k0 + nk < Le;
+  const int ve = (ke + 2) * NX;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sh);     // phases t even, odd
+  double* xv = sh + 2;             // V's current vector, rows: halo, own, halo
+  double* tv = xv + ve;            // its S-image
+  double* xw = tv + ve;            // W's
+  double* tw = xw + ve;
+  double* Z = tw + ve;             // own rows x [Y | Ytil | r]
+  double* part = Z + ke * NX * zc; // the CTA's Gram partials
+  double* St = part + np;          // kBlocks: S, Pinv of the own knots
+  double* Pt = St + CA_KNOT_STRIDE * ke;
 
-  // the chains' working vectors on the extended slab: V's current vector
-  // and its S-image, W's
-  double* xv = sh;
-  double* tv = sh + ne;
-  double* xw = sh + 2 * ne;
-  double* tw = sh + 3 * ne;
-  for (int i = tid; i < ne; i += nth) {
-    const int k = i / NX, c = i - k * NX;
-    if (k < h) {
-      xv[i] = fl[k * NX + c];
-      xw[i] = fl[(h + k) * NX + c];
-    } else if (k < h + L) {
-      xv[i] = p[(k - h) * NX + c];
-      xw[i] = z[(k - h) * NX + c];
-    } else {
-      const int kk = k - h - L;
-      xv[i] = fr[kk * NX + c];
-      xw[i] = fr[(h + kk) * NX + c];
-    }
+  if (tid == 0) {
+    mbar_init(bar, nw);
+    mbar_init(bar + 1, nw);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  // phase t: V's t-th product (S at even t, Pinv at odd t; 2s+1 of them),
-  // W's alongside while it has one (2s-1)
-  for (int t = 0; t <= 2 * s; ++t) {
-    const bool odd = t & 1, two = t <= 2 * s - 2;
-    const int j = t >> 1;
-    for (int i = tid; i < ne; i += nth) {
-      const int k = i / NX, c = i - k * NX;
-      double yv, yw;
-      if (!odd) {
-        band_ext(ext_block(SL, S, SR, k, h, L), xv, xw, two, k, Le, c, &yv, &yw);
-        tv[i] = yv;
-        if (two) tw[i] = yw;
-        if (k >= h && k < h + L) {
-          const int o = (k - h) * NX + c;
-          Y[j * n + o] = xv[i];
-          Yt[j * n + o] = yv;
-          if (two) {
-            Y[(s + 1 + j) * n + o] = xw[i];
-            Yt[(s + 1 + j) * n + o] = yw;
+  // every CTA's mbarriers initialised before the first st.async (waited
+  // for below, after the loads)
+  cluster_arrive();
+  if (kBlocks) {
+    // S and Pinv, transposed, in f64: 16-byte loads (a knot's 3 NN floats
+    // are 147 of them; the wrapper checks the alignment), CA_LOAD_BATCH of
+    // each a thread in flight, all loaded before any is stored
+    constexpr int Q = 3 * NN / 4;
+    const int nq = nk * Q;
+    for (int base = 0; base < nq; base += CA_LOAD_BATCH * nth) {
+      float4 vs[CA_LOAD_BATCH], vp[CA_LOAD_BATCH];
+#pragma unroll
+      for (int u = 0; u < CA_LOAD_BATCH; ++u) {
+        const int q = base + u * nth + tid;
+        if (q < nq) {
+          const int kk = q / Q;
+          vs[u] = reinterpret_cast<const float4*>(
+              ext_block(SL, S, SR, k0 + kk, h, L))[q - kk * Q];
+          vp[u] = reinterpret_cast<const float4*>(
+              ext_block(PL, Pinv, PR, k0 + kk, h, L))[q - kk * Q];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CA_LOAD_BATCH; ++u) {
+        const int q = base + u * nth + tid;
+        if (q < nq) {
+          const int kk = q / Q;
+          const float ws[4] = {vs[u].x, vs[u].y, vs[u].z, vs[u].w};
+          const float wp[4] = {vp[u].x, vp[u].y, vp[u].z, vp[u].w};
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int f = 4 * (q - kk * Q) + a;
+            const int band = f / NN, ij = f - band * NN, i = ij / NX, j = ij - i * NX;
+            const int dst = kk * CA_KNOT_STRIDE + band * NN + j * NX + i;
+            St[dst] = ws[a];
+            Pt[dst] = wp[a];
           }
         }
-      } else {
-        band_ext(ext_block(PL, Pinv, PR, k, h, L), tv, tw, two, k, Le, c, &yv, &yw);
-        xv[i] = yv * ginv;
-        if (two) xw[i] = yw * ginv;
       }
     }
-    __syncthreads();
   }
-  // the Gram parts: one warp per part, its lanes over the rows in a fixed
-  // order, then a shuffle tree; a null factor stands for r
-  const int lane = tid & 31, nw = nth >> 5;
-  for (int d = tid >> 5; d < np; d += nw) {
-    const double *u = nullptr, *v = nullptr;
+  // p and z over the own knots and the halo rows on each side (the input of
+  // the first product); r on the own local rows into Z's last column
+  for (int e = tid; e < (nk + 2) * NX; e += nth) {
+    const int g = (k0 - 1) * NX + e;   // extended row of halo-extended row e
+    double a = 0.0, w = 0.0;
+    if (nk > 0 && g >= 0 && g < Le * NX) {
+      const int kx = g / NX, c = g - kx * NX;
+      if (kx < h) {
+        a = fl[kx * NX + c];
+        w = fl[(h + kx) * NX + c];
+      } else if (kx < h + L) {
+        a = p[(kx - h) * NX + c];
+        w = z[(kx - h) * NX + c];
+      } else {
+        a = fr[(kx - h - L) * NX + c];
+        w = fr[(h + kx - h - L) * NX + c];
+      }
+      if (e >= NX && e < (nk + 1) * NX && kx >= h && kx < h + L)
+        Z[(e - NX) * zc + 2 * m] = r[(kx - h) * NX + c];
+    }
+    xv[e] = a;
+    xw[e] = w;
+  }
+  __syncthreads();
+  const double ginv = 1.0 / scal[2 * b + 1];
+  // this thread's row i of own knot kk (extended knot k), and its chains:
+  // V's and W's (one thread a row), or V's on the first ke NX threads and
+  // W's on the next (split, where the CTA has two threads a row).  The edge
+  // knots' rows push their products into the neighbours' halo rows (the
+  // left neighbour's last, the right one's first: both hold ke knots).
+  const int rows = ke * NX;
+  const bool split = nth >= 2 * rows;
+  const int c_lo = split ? tid / rows : 0, c_hi = split ? c_lo + 1 : 2;
+  const int rt = split ? tid - c_lo * rows : tid;
+  const int kk = rt / NX, i = rt - kk * NX, k = k0 + kk;
+  const bool own = rt < nk * NX && c_lo < 2;
+  const bool loc = own && k >= h && k < h + L;
+  const bool push_l = own && kk == 0 && has_left;
+  const bool push_r = own && kk == nk - 1 && has_right;
+  const int o = (k - h) * NX + i;          // the local row, where loc
+  const int row = (kk + 1) * NX + i;       // the halo-extended row
+  using Blk = std::conditional_t<kBlocks, double, float>;
+  const Blk* Mk;
+  const Blk* Pk;
+  if constexpr (kBlocks) {
+    Mk = St + kk * CA_KNOT_STRIDE;
+    Pk = Pt + kk * CA_KNOT_STRIDE;
+  } else {
+    Mk = ext_block(SL, S, SR, own ? k : 0, h, L);
+    Pk = ext_block(PL, Pinv, PR, own ? k : 0, h, L);
+  }
+  cluster_wait();
+  // phase t: V's t-th product (S at even t, Pinv at odd t; 2s+1 of them),
+  // W's alongside while it has one (2s-1); phase t's rows are read by phase
+  // t + 1, so the edges push V's rows up to t = 2s-1 and W's up to 2s-3
+  for (int t = 0; t <= 2 * s; ++t) {
+    const bool odd = t & 1;
+    const int j = t >> 1;
+    for (int c = c_lo; c < c_hi && own; ++c) {
+      if (c == 1 && t > 2 * s - 2) break;
+      const double* in = c == 0 ? (odd ? tv : xv) : (odd ? tw : xw);
+      double* out = c == 0 ? (odd ? xv : tv) : (odd ? xw : tw);
+      double y = band_row<kBlocks>(odd ? Pk : Mk, in, kk, i, k, Le);
+      if (odd) y *= ginv;
+      out[row] = y;
+      const int col = c == 0 ? j : s + 1 + j;   // the chain's column of Y
+      if (!odd && loc) {
+        double* zr = Z + (kk * NX + i) * zc;
+        Y[col * n + o] = zr[col] = in[row];
+        Yt[col * n + o] = zr[m + col] = y;
+      }
+      if (t < 2 * s - (c == 0 ? 0 : 2)) {
+        for (int side = 0; side < 2; ++side) {
+          if (!(side == 0 ? push_l : push_r)) continue;
+          const int nb = side == 0 ? rank - 1 : rank + 1;
+          const int hrow = side == 0 ? (ke + 1) * NX + i : i;
+          st_async64(cluster_u32(out + hrow, nb), y,
+                     cluster_u32(bar + (t & 1), nb));
+        }
+      }
+    }
+    if (t == 2 * s) break;
+    // the halo rows of phase t + 1's input: from each neighbour, V's row
+    // and, while W's is pushed, W's
+    __syncwarp();
+    if ((tid & 31) == 0) {
+      if (tid == 0)
+        mbar_arrive_tx(bar + (t & 1), ((has_left ? 1 : 0) + (has_right ? 1 : 0)) *
+                                          (t <= 2 * s - 3 ? 2 : 1) * NX * 8);
+      else
+        mbar_arrive(bar + (t & 1));
+    }
+    mbar_wait(bar + (t & 1), (t >> 1) & 1);
+  }
+  __syncthreads();
+  // the Gram partials: part d over the own local rows
+  const int r_lo = NX * max(0, min(nk, h - k0));
+  const int r_hi = NX * max(0, min(nk, h + L - k0));
+  for (int d = tid; d < np; d += nth) {
+    int u, v;
     if (d < mm) {
-      u = Y + (d / m) * n;
-      v = Yt + (d % m) * n;
+      u = d / m;
+      v = m + d % m;
     } else if (d < mm + m) {
-      u = Y + (d - mm) * n;
+      u = d - mm;
+      v = 2 * m;
     } else if (d < 2 * mm + m) {
       const int e = d - mm - m;
-      u = Yt + (e / m) * n;
-      v = Yt + (e % m) * n;
+      u = m + e / m;
+      v = m + e % m;
     } else if (d < 2 * mm + 2 * m) {
-      u = Yt + (d - 2 * mm - m) * n;
+      u = m + d - 2 * mm - m;
+      v = 2 * m;
+    } else {
+      u = v = 2 * m;
     }
-    double acc = 0.0;
-    for (int i = lane; i < n; i += 32) {
-      const double ri = r[i];
-      acc += (u != nullptr ? u[i] : ri) * (v != nullptr ? v[i] : ri);
+    // rows r_lo + 4q + a into accumulator a, the tail into the first
+    double a0 = 0.0, a1 = 0.0, a2 = 0.0, a3 = 0.0;
+    int rr = r_lo;
+    for (; rr + 3 < r_hi; rr += 4) {
+      a0 += Z[rr * zc + u] * Z[rr * zc + v];
+      a1 += Z[(rr + 1) * zc + u] * Z[(rr + 1) * zc + v];
+      a2 += Z[(rr + 2) * zc + u] * Z[(rr + 2) * zc + v];
+      a3 += Z[(rr + 3) * zc + u] * Z[(rr + 3) * zc + v];
     }
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) parts[d] = acc;
+    for (; rr < r_hi; ++rr) a0 += Z[rr * zc + u] * Z[rr * zc + v];
+    part[d] = (a0 + a1) + (a2 + a3);
   }
+  // every CTA's partials, summed by rank 0 in rank order; the second
+  // barrier keeps every CTA resident until rank 0 has read them
+  cluster_arrive();
+  cluster_wait();
+  if (rank == 0) {
+    for (int d = tid; d < np; d += nth) {
+      // every rank's partial in flight at once, then the sum in rank order
+      double v[CA_MAX_CLUSTER];
+#pragma unroll
+      for (int q = 0; q < CA_MAX_CLUSTER; ++q)
+        v[q] = q < C ? cluster.map_shared_rank(part, q)[d] : 0.0;
+      double tot = v[0];
+#pragma unroll
+      for (int q = 1; q < CA_MAX_CLUSTER; ++q)
+        if (q < C) tot += v[q];
+      parts[d] = tot;
+    }
+  }
+  cluster_arrive();
+  cluster_wait();
 }
 
 __global__ void __launch_bounds__(256)
@@ -352,11 +555,16 @@ ca_coeff_kernel(float* __restrict__ x, float* __restrict__ r,
 
 }  // namespace
 
-// n_shard shards, one block each: shard b builds its bases from its p, z, r
-// ((L, NX) slabs), its system S / Pinv + b sys_bstride (L knots of 3 NX x NX
-// blocks, read in place), the neighbours' h rows SL, SR, PL, PR (h, 3, NX,
-// NX) and packets fl, fr (2, h, NX), the scale scal[2b + 1] (f64), and
-// writes Y, Yt (m, L, NX) and its parts (2m^2 + 2m + 1), in f64
+// n_shard shards, one cluster of `cluster` CTAs each, ke extended knots and
+// `threads` threads per CTA, smem bytes of dynamic shared memory (at least
+// ca_smem_bytes(ke, s, blocks)), the own knots' S and Pinv in shared memory
+// where `blocks` (ops/pcg_ca_cuda.py::ca_cluster_plan): shard b builds its
+// bases from its p, z, r ((L, NX) slabs), its system S / Pinv + b
+// sys_bstride (L knots of 3 NX x NX blocks, read in place), the
+// neighbours' h rows SL, SR, PL, PR (h, 3, NX, NX) and packets fl, fr (2,
+// h, NX), the scale scal[2b + 1] (f64), and writes Y, Yt (m, L, NX) and its
+// parts (2m^2 + 2m + 1), in f64.  A shape the plan does not describe is
+// refused (cudaErrorInvalidValue); one the card cannot hold fails the launch.
 extern "C" int ca_basis_launch(const float* p, const float* z, const float* r,
                                const float* S, const float* Pinv,
                                int sys_bstride, const float* SL,
@@ -365,15 +573,38 @@ extern "C" int ca_basis_launch(const float* p, const float* z, const float* r,
                                const float* fr, const double* scal,
                                const int* iters, const int* done, double* Y,
                                double* Yt, double* parts, int L, int s,
-                               int n_shard, int max_iter, void* stream) {
-  if (s < 1 || s > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (size_t)4 * (L + 2 * (2 * s + 1)) * NX * sizeof(double);
+                               int n_shard, int max_iter, int cluster, int ke,
+                               int blocks, int threads, int smem,
+                               void* stream) {
+  const int Le = L + 2 * (2 * s + 1);
+  if (s < 1 || s > MAX_S || cluster < 1 || cluster > CA_MAX_CLUSTER ||
+      (cluster & (cluster - 1)) || ke < 1 || cluster * ke < Le ||
+      threads < NX * ke || threads > CA_MAX_THREADS || threads % 32 != 0 ||
+      smem < ca_smem_bytes(ke, s, blocks ? 1 : 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = blocks ? ca_basis_kernel<true> : ca_basis_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ca_basis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ca_basis_kernel<<<n_shard, 1024, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, z, r, S, Pinv, sys_bstride, SL, SR, PL, PR, fl, fr, scal, iters, done,
-      Y, Yt, parts, L, s, max_iter);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(cluster, n_shard, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, p, z, r, S, Pinv, sys_bstride, SL, SR,
+                           PL, PR, fl, fr, scal, iters, done, Y, Yt, parts, L,
+                           s, max_iter, ke);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

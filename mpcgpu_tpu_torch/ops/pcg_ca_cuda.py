@@ -7,19 +7,84 @@ the coefficient step is the port of the XLA ops around it (the coefficient
 iterations, the recovery and the next basis scale).  The CUDA kernels are
 ``csrc/pcg_ca.cu`` and the plain versions ``ops/pcg_ca.py::ca_basis`` and
 ``ca_coeff_step`` (the state and the steps are described there).  Each
-wrapper runs its plain version for CPU tensors and its kernel, one block per
-shard, for CUDA tensors.
+wrapper runs its plain version for CPU tensors and its kernel for CUDA
+tensors: K10b one thread-block cluster per shard, laid out by
+``ca_cluster_plan(L, s)``; the coefficient step one block per shard.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.ops.pcg_ca import WORK, ca_basis, ca_coeff_step, n_parts
 
-MAX_S = 8      # csrc/pcg_ca.cu's MAX_S
-SMEM = 232448  # the shared memory a block may use: K10b's four f64 vectors
+# csrc/pcg_ca.cu's limits: the largest s, K10b's largest cluster (16 is above
+# the portable 8), the most threads of a CTA, the stride of one knot's S
+# (or Pinv) in a CTA's shared memory, f64 entries; the extended knots a CTA
+# aims at, and the shared memory a block may use on an H100
+MAX_S = 8
+CA_MAX_CLUSTER = 16
+CA_MAX_THREADS = 512
+_KNOT_STRIDE = 590
+CA_TARGET_KNOTS = 4
+SMEM_LIMIT = 232448
+
+
+class CAPlan(NamedTuple):
+    cluster: int          # CTAs of a shard's cluster (a power of two <= 16)
+    knots_per_cta: int    # ke = ceil((L + 2h) / cluster) extended knots
+    blocks_in_smem: bool  # the own knots' S and Pinv in shared memory
+    threads: int          # of one CTA: two (or one) per own row, or per part
+    smem_bytes: int       # dynamic shared memory of one CTA
+
+
+def ca_smem_bytes(ke: int, s: int, blocks: bool) -> int:
+    """One CTA's dynamic shared memory at ke knots (``ca_smem_bytes`` of
+    csrc/pcg_ca.cu): two mbarriers, the four f64 vectors with a halo row on
+    each side, Z = [Y | Ytil | r] on the own rows, the Gram partials, and
+    (blocks) the own knots' S and Pinv, widened to f64."""
+    m = 2 * s + 1
+    return (16 + 8 * (4 * (ke + 2) * 14 + ke * 14 * (2 * m + 1) + n_parts(s))
+            + int(blocks) * 8 * 2 * _KNOT_STRIDE * ke)
+
+
+def ca_cluster_plan(L: int, s: int, cluster: int | None = None) -> CAPlan:
+    """K10b's launch for slabs of L knots at s: the smallest power of two C
+    with ceil((L + 2h) / C) <= CA_TARGET_KNOTS, at most 16 (or ``cluster``,
+    a choice the sweeps make by hand); S and Pinv in shared memory where the
+    CTA's whole share fits.  A fixed function of (L, s); raises on a shape
+    it cannot launch."""
+    h = 2 * s + 1
+    if not 1 <= s <= MAX_S:
+        raise ValueError(f"s_steps = {s}; the kernels take 1 <= s <= {MAX_S}")
+    if not h <= L <= _kernels.MAX_KNOTS:
+        raise ValueError(f"slab of {L} knots; the s-step kernels take "
+                         f"{h} <= L <= {_kernels.MAX_KNOTS} at s = {s}")
+    Le = L + 2 * h
+    if cluster is None:
+        cluster = 1
+        while -(-Le // cluster) > CA_TARGET_KNOTS and cluster < CA_MAX_CLUSTER:
+            cluster *= 2
+    elif cluster & (cluster - 1) or not 1 <= cluster <= CA_MAX_CLUSTER:
+        raise ValueError(f"cluster of {cluster} CTAs: a power of two <= "
+                         f"{CA_MAX_CLUSTER}")
+    ke = -(-Le // cluster)
+    if 14 * ke > CA_MAX_THREADS:
+        raise ValueError(f"{ke} knots a CTA: more rows than {CA_MAX_THREADS} "
+                         "threads")
+    blocks = ca_smem_bytes(ke, s, True) <= SMEM_LIMIT
+    smem = ca_smem_bytes(ke, s, blocks)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K10b at L = {L}, s = {s}: {smem} bytes of shared "
+                         f"memory a CTA, over {SMEM_LIMIT}")
+    # two threads a row (V's chain and W's) where they fit, else one
+    up32 = lambda v: -(-v // 32) * 32
+    rows = up32(28 * ke) if 28 * ke <= CA_MAX_THREADS else up32(14 * ke)
+    threads = min(CA_MAX_THREADS, max(rows, up32(n_parts(s))))
+    return CAPlan(cluster, ke, blocks, threads, smem)
 
 
 def _require_state(st: dict, s: int) -> tuple:
@@ -32,10 +97,9 @@ def _require_state(st: dict, s: int) -> tuple:
         raise ValueError("the CUDA kernels are built for nx = 14")
     if not 1 <= s <= MAX_S:
         raise ValueError(f"s_steps = {s}; the kernels take 1 <= s <= {MAX_S}")
-    L_max = SMEM // (4 * n * 8) - 2 * h
-    if not h <= L <= L_max:
+    if not h <= L <= _kernels.MAX_KNOTS:
         raise ValueError(f"slab of {L} knots; the s-step kernels take "
-                         f"{h} <= L <= {L_max} at s = {s}")
+                         f"{h} <= L <= {_kernels.MAX_KNOTS} at s = {s}")
     for name in ("x", "r", "z", "p"):
         _kernels.require(st[name], name, (n_shard, L, n), dev)
     for name in ("Y", "Yt"):
@@ -60,6 +124,7 @@ def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
         ca_basis(st, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter, s)
         return
     dev, n_shard, L = _require_state(st, s)
+    plan = ca_cluster_plan(L, s)
     h = 2 * s + 1
     for name, t in (("S", S), ("Pinv", Pinv)):
         _kernels.require(t, name, (n_shard, L, 3, 14, 14), dev, slabs=True)
@@ -67,6 +132,11 @@ def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
         raise ValueError("S and Pinv: the same stride between shards")
     for name, t in (("SL", SL), ("SR", SR), ("PL", PL), ("PR", PR)):
         _kernels.require(t, name, (n_shard, h, 3, 14, 14), dev)
+    # K10b reads the blocks by 16-byte loads
+    for name, t in (("S", S), ("Pinv", Pinv), ("SL", SL), ("SR", SR),
+                    ("PL", PL), ("PR", PR)):
+        if t.data_ptr() % 16 or t.stride(0) % 4:
+            raise ValueError(f"{name}: K10b needs 16-byte aligned shard slabs")
     for name, t in (("fl", fl), ("fr", fr)):
         _kernels.require(t, name, (n_shard, 2, h, 14), dev)
     code = _kernels.entry("pcg_ca.cu", "ca_basis_launch")(
@@ -75,8 +145,9 @@ def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
         SR.data_ptr(), PL.data_ptr(), PR.data_ptr(), fl.data_ptr(),
         fr.data_ptr(), st["scal"].data_ptr(), st["iters"].data_ptr(),
         st["done"].data_ptr(), st["Y"].data_ptr(), st["Yt"].data_ptr(),
-        st["parts"].data_ptr(), L, s, n_shard, int(max_iter),
-        _kernels.stream_ptr(dev))
+        st["parts"].data_ptr(), L, s, n_shard, int(max_iter), plan.cluster,
+        plan.knots_per_cta, int(plan.blocks_in_smem), plan.threads,
+        plan.smem_bytes, _kernels.stream_ptr(dev))
     _kernels.check(code, "ca_basis_launch")
     ca_basis_cuda.launches += 1
 

@@ -4,21 +4,68 @@ Port of ``mpcgpu_tpu/ops/pcr_pallas.py::pcr_solve_pallas_lanes`` (and its
 standard-layout entry ``pcr_solve_pallas``); the CUDA kernel is
 ``csrc/pcr.cu``.  ``pcr_solve_cuda`` runs its plain version
 ``ops/pcr.py::pcr_solve_refined`` for CPU tensors and the kernel for CUDA
-tensors.
+tensors: one launch per solve, factorisation and refinement together, laid
+out by ``pcr_plan(N)``.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.ops.pcr import pcr_levels, pcr_solve_refined
 
+# K7's plan (csrc/pcr.cu): knots (one warp each) per CTA, the largest
+# cluster (16 is above the portable 8), a knot's slot (A, B, v) and a
+# warp's shared floats
+PCR_KPC = 4
+PCR_MAX_CLUSTER = 16
+_NN = 14 * 14
+_SLOT = 2 * _NN + 14
+_WARP_FLOATS = 6 * _NN + 5 * 14 + 2 * _SLOT
+
+
+class PcrPlan(NamedTuple):
+    ctas: int             # ceil(N / PCR_KPC), one warp per knot
+    cluster: bool         # one cluster of all CTAs, else a cooperative launch
+    smem_bytes: int       # dynamic shared memory of one CTA
+
+
+def pcr_smem_bytes(cluster: bool) -> int:
+    """One CTA's dynamic shared memory (``pcr_smem_bytes`` of csrc/pcr.cu):
+    each warp's floats, and the CTA's slots where they are shared."""
+    return 4 * PCR_KPC * (_WARP_FLOATS + int(cluster) * 2 * _SLOT)
+
+
+def pcr_plan(N: int) -> PcrPlan:
+    """The launch of K7 for N knots, a fixed function of N: PCR_KPC knots
+    per CTA; one cluster with a cluster barrier between levels where the
+    CTAs fit in one (N <= 64), else a cooperative launch with a grid
+    barrier."""
+    _kernels.require_knots(N)
+    ctas = -(-N // PCR_KPC)
+    cluster = ctas <= PCR_MAX_CLUSTER
+    return PcrPlan(ctas, cluster, pcr_smem_bytes(cluster))
+
 
 def pcr_workspace_floats(N: int, levels: int, n: int = 14) -> int:
-    """Floats of the kernel's workspace: per level th^{-1}, L, U, A, B and v
-    (th^{-1} one level more), and each knot's current th and b."""
-    return N * ((5 * levels + 2) * n * n + (levels + 1) * n)
+    """Floats of the kernel's global workspace: per level th^{-1}, L and U
+    (th^{-1} one level more), and two slots (A, B, v) per knot for the
+    cooperative launch."""
+    return N * ((3 * levels + 1) * n * n + 2 * (2 * n * n + n))
+
+
+@functools.cache
+def resident_ctas(device_index: int, smem_bytes: int) -> int:
+    """How many CTAs of K7's cooperative launch the card holds at once:
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor x its SMs."""
+    out = torch.zeros((), dtype=torch.int32)
+    code = _kernels.entry("pcr.cu", "pcr_coop_occupancy")(smem_bytes, out.data_ptr())
+    _kernels.check(code, "pcr_coop_occupancy")
+    return int(out) * torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def pcr_solve_cuda(S, b, refine: int = 1):
@@ -33,16 +80,21 @@ def pcr_solve_cuda(S, b, refine: int = 1):
     N, n = b.shape
     if n != 14:
         raise ValueError("the CUDA kernels are built for nx = 14")
-    _kernels.require_knots(N)
+    plan = pcr_plan(N)
     _kernels.require(S, "S", (N, 3, n, n), dev)
     _kernels.require(b, "b", (N, n), dev)
+    if not plan.cluster and resident_ctas(dev.index, plan.smem_bytes) < plan.ctas:
+        raise ValueError(f"K7's cooperative launch needs {plan.ctas} resident "
+                         f"CTAs; the card holds "
+                         f"{resident_ctas(dev.index, plan.smem_bytes)}")
     levels = pcr_levels(N)
     ws = torch.empty((pcr_workspace_floats(N, levels),), dtype=torch.float32,
                      device=dev)
     x = torch.empty((N, n), dtype=torch.float32, device=dev)
     code = _kernels.entry("pcr.cu", "pcr_launch")(
-        S.data_ptr(), b.data_ptr(), N, levels, int(refine), ws.data_ptr(),
-        x.data_ptr(), _kernels.stream_ptr(dev))
+        S.data_ptr(), b.data_ptr(), N, levels, int(refine), plan.ctas,
+        int(plan.cluster), plan.smem_bytes, ws.data_ptr(), x.data_ptr(),
+        _kernels.stream_ptr(dev))
     _kernels.check(code, "pcr_launch")
     pcr_solve_cuda.launches += 1
     return x

@@ -19,10 +19,19 @@ shapes, one line per group:
     seeded numpy step dz;
   * K2 / K2' at N = 64 on the real Schur system from a cold start (PCG cap
     167, exit_tol 1e-5), K4 one 2 ms period at a 2 ms offset, K8b / K4b at
-    B = 256.
+    B = 256;
+  * K7 at N = 64 and 512 on ``chip_smoke.synthetic_btd`` and on a calm
+    window of a trace (0_0 from row 350 at N = 64; 3_4 from row 0 at
+    N = 512: 0_0 has 316 rows from row 350), beside the dense Cholesky solve
+    of the same system (``torch.linalg.cholesky_ex`` + ``cholesky_solve``);
+    K10b and its coefficient step K10b' at N = 512 over 8 shards and 64 over
+    4 (s = 4), on chip_smoke's phase 2c inputs: the real system's second
+    outer step (K10b' on the plain K10b's state, so both trees see the same
+    inputs).
 
 Every input is made from a seed, so two trees see the same inputs; --save
-writes every output of the first two groups (CPU tensors, ``torch.save``),
+writes every output of the first two groups and of K7, K10b and K10b' (CPU
+tensors, ``torch.save``),
 and --compare prints, per kernel and output, "bitwise equal" or the largest
 difference.  To compare two trees on one card, run them in turns in one chip
 call (parent, change, change, parent) and compare the saved outputs:
@@ -41,8 +50,13 @@ call (parent, change, change, parent) and compare the saved outputs:
 samples a block (``solver/merit_cuda.py::merit_team_plan``); both print whether each
 result equals the default plan's bit for bit.  ``--cluster-sweep`` times K2'
 at N = 64 launched by hand with clusters of 2, 4, 8 and 16 CTAs, the choice
-that ``ops/pcg_cuda.py::k2_cluster_plan`` fixes at 8.  The sweeps need a
-tree of this slice or later.
+that ``ops/pcg_cuda.py::k2_cluster_plan`` fixes at 8.  ``--ca-cluster-sweep``
+times K10b at both shard cases with every cluster size that
+``ops/pcg_ca_cuda.py::ca_cluster_plan(L, s, C)`` admits (C = 4, 8, 16 at L =
+64; 1..16 at L = 16), launched by hand, and prints whether Y and Ytil equal
+the default plan's bit for bit and how far the parts are.  ``--ca-pcr``
+runs only the K7 / K10b group.  The sweeps need a tree of the slice that
+added them or later.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -50,7 +64,8 @@ Needs a CUDA card; imports nothing of JAX.
 import sys
 from pathlib import Path
 
-FLAGS = ("--cluster-sweep", "--window-sweep", "--team-sweep")
+FLAGS = ("--cluster-sweep", "--window-sweep", "--team-sweep",
+         "--ca-cluster-sweep", "--ca-pcr")
 
 
 def compare(path_a: str, path_b: str) -> None:
@@ -67,6 +82,111 @@ def compare(path_a: str, path_b: str) -> None:
         rel = float(d.max()) / max(float(x.abs().max()), 1e-30)
         print(f"  {key}: largest difference {float(d.max()):.3e} = {rel:.3e} "
               f"max|ref| ({int((d > 0).sum())} of {d.numel()} entries differ)")
+
+
+def ca_pcr(tree, c, torch, dev, keep, sweep: bool) -> None:
+    """K7, K10b and K10b' of the tree: outputs kept, device times printed;
+    with ``sweep`` K10b at every cluster size its plan admits."""
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.models import iiwa14
+    from mpcgpu_tpu_torch.ops.btd import btd_to_dense
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
+    from mpcgpu_tpu_torch.parallel import KnotMesh
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import _ca_halo_blocks, _ca_init
+    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
+
+    m = iiwa14(torch.float32, device=dev)
+    rho = torch.full((), c.RHO0, device=dev)
+    times = {}
+    for N, trace, start in ((c.N_MAIN, "0_0", c.CALM_ROW), (c.N_BIG, "3_4", 0)):
+        xu, xs, ee, _ = c.problem(N, torch, dev, 0, start, trace)
+        k1 = build_kkt_schur(m, CostConfig.for_knots(N), xu, xs, ee, rho, c.DT, 0)
+        S_syn, _, b_syn = c.synthetic_btd(N, torch, dev)
+        for label, (S7, b7) in (("synthetic", (S_syn, b_syn)),
+                                (f"{trace} row {start}", (k1["S"], k1["gamma"]))):
+            keep(f"K7 N={N} {label}", pcr_solve_cuda(S7, b7))
+        times[f"K7 N={N}"] = c.graph_ms(torch, lambda: pcr_solve_cuda(S_syn, b_syn))
+        dense, rhs = btd_to_dense(S_syn), b_syn.reshape(-1, 1)
+        times[f"Cholesky N={N}"] = c.time_ms(torch, lambda: torch.cholesky_solve(
+            rhs, torch.linalg.cholesky_ex(dense).L), 5)
+    s_, cap, tol0 = c.CA_S, c.CA_CAP, _kernels.scalar(0.0, dev)
+    cases = {}
+    for N, S in c.SHARD_CASES:
+        xu, xs, ee, _ = c.problem(N, torch, dev)
+        k1 = build_kkt_schur(m, CostConfig.for_knots(N), xu, xs, ee, rho, c.DT, 0)
+        mesh = KnotMesh(S)
+        sc = lambda t: t.reshape(S, N // S, *t.shape[1:])
+        S_l, P_l, g_l = sc(k1["S"]), sc(k1["Pinv"]), sc(k1["gamma"])
+        h = 2 * s_ + 1
+        blocks = (S_l, P_l, *_ca_halo_blocks(S_l, h, mesh),
+                  *_ca_halo_blocks(P_l, h, mesh))
+        lam0 = torch.zeros_like(g_l)
+        st = ca_state(lam0, *_ca_init(S_l, P_l, g_l, lam0, mesh), tol0, "eta", s_)
+        packets = lambda: (mesh.send_right(st["pkt"][:, 0]),
+                           mesh.send_left(st["pkt"][:, 1]))
+        ca_basis(st, *blocks, *packets(), cap, s_)
+        ca_coeff_step(st, mesh.psum(st["parts"]), cap, tol0, "eta", s_)
+        ins = blocks + packets()
+        got = {k: v.clone() for k, v in st.items()}
+        ca_basis_cuda(got, *ins, cap, s_)
+        keep(f"K10b N={N}/{S}", {k: got[k] for k in ("Y", "Yt", "parts")})
+        ref = {k: v.clone() for k, v in st.items()}
+        ca_basis(ref, *ins, cap, s_)
+        tot = mesh.psum(ref["parts"])
+        coef = {k: v.clone() for k, v in ref.items()}
+        ca_coeff_step_cuda(coef, tot, cap, tol0, "eta", s_)
+        keep(f"K10b' N={N}/{S}", {k: coef[k] for k in
+                                  ("x", "r", "z", "p", "pkt", "scal", "iters", "done")})
+        st_k = {k: v.clone() for k, v in st.items()}
+        times[f"K10b N={N}/{S}"] = c.graph_ms(
+            torch, lambda: ca_basis_cuda(st_k, *ins, cap, s_))
+        times[f"K10b' N={N}/{S}"] = c.graph_ms(
+            torch, lambda: ca_coeff_step_cuda(st_k, tot, cap, tol0, "eta", s_))
+        cases[N, S] = (st, ins, got)
+    print(f"{tree.name or tree}: " + ", ".join(
+        f"{k} {v * 1e3:.1f} us" for k, v in times.items()) + f"; {c.card_line()}",
+          flush=True)
+    if not sweep:
+        return
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_cluster_plan
+
+    launch = _kernels.entry("pcg_ca.cu", "ca_basis_launch")
+    for (N, S), (st, ins, want) in cases.items():
+        L = N // S
+        for C in (1, 2, 4, 8, 16):
+            try:
+                plan = ca_cluster_plan(L, s_, C)
+            except ValueError as exc:
+                print(f"  K10b N={N}/{S} C={C}: not admitted ({exc})", flush=True)
+                continue
+            st_c = {k: v.clone() for k, v in st.items()}
+            Sx = ins[0]
+
+            def k10b_at(plan=plan, st_c=st_c):
+                _kernels.check(launch(
+                    st_c["p"].data_ptr(), st_c["z"].data_ptr(), st_c["r"].data_ptr(),
+                    Sx.data_ptr(), ins[1].data_ptr(), Sx.stride(0),
+                    *(t.data_ptr() for t in ins[2:]), st_c["scal"].data_ptr(),
+                    st_c["iters"].data_ptr(), st_c["done"].data_ptr(),
+                    st_c["Y"].data_ptr(), st_c["Yt"].data_ptr(),
+                    st_c["parts"].data_ptr(), L, s_, S, cap, plan.cluster,
+                    plan.knots_per_cta, int(plan.blocks_in_smem), plan.threads,
+                    plan.smem_bytes, _kernels.stream_ptr(dev)), "ca_basis_launch")
+
+            k10b_at()
+            torch.cuda.synchronize()
+            same = all(torch.equal(st_c[k], want[k]) for k in ("Y", "Yt"))
+            d = float(((st_c["parts"] - want["parts"]).abs().max()
+                       / want["parts"].abs().max()))
+            ms = c.graph_ms(torch, k10b_at)
+            print(f"  K10b N={N}/{S} C={C} x {plan.knots_per_cta} knots "
+                  f"({plan.threads} threads, S and Pinv in shared memory "
+                  f"{plan.blocks_in_smem}): {ms * 1e3:.1f} us; Y, Ytil equal to "
+                  f"the default plan's {same}, parts {d:.3e} max|parts| apart",
+                  flush=True)
 
 
 def main():
@@ -118,6 +238,13 @@ def main():
                 outs[f"{name} [{i}]"] = v.detach().cpu()
         else:
             outs[name] = res.detach().cpu()
+
+    if "--ca-pcr" in sys.argv:
+        ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
+        if save is not None:
+            Path(save).parent.mkdir(parents=True, exist_ok=True)
+            torch.save(outs, save)
+        return
 
     def windows(n, S, lo, hi):
         L = n // S
@@ -179,6 +306,7 @@ def main():
     print(f"{tree.name or tree}: " + ", ".join(
         f"{k} {v * 1e3:.1f} us" for k, v in times.items()) + f"; {c.card_line()}",
           flush=True)
+    ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
     if save is not None:
         Path(save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(outs, save)
