@@ -10,7 +10,8 @@ Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit; build the CUDA kernels from
      mpcgpu_tpu_torch/csrc with nvcc and print the build time, each
      kernel's registers and spills, and the plans of K7 (one launch per
-     solve) and K10b (a thread-block cluster per shard);
+     solve), K10b and K10a (a thread-block cluster per shard) and the
+     coefficient step (a cluster of CTAs per shard);
   2. hold each kernel of the first two slices (K1 KKT+Schur, K2 PCG+dz, K3
      line-search merits, K4 plant, K5 KKT blocks, K2' PCG without the dz
      epilogue, K6 dz) against its plain PyTorch version on the card, at
@@ -37,10 +38,11 @@ Phases (any failure raises and the script exits non-zero):
      the s-step PCG through them against the same loop with the plain steps
      and against K2' (well-conditioned: counts within s, both exits before
      the cap) and over noise seeds by medians (real); hold K10b, the
-     coefficient step and the s-step PCG at N = 512 on one shard (the
-     plan's largest slab, S and Pinv read from L2), and the fused sharded
-     SQP's default route on one shard against pcg_cuda at N = 508, the
-     largest slab K9a takes;
+     coefficient step, the s-step PCG and K10a at N = 512 on one shard
+     (the plans' largest slabs), one call of K10a and one of the
+     coefficient step with some shards exited (their state bit for bit
+     unchanged), and the fused sharded SQP's default route on one shard
+     against pcg_cuda at N = 508 and N = 512 (K9a's slab of 516 knots);
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -616,14 +618,16 @@ def main() -> int:
                                                pcg_solve_cuda)
     from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
     from mpcgpu_tpu_torch.ops.pcg_ca_cuda import (ca_basis_cuda, ca_cluster_plan,
-                                                  ca_coeff_step_cuda)
+                                                  ca_coeff_step_cuda, coeff_plan)
     from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step, slab_state
-    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
+    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import (pcg_slab_step_cuda,
+                                                    slab_cluster_plan)
     from mpcgpu_tpu_torch.parallel import (KnotMesh, pcg_solve_sharded,
                                            sqp_solve_sharded)
     from mpcgpu_tpu_torch.parallel.pcg_sharded import (_ca_halo_blocks, _ca_init,
                                                        _pcg_local_ca_slab,
-                                                       _pcg_local_pipelined_slab)
+                                                       _pcg_local_pipelined_slab,
+                                                       btd_matvec_halo)
     from mpcgpu_tpu_torch.sim.mpc import (run_chain, simulate_mpc,
                                           simulate_mpc_ondevice,
                                           simulate_mpc_ondevice_batched)
@@ -691,6 +695,8 @@ def main() -> int:
         print(f"  K7 plan N={N}: {pcr_plan(N)}")
     for N, S in SHARD_CASES + ((N_BIG, 1),):
         print(f"  K10b plan N={N} over {S} shards: {ca_cluster_plan(N // S, CA_S)}")
+        print(f"  K10a plan N={N} over {S} shards: {slab_cluster_plan(N // S)}")
+        print(f"  K10b' plan N={N} over {S} shards: {coeff_plan(N // S, CA_S)}")
 
     model = iiwa14(torch.float32, device=dev)
     mu = SQPConfig().mu
@@ -1215,6 +1221,98 @@ def main() -> int:
                + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in ec.items())
                + f" max|ref| (kernel <= 2x plain + 1e-6); iters, done equal {same}")
 
+    def k10a_checks(mesh, N, S, cost, rho, syn, record):
+        """K10a: the sharded PCG loop with K10a against the same loop with
+        its plain step, and against K2', on the well-conditioned system
+        (f32 rounding ~1e-7 there): lam within 2e-6, the same iterations.
+        On the real system f32 rounding decides the last digits (phase 2):
+        20 fixed steps over REAL_SEEDS noise seeds, each held to an f64
+        run; the median distance of the K10a solve within 2x that of the
+        same loop with the plain step (K2', classic CG, rounds otherwise:
+        printed beside them).  ``record``: K10a's max|d| against the plain
+        step goes to the kernels line."""
+        for crit, tol, cap in (("eta", 0.0, 20), ("eta", 1e-9, 167),
+                               ("rnorm", 1e-5, 167)):
+            a = slab_pcg(mesh, *syn, pcg_slab_step_cuda, cap, tol, crit)
+            b = slab_pcg(mesh, *syn, pcg_slab_step, cap, tol, crit)
+            k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
+                                 exit_tol=tol, exit_criterion=crit)
+            torch.cuda.synchronize()
+            (dp, ep), e2 = rel_err(a[0], b[0]), rel_err(a[0], k2p.lam)[1]
+            if record and tol == 0.0:
+                errs["K10a pcg_slab_step_cuda"] = dp
+            ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1] == int(k2p.iters)
+            ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
+            expect(ok, f"K10a N={N} over {S} shards ({slab_cluster_plan(N // S)}), "
+                   f"well-conditioned {crit} exit_tol={tol:g} cap={cap}: sharded "
+                   f"PCG vs its plain step {ep:.3e}, vs K2' {e2:.3e} (<= 2e-6); "
+                   f"iterations K10a {a[1]}, plain {b[1]}, K2' {int(k2p.iters)} "
+                   f"(equal); converged {a[2]}")
+        dist = {"K10a": [], "plain step": [], "K2'": []}
+        for seed in range(REAL_SEEDS):
+            xu_s, xs_s, ee_s, _ = problem(N, torch, dev, seed)
+            sy = build_kkt_schur(model, cost, xu_s, xs_s, ee_s, rho, DT, 0)
+            SS, PP, gg = sy["S"], sy["Pinv"], sy["gamma"]
+            f64 = pcg_solve(SS.double(), PP.double(), gg.double(),
+                            torch.zeros_like(gg.double()), max_iter=20,
+                            exit_tol=0.0).lam
+            for name, lam_ in (
+                    ("K10a", slab_pcg(mesh, SS, PP, gg, pcg_slab_step_cuda, 20, 0.0)[0]),
+                    ("plain step", slab_pcg(mesh, SS, PP, gg, pcg_slab_step, 20, 0.0)[0]),
+                    ("K2'", pcg_solve_cuda(SS, PP, gg, torch.zeros_like(gg),
+                                           max_iter=20, exit_tol=0.0).lam)):
+                dist[name].append(rel_err(lam_, f64)[1])
+        med = {k: statistics.median(v) for k, v in dist.items()}
+        expect(med["K10a"] <= 2 * med["plain step"],
+               f"K10a N={N} over {S} shards, real system, 20 fixed steps, "
+               f"{REAL_SEEDS} seeds: median distance to f64 "
+               + ", ".join(f"{k} {v:.3e}" for k, v in med.items())
+               + " (K10a <= 2x the plain step)")
+
+    def exited_checks(mesh, N, S, sys3):
+        """One call of K10a and one of the coefficient step in which the
+        even shards have exited (K10a: the summed eta 0 below exit_tol;
+        K10b': done) and the odd ones work: every exited shard's state bit
+        for bit what it was (the entry test and the cluster's exit race),
+        every working shard's bit for bit what the same kernel gives it in
+        a call where no shard has exited (the shards share nothing inside
+        a call)."""
+        SS, PP, gg = (t.reshape(S, N // S, *t.shape[1:]) for t in sys3)
+        PL, PR = mesh.send_right(PP[:, -1]), mesh.send_left(PP[:, 0])
+        lam0 = torch.zeros_like(gg)
+        st = slab_state(lam0, gg - btd_matvec_halo(SS, lam0, mesh))
+        pk = lambda: (mesh.send_right(st["pkt"][:, 0]), mesh.send_left(st["pkt"][:, 1]))
+        pcg_slab_step(st, SS, PP, *pk(), PL, PR, st["dots"], CA_CAP, tol0, "eta", True)
+        tot = mesh.psum(st["dots"])
+        mixed = tot.clone()
+        mixed[0::2, 0] = 0.0
+        tol = _kernels.scalar(1e-30, dev)
+        got, ref = clone_state(st), clone_state(st)
+        pcg_slab_step_cuda(got, SS, PP, *pk(), PL, PR, mixed, CA_CAP, tol, "eta")
+        pcg_slab_step_cuda(ref, SS, PP, *pk(), PL, PR, tot, CA_CAP, tol, "eta")
+        torch.cuda.synchronize()
+        kept = all(torch.equal(got[k][0::2], st[k][0::2]) for k in st)
+        worked = all(torch.equal(got[k][1::2], ref[k][1::2]) for k in st)
+        stepped = got["iters"][1::2].tolist() == [1] * (S // 2)
+        expect(kept and worked and stepped,
+               f"K10a N={N} over {S} shards, shards 0, 2, .. exited: their state "
+               f"bit for bit unchanged {kept}; the working shards' bit for bit "
+               f"as with none exited {worked}, stepped {stepped}")
+        cst, _ = ca_setup(mesh, *sys3)
+        ctot = mesh.psum(cst["parts"])
+        got, ref = clone_state(cst), clone_state(cst)
+        got["done"][0::2] = 1
+        before = clone_state(got)
+        ca_coeff_step_cuda(got, ctot, CA_CAP, tol0, "eta", CA_S)
+        ca_coeff_step_cuda(ref, ctot, CA_CAP, tol0, "eta", CA_S)
+        torch.cuda.synchronize()
+        kept = all(torch.equal(got[k][0::2], before[k][0::2]) for k in got)
+        worked = all(torch.equal(got[k][1::2], ref[k][1::2]) for k in cst)
+        expect(kept and worked,
+               f"K10b' (coefficient step) N={N} over {S} shards, shards 0, 2, .. "
+               f"done: their state bit for bit unchanged {kept}; the working "
+               f"shards' bit for bit as with none done {worked}")
+
     slab_ref = {}     # per case: the inputs phase 5 times the kernels on
     for N, S in SHARD_CASES:
         L = N // S
@@ -1298,52 +1396,11 @@ def main() -> int:
                            lam_s=lam_s, lam_n=lam_n, last_s=last_s, u_s=u_s,
                            x1=x1, z1=z1, e1=e1, cost=cost, rho=rho, k1=k1)
 
-        # K10a: the sharded PCG loop with K10a against the same loop with
-        # its plain step, and against K2', on the well-conditioned system
-        # (f32 rounding ~1e-7 there): lam within 2e-6, the same iterations
         mesh = KnotMesh(S)
         syn = synthetic_btd(N, torch, dev)
-        for crit, tol, cap in (("eta", 0.0, 20), ("eta", 1e-9, 167),
-                               ("rnorm", 1e-5, 167)):
-            a = slab_pcg(mesh, *syn, pcg_slab_step_cuda, cap, tol, crit)
-            b = slab_pcg(mesh, *syn, pcg_slab_step, cap, tol, crit)
-            k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
-                                 exit_tol=tol, exit_criterion=crit)
-            torch.cuda.synchronize()
-            (dp, ep), e2 = rel_err(a[0], b[0]), rel_err(a[0], k2p.lam)[1]
-            if main_case and tol == 0.0:
-                errs["K10a pcg_slab_step_cuda"] = dp
-            ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1] == int(k2p.iters)
-            ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
-            expect(ok, f"K10a N={N} over {S} shards, well-conditioned {crit} "
-                   f"exit_tol={tol:g} cap={cap}: sharded PCG vs its plain step "
-                   f"{ep:.3e}, vs K2' {e2:.3e} (<= 2e-6); iterations K10a {a[1]}, "
-                   f"plain {b[1]}, K2' {int(k2p.iters)} (equal); converged {a[2]}")
-        # on the real system f32 rounding decides the last digits (phase 2):
-        # 20 fixed steps over REAL_SEEDS noise seeds, each held to an f64
-        # run; the median distance of the K10a solve within 2x that of the
-        # same loop with the plain step (K2', classic CG, rounds otherwise:
-        # printed beside them)
-        dist = {"K10a": [], "plain step": [], "K2'": []}
-        for seed in range(REAL_SEEDS):
-            xu_s, xs_s, ee_s, _ = problem(N, torch, dev, seed)
-            sy = build_kkt_schur(model, cost, xu_s, xs_s, ee_s, rho, DT, 0)
-            SS, PP, gg = sy["S"], sy["Pinv"], sy["gamma"]
-            f64 = pcg_solve(SS.double(), PP.double(), gg.double(),
-                            torch.zeros_like(gg.double()), max_iter=20,
-                            exit_tol=0.0).lam
-            for name, lam_ in (
-                    ("K10a", slab_pcg(mesh, SS, PP, gg, pcg_slab_step_cuda, 20, 0.0)[0]),
-                    ("plain step", slab_pcg(mesh, SS, PP, gg, pcg_slab_step, 20, 0.0)[0]),
-                    ("K2'", pcg_solve_cuda(SS, PP, gg, torch.zeros_like(gg),
-                                           max_iter=20, exit_tol=0.0).lam)):
-                dist[name].append(rel_err(lam_, f64)[1])
-        med = {k: statistics.median(v) for k, v in dist.items()}
-        expect(med["K10a"] <= 2 * med["plain step"],
-               f"K10a N={N} over {S} shards, real system, 20 fixed steps, "
-               f"{REAL_SEEDS} seeds: median distance to f64 "
-               + ", ".join(f"{k} {v:.3e}" for k, v in med.items())
-               + " (K10a <= 2x the plain step)")
+        k10a_checks(mesh, N, S, cost, rho, syn, main_case)
+        if main_case:
+            exited_checks(mesh, N, S, (k1["S"], k1["Pinv"], k1["gamma"]))
 
         # K9a's blocks at the horizon's ends: the s-step and pipelined forms
         # rely on these corner blocks to cancel the ring-wrap rows
@@ -1397,13 +1454,51 @@ def main() -> int:
                f"steps, {REAL_SEEDS} seeds: median distance to f64 "
                + ", ".join(f"{k} {v:.3e}" for k, v in med.items())
                + " (K10b <= 2x the plain steps)")
+    def one_shard_sqp(N, trace, start):
+        """The fused sharded SQP at its default route on one shard of N
+        knots against pcg_cuda (phase 4d's criteria, the comment below)."""
+        cost = CostConfig.for_knots(N)
+        xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
+        sh_kw = (cost, SQPConfig(max_iter=2, max_time_us=None),
+                 PCGConfig(max_iter=PCGConfig.tuned_max_iter(N_BIG), exit_tol=1e-5))
+        lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+        ca1, n_ca1 = counted(sqp_solve_sharded, model, *sh_kw, xu, lam0, xs, ee, RHO0,
+                             DT, KnotMesh(1))
+        one = sqp_solve(model, *sh_kw, xu, lam0, xs, ee, RHO0, DT, linsys="pcg_cuda")
+        plain = sqp_solve(model, *sh_kw, xu, lam0, xs, ee, RHO0, DT, linsys="pcg",
+                          merit_impl="plain")
+        f64 = sqp_solve(iiwa14(torch.float64, device=dev), *sh_kw, xu.double(),
+                        lam0.double(), xs.double(), ee.double(), RHO0, DT,
+                        linsys="pcg", merit_impl="plain")
+        torch.cuda.synchronize()
+        it1, outer = int(ca1.sqp_iters), -(-sh_kw[2].max_iter // CA_S)
+        want = {k: it1 for k in KERNELS if k.startswith("K9")}
+        want.update({"K10b ca_basis_cuda": it1 * outer,
+                     "K10b' ca_coeff_step_cuda": it1 * outer})
+        ec, eo, ep = (part_errs(r_.xu, f64.xu) for r_ in (ca1, one, plain))
+        near = all(abs(a - b) <= CA_S for a, b in
+                   zip(ca1.pcg_iters.tolist(), one.pcg_iters.tolist()))
+        same_ls = ca1.ls_alpha_idx.tolist() == one.ls_alpha_idx.tolist()
+        ok = all(n_ca1[k] == want.get(k, 0) for k in KERNELS) and near and same_ls
+        ok = ok and all(bool(torch.isfinite(t).all()) for t in (ca1.xu, ca1.lam))
+        ok = ok and all(ec[k] <= 2 * max(eo[k], ep[k]) + 1e-4 for k in ("x", "u"))
+        expect(ok, f"sharded SQP at its default (ca_slab) N={N} over 1 shard from "
+               f"{trace} row {start}: launches {n_ca1} (K9a-c once per SQP iteration, "
+               f"{it1}; K10b and the coefficient step {outer} times per iteration); "
+               f"to f64 x {ec['x']:.3e}, u {ec['u']:.3e} (pcg_cuda {eo['x']:.3e}, "
+               f"{eo['u']:.3e}; plain {ep['x']:.3e}, {ep['u']:.3e}; <= 2x max + 1e-4); "
+               f"PCG iterations {ca1.pcg_iters.tolist()} (pcg_cuda "
+               f"{one.pcg_iters.tolist()}, within {CA_S}); line search "
+               f"{ca1.ls_alpha_idx.tolist()} (pcg_cuda {one.ls_alpha_idx.tolist()})")
+
     # N_BIG on one shard (L = N_BIG, s = CA_S): the plan's largest slab, S and
     # Pinv read from L2 (ca_cluster_plan), from phase 4d's calm start: K10b
     # and the coefficient step against their plain versions as above, and
     # the sharded s-step PCG through them against K2' on the well-conditioned
-    # system (as above).  The fused sharded SQP at its default route ("auto"
-    # -> "ca_slab") runs at the largest one-shard slab K9a takes (its slab
-    # holds the shard's knots and 4 halo knots, at most MAX_KNOTS): N_BIG - 4,
+    # system (as above), and K10a as at the shard cases.  The fused sharded
+    # SQP at its default route ("auto" -> "ca_slab") runs on one shard at
+    # N_BIG - 4 and at N_BIG (K9a's slab holds the shard's knots and 4 halo
+    # knots: 516 at N_BIG, K9A_MAX_KNOTS), on trace 3_4 from row 0,
     # against pcg_cuda as phase 4d holds it: K10b and the coefficient step
     # launched per outer step, the PCG counts within s of pcg_cuda's, the
     # same line-search choices, the distance to the f64 solve per part
@@ -1417,6 +1512,7 @@ def main() -> int:
     ca_kernel_checks(KnotMesh(S), N, S, f"{trace} row {start}",
                      (k1["S"], k1["Pinv"], k1["gamma"]), False)
     syn = synthetic_btd(N, torch, dev)
+    k10a_checks(KnotMesh(S), N, S, cost, rho, syn, False)
     a = ca_pcg(KnotMesh(S), *syn, True, 167, 1e-9)
     k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=167, exit_tol=1e-9)
     torch.cuda.synchronize()
@@ -1426,40 +1522,8 @@ def main() -> int:
            f"s-step PCG (K10b) N={N} over {S} shard, well-conditioned eta "
            f"exit_tol=1e-09 cap=167: vs K2' {e2:.3e} (<= 2e-6); iterations K10b "
            f"{a[1]}, K2' {int(k2p.iters)} (within {CA_S}); converged {a[2]}")
-    N = N_BIG - 4
-    cost = CostConfig.for_knots(N)
-    xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
-    sh_kw = (cost, SQPConfig(max_iter=2, max_time_us=None),
-             PCGConfig(max_iter=PCGConfig.tuned_max_iter(N_BIG), exit_tol=1e-5))
-    lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
-    ca1, n_ca1 = counted(sqp_solve_sharded, model, *sh_kw, xu, lam0, xs, ee, RHO0,
-                         DT, KnotMesh(S))
-    one = sqp_solve(model, *sh_kw, xu, lam0, xs, ee, RHO0, DT, linsys="pcg_cuda")
-    plain = sqp_solve(model, *sh_kw, xu, lam0, xs, ee, RHO0, DT, linsys="pcg",
-                      merit_impl="plain")
-    f64 = sqp_solve(iiwa14(torch.float64, device=dev), *sh_kw, xu.double(),
-                    lam0.double(), xs.double(), ee.double(), RHO0, DT,
-                    linsys="pcg", merit_impl="plain")
-    torch.cuda.synchronize()
-    it1, outer = int(ca1.sqp_iters), -(-sh_kw[2].max_iter // CA_S)
-    want = {k: it1 for k in KERNELS if k.startswith("K9")}
-    want.update({"K10b ca_basis_cuda": it1 * outer,
-                 "K10b' ca_coeff_step_cuda": it1 * outer})
-    ec, eo, ep = (part_errs(r_.xu, f64.xu) for r_ in (ca1, one, plain))
-    near = all(abs(a - b) <= CA_S for a, b in
-               zip(ca1.pcg_iters.tolist(), one.pcg_iters.tolist()))
-    same_ls = ca1.ls_alpha_idx.tolist() == one.ls_alpha_idx.tolist()
-    ok = all(n_ca1[k] == want.get(k, 0) for k in KERNELS) and near and same_ls
-    ok = ok and all(bool(torch.isfinite(t).all()) for t in (ca1.xu, ca1.lam))
-    ok = ok and all(ec[k] <= 2 * max(eo[k], ep[k]) + 1e-4 for k in ("x", "u"))
-    expect(ok, f"sharded SQP at its default (ca_slab) N={N} over {S} shard from "
-           f"{trace} row {start}: launches {n_ca1} (K9a-c once per SQP iteration, "
-           f"{it1}; K10b and the coefficient step {outer} times per iteration); "
-           f"to f64 x {ec['x']:.3e}, u {ec['u']:.3e} (pcg_cuda {eo['x']:.3e}, "
-           f"{eo['u']:.3e}; plain {ep['x']:.3e}, {ep['u']:.3e}; <= 2x max + 1e-4); "
-           f"PCG iterations {ca1.pcg_iters.tolist()} (pcg_cuda "
-           f"{one.pcg_iters.tolist()}, within {CA_S}); line search "
-           f"{ca1.ls_alpha_idx.tolist()} (pcg_cuda {one.ls_alpha_idx.tolist()})")
+    for N in (N_BIG - 4, N_BIG):
+        one_shard_sqp(N, trace, start)
     if failures:
         raise SmokeFailure(f"phase 2c: {len(failures)} check(s) failed")
 

@@ -67,13 +67,13 @@ _SIGNATURES = {
     },
     "pcg_slab.cu": {
         "pcg_slab_launch": [P, P, P, P, P, P, P, P, I, P, P, P, P, P, I, P, P,
-                            P, P, I, I, I, I, P, I, I, P],
+                            P, P, I, I, I, I, I, I, I, P, I, I, P],
     },
     "pcg_ca.cu": {
         "ca_basis_launch": [P, P, P, P, P, I, P, P, P, P, P, P, P, P, P, P, P,
                             P, I, I, I, I, I, I, I, I, I, P],
-        "ca_coeff_launch": [P, P, P, P, P, P, P, I, P, P, P, P, I, I, I, I, P,
-                            I, P],
+        "ca_coeff_launch": [P, P, P, P, P, P, P, I, P, P, P, P, I, I, I, I, I,
+                            I, I, P, I, P],
     },
 }
 

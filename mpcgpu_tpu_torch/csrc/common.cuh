@@ -500,6 +500,12 @@ __device__ inline void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
+// an arrival that releases nothing: after fence.mbarrier_init, which
+// releases the mbarrier initialisations to the cluster itself
+__device__ inline void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
 // for (int e = first; e < n; e += stride) with compile-time n and stride,
 // unrolled so that a lane's entries overlap
 #define FOR_STRIDED(e, first, n, stride)                                   \

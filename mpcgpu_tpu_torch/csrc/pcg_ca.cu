@@ -52,7 +52,8 @@
 // 2s+1 dependent banded products (4s block-row products per row in all),
 // then 181 dot products over the shard's L x 14 rows; the work is ~0.5
 // MFLOP per shard at L = 64.  The coefficient step is a few hundred
-// dependent flops in one warp, then an m-term combination per row.
+// dependent f64 flops (s steps of m-term chains and two divisions), then
+// an m-term combination per row over Y and Ytil (129 KB at L = 64).
 //
 // K10b's design: ONE THREAD-BLOCK CLUSTER PER SHARD (grid (C, n_shard), the
 // cluster along x), laid out by ops/pcg_ca_cuda.py::ca_cluster_plan(L, s),
@@ -84,6 +85,21 @@
 // keeps every CTA resident until rank 0 has read them.  Y and Ytil still go
 // to global memory once: the coefficient step reads them after the mesh's
 // psum.
+//
+// The coefficient step's design: ONE CLUSTER OF CTAs PER SHARD (grid (C,
+// n_shard)), laid out by ops/pcg_ca_cuda.py::coeff_plan(L, s): the shard's
+// 14 L rows cut into C runs of R rows.  Every CTA runs the s iterations
+// itself on its warp 0, from the same inputs in the same order, so every
+// CTA holds the same coefficients with no exchange: lane q keeps row q of
+// G and F in registers, every lane b, f and the coefficient vectors, and
+// row q's products reach every lane by shuffles; nothing is read from
+// global memory inside the loop.  Meanwhile the other warps load their
+// first row's Y and Ytil, and rank 0's warp 1 forms the next scale (the
+// pow); then each row thread recovers its rows and writes its packet
+// entries.  Every sum keeps the parent's order, so every output is the
+// parent's bits.  Every CTA reads scal, iters and done at entry and then
+// arrives at the cluster barrier; rank 0 writes them after its wait at the
+// end, so the writes follow every read.
 #include <cooperative_groups.h>
 
 #include <cfloat>
@@ -100,7 +116,6 @@ namespace {
 
 constexpr int NN = NX * NX;
 constexpr int MAX_S = 8;
-constexpr int MAX_M = 2 * MAX_S + 1;
 
 // K10b's cluster plan limits (ops/pcg_ca_cuda.py): the largest cluster,
 // the most threads of a CTA (two, or one, per own row), and the stride of
@@ -110,6 +125,10 @@ constexpr int CA_MAX_CLUSTER = 16;
 constexpr int CA_MAX_THREADS = 512;
 constexpr int CA_KNOT_STRIDE = 590;
 constexpr int CA_LOAD_BATCH = 8;    // block entries a thread loads at once
+// the coefficient step's plan limits (ops/pcg_ca_cuda.py::coeff_plan): the
+// largest cluster and the most threads of a CTA (warp 0 and the row warps)
+constexpr int COEF_MAX_CLUSTER = 16;
+constexpr int COEF_MAX_THREADS = 256;
 
 // bytes of a CTA's dynamic shared memory at ke knots (see ca_cluster_plan):
 // two mbarriers, the four f64 vectors with a halo row on each side, Z's
@@ -418,20 +437,31 @@ ca_basis_kernel(const float* __restrict__ p, const float* __restrict__ z,
   cluster_wait();
 }
 
-__global__ void __launch_bounds__(256)
+// The coefficient step on one shard's rows [lo, lo + R) (the CTA of rank q
+// of the shard's cluster, lo = q R): warp 0 runs the s coefficient
+// iterations; the other warps load their first row's Y and Ytil meanwhile,
+// and rank 0's warp 1 forms the next scale; then every row thread recovers
+// its rows.  kS = s (m = 2s+1 coefficients in registers).
+template <int kS>
+__global__ void __launch_bounds__(COEF_MAX_THREADS, 1)
 ca_coeff_kernel(float* __restrict__ x, float* __restrict__ r,
                 float* __restrict__ z, float* __restrict__ p,
                 const double* __restrict__ Y, const double* __restrict__ Yt,
                 const double* __restrict__ tot, int tot_bstride,
                 double* __restrict__ scal, int* __restrict__ iters,
                 int* __restrict__ done, float* __restrict__ pkt, int L, int s,
-                int max_iter, const float* __restrict__ tol_p, int rnorm) {
-  __shared__ double G[MAX_M * MAX_M], F[MAX_M * MAX_M], bv[MAX_M], fv[MAX_M];
-  __shared__ double ce[MAX_M], ca[MAX_M], cc[MAX_M], en[MAX_M], cn[MAX_M];
-  __shared__ double v1[MAX_M], v2[MAX_M];
-  const int b = blockIdx.x, tid = threadIdx.x, nth = blockDim.x;
+                int R, int max_iter, const float* __restrict__ tol_p,
+                int rnorm) {
+  constexpr int m = 2 * kS + 1, mm = m * m, h = m;
+  __shared__ double coef[3 * m];      // e, c, a
+  __shared__ double fin[2];           // eta, the next scale g
+  __shared__ int fin_i[2];            // iters, done
+  const int b = blockIdx.y, tid = threadIdx.x, nth = blockDim.x;
   if (done[b] != 0 || iters[b] >= max_iter) return;   // the same for all
-  const int m = 2 * s + 1, h = m, mm = m * m, n = L * NX;
+  const double eta0 = scal[2 * b], g = scal[2 * b + 1];
+  const int it0 = iters[b];
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int n = L * NX;
   x += (size_t)b * n;
   r += (size_t)b * n;
   z += (size_t)b * n;
@@ -439,118 +469,187 @@ ca_coeff_kernel(float* __restrict__ x, float* __restrict__ r,
   Y += (size_t)b * m * n;
   Yt += (size_t)b * m * n;
   tot += (size_t)b * tot_bstride;
-  scal += 2 * b;
   pkt += (size_t)b * 4 * h * NX;
-  for (int e = tid; e < mm; e += nth) {
-    G[e] = tot[e];
-    F[e] = tot[mm + m + e];
-  }
-  if (tid < m) {
-    bv[tid] = tot[mm + tid];
-    fv[tid] = tot[2 * mm + m + tid];
-  }
-  __syncthreads();
+  const int lo = rank * R, hi = min(n, lo + R), t = tid - 32, nrt = nth - 32;
+  // a row thread's first row, loaded while warp 0 iterates
+  double y0[m], yt0[m];
+  float x0 = 0.f, r0 = 0.f;
   if (tid < 32) {
-    // the s iterations: lane q < m owns row q of each product, every lane
-    // forms the same dot products in the same order
-    const int q = tid;
-    const double rr0 = tot[2 * mm + 2 * m], g = scal[1];
-    const float tol = *tol_p, tol2 = tol * tol;
-    double eta = scal[0];
-    int it = iters[b];
-    bool dn = false;
-    if (q < m) {
-      ce[q] = 0.0;
-      ca[q] = q == 0 ? 1.0 : 0.0;
-      cc[q] = q == s + 1 ? 1.0 : 0.0;
+    // the s iterations: lane q < m holds row q of G and F, every lane b, f
+    // and the coefficient vectors (each forms the same values in the same
+    // order); row q's products go to every lane by shuffles
+    const int q = min(tid, m - 1);
+    double Gr[m], Fr[m], bv[m], fv[m];
+#pragma unroll
+    for (int l = 0; l < m; ++l) {
+      Gr[l] = tot[q * m + l];
+      Fr[l] = tot[mm + m + q * m + l];
+      bv[l] = tot[mm + l];
+      fv[l] = tot[2 * mm + m + l];
     }
-    __syncwarp();
-    for (int step = 0; step < s; ++step) {
+    const double rr0 = tot[2 * mm + 2 * m];
+    const float tol = *tol_p, tol2 = tol * tol;
+    double eta = eta0;
+    int it = it0;
+    bool dn = false;
+    double ce[m], ca[m], cc[m];
+#pragma unroll
+    for (int l = 0; l < m; ++l) {
+      ce[l] = 0.0;
+      ca[l] = l == 0 ? 1.0 : 0.0;
+      cc[l] = l == kS + 1 ? 1.0 : 0.0;
+    }
+    const unsigned full = 0xffffffffu;
+#pragma unroll 1
+    for (int step = 0; step < kS; ++step) {
       const bool act = !dn && it < max_iter;
-      if (q < m) {
-        double acc = 0.0;
-        for (int l = 0; l < m; ++l) acc += G[q * m + l] * ca[l];
-        v1[q] = acc;
-      }
-      __syncwarp();
+      double v = 0.0;
+#pragma unroll
+      for (int l = 0; l < m; ++l) v += Gr[l] * ca[l];
       double denom = 0.0;
-      for (int l = 0; l < m; ++l) denom += ca[l] * v1[l];
+#pragma unroll
+      for (int l = 0; l < m; ++l) denom += ca[l] * __shfl_sync(full, v, l);
       const double alpha = eta / (denom == 0.0 ? 1.0 : denom);
-      if (q < m) {
-        // (g T a)_q = g a_{q-1} inside either chain, else 0
-        const bool shifted = (q >= 1 && q <= s) || (q >= s + 2 && q <= 2 * s);
-        en[q] = ce[q] + alpha * ca[q];
-        cn[q] = cc[q] - alpha * (shifted ? g * ca[q - 1] : 0.0);
+      double en[m], cn[m];
+#pragma unroll
+      for (int l = 0; l < m; ++l) {
+        // (g T a)_l = g a_{l-1} inside either chain, else 0
+        const bool shifted = (l >= 1 && l <= kS) || (l >= kS + 2 && l <= 2 * kS);
+        en[l] = ce[l] + alpha * ca[l];
+        cn[l] = cc[l] - alpha * (shifted ? g * ca[l > 0 ? l - 1 : 0] : 0.0);
       }
-      __syncwarp();
-      if (q < m) {
-        double gc = 0.0, fe = 0.0;
-        for (int l = 0; l < m; ++l) {
-          gc += G[q * m + l] * cn[l];
-          fe += F[q * m + l] * en[l];
-        }
-        v1[q] = gc;
-        v2[q] = fe;
+      double gc = 0.0, fe = 0.0;
+#pragma unroll
+      for (int l = 0; l < m; ++l) {
+        gc += Gr[l] * cn[l];
+        fe += Fr[l] * en[l];
       }
-      __syncwarp();
       double bc = 0.0, egc = 0.0, f_e = 0.0, efe = 0.0;
+#pragma unroll
       for (int l = 0; l < m; ++l) {
         bc += bv[l] * cn[l];
-        egc += en[l] * v1[l];
+        egc += en[l] * __shfl_sync(full, gc, l);
         f_e += fv[l] * en[l];
-        efe += en[l] * v2[l];
+        efe += en[l] * __shfl_sync(full, fe, l);
       }
       const double eta_n = bc - egc;
       const double rr_n = (rr0 - 2.0 * f_e) + efe;
       const double beta = eta_n / (eta == 0.0 ? 1.0 : eta);
       const bool done_n = rnorm ? rr_n < (double)tol2 : fabs(eta_n) < (double)tol;
-      __syncwarp();
-      if (act && q < m) {
-        ca[q] = cn[q] + beta * ca[q];
-        ce[q] = en[q];
-        cc[q] = cn[q];
+      if (act) {
+#pragma unroll
+        for (int l = 0; l < m; ++l) {
+          ca[l] = cn[l] + beta * ca[l];
+          ce[l] = en[l];
+          cc[l] = cn[l];
+        }
+        eta = eta_n;
       }
-      if (act) eta = eta_n;
       it += act ? 1 : 0;
       dn = dn || (act && done_n);
-      __syncwarp();
     }
-    if (q == 0) {
-      double den = fabs(G[0]);
+    if (tid == 0) {
+#pragma unroll
+      for (int l = 0; l < m; ++l) {
+        coef[l] = ce[l];
+        coef[m + l] = cc[l];
+        coef[2 * m + l] = ca[l];
+      }
+      fin[0] = eta;
+      fin_i[0] = it;
+      fin_i[1] = dn ? 1 : 0;
+    }
+  } else {
+    if (lo + t < hi) {
+#pragma unroll
+      for (int l = 0; l < m; ++l) {
+        y0[l] = Y[l * n + lo + t];
+        yt0[l] = Yt[l * n + lo + t];
+      }
+      x0 = x[lo + t];
+      r0 = r[lo + t];
+    }
+    if (rank == 0 && t == 0) {
+      // the next scale g (|G[s,s]| / |G[0,0]|)^(1/2s), clipped
+      double den = fabs(tot[0]);
       den = den < DBL_MIN ? DBL_MIN : den;            // NaN stays NaN
-      double gn = g * pow(fabs(G[s * m + s]) / den, 1.0 / (2 * s));
+      double gn = g * pow(fabs(tot[s * m + s]) / den, 1.0 / (2 * s));
       gn = gn < 1e-6 ? 1e-6 : (gn > 1e6 ? 1e6 : gn);
-      scal[0] = eta;
-      scal[1] = isfinite(gn) ? gn : g;
-      iters[b] = it;
-      done[b] = dn ? 1 : 0;
+      fin[1] = isfinite(gn) ? gn : g;
     }
   }
   __syncthreads();
+  // every CTA's reads of scal, iters and done happen before rank 0 writes
+  // them: it waits for this arrival at the end
+  cluster_arrive();
   // the recovery, and the packets: [last h rows, first h rows] x [p, z]
-  for (int i = tid; i < n; i += nth) {
-    double ye = 0.0, yte = 0.0, yc = 0.0, ya = 0.0;
-    for (int l = 0; l < m; ++l) {
-      const double y = Y[l * n + i];
-      ye += ce[l] * y;
-      yte += ce[l] * Yt[l * n + i];
-      yc += cc[l] * y;
-      ya += ca[l] * y;
-    }
-    x[i] = static_cast<float>(x[i] + ye);
-    r[i] = static_cast<float>(r[i] - yte);
-    z[i] = static_cast<float>(yc);
-    p[i] = static_cast<float>(ya);
-    const int k = i / NX, c = i - k * NX;
-    if (k >= L - h) {
-      pkt[(k - (L - h)) * NX + c] = p[i];
-      pkt[(h + k - (L - h)) * NX + c] = z[i];
-    }
-    if (k < h) {
-      pkt[(2 * h + k) * NX + c] = p[i];
-      pkt[(3 * h + k) * NX + c] = z[i];
+  if (tid >= 32) {
+    for (int i = lo + t, first = 1; i < hi; i += nrt, first = 0) {
+      double ye = 0.0, yte = 0.0, yc = 0.0, ya = 0.0;
+#pragma unroll
+      for (int l = 0; l < m; ++l) {
+        const double y = first ? y0[l] : Y[l * n + i];
+        const double yt = first ? yt0[l] : Yt[l * n + i];
+        ye += coef[l] * y;
+        yte += coef[l] * yt;
+        yc += coef[m + l] * y;
+        ya += coef[2 * m + l] * y;
+      }
+      const float xi = static_cast<float>((first ? x0 : x[i]) + ye);
+      const float ri = static_cast<float>((first ? r0 : r[i]) - yte);
+      const float zi = static_cast<float>(yc), pi = static_cast<float>(ya);
+      x[i] = xi;
+      r[i] = ri;
+      z[i] = zi;
+      p[i] = pi;
+      const int k = i / NX, c = i - k * NX;
+      if (k >= L - h) {
+        pkt[(k - (L - h)) * NX + c] = pi;
+        pkt[(h + k - (L - h)) * NX + c] = zi;
+      }
+      if (k < h) {
+        pkt[(2 * h + k) * NX + c] = pi;
+        pkt[(3 * h + k) * NX + c] = zi;
+      }
     }
   }
+  __syncwarp();
+  cluster_wait();
+  if (rank == 0 && tid == 0) {
+    scal[2 * b] = fin[0];
+    scal[2 * b + 1] = fin[1];
+    iters[b] = fin_i[0];
+    done[b] = fin_i[1];
+  }
+}
+
+template <int kS>
+int launch_coeff(int cluster, int threads, cudaStream_t stream, float* x,
+                 float* r, float* z, float* p, const double* Y,
+                 const double* Yt, const double* tot, int tot_bstride,
+                 double* scal, int* iters, int* done, float* pkt, int L, int R,
+                 int n_shard, int max_iter, const float* tol, int rnorm) {
+  cudaError_t err = cudaSuccess;
+  if (cluster > 8)
+    err = cudaFuncSetAttribute(ca_coeff_kernel<kS>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(cluster, n_shard, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, ca_coeff_kernel<kS>, x, r, z, p, Y, Yt, tot,
+                           tot_bstride, scal, iters, done, pkt, L, kS, R,
+                           max_iter, tol, rnorm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -608,19 +707,39 @@ extern "C" int ca_basis_launch(const float* p, const float* z, const float* r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// n_shard shards, one block each: shard b advances x, r, z, p (L, NX) from its
-// Y, Yt (m, L, NX) and the summed parts tot + b tot_bstride (f64), updates
-// its scal (eta, g; f64), iters[b], done[b], and writes its packets pkt
-// (2, 2, h, NX)
+// n_shard shards, one cluster of `cluster` CTAs each, R rows and `threads`
+// threads per CTA (ops/pcg_ca_cuda.py::coeff_plan): shard b advances x, r,
+// z, p (L, NX) from its Y, Yt (m, L, NX) and the summed parts tot + b
+// tot_bstride (f64), updates its scal (eta, g; f64), iters[b], done[b], and
+// writes its packets pkt (2, 2, h, NX).  A shape the plan does not describe
+// is refused (cudaErrorInvalidValue).
 extern "C" int ca_coeff_launch(float* x, float* r, float* z, float* p,
                                const double* Y, const double* Yt,
                                const double* tot, int tot_bstride, double* scal,
                                int* iters, int* done, float* pkt, int L, int s,
-                               int n_shard, int max_iter, const float* tol,
-                               int rnorm, void* stream) {
-  if (s < 1 || s > MAX_S) return static_cast<int>(cudaErrorInvalidValue);
-  ca_coeff_kernel<<<n_shard, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, r, z, p, Y, Yt, tot, tot_bstride, scal, iters, done, pkt, L, s,
-      max_iter, tol, rnorm);
-  return static_cast<int>(cudaGetLastError());
+                               int n_shard, int cluster, int R, int threads,
+                               int max_iter, const float* tol, int rnorm,
+                               void* stream) {
+  if (s < 1 || s > MAX_S || cluster < 1 || cluster > COEF_MAX_CLUSTER ||
+      (cluster & (cluster - 1)) || R < 1 || cluster * R < L * NX ||
+      threads < 64 || threads > COEF_MAX_THREADS || threads % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+#define COEF_CASE(k)                                                         \
+  case k:                                                                    \
+    return launch_coeff<k>(cluster, threads, st, x, r, z, p, Y, Yt, tot,     \
+                           tot_bstride, scal, iters, done, pkt, L, R, n_shard, \
+                           max_iter, tol, rnorm);
+  switch (s) {
+    COEF_CASE(1)
+    COEF_CASE(2)
+    COEF_CASE(3)
+    COEF_CASE(4)
+    COEF_CASE(5)
+    COEF_CASE(6)
+    COEF_CASE(7)
+    COEF_CASE(8)
+  }
+#undef COEF_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,7 +9,8 @@ iterations, the recovery and the next basis scale).  The CUDA kernels are
 ``ca_coeff_step`` (the state and the steps are described there).  Each
 wrapper runs its plain version for CPU tensors and its kernel for CUDA
 tensors: K10b one thread-block cluster per shard, laid out by
-``ca_cluster_plan(L, s)``; the coefficient step one block per shard.
+``ca_cluster_plan(L, s)``; the coefficient step one cluster per shard too,
+its rows spread over the CTAs by ``coeff_plan(L, s)``.
 """
 
 from __future__ import annotations
@@ -31,6 +32,11 @@ CA_MAX_THREADS = 512
 _KNOT_STRIDE = 590
 CA_TARGET_KNOTS = 4
 SMEM_LIMIT = 232448
+# the coefficient step's: the largest cluster, the most threads of a CTA
+# (warp 0 for the iterations, the rest one row each), the rows a CTA aims at
+COEF_MAX_CLUSTER = 16
+COEF_MAX_THREADS = 256
+COEF_TARGET_ROWS = 112
 
 
 class CAPlan(NamedTuple):
@@ -85,6 +91,37 @@ def ca_cluster_plan(L: int, s: int, cluster: int | None = None) -> CAPlan:
     rows = up32(28 * ke) if 28 * ke <= CA_MAX_THREADS else up32(14 * ke)
     threads = min(CA_MAX_THREADS, max(rows, up32(n_parts(s))))
     return CAPlan(cluster, ke, blocks, threads, smem)
+
+
+class CoeffPlan(NamedTuple):
+    cluster: int          # CTAs of a shard's cluster (a power of two <= 16)
+    rows_per_cta: int     # R = ceil(14 L / cluster) rows of the shard a CTA
+    threads: int          # warp 0 and a thread per row, at most 256
+
+
+def coeff_plan(L: int, s: int, cluster: int | None = None) -> CoeffPlan:
+    """The coefficient step's launch for slabs of L knots at s: the smallest
+    power of two C with ceil(14 L / C) <= COEF_TARGET_ROWS, at most 16 (or
+    ``cluster``, a choice the sweep makes by hand); every CTA runs the s
+    iterations itself and recovers its R rows.  A fixed function of L; raises
+    on a shape it cannot launch."""
+    h = 2 * s + 1
+    if not 1 <= s <= MAX_S:
+        raise ValueError(f"s_steps = {s}; the kernels take 1 <= s <= {MAX_S}")
+    if not h <= L <= _kernels.MAX_KNOTS:
+        raise ValueError(f"slab of {L} knots; the s-step kernels take "
+                         f"{h} <= L <= {_kernels.MAX_KNOTS} at s = {s}")
+    n = 14 * L
+    if cluster is None:
+        cluster = 1
+        while -(-n // cluster) > COEF_TARGET_ROWS and cluster < COEF_MAX_CLUSTER:
+            cluster *= 2
+    elif cluster & (cluster - 1) or not 1 <= cluster <= COEF_MAX_CLUSTER:
+        raise ValueError(f"cluster of {cluster} CTAs: a power of two <= "
+                         f"{COEF_MAX_CLUSTER}")
+    rows = -(-n // cluster)
+    threads = 32 + min(COEF_MAX_THREADS - 32, -(-rows // 32) * 32)
+    return CoeffPlan(cluster, rows, threads)
 
 
 def _require_state(st: dict, s: int) -> tuple:
@@ -167,13 +204,15 @@ def ca_coeff_step_cuda(st: dict, tot, max_iter: int, exit_tol,
             or tot.dtype != WORK or tot.device != dev:
         raise ValueError(f"tot: f64 ({n_shard}, {n_parts(s)}) on the card, rows "
                          "of unit stride")
+    plan = coeff_plan(L, s)
     tol_t = _kernels.scalar(exit_tol, dev)
     code = _kernels.entry("pcg_ca.cu", "ca_coeff_launch")(
         *(st[k].data_ptr() for k in ("x", "r", "z", "p", "Y", "Yt")),
         tot.data_ptr(), tot.stride(0), st["scal"].data_ptr(),
         st["iters"].data_ptr(), st["done"].data_ptr(), st["pkt"].data_ptr(),
-        L, s, n_shard, int(max_iter), tol_t.data_ptr(),
-        int(exit_criterion == "rnorm"), _kernels.stream_ptr(dev))
+        L, s, n_shard, plan.cluster, plan.rows_per_cta, plan.threads,
+        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"),
+        _kernels.stream_ptr(dev))
     _kernels.check(code, "ca_coeff_launch")
     ca_coeff_step_cuda.launches += 1
 

@@ -6,13 +6,68 @@ Port of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_slab_step_pallas``; the CUDA
 kernel is ``csrc/pcg_slab.cu`` and the plain version
 ``ops/pcg_slab.py::pcg_slab_step`` (the state and the step are described
 there).  ``pcg_slab_step_cuda`` runs the plain version for CPU tensors and
-the kernel, one block per shard, for CUDA tensors.
+the kernel, one thread-block cluster per shard laid out by
+``slab_cluster_plan(L)``, for CUDA tensors.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step
+
+# csrc/pcg_slab.cu's limits: the largest cluster (16 is above the portable
+# 8), the most threads of a CTA, the stride of one knot's blocks in a CTA's
+# shared memory, floats; the knots a CTA aims at, and the shared memory a
+# block may use on an H100
+SLAB_MAX_CLUSTER = 16
+SLAB_MAX_THREADS = 512
+_KNOT_STRIDE = 612
+SLAB_TARGET_KNOTS = 4
+SMEM_LIMIT = 232448
+
+
+class SlabPlan(NamedTuple):
+    cluster: int          # CTAs of a shard's cluster (a power of two <= 16)
+    knots_per_cta: int    # kc = ceil(L / cluster)
+    threads: int          # of one CTA: one per own row, in whole warps
+    smem_bytes: int       # dynamic shared memory of one CTA
+
+
+def slab_smem_bytes(kc: int) -> int:
+    """One CTA's dynamic shared memory at kc knots (``slab_smem_bytes`` of
+    csrc/pcg_slab.cu): four mbarriers, the own knots' Pinv and S blocks,
+    the r and u rows with their halo rows, the warp and CTA sums."""
+    return 32 + 4 * (2 * _KNOT_STRIDE * kc + (2 * kc + 6) * 14 + 3 * 32
+                     + 3 * SLAB_MAX_CLUSTER)
+
+
+def slab_cluster_plan(L: int, cluster: int | None = None) -> SlabPlan:
+    """K10a's launch for slabs of L knots: the smallest power of two C with
+    ceil(L / C) <= SLAB_TARGET_KNOTS, at most 16 (or ``cluster``, a choice
+    the sweep makes by hand).  A fixed function of L; raises on a shape it
+    cannot launch."""
+    if not 2 <= L <= _kernels.MAX_KNOTS:
+        raise ValueError(f"slab of {L} knots; K10a takes 2 <= L <= "
+                         f"{_kernels.MAX_KNOTS}")
+    if cluster is None:
+        cluster = 1
+        while -(-L // cluster) > SLAB_TARGET_KNOTS and cluster < SLAB_MAX_CLUSTER:
+            cluster *= 2
+    elif cluster & (cluster - 1) or not 1 <= cluster <= SLAB_MAX_CLUSTER:
+        raise ValueError(f"cluster of {cluster} CTAs: a power of two <= "
+                         f"{SLAB_MAX_CLUSTER}")
+    kc = -(-L // cluster)
+    threads = -(-14 * kc // 32) * 32
+    if threads > SLAB_MAX_THREADS:
+        raise ValueError(f"{kc} knots a CTA: more rows than {SLAB_MAX_THREADS} "
+                         "threads")
+    smem = slab_smem_bytes(kc)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K10a at L = {L}: {smem} bytes of shared memory a "
+                         f"CTA, over {SMEM_LIMIT}")
+    return SlabPlan(cluster, kc, threads, smem)
 
 
 def pcg_slab_step_cuda(st: dict, S, Pinv, flp, frp, PinvL, PinvR, tot,
@@ -34,9 +89,7 @@ def pcg_slab_step_cuda(st: dict, S, Pinv, flp, frp, PinvL, PinvR, tot,
     n_shard, L, n = st["x"].shape
     if n != 14:
         raise ValueError("the CUDA kernels are built for nx = 14")
-    if not 2 <= L <= _kernels.MAX_KNOTS:
-        raise ValueError(f"slab of {L} knots; K10a takes 2 <= L <= "
-                         f"{_kernels.MAX_KNOTS}")
+    plan = slab_cluster_plan(L)
     for name in ("x", "r", "p", "s", "u", "w"):
         _kernels.require(st[name], name, (n_shard, L, n), dev)
     _kernels.require(st["pkt"], "pkt", (n_shard, 2, 6, n), dev)
@@ -56,16 +109,22 @@ def pcg_slab_step_cuda(st: dict, S, Pinv, flp, frp, PinvL, PinvR, tot,
         raise ValueError("tot: f32 (n_shard, 3) on the card, rows of unit stride")
     if S.stride(0) != Pinv.stride(0):
         raise ValueError("S and Pinv: the same stride between shards")
+    # the blocks arrive by bulk copies of 16-byte aligned knots, the
+    # neighbours' Pinv rows by 8-byte loads
+    for name, t, a in (("S", S, 16), ("Pinv", Pinv, 16), ("PinvL", PinvL, 8),
+                       ("PinvR", PinvR, 8)):
+        if t.data_ptr() % a or t.stride(0) % (a // 4):
+            raise ValueError(f"{name}: K10a needs {a}-byte aligned shard slabs")
     tol_t = _kernels.scalar(exit_tol, dev)
-    threads = max(64, min(1024, (L * n + 31) // 32 * 32))
     code = _kernels.entry("pcg_slab.cu", "pcg_slab_launch")(
         *(st[k].data_ptr() for k in ("x", "r", "p", "s", "u", "w")),
         S.data_ptr(), Pinv.data_ptr(), S.stride(0), flp.data_ptr(),
         frp.data_ptr(), PinvL.data_ptr(), PinvR.data_ptr(), tot.data_ptr(),
         tot.stride(0), st["scal"].data_ptr(), st["iters"].data_ptr(),
-        st["dots"].data_ptr(), st["pkt"].data_ptr(), L, n_shard, threads,
-        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"),
-        int(init), _kernels.stream_ptr(dev))
+        st["dots"].data_ptr(), st["pkt"].data_ptr(), L, n_shard, plan.cluster,
+        plan.knots_per_cta, plan.threads, plan.smem_bytes, int(max_iter),
+        tol_t.data_ptr(), int(exit_criterion == "rnorm"), int(init),
+        _kernels.stream_ptr(dev))
     _kernels.check(code, "pcg_slab_launch")
     pcg_slab_step_cuda.launches += 1
 

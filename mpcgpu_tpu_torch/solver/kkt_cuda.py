@@ -47,6 +47,9 @@ _WS_FLOATS = 1778
 KKT_MAX_GROUPS = 7
 # the knots a CTA owns (halo knots aside), for every N
 KKT_WINDOW = 4
+# K9a's slab: a shard of up to MAX_KNOTS knots and two halo knots per side
+# (the kernel holds nothing sized by the knot count)
+K9A_MAX_KNOTS = _kernels.MAX_KNOTS + 4
 
 
 class KKTPlan(NamedTuple):
@@ -65,11 +68,13 @@ def kkt_smem_bytes(window: int, schur: bool = True) -> int:
                                           + _WS_FLOATS))
 
 
-def kkt_window_plan(N: int) -> KKTPlan:
+def kkt_window_plan(N: int, max_knots: int = _kernels.MAX_KNOTS) -> KKTPlan:
     """The windows K1, K5, K8a and K9a launch for N knots: Kc = min(N,
     KKT_WINDOW) knots per CTA, ceil(N / Kc) CTAs.  A fixed function of N, so
-    every caller cuts the horizon, and rounds, alike."""
-    _kernels.require_knots(N)
+    every caller cuts the horizon, and rounds, alike.  N runs from 2 to
+    ``max_knots`` (K9a's halo-extended slabs: K9A_MAX_KNOTS)."""
+    if not 2 <= N <= max_knots:
+        raise ValueError(f"N = {N} knots; the CUDA kernels take 2 <= N <= {max_knots}")
     window = min(N, KKT_WINDOW)
     return KKTPlan(window, -(-N // window), kkt_smem_bytes(window))
 
@@ -278,8 +283,7 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
         raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
     dev = xu_ext.device
     n_shard, Lext = xu_ext.shape[:2]
-    if not 2 <= Lext <= _kernels.MAX_KNOTS:
-        raise ValueError(f"shards of {Lext} knots; K9a takes 2..{_kernels.MAX_KNOTS}")
+    plan = kkt_window_plan(Lext, K9A_MAX_KNOTS)
     nq = model.nq
     nx = 2 * nq
     _kernels.require(xu_ext, "xu_ext", (n_shard, Lext, 3 * nq), dev)
@@ -298,7 +302,6 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
                A=torch.empty(lead + (nx, nx), **f32),
                B=torch.empty(lead + (nx, nq), **f32),
                q=torch.empty(lead + (nx,), **f32))
-    plan = kkt_window_plan(Lext)
     code = _kernels.entry("kkt_schur.cu", "kkt_schur_slab_launch")(
         xu_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1), bmask.data_ptr(),
         rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),

@@ -24,14 +24,18 @@ shapes, one line per group:
     window of a trace (0_0 from row 350 at N = 64; 3_4 from row 0 at
     N = 512: 0_0 has 316 rows from row 350), beside the dense Cholesky solve
     of the same system (``torch.linalg.cholesky_ex`` + ``cholesky_solve``);
-    K10b and its coefficient step K10b' at N = 512 over 8 shards and 64 over
-    4 (s = 4), on chip_smoke's phase 2c inputs: the real system's second
-    outer step (K10b' on the plain K10b's state, so both trees see the same
-    inputs).
+    K10b at N = 512 over 8 shards and 64 over 4 (s = 4), on chip_smoke's
+    phase 2c inputs: the real system's second outer step;
+  * K10a and the coefficient step K10b' at N = 512 over 8 shards, 64 over 4
+    and 512 on one shard, each working and exited (K10a: the exit test
+    fires at once, max_iter = 0; K10b': every shard done), on trace 0_0 +
+    noise: K10a from the state after the plain init step and one plain step
+    (its next step's inputs), K10b' on the plain K10b's state at the second
+    outer step, so both trees see the same inputs.
 
 Every input is made from a seed, so two trees see the same inputs; --save
-writes every output of the first two groups and of K7, K10b and K10b' (CPU
-tensors, ``torch.save``),
+writes every output of the first two groups and of K7, K10b, K10a and K10b'
+(one working call each; CPU tensors, ``torch.save``),
 and --compare prints, per kernel and output, "bitwise equal" or the largest
 difference.  To compare two trees on one card, run them in turns in one chip
 call (parent, change, change, parent) and compare the saved outputs:
@@ -54,9 +58,15 @@ that ``ops/pcg_cuda.py::k2_cluster_plan`` fixes at 8.  ``--ca-cluster-sweep``
 times K10b at both shard cases with every cluster size that
 ``ops/pcg_ca_cuda.py::ca_cluster_plan(L, s, C)`` admits (C = 4, 8, 16 at L =
 64; 1..16 at L = 16), launched by hand, and prints whether Y and Ytil equal
-the default plan's bit for bit and how far the parts are.  ``--ca-pcr``
-runs only the K7 / K10b group.  The sweeps need a tree of the slice that
-added them or later.
+the default plan's bit for bit and how far the parts are.
+``--slab-cluster-sweep`` times K10a's working call at the three shard cases
+with every cluster size ``ops/pcg_slab_cuda.py::slab_cluster_plan(L, C)``
+admits, ``--coeff-cluster-sweep`` K10b''s with every one
+``ops/pcg_ca_cuda.py::coeff_plan(L, s, C)`` admits, both launched by hand,
+and print whether the outputs equal the default plan's bit for bit (K10a's
+dots: how far).  ``--ca-pcr`` runs only the K7 / K10b group and
+``--slab-coeff`` only the K10a / K10b' group.  The sweeps need a tree of
+the slice that added them or later.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -65,7 +75,8 @@ import sys
 from pathlib import Path
 
 FLAGS = ("--cluster-sweep", "--window-sweep", "--team-sweep",
-         "--ca-cluster-sweep", "--ca-pcr")
+         "--ca-cluster-sweep", "--ca-pcr", "--slab-cluster-sweep",
+         "--coeff-cluster-sweep", "--slab-coeff")
 
 
 def compare(path_a: str, path_b: str) -> None:
@@ -85,14 +96,14 @@ def compare(path_a: str, path_b: str) -> None:
 
 
 def ca_pcr(tree, c, torch, dev, keep, sweep: bool) -> None:
-    """K7, K10b and K10b' of the tree: outputs kept, device times printed;
-    with ``sweep`` K10b at every cluster size its plan admits."""
+    """K7 and K10b of the tree: outputs kept, device times printed; with
+    ``sweep`` K10b at every cluster size its plan admits."""
     from mpcgpu_tpu_torch import _kernels
     from mpcgpu_tpu_torch.config import CostConfig
     from mpcgpu_tpu_torch.models import iiwa14
     from mpcgpu_tpu_torch.ops.btd import btd_to_dense
     from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
-    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda
     from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
     from mpcgpu_tpu_torch.parallel import KnotMesh
     from mpcgpu_tpu_torch.parallel.pcg_sharded import _ca_halo_blocks, _ca_init
@@ -133,18 +144,9 @@ def ca_pcr(tree, c, torch, dev, keep, sweep: bool) -> None:
         got = {k: v.clone() for k, v in st.items()}
         ca_basis_cuda(got, *ins, cap, s_)
         keep(f"K10b N={N}/{S}", {k: got[k] for k in ("Y", "Yt", "parts")})
-        ref = {k: v.clone() for k, v in st.items()}
-        ca_basis(ref, *ins, cap, s_)
-        tot = mesh.psum(ref["parts"])
-        coef = {k: v.clone() for k, v in ref.items()}
-        ca_coeff_step_cuda(coef, tot, cap, tol0, "eta", s_)
-        keep(f"K10b' N={N}/{S}", {k: coef[k] for k in
-                                  ("x", "r", "z", "p", "pkt", "scal", "iters", "done")})
         st_k = {k: v.clone() for k, v in st.items()}
         times[f"K10b N={N}/{S}"] = c.graph_ms(
             torch, lambda: ca_basis_cuda(st_k, *ins, cap, s_))
-        times[f"K10b' N={N}/{S}"] = c.graph_ms(
-            torch, lambda: ca_coeff_step_cuda(st_k, tot, cap, tol0, "eta", s_))
         cases[N, S] = (st, ins, got)
     print(f"{tree.name or tree}: " + ", ".join(
         f"{k} {v * 1e3:.1f} us" for k, v in times.items()) + f"; {c.card_line()}",
@@ -187,6 +189,149 @@ def ca_pcr(tree, c, torch, dev, keep, sweep: bool) -> None:
                   f"{plan.blocks_in_smem}): {ms * 1e3:.1f} us; Y, Ytil equal to "
                   f"the default plan's {same}, parts {d:.3e} max|parts| apart",
                   flush=True)
+
+
+def slab_coeff(tree, c, torch, dev, keep, slab_sweep: bool,
+               coeff_sweep: bool) -> None:
+    """K10a and K10b' of the tree at the three shard cases, working and
+    exited: outputs of one working call kept, device times printed; with
+    the sweeps each at every cluster size its plan admits."""
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.models import iiwa14
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step, slab_state
+    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
+    from mpcgpu_tpu_torch.parallel import KnotMesh
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import (_ca_halo_blocks, _ca_init,
+                                                       btd_matvec_halo)
+    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
+
+    m = iiwa14(torch.float32, device=dev)
+    rho = torch.full((), c.RHO0, device=dev)
+    s_, cap, tol0 = c.CA_S, c.CA_CAP, _kernels.scalar(0.0, dev)
+    clone = lambda st: {k: v.clone() for k, v in st.items()}
+    times, cases = {}, {}
+    for N, S in c.SHARD_CASES + ((c.N_BIG, 1),):
+        L = N // S
+        xu, xs, ee, _ = c.problem(N, torch, dev)
+        k1 = build_kkt_schur(m, CostConfig.for_knots(N), xu, xs, ee, rho, c.DT, 0)
+        mesh = KnotMesh(S)
+        sc = lambda t: t.reshape(S, L, *t.shape[1:])
+        S_l, P_l, g_l = sc(k1["S"]), sc(k1["Pinv"]), sc(k1["gamma"])
+        # K10a: the state after the plain init step and one plain step
+        PL, PR = mesh.send_right(P_l[:, -1]), mesh.send_left(P_l[:, 0])
+        lam0 = torch.zeros_like(g_l)
+        st = slab_state(lam0, g_l - btd_matvec_halo(S_l, lam0, mesh))
+        pk = lambda: (mesh.send_right(st["pkt"][:, 0]), mesh.send_left(st["pkt"][:, 1]))
+        pcg_slab_step(st, S_l, P_l, *pk(), PL, PR, st["dots"], cap, tol0, "eta", True)
+        pcg_slab_step(st, S_l, P_l, *pk(), PL, PR, mesh.psum(st["dots"]), cap, tol0,
+                      "eta", False)
+        ins = (S_l, P_l, *pk(), PL, PR, mesh.psum(st["dots"]))
+        got = clone(st)
+        pcg_slab_step_cuda(got, *ins, cap, tol0, "eta", False)
+        keep(f"K10a N={N}/{S}", {k: got[k] for k in
+                                 ("x", "r", "p", "s", "u", "w", "pkt", "dots",
+                                  "scal", "iters")})
+        st_k, st_x = clone(st), clone(st)
+        times[f"K10a N={N}/{S}"] = c.graph_ms(
+            torch, lambda: pcg_slab_step_cuda(st_k, *ins, cap, tol0, "eta", False))
+        times[f"K10a exited N={N}/{S}"] = c.graph_ms(
+            torch, lambda: pcg_slab_step_cuda(st_x, *ins, 0, tol0, "eta", False))
+        # K10b': the plain K10b's state at the second outer step
+        h = 2 * s_ + 1
+        blocks = (S_l, P_l, *_ca_halo_blocks(S_l, h, mesh),
+                  *_ca_halo_blocks(P_l, h, mesh))
+        cst = ca_state(lam0, *_ca_init(S_l, P_l, g_l, lam0, mesh), tol0, "eta", s_)
+        pkc = lambda: (mesh.send_right(cst["pkt"][:, 0]),
+                       mesh.send_left(cst["pkt"][:, 1]))
+        ca_basis(cst, *blocks, *pkc(), cap, s_)
+        ca_coeff_step(cst, mesh.psum(cst["parts"]), cap, tol0, "eta", s_)
+        ca_basis(cst, *blocks, *pkc(), cap, s_)
+        tot = mesh.psum(cst["parts"])
+        coef = clone(cst)
+        ca_coeff_step_cuda(coef, tot, cap, tol0, "eta", s_)
+        keep(f"K10b' N={N}/{S}", {k: coef[k] for k in
+                                  ("x", "r", "z", "p", "pkt", "scal", "iters", "done")})
+        cs_k, cs_x = clone(cst), clone(cst)
+        cs_x["done"].fill_(1)
+        times[f"K10b' N={N}/{S}"] = c.graph_ms(
+            torch, lambda: ca_coeff_step_cuda(cs_k, tot, cap, tol0, "eta", s_))
+        times[f"K10b' exited N={N}/{S}"] = c.graph_ms(
+            torch, lambda: ca_coeff_step_cuda(cs_x, tot, cap, tol0, "eta", s_))
+        cases[N, S] = (st, ins, got, cst, tot, coef)
+    print(f"{tree.name or tree}: " + ", ".join(
+        f"{k} {v * 1e3:.2f} us" for k, v in times.items()) + f"; {c.card_line()}",
+          flush=True)
+    if slab_sweep:
+        from mpcgpu_tpu_torch.ops.pcg_slab_cuda import slab_cluster_plan
+
+        launch = _kernels.entry("pcg_slab.cu", "pcg_slab_launch")
+        for (N, S), (st, ins, want, *_) in cases.items():
+            for C in (1, 2, 4, 8, 16):
+                try:
+                    plan = slab_cluster_plan(N // S, C)
+                except ValueError as exc:
+                    print(f"  K10a N={N}/{S} C={C}: not admitted ({exc})", flush=True)
+                    continue
+                st_c = clone(st)
+
+                def k10a_at(plan=plan, st_c=st_c, S=S, N=N, ins=ins, cap=cap):
+                    _kernels.check(launch(
+                        *(st_c[k].data_ptr() for k in ("x", "r", "p", "s", "u", "w")),
+                        ins[0].data_ptr(), ins[1].data_ptr(), ins[0].stride(0),
+                        *(t.data_ptr() for t in ins[2:6]), ins[6].data_ptr(),
+                        ins[6].stride(0), st_c["scal"].data_ptr(),
+                        st_c["iters"].data_ptr(), st_c["dots"].data_ptr(),
+                        st_c["pkt"].data_ptr(), N // S, S, *plan, cap,
+                        tol0.data_ptr(), 0, 0, _kernels.stream_ptr(dev)),
+                        "pcg_slab_launch")
+
+                k10a_at()
+                torch.cuda.synchronize()
+                same = all(torch.equal(st_c[k], want[k]) for k in
+                           ("x", "r", "p", "s", "u", "w", "pkt", "scal", "iters"))
+                d = float((st_c["dots"] - want["dots"]).abs().max()
+                          / want["dots"].abs().max())
+                st_c.update(clone(st))
+                ms = c.graph_ms(torch, k10a_at)
+                ms_x = c.graph_ms(torch, lambda k=k10a_at: k(cap=0))
+                print(f"  K10a N={N}/{S} C={C} x {plan.knots_per_cta} knots "
+                      f"({plan.threads} threads): {ms * 1e3:.2f} us, exited "
+                      f"{ms_x * 1e3:.2f} us; vectors and packets equal to the "
+                      f"default plan's {same}, dots {d:.3e} max|dots| apart",
+                      flush=True)
+    if coeff_sweep:
+        from mpcgpu_tpu_torch.ops.pcg_ca_cuda import coeff_plan
+
+        launch = _kernels.entry("pcg_ca.cu", "ca_coeff_launch")
+        for (N, S), (*_, cst, tot, want) in cases.items():
+            for C in (1, 2, 4, 8, 16):
+                plan = coeff_plan(N // S, s_, C)
+                cs_c = clone(cst)
+
+                def coeff_at(plan=plan, cs_c=cs_c, S=S, N=N, tot=tot):
+                    _kernels.check(launch(
+                        *(cs_c[k].data_ptr() for k in ("x", "r", "z", "p", "Y", "Yt")),
+                        tot.data_ptr(), tot.stride(0), cs_c["scal"].data_ptr(),
+                        cs_c["iters"].data_ptr(), cs_c["done"].data_ptr(),
+                        cs_c["pkt"].data_ptr(), N // S, s_, S, *plan, cap,
+                        tol0.data_ptr(), 0, _kernels.stream_ptr(dev)),
+                        "ca_coeff_launch")
+
+                coeff_at()
+                torch.cuda.synchronize()
+                same = all(torch.equal(cs_c[k], want[k]) for k in
+                           ("x", "r", "z", "p", "pkt", "scal", "iters", "done"))
+                cs_c.update(clone(cst))
+                ms = c.graph_ms(torch, coeff_at)
+                cs_c["done"].fill_(1)
+                ms_x = c.graph_ms(torch, coeff_at)
+                print(f"  K10b' N={N}/{S} C={C} x {plan.rows_per_cta} rows "
+                      f"({plan.threads} threads): {ms * 1e3:.2f} us, exited "
+                      f"{ms_x * 1e3:.2f} us; equal to the default plan's {same}",
+                      flush=True)
 
 
 def main():
@@ -239,8 +384,13 @@ def main():
         else:
             outs[name] = res.detach().cpu()
 
-    if "--ca-pcr" in sys.argv:
-        ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
+    group = [f for f in ("--ca-pcr", "--slab-coeff") if f in sys.argv]
+    if group:
+        if "--ca-pcr" in group:
+            ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
+        if "--slab-coeff" in group:
+            slab_coeff(tree, c, torch, dev, keep, "--slab-cluster-sweep" in sys.argv,
+                       "--coeff-cluster-sweep" in sys.argv)
         if save is not None:
             Path(save).parent.mkdir(parents=True, exist_ok=True)
             torch.save(outs, save)
@@ -307,6 +457,8 @@ def main():
         f"{k} {v * 1e3:.1f} us" for k, v in times.items()) + f"; {c.card_line()}",
           flush=True)
     ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
+    slab_coeff(tree, c, torch, dev, keep, "--slab-cluster-sweep" in sys.argv,
+               "--coeff-cluster-sweep" in sys.argv)
     if save is not None:
         Path(save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(outs, save)
