@@ -8,16 +8,22 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any failure raises and the script exits non-zero):
 
   1. print the card's name and power limit; build the CUDA kernels from
-     mpcgpu_tpu_torch/csrc with nvcc and print the build time, each
-     kernel's registers and spills, and the plans of K7 (one launch per
-     solve), K10b and K10a (a thread-block cluster per shard) and the
-     coefficient step (a cluster of CTAs per shard);
+     mpcgpu_tpu_torch/csrc with nvcc (every source at nq = 7, the IIWA's,
+     and K1-K4's sources at nq = 3 and 5, all at once) and print the build
+     time, each kernel's registers and spills per nq, and the plans of K7
+     (one launch per solve), K10b and K10a (a thread-block cluster per
+     shard) and the coefficient step (a cluster of CTAs per shard);
   2. hold each kernel of the first two slices (K1 KKT+Schur, K2 PCG+dz, K3
      line-search merits, K4 plant, K5 KKT blocks, K2' PCG without the dz
      epilogue, K6 dz) against its plain PyTorch version on the card, at
      N = 64 and N = 512, and K2 / K2' (one thread-block cluster per solve)
      also at the ragged N = 2, 37, 100; print K2's cluster plan and
      cudaOccupancyMaxActiveClusters at each N;
+  2a. hold K1, K2, K3, K4 and K4b at nq = 3 and 5 (the chain tracker's
+     planar arms, on their own reference traces) against their plain
+     versions at N = 16, 64 and 512, at the tolerances of their nq = 7
+     checks (K2 on synthetic_btd at nx = 6, 10 within 2e-6, on the real
+     system by medians over 10 seeds);
   2b. hold K7 (PCR) against its plain version and the f64 solve on a
      well-conditioned system (N = 2, 3, 64, 100, 512); on the real Schur
      system over noise seeds, against the capped PCG's residual in every
@@ -77,6 +83,14 @@ Phases (any failure raises and the script exits non-zero):
      simulate_mpc_ondevice_batched (K8a-c, K3b, K4b); K4b against K4 on all
      256 instances bit for bit, and four instances against the single
      on-device loop from the same starts bit for bit;
+  4f. the onboarding path (mpcgpu_tpu_torch/track_chain.py): the fused SQP
+     on the JAX tests' 3-link problem against the plain f32 and f64 solves;
+     the chain tracker at nq = 5, N = 64 over its 240-row trace on the
+     device (the whole trace; us per update) and the host loop through
+     K1-K4, held to the spread of plain f64 loops from 1-ulp changes of
+     the trace; a loop at nq = 3; and the IIWA-14 loaded from its own URDF
+     (load_urdf(export_urdf(iiwa14()))) through K1-K4 at N = 64, bit for
+     bit where the packed f32 models are equal;
   5. time the chain per step, the on-device loop per control update (the
      main path, pcr_cuda and the knot-sharded loops), the batched solve per
      SQP iteration against 256 single solves, the sharded solve per SQP
@@ -84,9 +98,11 @@ Phases (any failure raises and the script exits non-zero):
      events) for the pipelined and the s-step PCG, the batched closed loop
      per update, and each kernel (device time of a CUDA graph) against its
      plain version, its bound and, for K7, the dense library solve (K2,
-     K2' and K8b also per CG iteration);
-  6. print one JSON line of kernel results, the card line, and the final
-     {"ok": true, ...} line.
+     K2' and K8b also per CG iteration); K1-K4 and K4b also at nq = 3 and
+     5, each beside its bound at that nq;
+  6. print one JSON line of kernel results (each row with the nq values its
+     kernel was checked at, and K1-K4's rows with their nq = 3, 5 numbers),
+     the card line, and the final {"ok": true, ...} line.
 
 Without a CUDA device it exits at once with a non-zero code.  It imports
 nothing of JAX.
@@ -102,6 +118,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 
@@ -220,30 +237,64 @@ KERNELS = {
 # its floating-point operations over the f32 peak outside the tensor cores
 # and its bytes (each input read once, each output written once) over the
 # memory rate (H100 SXM data sheet, at 700 W).  Operation counts are per
-# knot or per iteration of the algorithm, counted from its products:
+# knot or per iteration of the algorithm, counted from its products, for a
+# chain of nq links (nx = 2 nq; the constants below are nq = 7's):
 #   mv6 (6x6 by 6) 72, a 6x6 product 432, mm4 128 FLOP;
-#   RNEA_DUAL: per link 4 mv6 forward, 3 more for I v, I a and their
-#     tangents, 3 crf products (~30 each), 2 mv6t backward: ~780 -> 7 links;
-#   ABA: per link 2 mv6 + crf forward, Ia and two 6x6 products backward,
-#     one mv6 in the last pass: ~1200 -> 7 links;
-#   FK: 6 mm4 and 7 affine 4x4 transforms;
-#   K5 per knot: 15 RNEA_DUAL (bias + 14 tangents), CRBA (6 pairs of 6x6
-#     products), Gauss-Jordan 7x14, M^-1 dID (7x7x14), FK with 7 tangents;
-#   K1 per knot: K5 + A Qinv and T (2 x 14^3 + 14^2 x 7 x 2), the Schur
-#     block's Gauss-Jordan 14x28 and the stair bands (4 x 14^3);
-#   K2 per iteration: two BTD matvecs (2 x 3 x 14^2 x 2 per knot), two dots
-#     and three axpys over 14 per knot; the dz recovery ~1000 per knot.
+#   rnea_dual: per link 4 mv6 forward, 3 more for I v, I a and their
+#     tangents, 3 crf products (~30 each), 2 mv6t backward: ~780 per link;
+#   aba: per link 2 mv6 + crf forward, Ia and two 6x6 products backward
+#     (nq - 1 links), one mv6 in the last pass: ~1200 per link;
+#   fk: nq - 1 mm4 and nq affine 4x4 transforms;
+#   K5 per knot: 2 nq + 1 rnea_dual (bias + 2 nq tangents), CRBA (nq - 1
+#     pairs of 6x6 products), Gauss-Jordan nq x 2nq, M^-1 dID (nq x nq x
+#     nx), FK with nq tangents;
+#   K1 per knot: K5 + A Qinv and T (2 nx^3 + nx^2 nq 2), the Schur block's
+#     Gauss-Jordan nx x 2nx and the stair bands (4 nx^3 2);
+#   K2 per iteration: two BTD matvecs (2 x 3 x nx^2 x 2 per knot), two dots
+#     and three axpys over nx per knot; the dz recovery ~1000 per knot at
+#     nq = 7 (2 nx^2 + nx nq multiply-adds: Qinv, A^T, B^T), scaled by it.
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12         # outside the tensor cores (H100 SXM data sheet)
 PEAK_BYTES = 3.35e12
 MV6, M66, MM4 = 72, 432, 128
-RNEA_DUAL = 7 * (7 * MV6 + 3 * 30 + 2 * MV6)
-ABA = 7 * (2 * MV6 + 30) + 6 * (72 + 2 * M66 + 2 * MV6) + 7 * MV6
-FK = 6 * MM4 + 7 * 48
-KKT_KNOT = 15 * RNEA_DUAL + 6 * 2 * M66 + 7 * 7 * 14 * 2 + 7 * 7 * 14 * 2 + 7 * FK
-SCHUR_KNOT = 2 * 14 ** 3 * 2 + 14 * 14 * 7 * 2 + 14 * 14 * 28 * 2 + 4 * 14 ** 3 * 2
-PCG_ITER_KNOT = 2 * 3 * 196 * 2 + 2 * 2 * 14 + 3 * 2 * 14
-DZ_KNOT = 1000
+
+
+def rnea_dual(nq: int = 7) -> int:
+    return nq * (7 * MV6 + 3 * 30 + 2 * MV6)
+
+
+def aba(nq: int = 7) -> int:
+    return nq * (2 * MV6 + 30) + (nq - 1) * (72 + 2 * M66 + 2 * MV6) + nq * MV6
+
+
+def fk(nq: int = 7) -> int:
+    return (nq - 1) * MM4 + nq * 48
+
+
+def kkt_knot(nq: int = 7) -> int:
+    nx = 2 * nq
+    return ((2 * nq + 1) * rnea_dual(nq) + (nq - 1) * 2 * M66
+            + 2 * (nq * nq * nx * 2) + nq * fk(nq))
+
+
+def schur_knot(nq: int = 7) -> int:
+    nx = 2 * nq
+    return 2 * nx ** 3 * 2 + nx * nx * nq * 2 + nx * nx * 2 * nx * 2 + 4 * nx ** 3 * 2
+
+
+def pcg_iter_knot(nq: int = 7) -> int:
+    nx = 2 * nq
+    return 2 * 3 * nx * nx * 2 + 2 * 2 * nx + 3 * 2 * nx
+
+
+def dz_knot(nq: int = 7) -> float:
+    nx = 2 * nq
+    return 1000 * (2 * nx * nx + nx * nq) / 490
+
+
+RNEA_DUAL, ABA, FK = rnea_dual(), aba(), fk()
+KKT_KNOT, SCHUR_KNOT = kkt_knot(), schur_knot()
+PCG_ITER_KNOT, DZ_KNOT = pcg_iter_knot(), dz_knot()
 
 
 # K7 per level and knot: one 14x14 inverse (the least it needs is n^3
@@ -264,29 +315,33 @@ def bound(flops: float, floats: float, peak: float = PEAK_F32) -> tuple[float, s
 
 
 def kernel_bounds(N: int, k2_iters: int, k2p_iters: int, plant_rows: int,
-                  plant_substeps: int, num_cand: int = 9) -> dict:
-    """Each kernel's (bound_ms, bound_by) at N knots, from this run's
-    iteration counts and the plan rows the plant window reads."""
-    model = 1344                 # the packed model; K4 reads its first 1008
-    dyn = 4 * 7 * 36             # floats only (X matrices and inertias)
-    kkt_out = N * (196 + 14 + 14) + (N - 1) * (196 + 98)
-    k1_out = N * (2 * 3 * 196 + 14 + 196 + 196 + 98 + 14)
-    pcg_in = N * (2 * 3 * 196 + 14 + 14)
-    dz_in = N * (196 + 196 + 98 + 14 + 7)
+                  plant_substeps: int, num_cand: int = 9, nq: int = 7) -> dict:
+    """Each kernel's (bound_ms, bound_by) at N knots and nq joints, from
+    this run's iteration counts and the plan rows the plant window reads."""
+    nx, w = 2 * nq, 3 * nq
+    nn = nx * nx
+    model = 192 * nq             # the packed model; K4 reads its first
+    dyn = 4 * nq * 36            # 144 nq floats (X matrices and inertias)
+    kkt_out = N * (nn + nx + nx) + (N - 1) * (nn + nx * nq)
+    k1_out = N * (2 * 3 * nn + nx + nn + nn + nx * nq + nx)
+    pcg_in = N * (2 * 3 * nn + nx + nx)
+    dz_in = N * (nn + nn + nx * nq + nx + nq)
+    ab, fk_ = aba(nq), fk(nq)
     return {
-        "K1 build_kkt_schur": bound(N * (KKT_KNOT + SCHUR_KNOT),
-                                    N * (21 + 3) + model + 1 + k1_out),
-        "K2 pcg_dz_solve": bound(N * (PCG_ITER_KNOT * (k2_iters + 1) + DZ_KNOT),
-                                 pcg_in + dz_in + 1 + N * (14 + 21) + 2),
-        "K3 line_search_merits_fused": bound(num_cand * N * (ABA + FK + 150),
-                                             2 * N * 21 + 14 + 3 * N + model
+        "K1 build_kkt_schur": bound(N * (kkt_knot(nq) + schur_knot(nq)),
+                                    N * (w + 3) + model + 1 + k1_out),
+        "K2 pcg_dz_solve": bound(N * (pcg_iter_knot(nq) * (k2_iters + 1) + dz_knot(nq)),
+                                 pcg_in + dz_in + 1 + N * (nx + w) + 2),
+        "K3 line_search_merits_fused": bound(num_cand * N * (ab + fk_ + 150),
+                                             2 * N * w + nx + 3 * N + model
                                              + 2 * num_cand),
-        "K4 simulate_plant": bound(plant_substeps * (ABA + 14 * 20 + 28),
-                                   14 + 7 * plant_rows + dyn + 3 + 14),
-        "K5 build_kkt_cuda": bound(N * KKT_KNOT, N * (21 + 3) + 14 + model + kkt_out),
-        "K2' pcg_solve_cuda": bound(N * PCG_ITER_KNOT * (k2p_iters + 1),
-                                    pcg_in + N * 14 + 2),
-        "K6 compute_dz_cuda": bound(N * DZ_KNOT, N * 14 + dz_in + 1 + N * 21),
+        "K4 simulate_plant": bound(plant_substeps * (ab + nx * 20 + 4 * nq),
+                                   nx + nq * plant_rows + dyn + 3 + nx),
+        "K5 build_kkt_cuda": bound(N * kkt_knot(nq),
+                                   N * (w + 3) + nx + model + kkt_out),
+        "K2' pcg_solve_cuda": bound(N * pcg_iter_knot(nq) * (k2p_iters + 1),
+                                    pcg_in + N * nx + 2),
+        "K6 compute_dz_cuda": bound(N * dz_knot(nq), N * nx + dz_in + 1 + N * w),
     }
 
 
@@ -372,11 +427,13 @@ def ca_bounds(N: int, n_shard: int, s: int = CA_S) -> dict:
     }
 
 
-def plant_batched_bound(B: int, plant_rows: int, plant_substeps: int) -> tuple:
+def plant_batched_bound(B: int, plant_rows: int, plant_substeps: int,
+                        nq: int = 7) -> tuple:
     """K4b's (bound_ms, bound_by): B times K4's work (kernel_bounds), the
     model's dynamics floats and the window's three scalars read once."""
-    return bound(B * plant_substeps * (ABA + 14 * 20 + 28),
-                 B * (14 + 7 * plant_rows + 14) + 4 * 7 * 36 + 3)
+    nx = 2 * nq
+    return bound(B * plant_substeps * (aba(nq) + nx * 20 + 4 * nq),
+                 B * (nx + nq * plant_rows + nx) + 4 * nq * 36 + 3)
 
 
 def batch_problem(B: int, N: int, torch, device):
@@ -423,17 +480,17 @@ def problem(N: int, torch, device, seed: int = 0, start: int = 0,
     return f(xu), f(xu[0, :14]), f(ee_full[:N]), f(ee_full)
 
 
-def synthetic_btd(N: int, torch, device, seed: int = 1):
+def synthetic_btd(N: int, torch, device, seed: int = 1, n: int = 14):
     """A well-conditioned SPD block-tridiagonal system for K2 (f32 S, Pinv,
-    gamma; eigenvalues of S in [0.77, 9.4] at N = 64): diagonal blocks
-    R R^T / 14 + 3.5 I, off-diagonal blocks 0.3 N(0, 1), the stair
-    preconditioner D^-1 - D^-1 T D^-1 of them, gamma N(0, 1).  On it f32
-    rounding stays near 1e-7 over 20 CG steps, so the kernel is held to the
-    plain version tightly; on the real Schur system rounding dominates."""
+    gamma of blocks n x n; eigenvalues of S in [0.77, 9.4] at N = 64, n =
+    14): diagonal blocks R R^T / n + 3.5 I, off-diagonal blocks 0.3 N(0, 1),
+    the stair preconditioner D^-1 - D^-1 T D^-1 of them, gamma N(0, 1).  On
+    it f32 rounding stays near 1e-7 over 20 CG steps, so the kernel is held
+    to the plain version tightly; on the real Schur system rounding
+    dominates."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    n = 14
     R = rng.standard_normal((N, n, n))
     diag = R @ R.transpose(0, 2, 1) / n + 3.5 * np.eye(n)
     low = 0.3 * rng.standard_normal((N - 1, n, n))          # block (k+1, k)
@@ -460,10 +517,11 @@ def part_errs(got, ref, nx: int = 14) -> dict:
     return out
 
 
-def parts(got, ref) -> dict:
+def parts(got, ref, nx: int = 14) -> dict:
     """K2 results (lam, dz, ...) compared per part: lam, and dz's state and
-    control columns, each as max|got - ref| / max|ref| of that part."""
-    dz = part_errs(got[1], ref[1])
+    control columns (nx state columns), each as max|got - ref| / max|ref| of
+    that part."""
+    dz = part_errs(got[1], ref[1], nx)
     return {"lam": part_errs(got[0], ref[0])["x"], "dz x": dz["x"], "dz u": dz["u"]}
 
 
@@ -579,6 +637,573 @@ def rel_err(got, ref) -> tuple[float, float]:
     return d, d / max(s, 1e-30)
 
 
+# ---- the onboarding slice: K1-K4 at the chains' joint counts -------------
+NQ_CASES = (3, 5)          # chains beside the IIWA's 7 (the JAX tests' 3-link
+                           # arm, the chain tracker's default 5)
+NQ_SIZES = (16, 64, 512)   # K1-K4 against their plain versions
+NQ_SOURCES = ("kkt_schur.cu", "pcg_dz.cu", "merit.cu", "plant.cu")
+NQ_KERNELS = ("K1 build_kkt_schur", "K2 pcg_dz_solve",
+              "K3 line_search_merits_fused", "K4 simulate_plant",
+              "K4b simulate_plant_batched")
+NQ_BATCH = 64              # K4b's instances at nq = 3, 5
+TRACK_NQ, TRACK_KNOTS, TRACK_STEPS = 5, 64, 240   # the chain tracker's loop
+TRACK_COMPARE = 64         # its first updates, held to the f64 ensemble
+TRACK_ENSEMBLE = 4         # plain f64 loops from 1-ulp trace changes
+TRACK_SLOPE = (48, 144)    # loop lengths for the per-update slope
+SMALL_NQ_UPDATES = 48      # the nq = 3 loop (N = 16), for K4's launches
+
+
+def chain_model(nq: int, torch, device, dtype=None):
+    """The chain tracker's planar arm of nq links (track_chain.build_model)."""
+    from mpcgpu_tpu_torch.track_chain import build_model
+
+    return build_model(nq, device=device, dtype=dtype or torch.float32)[0]
+
+
+def chain_problem(nq: int, N: int, torch, device, seed: int = 0):
+    """The chain tracker's reference trace of N rows for the planar arm of
+    nq links (made at f64) plus numpy noise (sigma 0.01, as problem() adds
+    to the IIWA's trace); f32 xu, xs, ee on the card."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.track_chain import reference_trace
+
+    xu, ee = reference_trace(chain_model(nq, torch, "cpu", torch.float64), N)
+    xu = xu + 0.01 * np.random.default_rng(seed).standard_normal(xu.shape)
+    f = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=device)
+    return f(xu), f(xu[0, :2 * nq]), f(ee)
+
+
+def nq_kernel_checks(c) -> dict:
+    """Phase 2a: K1, K2, K3, K4 and K4b at nq = 3 and 5 against their plain
+    versions on the card, at N = 16, 64 and 512, with the tolerances of
+    their nq = 7 checks (phase 2): K1 5e-5 max|ref| per output (both
+    integrators), K2 on synthetic_btd at nx = 6, 10 within 2e-6 per part
+    and on the real system by medians over REAL_SEEDS seeds (the kernel's
+    distance to the f64 solve at most 2x the plain version's), K3 1e-4
+    relative per merit with equal alphas, K4 1e-6 max|x| over the plant
+    windows and one 2 ms window equal to two 1 ms windows bit for bit, K4b
+    equal to K4 per instance bit for bit.  Returns {nq: {kernel: max|d| at
+    N_MAIN}}."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve, pcg_dz_solve_plain
+    from mpcgpu_tpu_torch.sim.plant_cuda import (simulate_plant,
+                                                 simulate_plant_batched,
+                                                 simulate_plant_batched_plain,
+                                                 simulate_plant_plain)
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_schur,
+                                                  build_kkt_schur_plain)
+    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_fused,
+                                                    line_search_merits_plain)
+
+    torch, dev, expect = c.torch, c.dev, c.expect
+    mu = 10.0
+    errs = {nq: {k: 0.0 for k in NQ_KERNELS} for nq in NQ_CASES}
+    for nq in NQ_CASES:
+        nx = 2 * nq
+        model = chain_model(nq, torch, dev)
+        for N in NQ_SIZES:
+            cost = CostConfig.for_knots(N)
+            xu, xs, ee = chain_problem(nq, N, torch, dev)
+            rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+            tag = f"nq={nq} N={N}"
+            for integ in (0, 1):
+                got = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, integ)
+                ref = build_kkt_schur_plain(model, cost, xu, xs, ee, rho, DT, integ)
+                torch.cuda.synchronize()
+                worst = max(rel_err(got[k], ref[k])[1] for k in got)
+                if N == N_MAIN:
+                    errs[nq]["K1 build_kkt_schur"] = max(
+                        errs[nq]["K1 build_kkt_schur"],
+                        *(rel_err(got[k], ref[k])[0] for k in got))
+                expect(worst <= 5e-5, f"K1 {tag} integrator={integ}: worst "
+                       f"output {worst:.3e} max|ref| (<= 5e-5)")
+            sys_ = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+            lam0 = torch.zeros((N, nx), dtype=torch.float32, device=dev)
+            u = xu[:, nx:]
+            # K2 on the well-conditioned system, with K1's blocks for the
+            # epilogue: fixed steps below f32 CG's underflow on it (NaN from
+            # step 20 at nx = 6, N = 16; 24 at nx = 10), then both exits
+            syn = dict(sys_)
+            syn["S"], syn["Pinv"], syn["gamma"] = synthetic_btd(N, torch, dev, n=nx)
+            fixed = min(20, 2 * N, 2 * nx)
+            for crit, tol, cap in (("eta", 0.0, fixed), ("eta", 1e-9, 167),
+                                   ("rnorm", 1e-5, 167)):
+                kw = dict(max_iter=cap, exit_tol=tol, exit_criterion=crit)
+                got = pcg_dz_solve(syn, lam0, u, rho, cost.r_cost, **kw)
+                ref = pcg_dz_solve_plain(syn, lam0, u, rho, cost.r_cost, **kw)
+                torch.cuda.synchronize()
+                e = parts(got, ref, nx)
+                ik, ip = int(got[2]), int(ref[2])
+                case = f"K2 {tag} well-conditioned {crit} exit_tol={tol:g} cap={cap}"
+                expect(max(e.values()) <= 2e-6, f"{case}: {fmt(e)} (<= 2e-6)")
+                if tol == 0.0:
+                    expect(ik == ip == cap, f"{case}: steps kernel {ik}, plain {ip} (= {cap})")
+                else:
+                    expect(abs(ik - ip) <= 2 and ik < cap and bool(got[3]) and bool(ref[3]),
+                           f"{case}: iters kernel {ik}, plain {ip} (differ by <= 2, "
+                           f"< cap); converged kernel {bool(got[3])}, plain {bool(ref[3])}")
+            # K2 on the real system, fixed steps, by medians over the seeds
+            dist = {steps: {w: {key: [] for key in ("lam", "dz x", "dz u")}
+                            for w in ("kernel", "plain")} for steps in (1, 20)}
+            for seed in range(REAL_SEEDS):
+                xu_s, xs_s, ee_s = chain_problem(nq, N, torch, dev, seed)
+                sys_s = build_kkt_schur(model, cost, xu_s, xs_s, ee_s, rho, DT, 0)
+                sys64 = {k: v.double() for k, v in sys_s.items()}
+                u_s = xu_s[:, nx:]
+                for steps in (1, 20):
+                    kw = dict(max_iter=steps, exit_tol=0.0)
+                    got = pcg_dz_solve(sys_s, lam0, u_s, rho, cost.r_cost, **kw)
+                    ref = pcg_dz_solve_plain(sys_s, lam0, u_s, rho, cost.r_cost, **kw)
+                    f64 = pcg_dz_solve_plain(sys64, lam0.double(), u_s.double(),
+                                             rho.double(), cost.r_cost, **kw)
+                    if N == N_MAIN:
+                        errs[nq]["K2 pcg_dz_solve"] = max(
+                            errs[nq]["K2 pcg_dz_solve"], rel_err(got[0], ref[0])[0],
+                            rel_err(got[1], ref[1])[0])
+                    for w, res_ in (("kernel", got), ("plain", ref)):
+                        for key, v in parts(res_, f64, nx).items():
+                            dist[steps][w][key].append(v)
+                    expect(int(got[2]) == int(ref[2]) == steps,
+                           f"K2 {tag} real system seed {seed}: steps kernel "
+                           f"{int(got[2])}, plain {int(ref[2])} (= {steps})")
+            for steps, d in dist.items():
+                for key in d["kernel"]:
+                    med = {w: statistics.median(v[key]) for w, v in d.items()}
+                    expect(med["kernel"] <= 2 * med["plain"],
+                           f"K2 {tag} real system, {steps} fixed steps, {key}: "
+                           f"median distance to f64 over {REAL_SEEDS} seeds kernel "
+                           f"{med['kernel']:.3e}, plain {med['plain']:.3e} "
+                           f"(kernel <= 2x plain)")
+            # K3 on K2's step and on a random one
+            dz = pcg_dz_solve(sys_, lam0, u, rho, cost.r_cost, max_iter=167,
+                              exit_tol=1e-5)[1]
+            rnd = torch.tensor(0.05 * np.random.default_rng(3).standard_normal(
+                (N, 3 * nq)), dtype=torch.float32, device=dev)
+            for name, step in (("K2's dz", dz), ("a random dz", rnd)):
+                m_got, a_got = line_search_merits_fused(model, cost, xu, step, xs,
+                                                        ee, mu, DT)
+                m_ref, a_ref = line_search_merits_plain(model, cost, xu, step, xs,
+                                                        ee, mu, DT)
+                torch.cuda.synchronize()
+                rel = float(((m_got.double() - m_ref.double()).abs()
+                             / m_ref.double().abs()).max())
+                if N == N_MAIN:
+                    errs[nq]["K3 line_search_merits_fused"] = max(
+                        errs[nq]["K3 line_search_merits_fused"],
+                        float((m_got.double() - m_ref.double()).abs().max()))
+                expect(rel <= 1e-4 and torch.equal(a_got, a_ref),
+                       f"K3 {tag} on {name}: merits max relative error {rel:.3e} "
+                       f"(<= 1e-4), alphas equal {torch.equal(a_got, a_ref)}")
+            # K4 over the plant windows from a perturbed state
+            xs4 = xs + 0.01 * torch.tensor(np.random.default_rng(1).standard_normal(nx),
+                                           dtype=torch.float32, device=dev)
+            for t_off, sim_t in PLANT_WINDOWS:
+                a4 = simulate_plant(model, xs4, xu, t_off, sim_t, DT, 10, 2e-4)
+                b4 = simulate_plant_plain(model, xs4, xu, t_off, sim_t, DT, 10, 2e-4)
+                torch.cuda.synchronize()
+                d, r = rel_err(a4, b4)
+                moved = float((b4 - xs4).abs().max())
+                if N == N_MAIN:
+                    errs[nq]["K4 simulate_plant"] = max(errs[nq]["K4 simulate_plant"], d)
+                expect(r <= 1e-6 and moved > 0.0,
+                       f"K4 {tag} window t_off={t_off:g} s, {sim_t:g} s: max|d|="
+                       f"{d:.3e} = {r:.3e} max|x| (<= 1e-6); moved {moved:.3e}")
+            # one 2 ms window against two 1 ms windows: in f32 the clip
+            # schedules differ by their last steps (ten of 0.2 ms and one of
+            # 2.3e-10 s against 2 x (five and one of 1.2e-10 s)), which move
+            # a slow state's last bits, so they agree to K4's tolerance
+            a1 = simulate_plant(model, xs4, xu, 0.0, 1e-3, DT, 10, 2e-4)
+            a2 = simulate_plant(model, a1, xu, 1e-3, 1e-3, DT, 10, 2e-4)
+            a4 = simulate_plant(model, xs4, xu, 0.0, 2e-3, DT, 10, 2e-4)
+            torch.cuda.synchronize()
+            d, r = rel_err(a2, a4)
+            expect(r <= 1e-6, f"K4 {tag}: one 2 ms window vs two 1 ms windows "
+                   f"max|d|={d:.3e} = {r:.3e} max|x| (<= 1e-6); bitwise equal "
+                   f"{torch.equal(a4, a2)}")
+        # K4b over NQ_BATCH instances of N_MAIN knots
+        xu, xs, ee = chain_problem(nq, N_MAIN, torch, dev)
+        rng = np.random.default_rng(4)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        xs_b = xs + t(0.01 * rng.standard_normal((NQ_BATCH, nx)))
+        plans = xu + t(0.01 * rng.standard_normal((NQ_BATCH, N_MAIN, 3 * nq)))
+        args = (2e-3, 2e-3, DT, 10, 2e-4)
+        kb = simulate_plant_batched(model, xs_b, plans, *args)
+        ks = torch.stack([simulate_plant(model, xs_b[i], plans[i], *args)
+                          for i in range(NQ_BATCH)])
+        pb = simulate_plant_batched_plain(model, xs_b, plans, *args)
+        torch.cuda.synchronize()
+        d, r = rel_err(kb, pb)
+        errs[nq]["K4b simulate_plant_batched"] = d
+        expect(torch.equal(kb, ks) and r <= 1e-6,
+               f"K4b nq={nq} B={NQ_BATCH}: == K4 per instance bit for bit "
+               f"{torch.equal(kb, ks)}; vs plain max|d|={d:.3e} = {r:.3e} max|x| "
+               f"(<= 1e-6)")
+    return errs
+
+
+def out_of_slice_gates(c, nq: int = 3, N: int = 16) -> None:
+    """Every kernel outside the slice refuses CUDA inputs at nq != 7 before
+    any launch, with a message that names its ROADMAP item."""
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
+                                               pcg_solve_cuda)
+    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
+    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
+    from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
+                                                        compute_dz_batched,
+                                                        line_search_merits_batched,
+                                                        pcg_solve_batched)
+    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_cuda, build_kkt_schur_slab
+    from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merit_partials_slab
+
+    torch, dev = c.torch, c.dev
+    nx, w, B = 2 * nq, 3 * nq, 3
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
+    m = chain_model(nq, torch, dev)
+    cost = CostConfig.for_knots(N)
+    xu, ee = z(N, w), z(N, 6)
+    sys_ = {"S": z(N, 3, nx, nx), "Pinv": z(N, 3, nx, nx), "gamma": z(N, nx),
+            "Qinv": z(N, nx, nx), "A": z(N, nx, nx), "B": z(N, nx, nq), "q": z(N, nx)}
+    batch = lambda t, b: t.expand(b, *t.shape).contiguous()
+    st = {k: z(2, N // 2, nx) for k in ("x", "r", "p", "s", "u", "w", "z")}
+    calls = {
+        "K5": lambda: build_kkt_cuda(m, cost, xu, xu[0, :nx], ee, DT),
+        "K2'": lambda: pcg_solve_cuda(sys_["S"], sys_["Pinv"], sys_["gamma"], z(N, nx)),
+        "K6": lambda: compute_dz_cuda(sys_, z(N, nx), xu[:, nx:], RHO0, 0.1),
+        "K7": lambda: pcr_solve_cuda(sys_["S"], z(N, nx)),
+        "K8a": lambda: build_kkt_schur_batched(m, cost, batch(xu, B), z(B, nx),
+                                               batch(ee, B), z(B), DT),
+        "K8b": lambda: pcg_solve_batched(z(B, N, 3, nx, nx), z(B, N, 3, nx, nx),
+                                         z(B, N, nx), z(B, N, nx)),
+        "K8c": lambda: compute_dz_batched({k: batch(v, B) for k, v in sys_.items()},
+                                          z(B, N, nx), batch(xu, B)[..., nx:], z(B), 0.1),
+        "K3b": lambda: line_search_merits_batched(m, cost, batch(xu, B), batch(xu, B),
+                                                  z(B, nx), batch(ee, B), 1.0, DT),
+        "K9a": lambda: build_kkt_schur_slab(m, cost, batch(xu, 2), batch(ee, 2),
+                                            z(2, N), z(2, N), RHO0, DT),
+        "K9b": lambda: compute_dz_slab({k: batch(v, 2) for k, v in sys_.items()},
+                                       z(2, N, nx), z(2, N, nx), z(2, N),
+                                       batch(xu, 2)[..., nx:], RHO0, 0.1),
+        "K9c": lambda: line_search_merit_partials_slab(m, cost, batch(xu, 2),
+                                                       batch(xu, 2), batch(ee, 2), DT),
+        "K10a": lambda: pcg_slab_step_cuda(dict(st, pkt=z(2, 2, 6, nx), dots=z(2, 3)),
+                                           sys_["S"], sys_["Pinv"], None, None, None,
+                                           None, None, 5, 0.0, "eta", False),
+        "K10b": lambda: ca_basis_cuda(st, sys_["S"], sys_["Pinv"], None, None, None,
+                                      None, None, None, 5, CA_S),
+        "K10b'": lambda: ca_coeff_step_cuda(st, None, 5, 0.0, "eta", CA_S),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+            msg = "no error"
+        except ValueError as e:
+            msg = str(e)
+        c.expect("nq = 7 only" in msg and "ROADMAP.md queue 2" in msg,
+                 f"{name} at nq={nq} on the card refuses before any launch: "
+                 f"{msg.split(':')[0]}: ... {msg.split('; ')[-1]}")
+
+
+def onboarding_checks(c) -> dict:
+    """Phase 4f: the onboarding path on the card.  The fused SQP on the JAX
+    tests' 3-link problem against the plain f32 and f64 solves; the chain
+    tracker's loop at nq = 5, N = 64 over its 240-row trace on the device
+    and the host loop through K1-K4, held to the spread of plain f64 loops
+    from 1-ulp changes of the trace; a loop at nq = 3; and the IIWA-14
+    loaded from its own URDF through K1-K4.  Returns the launches of the
+    loops at each nq and a summary."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch import track_chain
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
+    from mpcgpu_tpu_torch.models import dynamics, iiwa14, load_urdf, planar_arm
+    from mpcgpu_tpu_torch.models.urdf import export_urdf
+    from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve
+    from mpcgpu_tpu_torch.sim.mpc import simulate_mpc
+    from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant
+    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
+    from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merits_fused
+    from mpcgpu_tpu_torch.solver.sqp import sqp_solve
+
+    torch, dev, expect, counted = c.torch, c.dev, c.expect, c.counted
+    k1_k3 = ("K1 build_kkt_schur", "K2 pcg_dz_solve", "K3 line_search_merits_fused")
+    out = {"launches": {}}
+
+    def finite(*ts):
+        return all(bool(torch.isfinite(torch.as_tensor(t)).all()) for t in ts)
+
+    # the fused SQP on tests/test_chain_models.py's 3-link problem: within
+    # that test's tolerance (rtol 2e-3, atol 1e-3; 12 f32 iterations deep)
+    # of the plain f32 solve and of the f64 solve, and moving the arm
+    # toward the goal
+    N3 = 16
+    cfg = (CostConfig(qd_cost=1e-3, r_cost=1e-4), SQPConfig(max_iter=12),
+           PCGConfig(max_iter=60, exit_tol=1e-8))
+    solves = {}
+    for name, dtype, kw in (("kernels", torch.float32, dict(linsys="pcg_cuda")),
+                            ("plain f32", torch.float32,
+                             dict(linsys="pcg", merit_impl="plain")),
+                            ("plain f64", torch.float64,
+                             dict(linsys="pcg", merit_impl="plain"))):
+        m3 = planar_arm(3, dtype=dtype, device=dev)
+        xu = torch.zeros((N3, 9), dtype=dtype, device=dev)
+        xu[:, :3] = torch.tensor([0.1, 0.2, -0.1], dtype=dtype, device=dev)
+        goal = dynamics.fk_ee(m3, torch.tensor([0.5, 0.3, 0.2], dtype=dtype, device=dev))
+        ee = goal.expand(N3, 6).contiguous()
+        solves[name] = counted(sqp_solve, m3, *cfg, xu,
+                               torch.zeros((N3, 6), dtype=dtype, device=dev),
+                               xu[0, :6].contiguous(), ee, 1e-3, 1 / 32.0, **kw)
+    (kern, n3), ref, f64 = solves["kernels"], solves["plain f32"][0], solves["plain f64"][0]
+    it = int(kern.sqp_iters)
+    err = lambda r: float(np.linalg.norm(goal[:3].cpu().double().numpy() - dynamics.fk_ee_xyz(
+        planar_arm(3, dtype=torch.float64, device="cpu"),
+        r.xu[-1, :3].cpu().double()).numpy()))
+    err0 = float(np.linalg.norm(goal[:3].cpu().double().numpy() - dynamics.fk_ee_xyz(
+        planar_arm(3, dtype=torch.float64, device="cpu"),
+        torch.tensor([0.1, 0.2, -0.1], dtype=torch.float64)).numpy()))
+    close = lambda a, b: bool(torch.allclose(a.xu.double(), b.xu.double(), rtol=2e-3,
+                                             atol=1e-3))
+    print(f"  3-link SQP: PCG iterations kernels {kern.pcg_iters.tolist()}, plain "
+          f"{ref.pcg_iters.tolist()}, f64 {f64.pcg_iters.tolist()}; line search "
+          f"{kern.ls_alpha_idx.tolist()} / {ref.ls_alpha_idx.tolist()} / "
+          f"{f64.ls_alpha_idx.tolist()}")
+    expect(all(n3[k] == it for k in k1_k3) and finite(kern.xu, kern.lam)
+           and close(kern, ref) and close(kern, f64) and err(kern) < 0.85 * err0,
+           f"fused SQP, 3-link arm, N={N3}: K1-K3 launched {[n3[k] for k in k1_k3]} "
+           f"times ({it} SQP iterations); xu vs plain f32 max|d| "
+           f"{rel_err(kern.xu, ref.xu)[0]:.3e}, vs f64 {rel_err(kern.xu, f64.xu)[0]:.3e} "
+           f"(rtol 2e-3, atol 1e-3); ee error {err0:.4f} -> {err(kern):.4f} "
+           f"(< 0.85x; plain {err(ref):.4f}, f64 {err(f64):.4f})")
+    out["launches"][3] = dict(n3)
+
+    # the chain tracker at nq = 5, N = 64 over its 240-row trace: the device
+    # loop (the whole trace) and the host loop at the device loop's
+    # configuration (its first TRACK_COMPARE updates), both through K1-K4
+    model = chain_model(TRACK_NQ, torch, dev)
+    xu_t, ee_t = track_chain.reference_trace(model, TRACK_STEPS)
+    run, n_dev = counted(track_chain.track, model, xu_t, ee_t, TRACK_KNOTS,
+                         ondevice=True)
+    ups, its = run["control_updates"], int(run["sqp_iters"].sum())
+    err_dev = run["tracking_errors"].double().cpu().numpy()
+    expect(n_dev["K4 simulate_plant"] == ups and all(n_dev[k] == its for k in k1_k3)
+           and finite(run["tracking_errors"], run["xs_path"]),
+           f"chain tracker nq={TRACK_NQ} N={TRACK_KNOTS} on the device: {ups} "
+           f"updates, {len(err_dev)} shifts, launches K1-K3 "
+           f"{[n_dev[k] for k in k1_k3]} ({its} SQP iterations), K4 "
+           f"{n_dev['K4 simulate_plant']}; mean tracking error {err_dev.mean():.6g}, "
+           f"final {float(run['final_tracking_error']):.6g}")
+    out["launches"][TRACK_NQ] = dict(n_dev)
+    update_us, runs = slope_us(torch, lambda n: track_chain.track(
+        model, xu_t, ee_t, TRACK_KNOTS, ondevice=True, max_updates=n), *TRACK_SLOPE)
+    print(f"  chain tracker nq={TRACK_NQ} N={TRACK_KNOTS} on the device: "
+          f"{update_us:.1f} us per control update (slope {TRACK_SLOPE}, runs "
+          f"{', '.join(f'{v:.1f}' for v in runs)}; "
+          f"{track_chain.DEVICE_SQP.max_iter} SQP iterations each)")
+    out["track_update_us"] = update_us
+    host, n_host = counted(
+        simulate_mpc, model, xu_t, ee_t, TRACK_KNOTS, DT, cost=track_chain.COST,
+        sqp_cfg=track_chain.DEVICE_SQP, pcg_cfg=track_chain.PCG,
+        sim_cfg=SimConfig(max_control_updates=TRACK_COMPARE))
+    err_host = np.asarray(host.tracking_errors)
+    k = len(err_host)
+    same = bool(np.array_equal(err_host, err_dev[:k]))
+    # (the host loop's warm-up solve launches K1-K3 too)
+    expect(k >= 4 and n_host["K4 simulate_plant"] == TRACK_COMPARE
+           and all(n_host[kk] >= sum(host.sqp_iters) for kk in k1_k3)
+           and bool(np.all(np.abs(err_host - err_dev[:k]) <= 5e-3 + 0.1 * np.abs(err_dev[:k]))),
+           f"host loop ({TRACK_COMPARE} updates, {k} shifts) vs the device "
+           f"loop's first: max|d| {float(np.abs(err_host - err_dev[:k]).max()):.3e} "
+           f"(rtol 0.1, atol 5e-3); bitwise equal {same}; launches {n_host}")
+    # track_chain's own host loop (4 SQP iterations a solve, 600 updates)
+    drv, n_drv = counted(track_chain.track, model, xu_t, ee_t, TRACK_KNOTS)
+    s = drv.summary()
+    expect(s["control_updates"] == track_chain.HOST_UPDATES
+           and n_drv["K4 simulate_plant"] == s["control_updates"]
+           and all(n_drv[kk] >= sum(drv.sqp_iters) for kk in k1_k3)
+           and np.isfinite(s["avg_tracking_error"]),
+           f"track_chain's host loop: {s['control_updates']} updates, "
+           f"{sum(drv.sqp_iters)} SQP iterations, launches K1-K4 "
+           f"{[n_drv[kk] for kk in k1_k3 + ('K4 simulate_plant',)]}; avg tracking "
+           f"error {s['avg_tracking_error']:.6g}, avg PCG iterations "
+           f"{s['avg_pcg_iters']:.1f}, avg solve {s['avg_sqp_time_us']:.1f} us")
+    # the yardstick: plain f64 loops (on the CPU, where the plant's plain
+    # version runs) from the trace and from TRACK_ENSEMBLE copies moved by
+    # one f32 ulp per entry, their first TRACK_COMPARE updates; the kernel
+    # loop's mean tracking error over the same shifts lies in their range
+    # widened on each side by its own ratio hi/lo (phase 4's band)
+    m64 = chain_model(TRACK_NQ, torch, "cpu", torch.float64)
+    rng = np.random.default_rng(5)
+    xu32 = xu_t.astype(np.float32)
+    ens = []
+    for i in range(TRACK_ENSEMBLE + 1):
+        trace = xu32 if i == 0 else np.nextafter(
+            xu32, np.where(rng.random(xu32.shape) < 0.5, -np.inf, np.inf)
+            .astype(np.float32))
+        r64 = track_chain.track(m64, trace.astype(np.float64), ee_t, TRACK_KNOTS,
+                                ondevice=True, max_updates=TRACK_COMPARE,
+                                linsys="pcg", merit_impl="plain")
+        ens.append(float(r64["tracking_errors"].mean()))
+    lo, hi = min(ens), max(ens)
+    band = (lo * lo / hi, hi * hi / lo)
+    mine = float(err_dev[:k].mean())
+    print(f"  plain f64 loops ({TRACK_ENSEMBLE} from 1-ulp trace changes + the "
+          f"trace): mean tracking error over {k} shifts {lo:.9g}..{hi:.9g} (band "
+          f"{band[0]:.9g}..{band[1]:.9g})")
+    expect(band[0] <= mine <= band[1],
+           f"chain tracker, kernels (device and host loop): mean tracking error "
+           f"over the first {k} shifts {mine:.9g} (in {band[0]:.9g}..{band[1]:.9g})")
+    out.update(track_mean_err=float(err_dev.mean()), track_updates=ups,
+               track_band=band, track_compare_err=mine,
+               host_avg_solve_us=s["avg_sqp_time_us"])
+
+    # a loop at nq = 3 (N = 16): K4's launches at that nq
+    m3 = chain_model(3, torch, dev)
+    xu3, ee3 = track_chain.reference_trace(m3, 40)
+    run3, n_3 = counted(track_chain.track, m3, xu3, ee3, 16, ondevice=True,
+                        max_updates=SMALL_NQ_UPDATES)
+    its3 = int(run3["sqp_iters"].sum())
+    expect(n_3["K4 simulate_plant"] == SMALL_NQ_UPDATES
+           and all(n_3[kk] == its3 for kk in k1_k3)
+           and finite(run3["tracking_errors"], run3["xs_path"]),
+           f"chain tracker nq=3 N=16 on the device: {SMALL_NQ_UPDATES} updates, "
+           f"launches K1-K3 {[n_3[kk] for kk in k1_k3]} ({its3} SQP "
+           f"iterations), K4 {n_3['K4 simulate_plant']}; mean tracking error "
+           f"{float(run3['tracking_errors'].double().mean()):.6g}")
+    for kk in k1_k3:
+        n_3[kk] += n3[kk]
+    out["launches"][3] = dict(n_3)
+
+    # the IIWA-14 from its own URDF through K1-K4 at N_MAIN: where the f32
+    # packed models are equal, the outputs must be too; else within the f32
+    # band of the kernels' checks against their plain versions.  On the
+    # calm rows (CALM_ROW): from row 0 the Schur system has cond ~1e13, and
+    # an entry of 1.2e-16 in place of an exact zero (sin(pi) in the URDF's
+    # rpy) moves D = theta^-1 by ~1e-3 of its size
+    mi = iiwa14(torch.float32, device=dev)
+    mu_ = load_urdf(export_urdf(iiwa14(torch.float32, device="cpu")), device=dev)
+    same_model = torch.equal(mi.packed(), mu_.packed())
+    xu, xs, ee, _ = problem(N_MAIN, torch, dev, start=CALM_ROW)
+    cost = CostConfig.for_knots(N_MAIN)
+    rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+    res = {}
+    for name, m in (("iiwa14", mi), ("urdf", mu_)):
+        k1 = build_kkt_schur(m, cost, xu, xs, ee, rho, DT, 0)
+        k2 = pcg_dz_solve(k1, torch.zeros((N_MAIN, 14), device=dev), xu[:, 14:],
+                          rho, cost.r_cost, max_iter=1, exit_tol=0.0)
+        k3 = line_search_merits_fused(m, cost, xu, k2[1], xs, ee, 10.0, DT)[0]
+        k4 = simulate_plant(m, xs, xu, 2e-3, 2e-3, DT, 10, 2e-4)
+        res[name] = (k1, k2, k3, k4)
+    torch.cuda.synchronize()
+    (a1, a2, a3, a4), (b1, b2, b3, b4) = res["iiwa14"], res["urdf"]
+    if same_model:
+        ok = (all(torch.equal(a1[kk], b1[kk]) for kk in a1)
+              and torch.equal(a2[0], b2[0]) and torch.equal(a2[1], b2[1])
+              and torch.equal(a3, b3) and torch.equal(a4, b4))
+        rule = "the packed f32 models are equal bit for bit: every output equal bit for bit"
+    else:
+        r3 = float(((a3.double() - b3.double()).abs() / a3.double().abs()).max())
+        e1 = max(rel_err(b1[kk], a1[kk])[1] for kk in a1)
+        e2 = max(parts(b2, a2).values())
+        e4 = rel_err(b4, a4)[1]
+        ok = e1 <= 5e-5 and e2 <= 1e-3 and r3 <= 1e-4 and e4 <= 1e-6
+        rule = (f"the packed f32 models differ ({int((mu_.packed() != mi.packed()).sum())} "
+                f"entries, max|d| {rel_err(mu_.packed(), mi.packed())[0]:.3e}): K1 "
+                f"{e1:.3e} (<= 5e-5), K2 one step {e2:.3e} (<= 1e-3), K3 {r3:.3e} "
+                f"(<= 1e-4), K4 {e4:.3e} (<= 1e-6) relative")
+    expect(ok, f"builtin:iiwa (load_urdf(export_urdf(iiwa14()))) through K1-K4 at "
+           f"N={N_MAIN}: {rule}")
+    out["builtin_iiwa_bitwise_model"] = same_model
+    return out
+
+
+def nq_timings(c, launches: dict, errs: dict) -> dict:
+    """Phase 5's times of K1-K4 and K4b at nq = 3 and 5 on N_MAIN knots of
+    the chain tracker's trace, each beside its plain version and its bound
+    at that nq (plain, kernel, kernel, plain, as the nq = 7 rows)."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig
+    from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve, pcg_dz_solve_plain
+    from mpcgpu_tpu_torch.sim.plant_cuda import (simulate_plant,
+                                                 simulate_plant_batched,
+                                                 simulate_plant_batched_plain,
+                                                 simulate_plant_plain)
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_schur,
+                                                  build_kkt_schur_plain)
+    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_fused,
+                                                    line_search_merits_plain)
+
+    torch, dev = c.torch, c.dev
+    N = N_MAIN
+    cost = CostConfig.for_knots(N)
+    rows = {}
+    for nq in NQ_CASES:
+        nx = 2 * nq
+        model = chain_model(nq, torch, dev)
+        xu, xs, ee = chain_problem(nq, N, torch, dev)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        sys_ = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+        lam0 = torch.zeros((N, nx), dtype=torch.float32, device=dev)
+        pcg_kw = dict(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5)
+        u = xu[:, nx:]
+        _, dz, k2_iters, _ = pcg_dz_solve(sys_, lam0, u, rho, cost.r_cost, **pcg_kw)
+        xs4 = xs + 0.01 * torch.tensor(np.random.default_rng(1).standard_normal(nx),
+                                       dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(4)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        xs_b = xs + t(0.01 * rng.standard_normal((NQ_BATCH, nx)))
+        plans = xu + t(0.01 * rng.standard_normal((NQ_BATCH, N, 3 * nq)))
+        t_off, period, n_sub = 2e-3, 2e-3, 10
+        plant_rows = len({min(int((t_off + i * 2e-4) / DT), N - 1)
+                          for i in range(n_sub + 1)})
+        bounds = kernel_bounds(N, int(k2_iters), 0, plant_rows, n_sub + 1, nq=nq)
+        bounds["K4b simulate_plant_batched"] = plant_batched_bound(
+            NQ_BATCH, plant_rows, n_sub + 1, nq)
+        args = (t_off, period, DT, n_sub, 2e-4)
+        pairs = {
+            "K1 build_kkt_schur": (
+                lambda: build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0),
+                lambda: build_kkt_schur_plain(model, cost, xu, xs, ee, rho, DT, 0)),
+            "K2 pcg_dz_solve": (
+                lambda: pcg_dz_solve(sys_, lam0, u, rho, cost.r_cost, **pcg_kw),
+                lambda: pcg_dz_solve_plain(sys_, lam0, u, rho, cost.r_cost, **pcg_kw)),
+            "K3 line_search_merits_fused": (
+                lambda: line_search_merits_fused(model, cost, xu, dz, xs, ee, 10.0, DT),
+                lambda: line_search_merits_plain(model, cost, xu, dz, xs, ee, 10.0, DT)),
+            "K4 simulate_plant": (
+                lambda: simulate_plant(model, xs4, xu, *args),
+                lambda: simulate_plant_plain(model, xs4, xu, *args)),
+            "K4b simulate_plant_batched": (
+                lambda: simulate_plant_batched(model, xs_b, plans, *args),
+                lambda: simulate_plant_batched_plain(model, xs_b, plans, *args)),
+        }
+        print(f"  nq={nq}: K2 at the timed state {int(k2_iters)} PCG iterations")
+        rows[nq] = {}
+        for name, (kern, plain_fn) in pairs.items():
+            reps = 1 if name == "K4b simulate_plant_batched" else 5
+            p1 = time_ms(torch, plain_fn, reps)
+            k1 = graph_ms(torch, kern)
+            k2 = graph_ms(torch, kern)
+            p2 = time_ms(torch, plain_fn, reps)
+            ms, plain_ms = statistics.median([k1, k2]), statistics.median([p1, p2])
+            bound_ms, bound_by = bounds[name]
+            rows[nq][name] = dict(launches=launches[nq].get(name, 0),
+                                  max_abs_err=errs[nq][name], ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=None)
+            if name == "K2 pcg_dz_solve":
+                rows[nq][name]["us_per_iter"] = ms * 1e3 / max(int(k2_iters), 1)
+            print(f"  {name} nq={nq}: kernel {ms * 1e3:.1f} us (device), plain "
+                  f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
+                  f"({bound_by})")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -685,11 +1310,13 @@ def main() -> int:
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
-    _kernels.libraries()
+    # every source at nq = 7 and the slice's at NQ_CASES, all nvcc at once
+    _kernels.load([(src, 7) for src in _kernels.SOURCES]
+                  + [(src, nq) for nq in NQ_CASES for src in NQ_SOURCES])
     phase(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
-    for src, log in _kernels.build_log.items():
+    for (src, nq), log in _kernels.build_log.items():
         for line in ptxas_summary(log):
-            print(f"  ptxas {src}: {line}")
+            print(f"  ptxas {src} nq={nq}: {line}")
     # the plans of K7 (one launch per solve) and K10b (a cluster per shard)
     for N in PCR_SIZES:
         print(f"  K7 plan N={N}: {pcr_plan(N)}")
@@ -967,6 +1594,21 @@ def main() -> int:
                f"alphas equal {torch.equal(a_got, a_ref)}")
     if failures:
         raise SmokeFailure(f"phase 2: {len(failures)} check(s) failed")
+
+    # ---- phase 2a: K1-K4 at the chains' joint counts ----------------------
+    phase(f"phase 2a: K1-K4 and K4b at nq = {NQ_CASES} vs plain versions, "
+          f"N = {NQ_SIZES}")
+    ctx = SimpleNamespace(torch=torch, dev=dev, expect=expect, counted=counted)
+    for nq in NQ_CASES:
+        wp = kkt_window_plan(N_MAIN, nq=nq)
+        print(f"  nq={nq} N={N_MAIN}: K1 {wp.ctas} windows of {wp.window} knots, "
+              f"{wp.smem_bytes} B; K2 {tuple(k2_cluster_plan(N_MAIN, 2 * nq))}, "
+              f"{k2_cluster_occupancy(N_MAIN, nx=2 * nq)} clusters resident; K3 "
+              f"{tuple(merit_team_plan(N_MAIN, 9 * N_MAIN, nq))}")
+    errs_nq = nq_kernel_checks(ctx)
+    out_of_slice_gates(ctx)
+    if failures:
+        raise SmokeFailure(f"phase 2a: {len(failures)} check(s) failed")
 
     # ---- phase 2b: K7 and the instance-grid kernels ----------------------
     phase("phase 2b: K7 (PCR) and K8a-c, K3b (instance grid) vs plain versions")
@@ -2178,6 +2820,13 @@ def main() -> int:
     if failures:
         raise SmokeFailure(f"phase 4e: {len(failures)} check(s) failed")
 
+    # ---- phase 4f: the onboarding path at nq = 3, 5 and the URDF IIWA ------
+    phase(f"phase 4f: onboarding: 3-link fused SQP, chain tracker nq="
+          f"{TRACK_NQ} N={TRACK_KNOTS} ({TRACK_STEPS} rows), nq=3 loop, builtin:iiwa")
+    onboard = onboarding_checks(ctx)
+    if failures:
+        raise SmokeFailure(f"phase 4f: {len(failures)} check(s) failed")
+
     # ---- phase 5: timing ----------------------------------------------------
     phase(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
     lo, hi = SLOPE_STEPS
@@ -2584,6 +3233,16 @@ def main() -> int:
           f"{', '.join(f'{v:.1f}' for v in bl_runs)}) = "
           f"{batch_summary['instance_updates_per_s']:.0f} instance-updates/s")
 
+    # K1-K4 and K4b at the chains' joint counts; every row of the kernels
+    # line says the nq values its kernel was checked at on the card
+    nq_rows = nq_timings(ctx, onboard["launches"], errs_nq)
+    for row in rows:
+        if row["name"] in NQ_KERNELS:
+            row["nq_checked"] = sorted(NQ_CASES + (7,))
+            row["nq"] = {str(nq): nq_rows[nq][row["name"]] for nq in NQ_CASES}
+        else:
+            row["nq_checked"] = [7]
+
     # ---- phase 6: results -----------------------------------------------
     print(json.dumps({"kernels": rows, "chain_step_us": step_us,
                       "mean_pcg_iters": it_k, "plain_mean_pcg_iters": it_p,
@@ -2598,6 +3257,7 @@ def main() -> int:
                       "batched_singles_us": single_us,
                       "sharded": shard_summary,
                       "batched_loop": batch_summary,
+                      "onboarding": onboard,
                       "card": card}))
     phase("chip_smoke: done")
     print(card_line())

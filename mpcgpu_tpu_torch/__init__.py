@@ -7,7 +7,9 @@ nothing of the JAX package and keeps its own copies of the configuration,
 the model constants and the numpy-only utilities:
 
   * ``config.py`` CostConfig, PCGConfig, SQPConfig, SimConfig;
-  * ``models/``  robot model, spatial algebra, batched rigid-body dynamics;
+  * ``models/``  robot model (the IIWA-14, any revolute-z serial chain,
+                 URDF loading and export), spatial algebra, batched
+                 rigid-body dynamics;
   * ``ops/``     small-matrix Gauss-Jordan, block-tridiagonal algebra, Schur
                  condensation, PCG, the direct solvers (block LDL^T, PCR, the
                  CSC packing), the PCG kernels K2 (PCG + dz), K2' (PCG) and
@@ -20,7 +22,8 @@ the model constants and the numpy-only utilities:
                  plant kernels K4 / K4b and the warm-started chain;
   * ``utils/``   trajectory fixtures, experiment statistics, checkpoints;
   * ``track_iiwa_pcg.py``, ``track_iiwa_qdldl.py`` the closed-loop tracker
-                 scripts (PCG, direct solvers).
+                 scripts (PCG, direct solvers); ``track_chain.py`` the
+                 tracker of any serial chain or URDF.
 
 Public functions keep the JAX package's knot-leading layouts.  Entry points
 build on the card unless the caller asks for the CPU, and every function
@@ -40,13 +43,20 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def __getattr__(name):
-    # the JAX package's top-level simulators, loaded on first use
+    # the JAX package's top-level conveniences, loaded on first use
+    if name in ("sqp_solve", "make_sqp_solver"):
+        from mpcgpu_tpu_torch.solver import sqp
+        return getattr(sqp, name)
     if name in ("simulate_mpc", "simulate_mpc_ondevice",
                 "simulate_mpc_ondevice_batched"):
         from mpcgpu_tpu_torch.sim import mpc
         return getattr(mpc, name)
+    if name == "iiwa14":
+        from mpcgpu_tpu_torch.models import iiwa14
+        return iiwa14
     raise AttributeError(name)
 
 
-__all__ = ["CostConfig", "PCGConfig", "SimConfig", "SQPConfig", "simulate_mpc",
-           "simulate_mpc_ondevice", "simulate_mpc_ondevice_batched"]
+__all__ = ["CostConfig", "PCGConfig", "SimConfig", "SQPConfig", "sqp_solve",
+           "make_sqp_solver", "simulate_mpc", "simulate_mpc_ondevice",
+           "simulate_mpc_ondevice_batched", "iiwa14"]

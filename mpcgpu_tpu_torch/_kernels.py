@@ -1,13 +1,16 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
-together) into a shared library with a plain C interface:
+The joint count is a compile-time value: each ``csrc/*.cu`` is compiled for
+one nq (``-DMPC_NQ=<nq>``, csrc/common.cuh) by its own ``nvcc`` process (the
+sources a call asks for all started together) into a shared library with a
+plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-under ``mpcgpu_tpu_torch/_build/<hash of all sources>/`` and loaded with
-``ctypes``.  The build runs on first use and is reused while the sources are
-unchanged.  A missing ``nvcc`` or a failed build raises; nothing falls back.
+under ``mpcgpu_tpu_torch/_build/<hash of all sources and flags>/nq<nq>/``
+and loaded with ``ctypes``.  A library is built on first use, only for the
+source and nq an entry asks for, and reused while the sources are unchanged.
+A missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``check`` turns a non-zero code into an exception.
@@ -77,9 +80,17 @@ _SIGNATURES = {
     },
 }
 
+# the joint counts the kernels are built for: the IIWA's 7 and the chains
+# of the JAX package's tests and example scripts (2, 3, 5); csrc/kkt_schur.cu's
+# knot group holds at most 15 teams of 6 lanes, one per tangent direction
+# of the 2 nq, so 7 is also the most its lane mapping takes
+NQ_DEFAULT = 7
+NQ_MIN, NQ_MAX = 2, 7
+
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] | None = None
-build_log: dict[str, str] = {}
+_libs: dict[tuple[str, int], ctypes.CDLL] = {}
+# nvcc's output (ptxas -v) per (source, nq) built by this process
+build_log: dict[tuple[str, int], str] = {}
 
 
 def find_nvcc() -> str:
@@ -106,54 +117,94 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> dict[str, Path]:
-    """Compile every source that has no library yet; returns the paths."""
+def require_nq(nq: int) -> None:
+    """Raise unless the kernels are built for nq joints."""
+    if not NQ_MIN <= nq <= NQ_MAX:
+        raise ValueError(
+            f"nq = {nq}: the CUDA kernels are built for {NQ_MIN} <= nq <= "
+            f"{NQ_MAX} (K1's knot group holds one team of 6 lanes per tangent "
+            "direction, at most 15); see ROADMAP.md queue 2, 'Kernels at any nq'")
+
+
+def require_nq7(nq: int, what: str) -> None:
+    """Raise unless nq = 7: the gate of the kernels not yet held to their
+    plain versions on the card at other joint counts."""
+    if nq != NQ_DEFAULT:
+        raise ValueError(
+            f"{what} runs at nq = 7 only, got nq = {nq:g}: it is not yet held "
+            "to its plain version on the card at other joint counts; see "
+            "ROADMAP.md queue 2, 'Kernels still to port at any nq'")
+
+
+def model_floats(nq: int) -> int:
+    """MODEL_SIZE of csrc/common.cuh: the packed model of nq joints
+    (RobotModel.packed(): 4 nq 6x6 and 3 nq 4x4 matrices)."""
+    return 192 * nq
+
+
+def build(targets) -> dict[tuple[str, int], Path]:
+    """Compile every (source, nq) of ``targets`` that has no library yet,
+    all nvcc processes started together; returns the paths."""
+    targets = list(dict.fromkeys(targets))
+    for src, nq in targets:
+        if src not in _SIGNATURES:
+            raise ValueError(f"unknown kernel source {src!r}")
+        require_nq(nq)
     nvcc = find_nvcc()
     out_dir = _BUILD / source_hash()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {src: out_dir / (Path(src).stem + ".so") for src in SOURCES}
+    paths = {(src, nq): out_dir / f"nq{nq}" / (Path(src).stem + ".so")
+             for src, nq in targets}
     procs = {}
-    for src, lib in libs.items():
+    for (src, nq), lib in paths.items():
         if lib.is_file():
             continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_CSRC / src)]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, lib)
+        cmd = [nvcc, *NVCC_FLAGS, f"-DMPC_NQ={nq}", "-I", str(_CSRC), "-o",
+               str(tmp), str(_CSRC / src)]
+        procs[src, nq] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True),
+                          tmp, lib)
     failed = []
-    for src, (proc, tmp, lib) in procs.items():
+    for (src, nq), (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
-        build_log[src] = out
+        build_log[src, nq] = out
         if proc.returncode != 0:
-            failed.append(f"{src} (exit {proc.returncode}):\n{out}")
+            failed.append(f"{src} at nq = {nq} (exit {proc.returncode}):\n{out}")
         else:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return libs
+    return paths
 
 
-def libraries() -> dict[str, ctypes.CDLL]:
-    """The loaded kernel libraries, building them on first use."""
-    global _libs
+def load(targets) -> dict[tuple[str, int], ctypes.CDLL]:
+    """The libraries of the (source, nq) ``targets``, building the missing
+    ones (in parallel) on first use."""
+    targets = list(dict.fromkeys(targets))
     with _lock:
-        if _libs is None:
-            loaded = {}
-            for src, path in build().items():
+        missing = [t for t in targets if t not in _libs]
+        if missing:
+            for (src, nq), path in build(missing).items():
                 lib = ctypes.CDLL(str(path))
                 for name, argtypes in _SIGNATURES[src].items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-                loaded[src] = lib
-            _libs = loaded
-        return _libs
+                _libs[src, nq] = lib
+        return {t: _libs[t] for t in targets}
 
 
-def entry(src: str, name: str):
-    return getattr(libraries()[src], name)
+def libraries() -> dict[str, ctypes.CDLL]:
+    """Every kernel library at nq = 7, keyed by source, building them on
+    first use."""
+    return {src: lib for (src, _), lib in
+            load((s, NQ_DEFAULT) for s in SOURCES).items()}
+
+
+def entry(src: str, name: str, nq: int = NQ_DEFAULT):
+    """The C entry point ``name`` of ``src`` built for nq joints."""
+    return getattr(load([(src, nq)])[src, nq], name)
 
 
 def check(code: int, what: str) -> None:

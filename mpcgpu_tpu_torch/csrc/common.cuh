@@ -1,5 +1,7 @@
-// Device helpers shared by the kernels of mpcgpu_tpu_torch (f32, IIWA-sized
-// serial chains: NQ = 7 revolute-z joints).
+// Device helpers shared by the kernels of mpcgpu_tpu_torch (f32 serial
+// chains of NQ revolute-z joints).  NQ is a compile-time value, the build's
+// -DMPC_NQ=<nq> (_kernels.py builds one library per source and nq; 7, the
+// IIWA's, without the flag); every size below follows from it.
 //
 // Spatial algebra follows Featherstone's [angular; linear] convention, as
 // mpcgpu_tpu/models/spatial.py does.  Matrices are row-major.  The model is
@@ -15,7 +17,10 @@
 
 namespace mpc {
 
-constexpr int NQ = 7;
+#ifndef MPC_NQ
+constexpr int MPC_NQ = 7;
+#endif
+constexpr int NQ = MPC_NQ;
 constexpr int NX = 2 * NQ;
 constexpr int NU = NQ;
 constexpr int W = NX + NU;                 // one knot's row of xu / dz
@@ -27,7 +32,7 @@ constexpr int OFF_I = 3 * NQ * M66;
 constexpr int OFF_HC = 4 * NQ * M66;
 constexpr int OFF_HS = OFF_HC + NQ * 16;
 constexpr int OFF_HCOS = OFF_HS + NQ * 16;
-constexpr int MODEL_SIZE = OFF_HCOS + NQ * 16;   // 1344 floats
+constexpr int MODEL_SIZE = OFF_HCOS + NQ * 16;   // 192 NQ floats (1344 at 7)
 constexpr int DYN_SIZE = OFF_HC;   // the part dynamics reads: X and inertias
 
 // the first n floats of the packed model (all of it by default)
@@ -229,7 +234,10 @@ __device__ inline void aba(const float* m, const float* s, const float* c,
   }
 }
 
-// Shared-memory workspace of aba_warp (one per warp).
+// Shared-memory workspace of aba_warp (one per warp).  aba_warp puts joint
+// j's sin, cos, control and bias terms on lane j and the tip's inertia on
+// the lanes past NQ.
+static_assert(NQ >= 1 && NQ < 32, "aba_warp: one lane per joint, and one more");
 struct AbaWarpWs {
   float sc[2 * NQ];            // sin q, cos q
   float X[NQ * M66];           // every joint's transform of this state
@@ -247,7 +255,7 @@ __device__ inline float cross3_i(const float* a, const float* b, int i) {
 // aba's recursion by one warp (all 32 lanes call).  q, qd in shared memory
 // (NQ floats each), u_lane the control of joint `lane` (lanes < NQ); qdd
 // (shared) written by lane 0.  Once per call, on all lanes: sin and cos,
-// the NQ transforms X_j (252 entries), and after the velocity chain the
+// the NQ transforms X_j (36 NQ entries), and after the velocity chain the
 // bias terms cb and pA of every link (one lane per link).  The velocity and
 // acceleration chains run on lane 0 from registers (six independent 6-term
 // sums per link).  Eliminating link j, tip to base, takes two steps over

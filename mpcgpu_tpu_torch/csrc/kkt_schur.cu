@@ -3,20 +3,21 @@
 //
 // K1 replaces the TPU kernel mpcgpu_tpu/solver/kkt_pallas.py::
 // build_kkt_schur_pallas (_make_kkt_schur_kernel, core _kkt_core).  Per knot
-// k it linearizes the dynamics (forward-mode RNEA with 14 tangents, CRBA mass
-// matrix and its Gauss-Jordan inverse, Euler / semi-implicit Jacobians),
+// k it linearizes the dynamics (forward-mode RNEA with 2 NQ tangents, CRBA
+// mass matrix and its Gauss-Jordan inverse, Euler / semi-implicit Jacobians),
 // builds the Gauss-Newton ee-tracking cost with (Q + rho I)^{-1} in closed
 // form (Sherman-Morrison), and forms the Schur blocks theta/phi/gamma and the
 // 3-band stair preconditioner, in the knot-leading layout of
 // mpcgpu_tpu_torch/ops/schur.py.
 //
 // What bounds it on an H100: latency, not bytes.  Each knot is a chain of
-// tiny dependent 6x6 / 14x14 products (~100 KFLOP) and the outputs are
-// ~300 KB at N = 64, so the time is the depth of the dependent steps and the
-// syncs between them.
+// tiny dependent 6x6 / 14x14 products (~100 KFLOP at NQ = 7) and the outputs
+// are ~300 KB at N = 64, so the time is the depth of the dependent steps and
+// the syncs between them.
 //
 // Design: ONE LAUNCH, a WINDOW of Kc consecutive knots per CTA, a GROUP of
-// KW = 3 warps per knot.  Kc is a fixed function of N (solver/kkt_cuda.py::
+// KW warps per knot (3 at NQ = 6, 7; 2 below: one team of 6 lanes per
+// tangent direction, 5 teams a warp).  Kc is a fixed function of N (solver/kkt_cuda.py::
 // kkt_window_plan), never of the batch, so every caller rounds alike.  CTA w
 // owns the knots [s, e) = [w Kc, min(N, (w + 1) Kc)) and has Kc + 3 groups;
 // the knot coupling runs in three stages inside the CTA, through shared
@@ -30,13 +31,14 @@
 // The two halo knots on the left (the stair band at s needs D_{s-1}, which
 // needs T_{s-2}) and the one on the right (D_e needs Qinv_e) are computed
 // again by the neighbouring windows: (Kc + 3) / Kc knot stages per knot.
-// Within a knot the serial chains are spread over the group's 96 threads,
-// which meet at a named barrier of their own:
-//   - the bias RNEA and the 14 tangent RNEAs run on teams of 6 lanes, lane c
-//     holding component c of every spatial vector (rnea_team, full-warp
-//     shuffles): the bias on warp 0 while warps 1, 2 run the ee forward
-//     kinematics and its 7 q-derivative columns (every 4x4 product entry on
-//     its own thread), then the 14 tangents at once on the group's 15 teams;
+// Within a knot the serial chains are spread over the group's KT = 32 KW
+// threads, which meet at a named barrier of their own:
+//   - the bias RNEA and the 2 NQ tangent RNEAs run on teams of 6 lanes, lane
+//     c holding component c of every spatial vector (rnea_team, full-warp
+//     shuffles): the bias on warp 0 while the other warps run the ee forward
+//     kinematics and its NQ q-derivative columns (every 4x4 product entry on
+//     its own thread), then the 2 NQ tangents at once on the group's 5 KW
+//     teams;
 //   - the CRBA, the Gauss-Jordan inverses, the integrator and every 14x14
 //     product spread their output entries over the threads, each thread
 //     computing all its entries before it stores any (map_entries: the
@@ -92,9 +94,13 @@ constexpr int SL_BRR = SL_AQQ + NX;          // B Rinv r (NX)
 constexpr int SL_Q = SL_BRR + NX;            // q (NX)
 constexpr int SLOT_FLOATS = SL_Q + NX;       // 840
 
-// A knot's group: KW warps, KT threads (15 teams of 6 lanes for the RNEAs)
-constexpr int KW = 3;
+// A knot's group: KW warps, KT threads, 5 KW teams of 6 lanes for the
+// tangent RNEAs (one per direction: 3 warps at NQ = 6, 7, 2 below); the ee
+// forward kinematics on the FKT threads past warp 0
+constexpr int KW = 2 + (NX > 10);
 constexpr int KT = 32 * KW;
+constexpr int FKT = KT - 32;
+static_assert(5 * KW >= NX, "one team of 6 lanes per tangent direction");
 constexpr int KKT_MAX_GROUPS = 7;   // Kc <= 4 with the halo; 2 x 7 named barriers
 
 // A group's working set in the knot stage, in floats
@@ -112,7 +118,12 @@ constexpr int WS_DID = WS_QDD + NQ;          // dID / d(q, qd) (NQ x NX)
 constexpr int WS_DQDD = WS_DID + NQ * NX;
 constexpr int WS_A = WS_DQDD + NQ * NX;      // A (NN); the FK buffers before
 constexpr int WS_B = WS_A + NN;              // B (NX x NU)
-constexpr int WS_QIW = WS_B + NX * NU;       // (Q + rho I)^{-1} (NN)
+// the FK chain's ping-pong buffers (T, then the NQ columns of dT / dq_t)
+// live in A and B, which are written only after the FK is read, and past
+// them where A and B are smaller (NQ < 7); then (Q + rho I)^{-1} (NN)
+constexpr int FK_BUF = 16 * (NQ + 1);
+constexpr int WS_AB = NN + NX * NU;
+constexpr int WS_QIW = WS_A + WS_AB + (2 * FK_BUF > WS_AB) * (2 * FK_BUF - WS_AB);
 constexpr int WS_GRAD = WS_QIW + NN;
 constexpr int WS_XN = WS_GRAD + NX;
 constexpr int WS_EE = WS_XN + NX;
@@ -122,11 +133,9 @@ constexpr int WS_U = WS_X0 + NX;
 constexpr int WS_XE = WS_U + NU;
 constexpr int WS_GL = WS_XE + NX;
 constexpr int WS_SC = WS_GL + 3;             // sin q, cos q, sin xe, cos xe
-constexpr int WS_FLOATS = WS_SC + 4 * NQ;    // 1778
-// the FK chain's ping-pong buffers (T, then the NQ columns of dT / dq_t)
-// live in A and B, which are written only after the FK is read
-constexpr int FK_BUF = 16 * (NQ + 1);
-static_assert(2 * FK_BUF <= NN + NX * NU, "FK buffers overlap Qinv");
+constexpr int WS_FLOATS = WS_SC + 4 * NQ;    // 1778 at NQ = 7
+static_assert(WS_A + 2 * FK_BUF <= WS_QIW, "FK buffers overlap Qinv");
+static_assert(3 * (NQ + 1) <= FKT, "the FK's ee entries and Jacobian, a thread each");
 // the Schur stage's [theta | I] and the stair stage's two products reuse
 // the working set
 static_assert(NX * 2 * NX + 2 * NX + NX <= WS_FLOATS, "Schur stage");
@@ -337,7 +346,7 @@ __device__ inline float hmat_d_e(const float* m, int j, float s, float c, int e)
 }
 
 // The ee position and its q-derivative columns (fk_dual of each column t)
-// by the 64 threads of named barrier id (this one number lane): the chain
+// by the FKT threads of named barrier id (this one number lane): the chain
 // T = H_0 .. H_{NQ-1} and each column's dT/dq_t (product rule) step by step,
 // every entry of every 4x4 product on its own thread.  buf holds 2 FK_BUF
 // floats.  Writes ee[0..3) and J[r NQ + t].
@@ -345,14 +354,14 @@ __device__ void fk_pair(const float* m, const float* s, const float* c,
                         int lane, int id, float* buf, float* ee, float* J) {
   float* cur = buf;
   float* nxt = buf + FK_BUF;
-  map_entries<FK_BUF, 64>(lane, [&](int e) {
+  map_entries<FK_BUF, FKT>(lane, [&](int e) {
     const int t = e / 16 - 1, ent = e % 16;
     return t < 0 ? hmat_e(m, 0, s[0], c[0], ent)
                  : (t == 0 ? hmat_d_e(m, 0, s[0], c[0], ent) : 0.f);
   }, [&](int e, float v) { cur[e] = v; });
   for (int j = 1; j < NQ; ++j) {
-    named_sync(id, 64);
-    map_entries<FK_BUF, 64>(lane, [&](int e) {
+    named_sync(id, FKT);
+    map_entries<FK_BUF, FKT>(lane, [&](int e) {
       const int t = e / 16 - 1, ent = e % 16, i = ent / 4, l = ent % 4;
       const float* A = cur + (t + 1) * 16;
       float acc = 0.f, acc2 = 0.f;
@@ -366,7 +375,7 @@ __device__ void fk_pair(const float* m, const float* s, const float* c,
     cur = nxt;
     nxt = tmp;
   }
-  named_sync(id, 64);
+  named_sync(id, FKT);
   if (const int e = lane; e < 3 * (NQ + 1)) {
     const int r = e / (NQ + 1), t = e % (NQ + 1) - 1;
     const float val = cur[(t + 1) * 16 + r * 4 + 3];
@@ -539,7 +548,7 @@ __device__ void knot_stage(const KktArgs& g, const float* sm, int k, bool own,
     return aug[(e / NQ) * 2 * NQ + NQ + e % NQ];
   }, [&](int e, float v) { Minv[e] = v; });
   // the bias term on warp 0 (every team runs it, team 0 writes it) and the
-  // ee Jacobian at x_eval on warps 1, 2, side by side
+  // ee Jacobian at x_eval on the other warps, side by side
   if (wg == 0) {
     const int tm = lane / 6, c = lane - 6 * tm;
     rnea_team(X, Xp, sm + OFF_I, x + NQ, nullptr, -1, g.gravity, 6 * tm, c,
@@ -559,9 +568,9 @@ __device__ void knot_stage(const KktArgs& g, const float* sm, int k, bool own,
     grad[gl] = g.qd_cost * xe[gl];
   }
   gsync();
-  // dID/d{q, qd} at the solved qdd: the 14 tangents on the group's 15
+  // dID/d{q, qd} at the solved qdd: the NX tangents on the group's 5 KW
   // teams of 6 lanes (5 per warp), at once; team tm of warp wg writes column
-  // t = 5 wg + tm of dID (lanes 30, 31 and the fifteenth team compute along
+  // t = 5 wg + tm of dID (lanes 30, 31 and the teams past NX compute along
   // and write nothing)
   {
     const int tm = lane / 6, c = lane - 6 * tm;
@@ -925,7 +934,7 @@ extern "C" int kkt_schur_slab_launch(
       terminal_at_last, S, Pinv, gamma, Qinv, A, B, q, nullptr);
 }
 
-// K5: windows of Kc knots, one group of 3 warps per knot, no halo
+// K5: windows of Kc knots, one group of KW warps per knot, no halo
 extern "C" int kkt_launch(const float* xu, int xu_stride, const float* goal,
                           int goal_stride, const float* xs, float dt,
                           const float* model, float gravity, float qd_cost,

@@ -10,9 +10,11 @@
 //
 // What bounds it on an H100: latency at one instance (9 x 64 samples),
 // instruction issue at 256.  Each (candidate, knot) sample is a serial ABA
-// over 7 links (~20 KFLOP) whose per-link spatial vectors and 6x6
+// over NQ links (~20 KFLOP at NQ = 7) whose per-link spatial vectors and 6x6
 // articulated inertias (~400 floats) do not fit one thread's 128 registers
-// at 512 threads a block.  Design: a (candidate, instance, knot chunk)
+// at 512 threads a block.  Every mapping below spreads per-link entries over
+// a team's lanes with a stride (map_entries), so it holds at any NQ; the
+// sample's state (SAMPLE_FLOATS, 76 NQ + 158) follows NQ.  Design: a (candidate, instance, knot chunk)
 // grid, a team of G lanes per sample (G a power of two <= 32, a template
 // parameter), P samples a block, nothing spilled
 // (solver/merit_cuda.py::merit_team_plan picks G and P by the sample count,

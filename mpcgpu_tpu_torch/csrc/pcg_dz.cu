@@ -16,9 +16,10 @@
 // same code and their lam the same bits.
 //
 // What bounds K2 on an H100: one solve is up to a few hundred dependent
-// iterations, each a BTD matvec with S and one with Pinv (2 x 3 x 14 x 14 x N
-// floats: 301 KB at N = 64, 2.4 MB at N = 512) and two reductions over N x 14
-// values.  The work of one iteration is ~76 K multiply-adds at N = 64: what
+// iterations, each a BTD matvec with S and one with Pinv (2 x 3 x NX x NX x N
+// floats: 301 KB at N = 64, 2.4 MB at N = 512 for NX = 14) and two
+// reductions over N x NX values.  The work of one iteration is ~76 K
+// multiply-adds at N = 64 and NX = 14: what
 // bounds it is the latency of the dependent steps and the rate at which the
 // matrices reach the multipliers, not the card's peak.
 //
@@ -29,10 +30,10 @@
 // only the trailing CTAs hold fewer knots (or none).  CTA r owns knots
 // [r kp, min(N, (r + 1) kp)), one thread per row, and keeps their S and
 // Pinv blocks in its own shared memory for the whole solve (loaded once,
-// transposed, a knot's 3 x 196 floats padded to KNOT_STRIDE = 590 = 18 x 32
-// + 14 floats, so that consecutive threads, on consecutive rows, read
-// consecutive banks), together with its rows of lam, r, p, z, Sp and one
-// halo row of r and p on each side.  A CG step reads only shared memory.
+// transposed, a knot's 3 NX^2 floats padded to KNOT_STRIDE = 32 m + NX
+// floats, 590 = 18 x 32 + 14 at NX = 14, so that consecutive threads, on
+// consecutive rows, read consecutive banks), together with its rows of lam,
+// r, p, z, Sp and one halo row of r and p on each side.  A CG step reads only shared memory.
 // What crosses CTAs are the neighbours' boundary rows of Sp and z and the
 // warp parts of the three sums, and they travel by PUSH: the producing
 // thread writes them into the consumer's shared memory with st.async, which
@@ -83,8 +84,8 @@
 //   dx_k = Qinv_k (q_k - lam_k + A_k^T lam_{k+1}),
 //   du_k = (r_cost u_k + B_k^T lam_{k+1}) / (r_cost + rho).
 // Each CTA recovers its own knots, lam_{k+1} of its last knot pushed by the
-// right neighbour.  K6 is latency-bound: it reads Qinv, A, B (~3 x 14 x 14 x
-// N floats) once and does ~1.5 KFLOP per knot; one block per knot, one
+// right neighbour.  K6 is latency-bound: it reads Qinv, A, B (~3 x NX x NX
+// x N floats) once and does ~1.5 KFLOP per knot at NX = 14; one block per knot, one
 // thread per output.  Its per-output arithmetic is K2's epilogue (the same
 // device functions), so K6 on K2's lam equals K2's dz bit for bit.
 //
@@ -115,9 +116,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NN = NX * NX;
-// one knot's three blocks in a CTA's shared memory, transposed, padded so
-// that knot kk + 1 starts 14 banks after knot kk (590 = 18 x 32 + 14)
-constexpr int KNOT_STRIDE = 590;
+// one knot's three blocks in a CTA's shared memory, transposed, padded to
+// the least 32 m + NX floats that hold them, so that knot kk + 1 starts NX
+// banks after knot kk (590 = 18 x 32 + 14 at NX = 14)
+constexpr int KNOT_STRIDE = (3 * NN - NX + 31) / 32 * 32 + NX;
+static_assert(KNOT_STRIDE >= 3 * NN && KNOT_STRIDE % 32 == NX % 32, "knot stride");
 constexpr int K2_MAX_KP = 32;         // 16 x 32 = 512 = MAX_KNOTS
 constexpr int K2_MAX_CLUSTER = 16;
 

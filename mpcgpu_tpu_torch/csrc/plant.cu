@@ -10,16 +10,17 @@
 // exactly sim_time (the clip schedule of sim/mpc.py::_simulate_plant).
 //
 // What bounds it on an H100: latency, nothing else.  The work is one serial
-// chain of ~11 ABA passes at the default 2 ms period (~20 KFLOP each) on
-// 14 + 7 N + 3 floats of input and the model's X matrices and inertias
-// (1008 floats); no two substeps can overlap.  Design: one warp, the
-// substep loop inside the kernel, the model in shared memory, and the ABA
-// spread over the warp (common.cuh::aba_warp): per substep the seven joint
+// chain of ~11 ABA passes at the default 2 ms period (~20 KFLOP each at
+// NQ = 7) on NX + NQ N + 3 floats of input and the model's X matrices and
+// inertias (144 NQ floats); no two substeps can overlap.  Design: one warp,
+// the substep loop inside the kernel, the model in shared memory, and the ABA
+// spread over the warp (common.cuh::aba_warp): per substep the NQ joint
 // transforms and the links' bias terms are formed once, all at once,
 // instead of in each of the three passes; the articulated-inertia pass
 // spreads each link's 6x6 products over the lanes (the symmetric inertia by
 // its upper triangle); the velocity and acceleration chains run on one lane
-// from registers; each substep's controls are loaded a substep ahead.  The
+// from registers; each substep's controls are loaded a substep ahead.  One
+// lane per joint: any NQ < 32 (common.cuh's static_assert).  The
 // whole period is one launch, and the scalars (t_off, sim_time, timestep)
 // are read on the device, so the caller never synchronizes.
 //

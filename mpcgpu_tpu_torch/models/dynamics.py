@@ -55,6 +55,17 @@ def fk_ee_xyz(model: RobotModel, q):
     return fk_ee_hom(model, q)[..., 0:3, 3]
 
 
+def fk_ee(model: RobotModel, q):
+    """End-effector pose (..., 6) = [xyz, roll, pitch, yaw] (the RPY branch
+    of the JAX package's ``fk_ee``)."""
+    T = fk_ee_hom(model, q)
+    roll = torch.atan2(T[..., 2, 1], T[..., 2, 2])
+    pitch = -torch.atan2(T[..., 2, 0],
+                         torch.sqrt(T[..., 2, 1] ** 2 + T[..., 2, 2] ** 2))
+    yaw = torch.atan2(T[..., 1, 0], T[..., 0, 0])
+    return torch.cat([T[..., 0:3, 3], torch.stack([roll, pitch, yaw], -1)], -1)
+
+
 def fk_ee_xyz_and_jac(model: RobotModel, q):
     """(ee_xyz (..., 3), d ee_xyz / dq (..., 3, nq)), the Jacobian by
     forward-mode AD through the same transform product."""

@@ -124,14 +124,14 @@ def coeff_plan(L: int, s: int, cluster: int | None = None) -> CoeffPlan:
     return CoeffPlan(cluster, rows, threads)
 
 
-def _require_state(st: dict, s: int) -> tuple:
+def _require_state(st: dict, s: int, what: str) -> tuple:
     """Raise unless the state's tensors are what the kernels take; returns
     (device, n_shard, L)."""
     dev = st["x"].device
     n_shard, L, n = st["x"].shape
     h = m = 2 * s + 1
     if n != 14:
-        raise ValueError("the CUDA kernels are built for nx = 14")
+        _kernels.require_nq7(n / 2, what)
     if not 1 <= s <= MAX_S:
         raise ValueError(f"s_steps = {s}; the kernels take 1 <= s <= {MAX_S}")
     if not h <= L <= _kernels.MAX_KNOTS:
@@ -160,7 +160,7 @@ def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
     if _kernels.on_cpu(st["x"]):
         ca_basis(st, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter, s)
         return
-    dev, n_shard, L = _require_state(st, s)
+    dev, n_shard, L = _require_state(st, s, "K10b (ca_basis_cuda)")
     plan = ca_cluster_plan(L, s)
     h = 2 * s + 1
     for name, t in (("S", S), ("Pinv", Pinv)):
@@ -199,7 +199,7 @@ def ca_coeff_step_cuda(st: dict, tot, max_iter: int, exit_tol,
     if _kernels.on_cpu(st["x"]):
         ca_coeff_step(st, tot, max_iter, exit_tol, exit_criterion, s)
         return
-    dev, n_shard, L = _require_state(st, s)
+    dev, n_shard, L = _require_state(st, s, "K10b' (ca_coeff_step_cuda)")
     if tuple(tot.shape) != (n_shard, n_parts(s)) or tot.stride(1) != 1 \
             or tot.dtype != WORK or tot.device != dev:
         raise ValueError(f"tot: f64 ({n_shard}, {n_parts(s)}) on the card, rows "

@@ -11,7 +11,9 @@ Ports of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_dz_solve_pallas_lanes`` (K2),
 shard axis; K2' takes the standard (N, 3, n, n) BTD operands.  Each wrapper
 runs its plain version for CPU tensors and its kernel for CUDA tensors.
 K2, K2' and K8b (``parallel/batched_cuda.py``) run one thread-block
-cluster per solve, laid out by ``k2_cluster_plan(N)``.
+cluster per solve, laid out by ``k2_cluster_plan(N)``.  K2 is built for the
+system's nx = 2 nq (nq 2..7); K2', K6 and K9b run at nx = 14 only until the
+card holds them to their plain versions at other nq.
 """
 
 from __future__ import annotations
@@ -28,11 +30,20 @@ from mpcgpu_tpu_torch.solver.kkt import KKTBlocks
 
 # K2's cluster plan (csrc/pcg_dz.cu): the knots a CTA aims at, the largest
 # cluster (16 is above the portable 8), the most knots per CTA (16 x 32 =
-# MAX_KNOTS), and the knot stride of S and Pinv in a CTA's shared memory
+# MAX_KNOTS)
 K2_TARGET_KNOTS = 8
 K2_MAX_CLUSTER = 16
 K2_MAX_KP = 32
-_KNOT_STRIDE = 590
+
+
+def knot_stride(nx: int = 14) -> int:
+    """KNOT_STRIDE: one knot's S or Pinv blocks (3 nx^2 floats) in a CTA's
+    shared memory, padded to the least 32 m + nx floats, so that the next
+    knot starts nx banks later (590 at nx = 14)."""
+    return (3 * nx * nx - nx + 31) // 32 * 32 + nx
+
+
+_KNOT_STRIDE = knot_stride(14)
 
 
 class K2Plan(NamedTuple):
@@ -41,41 +52,41 @@ class K2Plan(NamedTuple):
     smem_bytes: int       # dynamic shared memory of one CTA
 
 
-def k2_threads(kp: int) -> int:
-    """Threads of one CTA: one per own row (14 kp), in whole warps."""
-    return max(32, -(-14 * kp // 32) * 32)
+def k2_threads(kp: int, nx: int = 14) -> int:
+    """Threads of one CTA: one per own row (nx kp), in whole warps."""
+    return max(32, -(-nx * kp // 32) * 32)
 
 
-def k2_smem_bytes(kp: int) -> int:
+def k2_smem_bytes(kp: int, nx: int = 14) -> int:
     """One CTA's dynamic shared memory at kp knots (``k2_smem_floats`` of
     csrc/pcg_dz.cu): two mbarriers, S and Pinv, r and p with a halo row on
     each side, lam, z, Sp, the neighbours' boundary rows of Sp and z, and
     the warp parts of the three sums from every CTA."""
-    nw = k2_threads(kp) // 32
-    return 4 * (4 + 2 * _KNOT_STRIDE * kp + 2 * 14 * (kp + 2) + 3 * 14 * kp
-                + 4 * 14 + 3 * K2_MAX_CLUSTER * nw)
+    nw = k2_threads(kp, nx) // 32
+    return 4 * (4 + 2 * knot_stride(nx) * kp + 2 * nx * (kp + 2) + 3 * nx * kp
+                + 4 * nx + 3 * K2_MAX_CLUSTER * nw)
 
 
-def k2_cluster_plan(N: int) -> K2Plan:
+def k2_cluster_plan(N: int, nx: int = 14) -> K2Plan:
     """The cluster K2, K2' and K8b launch for N knots: the smallest power of
     two C >= N / K2_TARGET_KNOTS, at most 16, and ceil(N / C) knots per
-    CTA.  A fixed function of N, so the three kernels split the knots, and
-    so round, alike."""
+    CTA.  A fixed function of N (nx sets only the shared memory), so the
+    three kernels split the knots, and so round, alike."""
     _kernels.require_knots(N)
     want = -(-N // K2_TARGET_KNOTS)
     cluster = 1
     while cluster < want and cluster < K2_MAX_CLUSTER:
         cluster *= 2
     kp = -(-N // cluster)
-    return K2Plan(cluster, kp, k2_smem_bytes(kp))
+    return K2Plan(cluster, kp, k2_smem_bytes(kp, nx))
 
 
-def k2_cluster_occupancy(N: int, dz: bool = True) -> int:
+def k2_cluster_occupancy(N: int, dz: bool = True, nx: int = 14) -> int:
     """``cudaOccupancyMaxActiveClusters`` for K2 (dz) or K2' at N knots'
     plan: how many such clusters the card holds at once."""
-    plan = k2_cluster_plan(N)
+    plan = k2_cluster_plan(N, nx)
     out = torch.zeros((), dtype=torch.int32)
-    code = _kernels.entry("pcg_dz.cu", "pcg_cluster_occupancy")(
+    code = _kernels.entry("pcg_dz.cu", "pcg_cluster_occupancy", nq=nx // 2)(
         plan.cluster, plan.knots_per_cta, plan.smem_bytes, int(dz),
         out.data_ptr())
     _kernels.check(code, "pcg_cluster_occupancy")
@@ -107,10 +118,16 @@ def pcg_dz_solve_plain(sys: dict, lam0, u, rho, r_cost: float,
             res.iters, res.converged)
 
 
-def _require_system(S, Pinv, gamma, lam0, dev):
+def _require_system(S, Pinv, gamma, lam0, dev, what: str):
+    """Check K2's system (nx = 2 nq, any nq the kernels are built for) or
+    that of ``what`` (nx = 14 only)."""
     N, nx = lam0.shape
-    if nx != 14:
-        raise ValueError("the CUDA kernels are built for nx = 14")
+    if nx % 2:
+        raise ValueError(f"nx = {nx}: the state is (q, qd), nx = 2 nq")
+    if what == "K2":
+        _kernels.require_nq(nx // 2)
+    else:
+        _kernels.require_nq7(nx // 2, what)
     _kernels.require_knots(N)
     for name, t, shape in (("S", S, (N, 3, nx, nx)), ("Pinv", Pinv, (N, 3, nx, nx)),
                            ("gamma", gamma, (N, nx)), ("lam0", lam0, (N, nx))):
@@ -118,11 +135,11 @@ def _require_system(S, Pinv, gamma, lam0, dev):
 
 
 def _require_dz_inputs(sys: dict, u, dev):
+    """The dz inputs of a system of nx = 2 nu (the caller has checked nu)."""
     N, nu = u.shape
-    if nu != 7:
-        raise ValueError("the CUDA kernels are built for nu = 7")
-    for name, shape in (("Qinv", (N, 14, 14)), ("A", (N, 14, 14)),
-                        ("B", (N, 14, nu)), ("q", (N, 14))):
+    nx = 2 * nu
+    for name, shape in (("Qinv", (N, nx, nx)), ("A", (N, nx, nx)),
+                        ("B", (N, nx, nu)), ("q", (N, nx))):
         _kernels.require(sys[name], name, shape, dev)
     _kernels.require(u, "u", (N, nu), dev, row_major=True)
 
@@ -149,16 +166,18 @@ def pcg_dz_solve(sys: dict, lam0, u, rho, r_cost: float, max_iter: int = 173,
     dev = lam0.device
     N, nx = lam0.shape
     nu = u.shape[-1]
-    _require_system(sys["S"], sys["Pinv"], sys["gamma"], lam0, dev)
+    _require_system(sys["S"], sys["Pinv"], sys["gamma"], lam0, dev, "K2")
+    if 2 * nu != nx:
+        raise ValueError(f"u: {nu} controls for a state of {nx}; nu = nx / 2")
     _require_dz_inputs(sys, u, dev)
     rho_t = _kernels.scalar(rho, dev)
     tol_t = _kernels.scalar(exit_tol, dev)
 
-    plan = k2_cluster_plan(N)
+    plan = k2_cluster_plan(N, nx)
     lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
     dz = torch.empty((N, nx + nu), dtype=torch.float32, device=dev)
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "pcg_dz_launch")(
+    code = _kernels.entry("pcg_dz.cu", "pcg_dz_launch", nq=nu)(
         sys["S"].data_ptr(), sys["Pinv"].data_ptr(), sys["gamma"].data_ptr(),
         lam0.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(0),
@@ -188,7 +207,7 @@ def pcg_solve_cuda(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
                          exit_criterion)
     dev = lam0.device
     N, nx = lam0.shape
-    _require_system(S, Pinv, gamma, lam0, dev)
+    _require_system(S, Pinv, gamma, lam0, dev, "K2' (pcg_solve_cuda)")
     tol_t = _kernels.scalar(exit_tol, dev)
     plan = k2_cluster_plan(N)
     lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
@@ -215,8 +234,9 @@ def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
         return compute_dz_plain(sys, lam, u, rho, r_cost)
     dev = lam.device
     N, nx = lam.shape
-    if nx != 14:
-        raise ValueError("the CUDA kernels are built for nx = 14")
+    if nx != 2 * u.shape[-1]:
+        raise ValueError(f"u: {u.shape[-1]} controls for a state of {nx}; nu = nx / 2")
+    _kernels.require_nq7(u.shape[-1], "K6 (compute_dz_cuda)")
     _kernels.require_knots(N)
     _kernels.require(lam, "lam", (N, nx), dev)
     _require_dz_inputs(sys, u, dev)
@@ -266,8 +286,9 @@ def compute_dz_slab(sys: dict, lam, lam_next, last_mask, u, rho, r_cost: float):
     dev = lam.device
     n_shard, L, nx = lam.shape
     nu = u.shape[-1]
-    if nx != 14 or nu != 7:
-        raise ValueError("the CUDA kernels are built for nx = 14, nu = 7")
+    if nx != 2 * nu:
+        raise ValueError(f"u: {nu} controls for a state of {nx}; nu = nx / 2")
+    _kernels.require_nq7(nu, "K9b (compute_dz_slab)")
     for name, t in (("lam", lam), ("lam_next", lam_next)):
         _kernels.require(t, name, (n_shard, L, nx), dev)
     _kernels.require(last_mask, "last_mask", (n_shard, L), dev)

@@ -88,7 +88,7 @@ def pcg_slab_step_cuda(st: dict, S, Pinv, flp, frp, PinvL, PinvR, tot,
     dev = st["x"].device
     n_shard, L, n = st["x"].shape
     if n != 14:
-        raise ValueError("the CUDA kernels are built for nx = 14")
+        _kernels.require_nq7(n / 2, "K10a (pcg_slab_step_cuda)")
     plan = slab_cluster_plan(L)
     for name in ("x", "r", "p", "s", "u", "w"):
         _kernels.require(st[name], name, (n_shard, L, n), dev)

@@ -79,7 +79,7 @@ def pcr_solve_cuda(S, b, refine: int = 1):
     dev = b.device
     N, n = b.shape
     if n != 14:
-        raise ValueError("the CUDA kernels are built for nx = 14")
+        _kernels.require_nq7(n / 2, "K7 (pcr_solve_cuda)")
     plan = pcr_plan(N)
     _kernels.require(S, "S", (N, 3, n, n), dev)
     _kernels.require(b, "b", (N, n), dev)

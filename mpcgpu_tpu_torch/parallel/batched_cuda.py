@@ -59,10 +59,9 @@ def _stack(results):
     return tuple(torch.stack(parts) for parts in zip(*results))
 
 
-def _require_batch(model: RobotModel, xu_b, ee_b):
+def _require_batch(model: RobotModel, xu_b, ee_b, what: str):
     """Check the shared kernel inputs; returns (B, N, packed model)."""
-    if model.nq != 7:
-        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+    _kernels.require_nq7(model.nq, what)
     dev = xu_b.device
     B, N = xu_b.shape[:2]
     _kernels.require_knots(N)
@@ -121,7 +120,8 @@ def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
                                              rho_b, dt, integrator_type,
                                              angle_wrap)
     dev = xu_b.device
-    B, N, packed = _require_batch(model, xu_b, ee_b)
+    B, N, packed = _require_batch(model, xu_b, ee_b,
+                                  "K8a (build_kkt_schur_batched)")
     _kernels.require(rho_b, "rho", (B,), dev)
     nq = model.nq
     nx = 2 * nq
@@ -164,7 +164,7 @@ def pcg_solve_batched(S, Pinv, gamma, lam0, max_iter: int = 173,
     dev = lam0.device
     B, N, nx = lam0.shape
     if nx != 14:
-        raise ValueError("the CUDA kernels are built for nx = 14")
+        _kernels.require_nq7(nx / 2, "K8b (pcg_solve_batched)")
     _kernels.require_knots(N)
     for name, t, shape in (("S", S, (B, N, 3, nx, nx)),
                            ("Pinv", Pinv, (B, N, 3, nx, nx)),
@@ -197,7 +197,7 @@ def compute_dz_batched(sys: dict, lam, u, rho_b, r_cost: float):
     B, N, nx = lam.shape
     nu = u.shape[-1]
     if nx != 14 or nu != 7:
-        raise ValueError("the CUDA kernels are built for nx = 14, nu = 7")
+        _kernels.require_nq7(nu if nu != 7 else nx / 2, "K8c (compute_dz_batched)")
     _kernels.require_knots(N)
     _kernels.require(lam, "lam", (B, N, nx), dev)
     for name, shape in (("Qinv", (B, N, nx, nx)), ("A", (B, N, nx, nx)),
@@ -237,7 +237,8 @@ def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
                                                 ee_b, mu, dt, num_alphas,
                                                 integrator_type, angle_wrap)
     dev = xu_b.device
-    B, N, packed = _require_batch(model, xu_b, ee_b)
+    B, N, packed = _require_batch(model, xu_b, ee_b,
+                                  "K3b (line_search_merits_batched)")
     if not 1 <= num_alphas <= 32:
         raise ValueError(f"num_alphas must be in 1..32, got {num_alphas}")
     _kernels.require(dz_b, "dz", (B, N, 21), dev)

@@ -8,7 +8,7 @@ vmap over the instances of the batched closed loop
 package's ``sim/mpc.py::_simulate_plant``) for CPU tensors and the kernel
 for CUDA tensors; ``simulate_plant_batched`` runs ``simulate_plant_plain``
 per instance for CPU tensors and the kernel over an instance grid for CUDA
-tensors.
+tensors.  The kernel is built for the model's nq (2..7).
 """
 
 from __future__ import annotations
@@ -50,24 +50,25 @@ def simulate_plant_plain(model: RobotModel, xs, xu_plan, time_offset_s,
 
 def _launch(model: RobotModel, xs, xu_plan, time_offset_s, sim_time_s,
             timestep, n_steps: int, sim_step: float):
-    """K4 over the leading instance axis of xs (B, 14) and xu_plan (B, N, 21);
-    returns (B, 14)."""
+    """K4 over the leading instance axis of xs (B, nx) and xu_plan (B, N,
+    nx + nu); returns (B, nx)."""
     dev = xs.device
     B, N = xu_plan.shape[:2]
-    if model.nq != 7:
-        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+    nq = model.nq
+    nx, w = 2 * nq, 3 * nq
+    _kernels.require_nq(nq)
     if n_steps < 0:
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
     _kernels.require_knots(N)
-    _kernels.require(xs, "xs", (B, 14), dev, row_major=True)
-    if tuple(xu_plan.shape) != (B, N, 21) or xu_plan.stride(2) != 1:
-        raise ValueError(f"xu_plan: ({B}, {N}, 21) with rows of unit stride")
-    _kernels.require(xu_plan[0], "xu_plan", (N, 21), dev, row_major=True)
+    _kernels.require(xs, "xs", (B, nx), dev, row_major=True)
+    if tuple(xu_plan.shape) != (B, N, w) or xu_plan.stride(2) != 1:
+        raise ValueError(f"xu_plan: ({B}, {N}, {w}) with rows of unit stride")
+    _kernels.require(xu_plan[0], "xu_plan", (N, w), dev, row_major=True)
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)
     scal = [_kernels.scalar(v, dev) for v in (time_offset_s, sim_time_s, timestep)]
-    out = torch.empty((B, 14), dtype=torch.float32, device=dev)
-    code = _kernels.entry("plant.cu", "plant_launch")(
+    out = torch.empty((B, nx), dtype=torch.float32, device=dev)
+    code = _kernels.entry("plant.cu", "plant_launch", nq=nq)(
         xs.data_ptr(), xs.stride(0), xu_plan.data_ptr(), xu_plan.stride(1),
         xu_plan.stride(0), N, *(t.data_ptr() for t in scal), float(sim_step),
         int(n_steps), packed.data_ptr(), float(model.gravity), out.data_ptr(), B,

@@ -16,10 +16,12 @@ same with a leading shard axis, (n_shard, Lext, ...).  K5 returns the
 CPU tensors and their kernels for CUDA tensors.
 
 Each kernel is one launch of windows of ``kkt_window_plan(N).window``
-consecutive knots per CTA, a group of 3 warps per knot (K1, K8a, K9a: with
-two halo knots on the left and one on the right; K5: none).  The window is a fixed
-function of N, so K1, K8a (``parallel/batched_cuda.py``) and K9a (N = the
-shard's Lext) cut a horizon alike.
+consecutive knots per CTA, a group of ``kkt_group_warps(nq)`` warps per knot
+(K1, K8a, K9a: with two halo knots on the left and one on the right; K5:
+none).  The window is a fixed function of N, so K1, K8a
+(``parallel/batched_cuda.py``) and K9a (N = the shard's Lext) cut a horizon
+alike.  K1 is built for the model's nq (2..7); K5, K8a and K9a run at nq = 7
+only until the card holds them to their plain versions at other nq.
 """
 
 from __future__ import annotations
@@ -37,13 +39,7 @@ from mpcgpu_tpu_torch.solver.kkt import (KKTBlocks, build_kkt,
                                          euler_step_and_jacobians,
                                          tracking_cost_grad_hess)
 
-# csrc/kkt_schur.cu's shared memory, in floats: the packed model, a knot's
-# slot (T, A Qinv, Qinv, D, xnext, A Qinv q, B Rinv r, q) and one knot
-# group's working set of the knot stage; the most knot groups (of 3 warps)
-# a CTA takes
-_MODEL_FLOATS = 1344
-_SLOT_FLOATS = 4 * 14 * 14 + 4 * 14
-_WS_FLOATS = 1778
+# the most knot groups a CTA takes (two named barriers each)
 KKT_MAX_GROUPS = 7
 # the knots a CTA owns (halo knots aside), for every N
 KKT_WINDOW = 4
@@ -52,31 +48,69 @@ KKT_WINDOW = 4
 K9A_MAX_KNOTS = _kernels.MAX_KNOTS + 4
 
 
+def kkt_group_warps(nq: int = 7) -> int:
+    """KW of csrc/kkt_schur.cu: the warps of a knot group, 5 teams of 6
+    lanes each, one team per tangent direction of the 2 nq (3 at nq = 6, 7;
+    2 below)."""
+    return 2 + (2 * nq > 10)
+
+
+def kkt_slot_floats(nq: int = 7) -> int:
+    """SLOT_FLOATS: a knot's slot (T, A Qinv, Qinv, D; xnext, A Qinv q,
+    B Rinv r, q)."""
+    nx = 2 * nq
+    return 4 * nx * nx + 4 * nx
+
+
+def kkt_ws_floats(nq: int = 7) -> int:
+    """WS_FLOATS: one knot group's working set of the knot stage (the WS_*
+    layout of csrc/kkt_schur.cu)."""
+    nx = 2 * nq
+    nn = nx * nx
+    # A and B, or the FK chain's ping-pong buffers where those need more
+    ab = max(nn + nx * nq, 2 * 16 * (nq + 1))
+    return (3 * nq * 36 + 36                  # X, dX/dq, composite inertias, t36
+            + 2 * nq * nq + 2 * nq + nq        # [M | I], piv, fcol
+            + nq * nq + 2 * nq                 # Minv, bias, qdd
+            + 2 * nq * nx + ab + nn            # dID, dqdd, A B, (Q + rho I)^-1
+            + 2 * nx + 3 + 3 * nq              # grad, xnext, ee, J
+            + 2 * nx + nq + 3 + 4 * nq)        # x, u, x_eval, goal, sin / cos
+
+
+# the nq = 7 sizes, in floats: the packed model, a knot's slot and one knot
+# group's working set
+_MODEL_FLOATS = _kernels.model_floats(7)
+_SLOT_FLOATS = kkt_slot_floats(7)
+_WS_FLOATS = kkt_ws_floats(7)
+
+
 class KKTPlan(NamedTuple):
     window: int       # Kc: the knots a CTA owns
     ctas: int         # ceil(N / Kc) per instance or shard
     smem_bytes: int   # dynamic shared memory of a K1 / K8a / K9a CTA
 
 
-def kkt_smem_bytes(window: int, schur: bool = True) -> int:
+def kkt_smem_bytes(window: int, schur: bool = True, nq: int = 7) -> int:
     """Dynamic shared memory of one CTA (``kkt_smem_floats`` of
     csrc/kkt_schur.cu): the model, and per knot group (K1 / K8a / K9a:
     window + 3, K5: window) a working set and, with the Schur stages, a
     knot's slot."""
     groups = window + 3 if schur else window
-    return 4 * (_MODEL_FLOATS + groups * ((_SLOT_FLOATS if schur else 0)
-                                          + _WS_FLOATS))
+    return 4 * (_kernels.model_floats(nq)
+                + groups * ((kkt_slot_floats(nq) if schur else 0) + kkt_ws_floats(nq)))
 
 
-def kkt_window_plan(N: int, max_knots: int = _kernels.MAX_KNOTS) -> KKTPlan:
+def kkt_window_plan(N: int, max_knots: int = _kernels.MAX_KNOTS,
+                    nq: int = 7) -> KKTPlan:
     """The windows K1, K5, K8a and K9a launch for N knots: Kc = min(N,
     KKT_WINDOW) knots per CTA, ceil(N / Kc) CTAs.  A fixed function of N, so
     every caller cuts the horizon, and rounds, alike.  N runs from 2 to
-    ``max_knots`` (K9a's halo-extended slabs: K9A_MAX_KNOTS)."""
+    ``max_knots`` (K9a's halo-extended slabs: K9A_MAX_KNOTS); nq sets the
+    shared memory."""
     if not 2 <= N <= max_knots:
         raise ValueError(f"N = {N} knots; the CUDA kernels take 2 <= N <= {max_knots}")
     window = min(N, KKT_WINDOW)
-    return KKTPlan(window, -(-N // window), kkt_smem_bytes(window))
+    return KKTPlan(window, -(-N // window), kkt_smem_bytes(window, nq=nq))
 
 
 def _check_args(cost: CostConfig, integrator_type: int) -> None:
@@ -86,10 +120,13 @@ def _check_args(cost: CostConfig, integrator_type: int) -> None:
         raise ValueError(f"integrator_type {integrator_type} not in (0, 1)")
 
 
-def _require_inputs(model: RobotModel, xu, ee_goal):
-    """Check the kernel inputs; returns the packed model."""
-    if model.nq != 7:
-        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+def _require_inputs(model: RobotModel, xu, ee_goal, what: str):
+    """Check the kernel inputs of K1 (any nq the kernels are built for) or
+    of ``what`` (nq = 7 only); returns the packed model."""
+    if what == "K1":
+        _kernels.require_nq(model.nq)
+    else:
+        _kernels.require_nq7(model.nq, what)
     dev = xu.device
     N = xu.shape[0]
     _kernels.require_knots(N)
@@ -133,7 +170,7 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
     N = xu.shape[0]
     nq = model.nq
     nx = 2 * nq
-    packed = _require_inputs(model, xu, ee_goal)
+    packed = _require_inputs(model, xu, ee_goal, "K1")
     rho_t = _kernels.scalar(rho, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -144,8 +181,8 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
                A=torch.empty((N, nx, nx), **f32),
                B=torch.empty((N, nx, nq), **f32),
                q=torch.empty((N, nx), **f32))
-    plan = kkt_window_plan(N)
-    code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch")(
+    plan = kkt_window_plan(N, nq=nq)
+    code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch", nq=nq)(
         xu.data_ptr(), xu.stride(0), 0, ee_goal.data_ptr(), ee_goal.stride(0),
         0, rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), N, 1, plan.window,
@@ -179,7 +216,7 @@ def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: flo
     N = xu.shape[0]
     nq = model.nq
     nx = 2 * nq
-    packed = _require_inputs(model, xu, ee_goal)
+    packed = _require_inputs(model, xu, ee_goal, "K5 (build_kkt_cuda)")
     _kernels.require(xs, "xs", (nx,), dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -279,8 +316,7 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
         return build_kkt_schur_slab_plain(model, cost, xu_ext, ee_ext,
                                           first_mask, last_mask, rho, dt,
                                           integrator_type)
-    if model.nq != 7:
-        raise ValueError(f"the CUDA kernels are built for nq = 7, got {model.nq}")
+    _kernels.require_nq7(model.nq, "K9a (build_kkt_schur_slab)")
     dev = xu_ext.device
     n_shard, Lext = xu_ext.shape[:2]
     plan = kkt_window_plan(Lext, K9A_MAX_KNOTS)

@@ -10,7 +10,9 @@ and the kernel for CUDA tensors.
 The kernel gives each (candidate, knot) sample a team of G lanes, P samples
 a block, as ``merit_team_plan`` says for the launch's sample count (one
 rule for K3, K3b in ``parallel/batched_cuda.py`` and K9c); the merits do not
-depend on G or P, since each term is summed as one thread would sum it.
+depend on G or P, since each term is summed as one thread would sum it.  K3
+is built for the model's nq (2..7); K3b and K9c run at nq = 7 only until the
+card holds them to their plain versions at other nq.
 """
 
 from __future__ import annotations
@@ -24,11 +26,26 @@ from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.solver.merit import line_search_merits, merit_partials
 
-# csrc/merit.cu's shared memory, in floats: the packed model, one sample's
-# state (odd stride; G = 1: one thread's per-link vectors), block_sum's 33
-_MODEL_FLOATS = 1344
-_SAMPLE_STRIDE = 691
-_VEC_STRIDE = 141
+
+
+def merit_sample_stride(nq: int = 7) -> int:
+    """SAMPLE_STRIDE of csrc/merit.cu: one sample's state in shared memory
+    (76 nq + 158 floats), made odd."""
+    return (76 * nq + 158) | 1
+
+
+def merit_vec_stride(nq: int = 7) -> int:
+    """VEC_STRIDE: one thread's per-link vectors at G = 1 (aba's 20 nq
+    floats), made odd."""
+    return (20 * nq) | 1
+
+
+# csrc/merit.cu's shared memory at nq = 7, in floats: the packed model, one
+# sample's state (odd stride; G = 1: one thread's per-link vectors);
+# block_sum takes 33 more
+_MODEL_FLOATS = _kernels.model_floats(7)
+_SAMPLE_STRIDE = merit_sample_stride(7)
+_VEC_STRIDE = merit_vec_stride(7)
 MERIT_TEAMS = (1, 2, 4, 8, 16, 32)
 # the most threads of a block: teams, and G <= 2 (G = 1: its registers hold
 # the 6x6 matrices; 128 G threads)
@@ -76,28 +93,28 @@ def merit_max_threads(team: int) -> int:
     return MERIT_MAX_THREADS_G1 * team if team <= 2 else MERIT_MAX_THREADS
 
 
-def merit_smem_bytes(team: int, samples: int, N: int) -> int:
+def merit_smem_bytes(team: int, samples: int, N: int, nq: int = 7) -> int:
     """Dynamic shared memory of one block of csrc/merit.cu
     (``merit_smem_floats``): the model, the samples' state (G = 1: their
     per-link vectors), each knot's cost and defect, block_sum's 33 floats."""
-    stride = _VEC_STRIDE if team == 1 else _SAMPLE_STRIDE
-    return 4 * (_MODEL_FLOATS + samples * stride + 2 * N + 33)
+    stride = merit_vec_stride(nq) if team == 1 else merit_sample_stride(nq)
+    return 4 * (_kernels.model_floats(nq) + samples * stride + 2 * N + 33)
 
 
-def merit_team_plan(N: int, num_samples: int) -> MeritPlan:
+def merit_team_plan(N: int, num_samples: int, nq: int = 7) -> MeritPlan:
     """The teams and rounds of a merit launch of num_samples samples
     (candidates x knots x instances or shards) at N knots: MERIT_SMALL up to
     MERIT_SMALL_SAMPLES, MERIT_LARGE above, P cut to at most ceil(N / 32) 32,
     merit_max_threads(G) / G and what fits the shared memory (in multiples
-    of 32)."""
+    of 32) at nq joints."""
     team, samples = MERIT_SMALL if num_samples <= MERIT_SMALL_SAMPLES else MERIT_LARGE
     if team not in MERIT_TEAMS:
         raise ValueError(f"team of {team} lanes; the kernel takes {MERIT_TEAMS}")
-    stride = _VEC_STRIDE if team == 1 else _SAMPLE_STRIDE
-    fit = (MERIT_SMEM_LIMIT // 4 - _MODEL_FLOATS - 2 * N - 33) // stride
+    stride = merit_vec_stride(nq) if team == 1 else merit_sample_stride(nq)
+    fit = (MERIT_SMEM_LIMIT // 4 - _kernels.model_floats(nq) - 2 * N - 33) // stride
     samples = min(samples, merit_max_threads(team) // team, -(-N // 32) * 32,
                   fit // 32 * 32)
-    return MeritPlan(team, samples, merit_smem_bytes(team, samples, N))
+    return MeritPlan(team, samples, merit_smem_bytes(team, samples, N, nq))
 
 
 def line_search_merits_plain(model: RobotModel, cost: CostConfig, xu, dz, xs,
@@ -127,25 +144,25 @@ def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
                                         dt, num_alphas, integrator_type,
                                         angle_wrap)
     dev = xu.device
+    nq = model.nq
+    _kernels.require_nq(nq)
     N, w = xu.shape
-    if model.nq != 7 or w != 21:
-        raise ValueError("the CUDA kernels are built for nq = 7 (xu rows of 21)")
     _kernels.require_knots(N)
     if not 1 <= num_alphas <= 32:
         raise ValueError(f"num_alphas must be in 1..32, got {num_alphas}")
-    _kernels.require(xu, "xu", (N, w), dev)
-    _kernels.require(dz, "dz", (N, w), dev)
-    _kernels.require(xs, "xs", (14,), dev)
+    _kernels.require(xu, "xu", (N, 3 * nq), dev)
+    _kernels.require(dz, "dz", (N, 3 * nq), dev)
+    _kernels.require(xs, "xs", (2 * nq,), dev)
     _kernels.require(ee_goal[:, :3], "ee_goal[:, :3]", (N, 3), dev,
                      row_major=True)
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)
 
     A = num_alphas + 1
-    plan = merit_team_plan(N, A * N)
+    plan = merit_team_plan(N, A * N, nq)
     merits = torch.empty((A,), dtype=torch.float32, device=dev)
     alphas = torch.empty((A,), dtype=torch.float32, device=dev)
-    code = _kernels.entry("merit.cu", "merit_launch")(
+    code = _kernels.entry("merit.cu", "merit_launch", nq=nq)(
         xu.data_ptr(), dz.data_ptr(), xs.data_ptr(), ee_goal.data_ptr(),
         ee_goal.stride(0), 0, packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A,
@@ -178,13 +195,12 @@ def line_search_merit_partials_slab(model: RobotModel, cost: CostConfig, xu_ext,
         return merit_partials(model, cost, xu_ext, dz_ext, ee_ext, dt,
                               num_alphas, integrator_type)
     dev = xu_ext.device
-    n_shard, Le, w = xu_ext.shape
-    if model.nq != 7 or w != 21:
-        raise ValueError("the CUDA kernels are built for nq = 7 (xu rows of 21)")
+    n_shard, Le = xu_ext.shape[:2]
+    _kernels.require_nq7(model.nq, "K9c (line_search_merit_partials_slab)")
     if not 1 <= num_alphas <= 32:
         raise ValueError(f"num_alphas must be in 1..32, got {num_alphas}")
-    _kernels.require(xu_ext, "xu_ext", (n_shard, Le, w), dev)
-    _kernels.require(dz_ext, "dz_ext", (n_shard, Le, w), dev)
+    _kernels.require(xu_ext, "xu_ext", (n_shard, Le, 3 * model.nq), dev)
+    _kernels.require(dz_ext, "dz_ext", (n_shard, Le, 3 * model.nq), dev)
     _kernels.require(ee_ext, "ee_ext", (n_shard, Le, ee_ext.shape[-1]), dev)
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)

@@ -151,3 +151,62 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0, out.stdout
         assert '"ok": true' not in out.stdout
+
+
+# the onboarding path: a planar arm, a URDF loaded and exported, and the
+# chain tracker's host and device loops at a tiny size, then the same check
+# of every loaded module
+_ONBOARDING = """
+import sys
+from pathlib import Path
+import torch
+torch.set_num_threads(1)
+from mpcgpu_tpu_torch.models import chain, urdf
+from mpcgpu_tpu_torch import track_chain
+arm = chain.planar_arm(3, dtype=torch.float64, device="cpu")
+again = urdf.load_urdf(urdf.export_urdf(arm), dtype=torch.float64, device="cpu")
+assert torch.allclose(again.xc, arm.xc)
+for argv in (["--nq", "2", "--knots", "4", "--steps", "5"],
+             ["--nq", "3", "--knots", "4", "--steps", "5", "--ondevice"]):
+    assert track_chain.main(argv + ["--device", "cpu"]) == 0
+ref = (Path.cwd() / "mpcgpu_tpu").resolve()
+bad = sorted(name for name, m in list(sys.modules.items())
+             if name.split(".")[0] in ("jax", "jaxlib", "mpcgpu_tpu")
+             or ref in Path(getattr(m, "__file__", None) or "/").resolve().parents)
+print("IMPORTED", bad)
+assert not bad, bad
+"""
+
+
+def test_onboarding_modules_import_no_jax():
+    """chain, urdf and track_chain import nothing of JAX or mpcgpu_tpu."""
+    out = subprocess.run([sys.executable, "-c", _ONBOARDING], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "IMPORTED []" in out.stdout
+
+
+def test_onboarding_entry_points_default_to_the_card():
+    """planar_arm, make_serial_chain, load_urdf and the chain tracker's
+    model ask for CUDA unless the caller passes the CPU: without a card
+    they raise instead of building a silent CPU model."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch import track_chain
+    from mpcgpu_tpu_torch.models import (load_urdf, make_serial_chain,
+                                         planar_arm)
+    from mpcgpu_tpu_torch.models.urdf import export_urdf
+
+    text = export_urdf(planar_arm(2, device="cpu"))
+    makers = (lambda **kw: planar_arm(3, **kw),
+                lambda **kw: make_serial_chain([np.eye(3)], [np.zeros(3)],
+                                               [np.eye(6)], **kw),
+                lambda **kw: load_urdf(text, **kw),
+                lambda **kw: track_chain.build_model(2, **kw)[0])
+    for build in makers:
+        if torch.cuda.is_available():
+            assert build().xc.device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+                build()
+        assert build(device="cpu").xc.device.type == "cpu"

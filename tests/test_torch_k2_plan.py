@@ -51,7 +51,10 @@ def test_plan_at_the_main_sizes():
 def test_plan_constants_match_the_cuda_source():
     src = CSRC.read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
-    assert int(consts["KNOT_STRIDE"]) == pcg_cuda._KNOT_STRIDE
+    # the stride is derived from NX: evaluated at NX = 14 (C's integer /)
+    stride = re.search(r"constexpr int KNOT_STRIDE = ([^;]+);", src).group(1)
+    assert eval(stride.replace("/", "//"), {"NN": 196, "NX": 14}) \
+        == pcg_cuda._KNOT_STRIDE == 590
     assert int(consts["K2_MAX_KP"]) == pcg_cuda.K2_MAX_KP
     assert int(consts["K2_MAX_CLUSTER"]) == pcg_cuda.K2_MAX_CLUSTER
     # the kernel's own count of its shared memory, evaluated here
@@ -71,7 +74,7 @@ def recorder(monkeypatch):
     tensors taken as if they were on the card."""
     calls = []
 
-    def entry(src, name):
+    def entry(src, name, nq=7):
         def launch(*args):
             calls.append((name, args))
             return 0

@@ -160,7 +160,7 @@ def recorder(monkeypatch):
     tensors taken as if they were on the card."""
     calls = []
 
-    def entry(src, name):
+    def entry(src, name, nq=7):
         def launch(*args):
             calls.append((name, args))
             return 0

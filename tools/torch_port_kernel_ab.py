@@ -34,8 +34,9 @@ shapes, one line per group:
     outer step, so both trees see the same inputs.
 
 Every input is made from a seed, so two trees see the same inputs; --save
-writes every output of the first two groups and of K7, K10b, K10a and K10b'
-(one working call each; CPU tensors, ``torch.save``),
+writes every output of every group: K1, K5, K8a, K9a, K3, K3b, K9c, K7,
+K10b, K10a, K10b', and K2, K2', K4, K8b, K4b (one working call each; CPU
+tensors, ``torch.save``),
 and --compare prints, per kernel and output, "bitwise equal" or the largest
 difference.  To compare two trees on one card, run them in turns in one chip
 call (parent, change, change, parent) and compare the saved outputs:
@@ -459,9 +460,6 @@ def main():
     ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
     slab_coeff(tree, c, torch, dev, keep, "--slab-cluster-sweep" in sys.argv,
                "--coeff-cluster-sweep" in sys.argv)
-    if save is not None:
-        Path(save).parent.mkdir(parents=True, exist_ok=True)
-        torch.save(outs, save)
 
     # K2, K2', K4, K8b, K4b
     s = build_kkt_schur(m, cost, xu, xs, ee, rho, c.DT, 0)
@@ -483,6 +481,16 @@ def main():
     itb = pcg_solve_batched(sb["S"], sb["Pinv"], sb["gamma"], l0, **kw)[1]
     k4b = c.graph_ms(torch, lambda: simulate_plant_batched(
         m, xs_b, xu_b, 2e-3, 2e-3, c.DT, 10, 2e-4))
+    keep("K2", pcg_dz_solve(s, lam, xu[:, 14:], rho, cost.r_cost, **kw))
+    keep("K2'", tuple(pcg_solve_cuda(s["S"], s["Pinv"], s["gamma"], lam, **kw)))
+    keep("K4", simulate_plant(m, xs4, xu, 2e-3, 2e-3, c.DT, 10, 2e-4))
+    keep(f"K8b B={B}", tuple(pcg_solve_batched(sb["S"], sb["Pinv"], sb["gamma"],
+                                               l0, **kw)))
+    keep(f"K4b B={B}", simulate_plant_batched(m, xs_b, xu_b, 2e-3, 2e-3, c.DT,
+                                              10, 2e-4))
+    if save is not None:
+        Path(save).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outs, save)
     print(f"{tree.name or tree}: K2 {k2 * 1e3:.1f} us ({it} iterations, "
           f"{k2 * 1e3 / max(it, 1):.3f} us each), K2' {k2p * 1e3:.1f} us, K4 "
           f"{k4 * 1e3:.1f} us, K8b {k8b * 1e3:.1f} us (B={B}, iterations "
