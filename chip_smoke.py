@@ -9,7 +9,7 @@ Phases (any failure raises and the script exits non-zero):
 
   1. print the card's name and power limit; build the CUDA kernels from
      mpcgpu_tpu_torch/csrc with nvcc (every source at nq = 7, the IIWA's,
-     and K1-K4's sources at nq = 3 and 5, all at once) and print the build
+     and at nq = 3 and 5, all at once) and print the build
      time, each kernel's registers and spills per nq, and the plans of K7
      (one launch per solve), K10b and K10a (a thread-block cluster per
      shard) and the coefficient step (a cluster of CTAs per shard);
@@ -49,6 +49,12 @@ Phases (any failure raises and the script exits non-zero):
      coefficient step with some shards exited (their state bit for bit
      unchanged), and the fused sharded SQP's default route on one shard
      against pcg_cuda at N = 508 and N = 512 (K9a's slab of 516 knots);
+  2d. hold every other kernel (K5, K2', K6, K7, K8a-c, K3b, K9a-c, K10a,
+     K10b, K10b') at nq = 3 and 5 against its plain version, on the chain
+     tracker's planar arms and their own traces, with its nq = 7 check's
+     tolerance: the single kernels at N = 16-64 (nq = 3) and 64, 512 (nq =
+     5), K8a-c and K3b at B = 64, the slab kernels at N = 64 over 4 shards
+     and (nq = 5) 512 over 8;
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -71,7 +77,8 @@ Phases (any failure raises and the script exits non-zero):
      and run the direct-solver tracker script;
   4c. run the batched solve (B = 256, N = 64, 2 SQP iterations) through
      make_batched_sqp_solver, and hold eight instances to their single
-     fused solves bit for bit;
+     fused solves bit for bit, and sqp_solve_batched_fused_sharded over
+     make_mesh(n_instance=4) to the unsharded solve bit for bit;
   4d. run the knot-sharded SQP solve (sqp_solve_sharded, fused: K9a ->
      K10a -> K9b -> K9c) at N = 512 over 8 shards and N = 64 over 4 against
      the single-device pcg_cuda solve and the f64 solve, and 48 knot-sharded
@@ -80,9 +87,10 @@ Phases (any failure raises and the script exits non-zero):
      step -> K9b -> K9c); check launches, finiteness and tracking;
   4e. the batched closed loop (BASELINE config 3: 256 instances, N = 64,
      trace 0_0 from the calm row, 48 updates) through
-     simulate_mpc_ondevice_batched (K8a-c, K3b, K4b); K4b against K4 on all
-     256 instances bit for bit, and four instances against the single
-     on-device loop from the same starts bit for bit;
+     simulate_mpc_ondevice_batched (K8a-c, K3b, K4b), unsharded and over
+     instance_mesh=make_mesh(n_instance=4), every instance bit for bit;
+     K4b against K4 on all 256 instances bit for bit, and four instances
+     against the single on-device loop from the same starts bit for bit;
   4f. the onboarding path (mpcgpu_tpu_torch/track_chain.py): the fused SQP
      on the JAX tests' 3-link problem against the plain f32 and f64 solves;
      the chain tracker at nq = 5, N = 64 over its 240-row trace on the
@@ -91,6 +99,13 @@ Phases (any failure raises and the script exits non-zero):
      the trace; a loop at nq = 3; and the IIWA-14 loaded from its own URDF
      (load_urdf(export_urdf(iiwa14()))) through K1-K4 at N = 64, bit for
      bit where the packed f32 models are equal;
+  4g. the other kernels' paths at nq = 5 (N = 64, full size) and 3 (N =
+     16): the fleet (B = 256 / 64, 48 / 16 updates, unsharded and over the
+     instance axis, four instances against single loops), the knot-sharded
+     fused SQP (N = 512 over 8 / 64 over 4, pipelined_slab and ca_slab)
+     against the single-device, plain and f64 solves, and the split routes
+     and pcr_cuda through the chain tracker's loop (at nq = 5 each route's
+     band of runs from 1-ulp trace changes holds its plain f32 loop);
   5. time the chain per step, the on-device loop per control update (the
      main path, pcr_cuda and the knot-sharded loops), the batched solve per
      SQP iteration against 256 single solves, the sharded solve per SQP
@@ -98,11 +113,12 @@ Phases (any failure raises and the script exits non-zero):
      events) for the pipelined and the s-step PCG, the batched closed loop
      per update, and each kernel (device time of a CUDA graph) against its
      plain version, its bound and, for K7, the dense library solve (K2,
-     K2' and K8b also per CG iteration); K1-K4 and K4b also at nq = 3 and
-     5, each beside its bound at that nq;
+     K2' and K8b also per CG iteration); every kernel also at nq = 3 and 5,
+     each beside its bound at that nq; the fleet unsharded and over the
+     instance axis, in turns;
   6. print one JSON line of kernel results (each row with the nq values its
-     kernel was checked at, and K1-K4's rows with their nq = 3, 5 numbers),
-     the card line, and the final {"ok": true, ...} line.
+     kernel was checked at and its nq = 3, 5 numbers), the card line, and
+     the final {"ok": true, ...} line.
 
 Without a CUDA device it exits at once with a non-zero code.  It imports
 nothing of JAX.
@@ -111,6 +127,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -292,19 +309,13 @@ def dz_knot(nq: int = 7) -> float:
     return 1000 * (2 * nx * nx + nx * nq) / 490
 
 
-RNEA_DUAL, ABA, FK = rnea_dual(), aba(), fk()
-KKT_KNOT, SCHUR_KNOT = kkt_knot(), schur_knot()
-PCG_ITER_KNOT, DZ_KNOT = pcg_iter_knot(), dz_knot()
 
 
-# K7 per level and knot: one 14x14 inverse (the least it needs is n^3
-#   multiply-adds, 2 x 14^3 FLOP), six 14x14 products (A, B, L', U' and th's
-#   two terms) and three mat-vecs (v and b's two terms); the last level one
-#   more inverse and a mat-vec; each refinement pass a BTD mat-vec, three
-#   mat-vecs per level and the final one, per knot.
-GJ14 = 2 * 14 ** 3
-MV14 = 2 * 196
-PCR_LEVEL_KNOT = GJ14 + 6 * 2 * 14 ** 3 + 3 * MV14
+# K7 per level and knot (n = nx): one n x n inverse (the least it needs is
+#   n^3 multiply-adds, 2 n^3 FLOP), six n x n products (A, B, L', U' and
+#   th's two terms) and three mat-vecs (v and b's two terms); the last level
+#   one more inverse and a mat-vec; each refinement pass a BTD mat-vec,
+#   three mat-vecs per level and the final one, per knot.
 
 
 def bound(flops: float, floats: float, peak: float = PEAK_F32) -> tuple[float, str]:
@@ -345,64 +356,73 @@ def kernel_bounds(N: int, k2_iters: int, k2p_iters: int, plant_rows: int,
     }
 
 
-def pcr_bound(N: int, refine: int = 1) -> tuple[float, str]:
-    """K7's (bound_ms, bound_by) at N knots: S and b read, x written."""
+def pcr_bound(N: int, refine: int = 1, nq: int = 7) -> tuple[float, str]:
+    """K7's (bound_ms, bound_by) at N knots and nx = 2 nq: S and b read, x
+    written."""
+    n = 2 * nq
+    gj, mv = 2 * n ** 3, 2 * n * n
+    level_knot = gj + 6 * 2 * n ** 3 + 3 * mv
     levels = (N - 1).bit_length()
-    flops = N * (levels * PCR_LEVEL_KNOT + GJ14 + MV14
-                 + refine * (3 * MV14 + levels * 3 * MV14 + MV14))
-    return bound(flops, N * (3 * 196 + 14) + N * 14)
+    flops = N * (levels * level_knot + gj + mv
+                 + refine * (3 * mv + levels * 3 * mv + mv))
+    return bound(flops, N * (3 * n * n + n) + N * n)
 
 
-def batched_bounds(N: int, B: int, k8b_steps: int, num_cand: int = 9) -> dict:
-    """(bound_ms, bound_by) of K8a-c and the batched K3 for B instances: B
-    times the single kernels' work; K8b counts the CG steps this run's
-    instances took (k8b_steps = the sum over instances of iterations + 1)."""
-    model = 1344
-    k1_out = N * (2 * 3 * 196 + 14 + 196 + 196 + 98 + 14)
-    pcg_in = N * (2 * 3 * 196 + 14 + 14)
-    dz_in = N * (196 + 196 + 98 + 14 + 7)
+def batched_bounds(N: int, B: int, k8b_steps: int, num_cand: int = 9,
+                   nq: int = 7) -> dict:
+    """(bound_ms, bound_by) of K8a-c and the batched K3 for B instances of
+    nq joints: B times the single kernels' work; K8b counts the CG steps
+    this run's instances took (k8b_steps = the sum over instances of
+    iterations + 1)."""
+    nx, w = 2 * nq, 3 * nq
+    nn, model = nx * nx, 192 * nq
+    k1_out = N * (2 * 3 * nn + nx + nn + nn + nx * nq + nx)
+    pcg_in = N * (2 * 3 * nn + nx + nx)
+    dz_in = N * (nn + nn + nx * nq + nx + nq)
     return {
         "K8a build_kkt_schur_batched": bound(
-            B * N * (KKT_KNOT + SCHUR_KNOT), B * (N * (21 + 3) + 1 + k1_out) + model),
-        "K8b pcg_solve_batched": bound(N * PCG_ITER_KNOT * k8b_steps,
-                                       B * (pcg_in + N * 14 + 2)),
-        "K8c compute_dz_batched": bound(B * N * DZ_KNOT,
-                                        B * (N * 14 + dz_in + 1 + N * 21)),
+            B * N * (kkt_knot(nq) + schur_knot(nq)),
+            B * (N * (w + 3) + 1 + k1_out) + model),
+        "K8b pcg_solve_batched": bound(N * pcg_iter_knot(nq) * k8b_steps,
+                                       B * (pcg_in + N * nx + 2)),
+        "K8c compute_dz_batched": bound(B * N * dz_knot(nq),
+                                        B * (N * nx + dz_in + 1 + N * w)),
         "K3b line_search_merits_batched": bound(
-            B * num_cand * N * (ABA + FK + 150),
-            B * (2 * N * 21 + 14 + 3 * N + 2 * num_cand) + model),
+            B * num_cand * N * (aba(nq) + fk(nq) + 150),
+            B * (2 * N * w + nx + 3 * N + 2 * num_cand) + model),
     }
 
 
-def shard_bounds(N: int, n_shard: int, num_cand: int = 9) -> dict:
+def shard_bounds(N: int, n_shard: int, num_cand: int = 9, nq: int = 7) -> dict:
     """(bound_ms, bound_by) of one call of each slab kernel at N knots over
     n_shard shards (L = N / n_shard): K9a is K1 on n_shard windows of L + 4
     knots, K9b K6 on N knots with lam_{k+1} and the last flags as inputs,
     K9c K3's per-knot work on n_shard slabs of L + 1 knots (per-knot terms
     written, not sums), K10a one CG step: the two banded products, three
     dots and four axpys per knot, S and Pinv read once, the six vectors read
-    and written once, and the packets."""
-    model = 1344
+    and written once, and the packets; nq joints."""
+    nx, w = 2 * nq, 3 * nq
+    nn, model = nx * nx, 192 * nq
     L = N // n_shard
     ext, e1 = n_shard * (L + 4), n_shard * (L + 1)
-    k1_out = 2 * 3 * 196 + 14 + 196 + 196 + 98 + 14
-    dz_in = N * (196 + 196 + 98 + 14 + 7)
+    k1_out = 2 * 3 * nn + nx + nn + nn + nx * nq + nx
+    dz_in = N * (nn + nn + nx * nq + nx + nq)
     return {
-        "K9a build_kkt_schur_slab": bound(ext * (KKT_KNOT + SCHUR_KNOT),
-                                          ext * (21 + 3 + 2 + k1_out) + model + 1),
-        "K9b compute_dz_slab": bound(N * DZ_KNOT,
-                                     2 * N * 14 + N + dz_in + 1 + N * 21),
+        "K9a build_kkt_schur_slab": bound(ext * (kkt_knot(nq) + schur_knot(nq)),
+                                          ext * (w + 3 + 2 + k1_out) + model + 1),
+        "K9b compute_dz_slab": bound(N * dz_knot(nq),
+                                     2 * N * nx + N + dz_in + 1 + N * w),
         "K9c line_search_merit_partials_slab": bound(
-            num_cand * e1 * (ABA + FK + 150),
-            2 * e1 * 21 + 3 * e1 + model + 2 * num_cand * e1 + num_cand * n_shard),
+            num_cand * e1 * (aba(nq) + fk(nq) + 150),
+            2 * e1 * w + 3 * e1 + model + 2 * num_cand * e1 + num_cand * n_shard),
         "K10a pcg_slab_step_cuda": bound(
-            N * PCG_ITER_KNOT,
-            N * 2 * 3 * 196 + 12 * N * 14
-            + n_shard * (2 * 6 * 14 + 2 * 3 * 196 + 3 + 2 * 12 * 14 + 3 + 2 + 2)),
+            N * pcg_iter_knot(nq),
+            N * 2 * 3 * nn + 12 * N * nx
+            + n_shard * (2 * 6 * nx + 2 * 3 * nn + 3 + 2 * 12 * nx + 3 + 2 + 2)),
     }
 
 
-def ca_bounds(N: int, n_shard: int, s: int = CA_S) -> dict:
+def ca_bounds(N: int, n_shard: int, s: int = CA_S, nq: int = 7) -> dict:
     """(bound_ms, bound_by) of one call of K10b and of the coefficient step
     at N knots over n_shard shards, their operations in f64: K10b's 4s
     banded products on the extended slab of L + 2h knots (h = 2s+1) and its
@@ -411,19 +431,21 @@ def ca_bounds(N: int, n_shard: int, s: int = CA_S) -> dict:
     (f64, two words each) written once; the coefficient step's four m-term
     combinations per row and its s iterations in m dimensions, Y and Ytil
     and the summed parts read, x and r read, x, r, z, p and the packets
-    written."""
+    written; nx = 2 nq."""
+    nx = 2 * nq
+    nn = nx * nx
     L = N // n_shard
     h = m = 2 * s + 1
     Le, P = L + 2 * h, 2 * m * m + 2 * m + 1
     return {
         "K10b ca_basis_cuda": bound(
-            n_shard * (4 * s * Le * 3 * 196 * 2 + P * L * 14 * 2),
-            n_shard * (2 * Le * 3 * 196 + 2 * Le * 14 + L * 14
-                       + 2 * (2 * m * L * 14 + P) + 2 * 2 + 2), PEAK_F64),
+            n_shard * (4 * s * Le * 3 * nn * 2 + P * L * nx * 2),
+            n_shard * (2 * Le * 3 * nn + 2 * Le * nx + L * nx
+                       + 2 * (2 * m * L * nx + P) + 2 * 2 + 2), PEAK_F64),
         "K10b' ca_coeff_step_cuda": bound(
-            n_shard * (4 * m * L * 14 * 2 + s * (4 * m * m * 2 + 12 * m)),
-            n_shard * (2 * (2 * m * L * 14 + P + 2) + 6 * L * 14 + 2 + 1
-                       + 4 * h * 14), PEAK_F64),
+            n_shard * (4 * m * L * nx * 2 + s * (4 * m * m * 2 + 12 * m)),
+            n_shard * (2 * (2 * m * L * nx + P + 2) + 6 * L * nx + 2 + 1
+                       + 4 * h * nx), PEAK_F64),
     }
 
 
@@ -641,7 +663,6 @@ def rel_err(got, ref) -> tuple[float, float]:
 NQ_CASES = (3, 5)          # chains beside the IIWA's 7 (the JAX tests' 3-link
                            # arm, the chain tracker's default 5)
 NQ_SIZES = (16, 64, 512)   # K1-K4 against their plain versions
-NQ_SOURCES = ("kkt_schur.cu", "pcg_dz.cu", "merit.cu", "plant.cu")
 NQ_KERNELS = ("K1 build_kkt_schur", "K2 pcg_dz_solve",
               "K3 line_search_merits_fused", "K4 simulate_plant",
               "K4b simulate_plant_batched")
@@ -845,70 +866,6 @@ def nq_kernel_checks(c) -> dict:
     return errs
 
 
-def out_of_slice_gates(c, nq: int = 3, N: int = 16) -> None:
-    """Every kernel outside the slice refuses CUDA inputs at nq != 7 before
-    any launch, with a message that names its ROADMAP item."""
-    from mpcgpu_tpu_torch.config import CostConfig
-    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
-    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
-                                               pcg_solve_cuda)
-    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
-    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
-    from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
-                                                        compute_dz_batched,
-                                                        line_search_merits_batched,
-                                                        pcg_solve_batched)
-    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_cuda, build_kkt_schur_slab
-    from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merit_partials_slab
-
-    torch, dev = c.torch, c.dev
-    nx, w, B = 2 * nq, 3 * nq, 3
-    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=dev)
-    m = chain_model(nq, torch, dev)
-    cost = CostConfig.for_knots(N)
-    xu, ee = z(N, w), z(N, 6)
-    sys_ = {"S": z(N, 3, nx, nx), "Pinv": z(N, 3, nx, nx), "gamma": z(N, nx),
-            "Qinv": z(N, nx, nx), "A": z(N, nx, nx), "B": z(N, nx, nq), "q": z(N, nx)}
-    batch = lambda t, b: t.expand(b, *t.shape).contiguous()
-    st = {k: z(2, N // 2, nx) for k in ("x", "r", "p", "s", "u", "w", "z")}
-    calls = {
-        "K5": lambda: build_kkt_cuda(m, cost, xu, xu[0, :nx], ee, DT),
-        "K2'": lambda: pcg_solve_cuda(sys_["S"], sys_["Pinv"], sys_["gamma"], z(N, nx)),
-        "K6": lambda: compute_dz_cuda(sys_, z(N, nx), xu[:, nx:], RHO0, 0.1),
-        "K7": lambda: pcr_solve_cuda(sys_["S"], z(N, nx)),
-        "K8a": lambda: build_kkt_schur_batched(m, cost, batch(xu, B), z(B, nx),
-                                               batch(ee, B), z(B), DT),
-        "K8b": lambda: pcg_solve_batched(z(B, N, 3, nx, nx), z(B, N, 3, nx, nx),
-                                         z(B, N, nx), z(B, N, nx)),
-        "K8c": lambda: compute_dz_batched({k: batch(v, B) for k, v in sys_.items()},
-                                          z(B, N, nx), batch(xu, B)[..., nx:], z(B), 0.1),
-        "K3b": lambda: line_search_merits_batched(m, cost, batch(xu, B), batch(xu, B),
-                                                  z(B, nx), batch(ee, B), 1.0, DT),
-        "K9a": lambda: build_kkt_schur_slab(m, cost, batch(xu, 2), batch(ee, 2),
-                                            z(2, N), z(2, N), RHO0, DT),
-        "K9b": lambda: compute_dz_slab({k: batch(v, 2) for k, v in sys_.items()},
-                                       z(2, N, nx), z(2, N, nx), z(2, N),
-                                       batch(xu, 2)[..., nx:], RHO0, 0.1),
-        "K9c": lambda: line_search_merit_partials_slab(m, cost, batch(xu, 2),
-                                                       batch(xu, 2), batch(ee, 2), DT),
-        "K10a": lambda: pcg_slab_step_cuda(dict(st, pkt=z(2, 2, 6, nx), dots=z(2, 3)),
-                                           sys_["S"], sys_["Pinv"], None, None, None,
-                                           None, None, 5, 0.0, "eta", False),
-        "K10b": lambda: ca_basis_cuda(st, sys_["S"], sys_["Pinv"], None, None, None,
-                                      None, None, None, 5, CA_S),
-        "K10b'": lambda: ca_coeff_step_cuda(st, None, 5, 0.0, "eta", CA_S),
-    }
-    for name, call in calls.items():
-        try:
-            call()
-            msg = "no error"
-        except ValueError as e:
-            msg = str(e)
-        c.expect("nq = 7 only" in msg and "ROADMAP.md queue 2" in msg,
-                 f"{name} at nq={nq} on the card refuses before any launch: "
-                 f"{msg.split(':')[0]}: ... {msg.split('; ')[-1]}")
-
-
 def onboarding_checks(c) -> dict:
     """Phase 4f: the onboarding path on the card.  The fused SQP on the JAX
     tests' 3-link problem against the plain f32 and f64 solves; the chain
@@ -1049,7 +1006,7 @@ def onboarding_checks(c) -> dict:
                                 linsys="pcg", merit_impl="plain")
         ens.append(float(r64["tracking_errors"].mean()))
     lo, hi = min(ens), max(ens)
-    band = (lo * lo / hi, hi * hi / lo)
+    band = spread_band(ens)
     mine = float(err_dev[:k].mean())
     print(f"  plain f64 loops ({TRACK_ENSEMBLE} from 1-ulp trace changes + the "
           f"trace): mean tracking error over {k} shifts {lo:.9g}..{hi:.9g} (band "
@@ -1204,6 +1161,924 @@ def nq_timings(c, launches: dict, errs: dict) -> dict:
     return rows
 
 
+def knot_windows(c, N: int, S: int, lo: int, hi: int):
+    """(S, L - lo + hi) knot indices of each shard's window: its L knots
+    from row lo to row L - 1 + hi, wrapped around the ring."""
+    import numpy as np
+
+    L = N // S
+    return c.torch.tensor((np.arange(S)[:, None] * L + np.arange(lo, L + hi)) % N,
+                          device=c.dev)
+
+
+def k10a_synthetic_checks(c, mesh, N: int, S: int, syn) -> float:
+    """K10a in the sharded PCG loop against the same loop with its plain
+    step, and against K2', on the well-conditioned system ``syn`` (f32
+    rounding ~1e-7 there): lam within 2e-6, the same iterations, by a fixed
+    step count and both exits.  Returns K10a's max|d| against the plain step
+    at the fixed steps."""
+    from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_solve_cuda
+    from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step
+    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import (pcg_slab_step_cuda,
+                                                    slab_cluster_plan)
+
+    torch, nx = c.torch, syn[2].shape[-1]
+    dp = 0.0
+    for crit, tol, cap in (("eta", 0.0, min(20, 2 * nx)), ("eta", 1e-9, 167),
+                           ("rnorm", 1e-5, 167)):
+        a = slab_pcg_run(c, mesh, *syn, pcg_slab_step_cuda, cap, tol, crit)
+        b = slab_pcg_run(c, mesh, *syn, pcg_slab_step, cap, tol, crit)
+        k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
+                             exit_tol=tol, exit_criterion=crit)
+        torch.cuda.synchronize()
+        (d, ep), e2 = rel_err(a[0], b[0]), rel_err(a[0], k2p.lam)[1]
+        if tol == 0.0:
+            dp = d
+        ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1] == int(k2p.iters)
+        ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
+        c.expect(ok, f"K10a N={N} over {S} shards nx={nx} "
+                 f"({slab_cluster_plan(N // S, nx=nx)}), well-conditioned {crit} "
+                 f"exit_tol={tol:g} cap={cap}: sharded PCG vs its plain step "
+                 f"{ep:.3e}, vs K2' {e2:.3e} (<= 2e-6); iterations K10a {a[1]}, "
+                 f"plain {b[1]}, K2' {int(k2p.iters)} (equal); converged {a[2]}")
+    return dp
+
+
+def ca_step_checks(c, mesh, N: int, S: int, label: str, sys3) -> tuple:
+    """K10b and the coefficient step against their plain versions at the
+    second outer step of a solve (g != 1): both do the s-step algebra in
+    f64 from the f32 state, in their own orders, so each output is held to
+    the same step from the state in f64: the kernel's max|d| / max|ref|
+    within 2x the plain step's + 1e-6.  Returns the kernels' max|d| against
+    the plain versions (K10b, K10b')."""
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import (ca_basis_cuda, ca_cluster_plan,
+                                                  ca_coeff_step_cuda)
+
+    torch, nx = c.torch, sys3[2].shape[-1]
+    tol0 = _kernels.scalar(0.0, c.dev)
+    st, ins = ca_setup_run(c, mesh, *sys3)
+    got, ref, exact = clone_state(st), clone_state(st), f64_state(st)
+    ca_basis_cuda(got, *ins, CA_CAP, CA_S)
+    ca_basis(ref, *ins, CA_CAP, CA_S)
+    ca_basis(exact, *(v.double() for v in ins), CA_CAP, CA_S)
+    torch.cuda.synchronize()
+    outs_b = ("Y", "Yt", "parts")
+    eb = {k: (rel_err(got[k], exact[k])[1], rel_err(ref[k], exact[k])[1])
+          for k in outs_b}
+    db = max(rel_err(got[k], ref[k])[0] for k in outs_b)
+    c.expect(all(a <= 2 * b + 1e-6 for a, b in eb.values()),
+             f"K10b N={N} over {S} shards nx={nx} "
+             f"({ca_cluster_plan(N // S, CA_S, nx=nx)}), {label} system: to the "
+             "f64 step, kernel / plain "
+             + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in eb.items())
+             + " max|ref| (kernel <= 2x plain + 1e-6)")
+    tot = mesh.psum(ref["parts"])
+    got, ref2, exact = clone_state(ref), clone_state(ref), f64_state(ref)
+    ca_coeff_step_cuda(got, tot, CA_CAP, tol0, "eta", CA_S)
+    ca_coeff_step(ref2, tot, CA_CAP, tol0, "eta", CA_S)
+    ca_coeff_step(exact, tot.double(), CA_CAP, tol0.double(), "eta", CA_S)
+    torch.cuda.synchronize()
+    outs_c = ("x", "r", "z", "p", "pkt", "scal")
+    ec = {k: (rel_err(got[k], exact[k])[1], rel_err(ref2[k], exact[k])[1])
+          for k in outs_c}
+    dc = max(rel_err(got[k], ref2[k])[0] for k in outs_c)
+    same = all(torch.equal(got[k], ref2[k]) for k in ("iters", "done"))
+    c.expect(all(a <= 2 * b + 1e-6 for a, b in ec.values()) and same,
+             f"K10b' (coefficient step) N={N} over {S} shards nx={nx}, {label} "
+             "system: to the f64 step, kernel / plain "
+             + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in ec.items())
+             + f" max|ref| (kernel <= 2x plain + 1e-6); iters, done equal {same}")
+    return db, dc
+
+
+def ca_pcg_synthetic_checks(c, mesh, N: int, S: int, syn) -> None:
+    """The s-step PCG through the kernels on the well-conditioned system
+    against the same loop with the plain steps and against K2' (lam within
+    2e-6, the same iterations, the exits before the cap; rnorm at 1e-4: the
+    s-step r.r recurrence has a cancellation floor, and at 1e-5 on this
+    system it never fires, ROADMAP.md queue 3)."""
+    from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_solve_cuda
+
+    torch, nx = c.torch, syn[2].shape[-1]
+    fixed = min(20, 2 * nx) // CA_S * CA_S
+    for crit, tol, cap in (("eta", 0.0, fixed), ("eta", 1e-9, 167),
+                           ("rnorm", 1e-4, 167)):
+        a = ca_pcg_run(c, mesh, *syn, True, cap, tol, crit)
+        b = ca_pcg_run(c, mesh, *syn, False, cap, tol, crit)
+        k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
+                             exit_tol=tol, exit_criterion=crit)
+        torch.cuda.synchronize()
+        ep, e2 = rel_err(a[0], b[0])[1], rel_err(a[0], k2p.lam)[1]
+        ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1]
+        ok = ok and abs(a[1] - int(k2p.iters)) <= CA_S
+        ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
+        ok = ok and (tol == 0.0 or a[1] < cap)
+        c.expect(ok, f"s-step PCG (K10b) N={N} over {S} shards nx={nx}, "
+                 f"well-conditioned {crit} exit_tol={tol:g} cap={cap}: vs the "
+                 f"plain steps {ep:.3e}, vs K2' {e2:.3e} (<= 2e-6); iterations "
+                 f"K10b {a[1]}, plain {b[1]}, K2' {int(k2p.iters)} (within "
+                 f"{CA_S}); converged {a[2]}")
+
+
+# ---- the eleventh slice: every other kernel at nq = 3, 5; the instance axis --
+SLICE_KERNELS = ("K5 build_kkt_cuda", "K2' pcg_solve_cuda", "K6 compute_dz_cuda",
+                 "K7 pcr_solve_cuda", "K8a build_kkt_schur_batched",
+                 "K8b pcg_solve_batched", "K8c compute_dz_batched",
+                 "K3b line_search_merits_batched", "K9a build_kkt_schur_slab",
+                 "K9b compute_dz_slab", "K9c line_search_merit_partials_slab",
+                 "K10a pcg_slab_step_cuda", "K10b ca_basis_cuda",
+                 "K10b' ca_coeff_step_cuda")
+NQ_SINGLE_SIZES = {3: (16, 64), 5: (64, 512)}    # K5, K2', K6; K7 also N = 3
+NQ_SHARDS = {3: ((64, 4),), 5: ((512, 8), (64, 4))}   # the first: the timed case
+FLEET_INSTANCES = 4        # the fleet's instance axis (make_mesh(n_instance=4))
+ROUTE_ENSEMBLE = 4         # runs of each nq = 5 route from 1-ulp trace changes
+NQ_PATH = {3: dict(N=16, B=NQ_BATCH, updates=16, shards=(64, 4)),
+           5: dict(N=N_MAIN, B=B_MAIN, updates=ROUTE_UPDATES, shards=(512, 8))}
+
+
+def chain_batch(nq: int, B: int, N: int, torch, device):
+    """B instances of the chain tracker's trace (N rows) plus numpy noise
+    (sigma 0.01, seed 0), the same goal window, rho cycling through 1e-3 x
+    (1, 2, 3, 4); f32 tensors on the card (batch_problem's for an arm)."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.track_chain import reference_trace
+
+    xu, ee = reference_trace(chain_model(nq, torch, "cpu", torch.float64), N)
+    xu = xu[None] + 0.01 * np.random.default_rng(0).standard_normal((B, N, 3 * nq))
+    f = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=device)
+    return (f(xu), f(xu[:, 0, :2 * nq]), f(np.broadcast_to(ee, (B, N, 6))),
+            f(1e-3 * (1 + np.arange(B) % 4)))
+
+
+def slice_kernel_checks(c) -> dict:
+    """Phase 2d: every kernel beside K1-K4 at nq = 3 and 5 against its plain
+    version on the card, with the tolerances of its nq = 7 check (phases 2,
+    2b, 2c): K5 5e-5 max|ref| per block (both integrators); K2' lam bit for
+    bit K2's and within 2e-6 of its plain version on synthetic_btd at nx;
+    K6 1e-5 and bit for bit K2's fused dz; K7 1e-5 of the plain and f64
+    solves on synthetic_btd; K8a-c and K3b at B = NQ_BATCH bit for bit the
+    single kernels per instance, and B_PLAIN instances against the plain
+    versions (K8b on synthetic systems); K9a-c against their plain versions
+    and K1 / K6 / K3 on NQ_SHARDS; K10a, K10b and K10b' as phase 2c.
+    Returns {nq: {kernel: max|d| against the plain version}} at N_MAIN,
+    B = NQ_BATCH and the first case of NQ_SHARDS."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.ops.pcg import pcg_solve
+    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
+                                               compute_dz_slab,
+                                               compute_dz_slab_plain, pcg_dz_solve,
+                                               pcg_solve_cuda)
+    from mpcgpu_tpu_torch.ops.pcr import pcr_solve_refined
+    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_plan, pcr_solve_cuda
+    from mpcgpu_tpu_torch.parallel import KnotMesh
+    from mpcgpu_tpu_torch.parallel.batched_cuda import (
+        build_kkt_schur_batched, build_kkt_schur_batched_plain, compute_dz_batched,
+        compute_dz_batched_plain, line_search_merits_batched,
+        line_search_merits_batched_plain, pcg_solve_batched,
+        pcg_solve_batched_plain)
+    from mpcgpu_tpu_torch.solver.kkt import build_kkt
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
+                                                  build_kkt_schur_slab,
+                                                  build_kkt_schur_slab_plain)
+    from mpcgpu_tpu_torch.solver.merit import merit_partials
+    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
+                                                    line_search_merits_fused)
+
+    torch, dev, expect = c.torch, c.dev, c.expect
+    mu = 10.0
+    errs = {nq: {k: 0.0 for k in SLICE_KERNELS} for nq in NQ_CASES}
+    for nq in NQ_CASES:
+        nx, w = 2 * nq, 3 * nq
+        e = errs[nq]
+        model = chain_model(nq, torch, dev)
+        m64 = chain_model(nq, torch, dev, torch.float64)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        for N in NQ_SINGLE_SIZES[nq]:
+            cost = CostConfig.for_knots(N)
+            xu, xs, ee = chain_problem(nq, N, torch, dev)
+            tag = f"nq={nq} N={N}"
+            main_n = N == N_MAIN
+            # K5 against build_kkt per block, within 5e-5 max|ref| (the nq =
+            # 7 bound) or, where the plain f32 version is itself farther from
+            # the f64 blocks (the defects c = x_k+1 - f(x_k, u_k) cancel: 6.4e-5
+            # at nq = 5, N = 64), within 2x its distance to them
+            for integ, wrap in ((0, False), (1, True)):
+                c5 = cost if integ == 0 else dataclasses.replace(
+                    cost, terminal_at_last_state=False)
+                got5 = build_kkt_cuda(model, c5, xu, xs, ee, DT, integ, wrap)
+                ref5 = build_kkt(model, c5, xu, xs, ee, DT, integ, wrap)
+                f64_5 = build_kkt(m64, c5, xu.double(), xs.double(), ee.double(), DT,
+                                  integ, wrap)
+                torch.cuda.synchronize()
+                rel, bad = {}, {}
+                for k in ("Q", "q", "A", "B", "c", "R", "r"):
+                    g_, r_, x_ = (getattr(t, k) for t in (got5, ref5, f64_5))
+                    d, rel[k] = rel_err(g_, r_)
+                    if main_n:
+                        e["K5 build_kkt_cuda"] = max(e["K5 build_kkt_cuda"], d)
+                    rk, rp = rel_err(g_, x_)[1], rel_err(r_, x_)[1]
+                    if not (rel[k] <= 5e-5 or rk <= 2 * rp):
+                        bad[k] = f"{rel[k]:.3e} (to f64 {rk:.3e}, plain {rp:.3e})"
+                worst = max(rel, key=rel.get)
+                expect(not bad, f"K5 {tag} integrator={integ} wrap={wrap}: worst "
+                       f"block {worst} {rel[worst]:.3e} max|ref| (<= 5e-5, or within "
+                       f"2x the plain f32 version's distance to f64); failing {bad}")
+            sys_ = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+            lam0 = torch.zeros((N, nx), dtype=torch.float32, device=dev)
+            u = xu[:, nx:]
+            # K2' against K2 (the same template: lam bit for bit) and its
+            # plain version on the well-conditioned system
+            syn = dict(sys_)
+            syn["S"], syn["Pinv"], syn["gamma"] = synthetic_btd(N, torch, dev, n=nx)
+            for crit, tol, cap in (("eta", 0.0, min(20, 2 * N, 2 * nx)),
+                                   ("eta", 1e-9, 167), ("rnorm", 1e-5, 167)):
+                kw = dict(max_iter=cap, exit_tol=tol, exit_criterion=crit)
+                k2 = pcg_dz_solve(syn, lam0, u, rho, cost.r_cost, **kw)
+                k2p = pcg_solve_cuda(syn["S"], syn["Pinv"], syn["gamma"], lam0, **kw)
+                ref = pcg_solve(syn["S"], syn["Pinv"], syn["gamma"], lam0, **kw)
+                torch.cuda.synchronize()
+                d, r = rel_err(k2p.lam, ref.lam)
+                if main_n:
+                    e["K2' pcg_solve_cuda"] = max(e["K2' pcg_solve_cuda"], d)
+                same = (torch.equal(k2p.lam, k2[0]) and int(k2p.iters) == int(k2[2])
+                        and bool(k2p.converged) == bool(k2[3]))
+                expect(same and r <= 2e-6 and abs(int(k2p.iters) - int(ref.iters)) <= 2,
+                       f"K2' {tag} well-conditioned {crit} exit_tol={tol:g} "
+                       f"cap={cap}: lam, iters, exit bit for bit K2's {same}; vs "
+                       f"plain {r:.3e} max|lam| (<= 2e-6), iters {int(k2p.iters)}, "
+                       f"plain {int(ref.iters)}")
+            # K6 on K1's blocks with K2's lam
+            k2 = pcg_dz_solve(sys_, lam0, u, rho, cost.r_cost, max_iter=167,
+                              exit_tol=1e-5)
+            # (within 1e-5 max|ref|, the nq = 7 bound, or, where the plain
+            # f32 version is itself farther from the f64 dz of the same
+            # inputs: q - lam + A^T lam_+ cancels, 5.8e-5 at nq = 5, N = 512,
+            # within 2x its distance)
+            d6 = compute_dz_cuda(sys_, k2[0], u, rho, cost.r_cost)
+            p6 = compute_dz_plain(sys_, k2[0], u, rho, cost.r_cost)
+            x6 = compute_dz_plain({k: v.double() for k, v in sys_.items()},
+                                  k2[0].double(), u.double(), rho.double(), cost.r_cost)
+            torch.cuda.synchronize()
+            d, r = rel_err(d6, p6)
+            rk, rp = rel_err(d6, x6)[1], rel_err(p6, x6)[1]
+            if main_n:
+                e["K6 compute_dz_cuda"] = d
+            expect((r <= 1e-5 or rk <= 2 * rp) and torch.equal(d6, k2[1]),
+                   f"K6 {tag}: vs plain {r:.3e} max|ref| (<= 1e-5, or within 2x the "
+                   f"plain f32 version's distance to f64: kernel {rk:.3e}, plain "
+                   f"{rp:.3e}); bitwise equal to K2's fused dz {torch.equal(d6, k2[1])}")
+        # K7 on the well-conditioned system, within 1e-5 of the plain and
+        # the f64 solves
+        for N in (3,) + NQ_SINGLE_SIZES[nq]:
+            S7, _, b7 = synthetic_btd(N, torch, dev, n=nx)
+            got = pcr_solve_cuda(S7, b7)
+            ref = pcr_solve_refined(S7, b7)
+            f64 = pcr_solve_refined(S7.double(), b7.double())
+            torch.cuda.synchronize()
+            (d, r), r64 = rel_err(got, ref), rel_err(got, f64)[1]
+            if N == N_MAIN:
+                e["K7 pcr_solve_cuda"] = d
+            expect(r <= 1e-5 and r64 <= 1e-5,
+                   f"K7 nq={nq} N={N} well-conditioned ({pcr_plan(N, nx)}): vs "
+                   f"plain {r:.3e}, vs f64 {r64:.3e} max|x| (<= 1e-5)")
+
+        # K8a-c and K3b at NQ_BATCH instances of N_MAIN knots
+        N, B, P = N_MAIN, NQ_BATCH, B_PLAIN
+        cost = CostConfig.for_knots(N)
+        xu_b, xs_b, ee_b, rho_b = chain_batch(nq, B, N, torch, dev)
+        lam0_b = torch.zeros((B, N, nx), dtype=torch.float32, device=dev)
+        pcg_b = dict(max_iter=167, exit_tol=1e-5)
+        sys_b = build_kkt_schur_batched(model, cost, xu_b, xs_b, ee_b, rho_b, DT)
+        lam_b, it_b, cv_b = pcg_solve_batched(sys_b["S"], sys_b["Pinv"],
+                                              sys_b["gamma"], lam0_b, **pcg_b)
+        dz_b = compute_dz_batched(sys_b, lam_b, xu_b[:, :, nx:], rho_b, cost.r_cost)
+        m_b, a_b = line_search_merits_batched(model, cost, xu_b, dz_b, xs_b, ee_b,
+                                              mu, DT)
+        torch.cuda.synchronize()
+        differ = {"K8a": 0, "K8b": 0, "K8c": 0, "K3b": 0}
+        for i in range(B):
+            one = build_kkt_schur(model, cost, xu_b[i], xs_b[i], ee_b[i], rho_b[i],
+                                  DT, 0)
+            differ["K8a"] += not all(torch.equal(one[k], sys_b[k][i]) for k in one)
+            one_i = {k: v[i] for k, v in sys_b.items()}
+            p1 = pcg_solve_cuda(one_i["S"], one_i["Pinv"], one_i["gamma"],
+                                lam0_b[i], **pcg_b)
+            differ["K8b"] += not (torch.equal(p1.lam, lam_b[i])
+                                  and torch.equal(p1.iters, it_b[i])
+                                  and torch.equal(p1.converged, cv_b[i]))
+            d1 = compute_dz_cuda(one_i, lam_b[i], xu_b[i, :, nx:], rho_b[i],
+                                 cost.r_cost)
+            differ["K8c"] += not torch.equal(d1, dz_b[i])
+            m1, a1 = line_search_merits_fused(model, cost, xu_b[i], dz_b[i], xs_b[i],
+                                              ee_b[i], mu, DT)
+            differ["K3b"] += not (torch.equal(m1, m_b[i]) and torch.equal(a1, a_b[i]))
+        expect(all(v == 0 for v in differ.values()),
+               f"K8a/K8b/K8c/K3b nq={nq} B={B} N={N}: instances that differ from "
+               f"the single kernels (K1/K2'/K6/K3) bit for bit: {differ}; PCG "
+               f"iterations {int(it_b.min())}..{int(it_b.max())}")
+        ref_b = build_kkt_schur_batched_plain(model, cost, xu_b[:P], xs_b[:P],
+                                              ee_b[:P], rho_b[:P], DT)
+        worst = 0.0
+        for key in ref_b:
+            d, r = rel_err(sys_b[key][:P], ref_b[key])
+            e["K8a build_kkt_schur_batched"] = max(e["K8a build_kkt_schur_batched"], d)
+            worst = max(worst, max(rel_err(sys_b[key][i], ref_b[key][i])[1]
+                                   for i in range(P)))
+        expect(worst <= 5e-5, f"K8a nq={nq} B={P}: vs plain per instance and "
+               f"output, worst {worst:.3e} max|ref| (<= 5e-5)")
+        syn = [synthetic_btd(N, torch, dev, seed=1 + i, n=nx) for i in range(P)]
+        Sy, Py, gy = (torch.stack([t[j] for t in syn]) for j in range(3))
+        for tol, cap in ((0.0, min(20, 2 * nx)), (1e-9, 167)):
+            got = pcg_solve_batched(Sy, Py, gy, lam0_b[:P], max_iter=cap, exit_tol=tol)
+            ref = pcg_solve_batched_plain(Sy, Py, gy, lam0_b[:P], max_iter=cap,
+                                          exit_tol=tol)
+            torch.cuda.synchronize()
+            r = max(rel_err(got[0][i], ref[0][i])[1] for i in range(P))
+            e["K8b pcg_solve_batched"] = max(e["K8b pcg_solve_batched"],
+                                             rel_err(got[0], ref[0])[0])
+            ik, ip = got[1].tolist(), ref[1].tolist()
+            ok = ik == ip if tol == 0.0 else (
+                all(abs(a - b) <= 2 for a, b in zip(ik, ip)) and bool(got[2].all()))
+            expect(ok and r <= 2e-6, f"K8b nq={nq} B={P} well-conditioned "
+                   f"exit_tol={tol:g} cap={cap}: lam vs plain {r:.3e} (<= 2e-6); "
+                   f"iterations kernel {ik}, plain {ip}")
+        d8 = compute_dz_batched_plain({k: v[:P] for k, v in sys_b.items()},
+                                      lam_b[:P], xu_b[:P, :, nx:], rho_b[:P],
+                                      cost.r_cost)
+        m8, a8 = line_search_merits_batched_plain(model, cost, xu_b[:P], dz_b[:P],
+                                                  xs_b[:P], ee_b[:P], mu, DT)
+        torch.cuda.synchronize()
+        d, r = rel_err(dz_b[:P], d8)
+        e["K8c compute_dz_batched"] = d
+        rel = float(((m_b[:P].double() - m8.double()).abs() / m8.double().abs()).max())
+        e["K3b line_search_merits_batched"] = float(
+            (m_b[:P].double() - m8.double()).abs().max())
+        expect(r <= 1e-5 and rel <= 1e-4 and torch.equal(a_b[:P], a8),
+               f"K8c / K3b nq={nq} B={P}: dz vs plain {r:.3e} max|ref| (<= 1e-5); "
+               f"merits max relative error {rel:.3e} (<= 1e-4), alphas equal "
+               f"{torch.equal(a_b[:P], a8)}")
+
+        # the slab kernels over virtual shards
+        for case, (N, S) in enumerate(NQ_SHARDS[nq]):
+            L, rec = N // S, case == 0
+            tag = f"nq={nq} N={N} over {S} shards"
+            cost = CostConfig.for_knots(N)
+            xu, xs, ee = chain_problem(nq, N, torch, dev)
+            wins = knot_windows(c, N, S, -2, 2)
+            first, last = (wins == 0).float(), (wins == N - 1).float()
+            xe, ee_x = xu[wins].contiguous(), ee[wins].contiguous()
+            for integ, c9 in ((0, cost), (1, dataclasses.replace(
+                    cost, terminal_at_last_state=False))):
+                got = build_kkt_schur_slab(model, c9, xe, ee_x, first, last, rho, DT,
+                                           integ)
+                ref = build_kkt_schur_slab_plain(model, c9, xe, ee_x, first, last,
+                                                 rho, DT, integ)
+                k1 = build_kkt_schur(model, c9, xu, xs, ee, rho, DT, integ)
+                torch.cuda.synchronize()
+                worst = max(rel_err(got[k], ref[k])[1] for k in got)
+                if rec:
+                    e["K9a build_kkt_schur_slab"] = max(
+                        e["K9a build_kkt_schur_slab"],
+                        *(rel_err(got[k], ref[k])[0] for k in got))
+                same = all(torch.equal(got[k][:, 2:2 + L].reshape(k1[k].shape), k1[k])
+                           for k in got)
+                expect(worst <= 5e-5 and same,
+                       f"K9a {tag}, integrator={integ}: vs plain per output, worst "
+                       f"{worst:.3e} max|ref| (<= 5e-5); interior rows == K1 bit "
+                       f"for bit {same}")
+            k1 = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+            sl = {k: v[:, 2:2 + L] for k, v in build_kkt_schur_slab(
+                model, cost, xe, ee_x, first, last, rho, DT).items()}
+            lam = pcg_solve_cuda(k1["S"], k1["Pinv"], k1["gamma"],
+                                 torch.zeros_like(k1["gamma"]), max_iter=20,
+                                 exit_tol=0.0).lam
+            lam_s, lam_n = shard_slabs(lam, S), shard_slabs(torch.roll(lam, -1, 0), S)
+            last_s = shard_slabs((torch.arange(N, device=dev) == N - 1).float(), S)
+            u_s = shard_slabs(xu, S)[..., nx:]
+            d9 = compute_dz_slab(sl, lam_s, lam_n, last_s, u_s, rho, cost.r_cost)
+            p9 = compute_dz_slab_plain(sl, lam_s, lam_n, last_s, u_s, rho, cost.r_cost)
+            d6 = compute_dz_cuda(k1, lam, xu[:, nx:], rho, cost.r_cost)
+            torch.cuda.synchronize()
+            d, r = rel_err(d9, p9)
+            if rec:
+                e["K9b compute_dz_slab"] = d
+            same = torch.equal(d9.reshape(N, w), d6)
+            expect(r <= 1e-5 and same, f"K9b {tag}: vs plain {r:.3e} max|ref| "
+                   f"(<= 1e-5); == K6 bit for bit {same}")
+            w1 = knot_windows(c, N, S, 0, 1)
+            x1, z1, e1 = xu[w1].contiguous(), d6[w1].contiguous(), ee[w1].contiguous()
+            kc, kd, ka = line_search_merit_partials_slab(model, cost, x1, z1, e1, DT)
+            pc, pd, pa = merit_partials(model, cost, x1, z1, e1, DT)
+            m3 = line_search_merits_fused(model, cost, xu, d6, xs, ee, mu, DT)[0]
+            torch.cuda.synchronize()
+            (dc, rc), rd = rel_err(kc, pc), rel_err(kd, pd)[1]
+            if rec:
+                e["K9c line_search_merit_partials_slab"] = dc
+            kc, kd = kc[..., :L], kd[..., :L]
+            u_last = xu[-1, nx:] + ka[:, None] * d6[-1, nx:]
+            x0 = (xu[0, :nx] + ka[:, None] * d6[0, :nx] - xs).abs().sum(-1)
+            m9 = (kc.sum((0, 2)) - 0.5 * cost.r_cost * (u_last * u_last).sum(-1)) \
+                + mu * ((kd.sum((0, 2)) - kd[-1, :, -1]) + x0)
+            r3 = float(((m9.double() - m3.double()).abs() / m3.double().abs()).max())
+            expect(rc <= 1e-4 and rd <= 1e-4 and torch.equal(ka, pa) and r3 <= 1e-4,
+                   f"K9c {tag}: per-knot cost {rc:.3e}, defect {rd:.3e} max|ref| vs "
+                   f"plain (<= 1e-4), alphas equal {torch.equal(ka, pa)}; assembled "
+                   f"merits vs K3 {r3:.3e} (<= 1e-4)")
+            mesh = KnotMesh(S)
+            syn = synthetic_btd(N, torch, dev, n=nx)
+            dp = k10a_synthetic_checks(c, mesh, N, S, syn)
+            real = (k1["S"], k1["Pinv"], k1["gamma"])
+            db, dcf = ca_step_checks(c, mesh, N, S, "real", real)
+            ca_step_checks(c, mesh, N, S, "well-conditioned", syn)
+            ca_pcg_synthetic_checks(c, mesh, N, S, syn)
+            if rec:
+                e["K10a pcg_slab_step_cuda"] = dp
+                e["K10b ca_basis_cuda"], e["K10b' ca_coeff_step_cuda"] = db, dcf
+    return errs
+
+
+def fleet_starts(torch, dev, xs0, B: int):
+    """simulate_mpc_ondevice_batched's draw of the starts: xs0 + 0.05
+    N(0, 1) from a torch.Generator on the card seeded with 0."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    return xs0 + 0.05 * torch.randn((B, xs0.shape[0]), generator=gen,
+                                    dtype=torch.float32, device=dev)
+
+
+def fleet_loop_checks(c, model, xu_tr, ee_tr, N: int, B: int, updates: int,
+                      label: str, picks: int = BATCH_LOOP_PICKS, **kw) -> dict:
+    """The batched closed loop (K8a-c, K3b, K4b) of B instances, unsharded
+    and over make_mesh(n_instance=FLEET_INSTANCES): every instance's
+    tracking errors and final error bit for bit equal, the launches (K8a-c,
+    K3b once per batched SQP iteration of each group, K4b once per update
+    and group), and ``picks`` instances bit for bit their single on-device
+    loops from the same starts.  Returns the unsharded run's launches and
+    a summary."""
+    from mpcgpu_tpu_torch.config import SimConfig
+    from mpcgpu_tpu_torch.parallel import make_mesh
+    from mpcgpu_tpu_torch.sim.mpc import (simulate_mpc_ondevice,
+                                          simulate_mpc_ondevice_batched)
+
+    torch, dev, expect, counted = c.torch, c.dev, c.expect, c.counted
+    sim = SimConfig(max_control_updates=updates)
+    k8 = ("K8a build_kkt_schur_batched", "K8b pcg_solve_batched",
+          "K8c compute_dz_batched", "K3b line_search_merits_batched")
+    k4b = "K4b simulate_plant_batched"
+    runs = {}
+    for name, mesh in (("unsharded", None),
+                       ("instance-sharded", make_mesh(n_instance=FLEET_INSTANCES))):
+        runs[name] = counted(simulate_mpc_ondevice_batched, model, xu_tr, ee_tr, N,
+                             DT, B, sim_cfg=sim, instance_mesh=mesh, **kw)
+    (bl, n_bl), (sh, n_sh) = runs["unsharded"], runs["instance-sharded"]
+    err = bl["tracking_errors"]
+    spread = float(err[:, -1].max() - err[:, -1].min())
+    ok = bool(torch.isfinite(err).all()) and tuple(err.shape) == (B, updates)
+    ok = ok and bl["control_updates"] == updates and spread > 0
+    for n, groups in ((n_bl, 1), (n_sh, FLEET_INSTANCES)):
+        it = n[k8[0]]
+        ok_n = all(n[k] == it for k in k8) and n[k4b] == groups * updates
+        ok_n = ok_n and groups * updates <= it <= 2 * groups * updates
+        ok_n = ok_n and all(v == 0 for k, v in n.items() if k not in k8 and k != k4b)
+        expect(ok and ok_n,
+               f"fleet {label} B={B} N={N} in {groups} instance group(s): "
+               f"launches {n} (K8a-c, K3b once per batched SQP iteration of each "
+               f"group, {it}; K4b once per update and group); errors "
+               f"{tuple(err.shape)} finite; last-update spread over instances "
+               f"{spread:.3e} (> 0); {int(bl['shift_mask'].sum())} shifts")
+    same = all(torch.equal(sh[k], bl[k]) for k in
+               ("tracking_errors", "shift_mask", "final_tracking_error"))
+    expect(same, f"fleet {label}: make_mesh(n_instance={FLEET_INSTANCES}) == "
+           f"unsharded, every instance's tracking errors and final error bit "
+           f"for bit: {same}")
+    starts = fleet_starts(torch, dev, torch.tensor(xu_tr[0, :model.nq * 2],
+                                                   dtype=torch.float32, device=dev), B)
+    differ = []
+    pick = [i * (B - 1) // (picks - 1) for i in range(picks)]
+    for i in pick:
+        xu_i = xu_tr.copy()
+        xu_i[0, :2 * model.nq] = starts[i].double().cpu().numpy()
+        one = simulate_mpc_ondevice(model, xu_i, ee_tr, N, DT, sim_cfg=sim, **kw)
+        if not (torch.equal(err[i][bl["shift_mask"]], one["tracking_errors"])
+                and torch.equal(bl["final_tracking_error"][i],
+                                one["final_tracking_error"])):
+            differ.append(i)
+    expect(not differ, f"fleet {label} vs single on-device loops of instances "
+           f"{pick}: tracking errors and final error bit for bit; differing {differ}")
+    return n_bl, dict(mean_tracking_error=float(err.mean()),
+                      last_update_spread=spread, sqp_iterations=n_bl[k8[0]])
+
+
+def spread_band(means) -> tuple:
+    """The range of an ensemble's means widened on each side by its own
+    ratio hi / lo: (lo^2 / hi, hi^2 / lo)."""
+    lo, hi = min(means), max(means)
+    return lo * lo / hi, hi * hi / lo
+
+
+def nq_path_checks(c) -> tuple:
+    """Phase 4g: the paths of every kernel beside K1-K4 at nq = 5 (full
+    size) and 3 (N = 16): the fleet (B = NQ_PATH[nq]["B"] instances,
+    unsharded and over the instance axis, instances against single loops),
+    the knot-sharded fused SQP (pipelined_slab and the default ca_slab)
+    against the single-device, plain and f64 solves as phase 4d, and the
+    split routes and linsys="pcr_cuda" through the chain tracker's loop
+    (fused_dz=False bit for bit the default route; at nq = 5 each route's
+    band of ROUTE_ENSEMBLE runs from 1-ulp trace changes holds its plain
+    f32 loop, "pcg" or "pcr" on the CPU, as phases 4 and 4b hold the
+    IIWA's).  Returns {nq: {kernel: launches}} of these runs, and
+    summaries."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch import track_chain
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+    from mpcgpu_tpu_torch.parallel import KnotMesh, sqp_solve_sharded
+    from mpcgpu_tpu_torch.solver.sqp import sqp_solve
+
+    torch, dev, expect, counted = c.torch, c.dev, c.expect, c.counted
+    launches = {nq: {} for nq in NQ_CASES}
+    out = {}
+    for nq in NQ_CASES:
+        p = NQ_PATH[nq]
+        N, B, updates = p["N"], p["B"], p["updates"]
+        model = chain_model(nq, torch, dev)
+        xu_t, ee_t = track_chain.reference_trace(model, TRACK_STEPS)
+        cost = track_chain.COST
+        bl_kw = dict(cost=cost, sqp_cfg=track_chain.DEVICE_SQP, pcg_cfg=track_chain.PCG)
+        n_fleet, fleet = fleet_loop_checks(c, model, xu_t, ee_t, N, B, updates,
+                                           f"nq={nq}", **bl_kw)
+        for k in SLICE_KERNELS[4:8] + ("K4b simulate_plant_batched",):
+            launches[nq][k] = n_fleet[k]
+
+        # the knot-sharded fused SQP on the arm's calm trace
+        Ns, S = p["shards"]
+        xu, xs, ee = chain_problem(nq, Ns, torch, dev)
+        lam0 = torch.zeros((Ns, 2 * nq), dtype=torch.float32, device=dev)
+        pcfg = PCGConfig(max_iter=PCGConfig.tuned_max_iter(Ns), exit_tol=1e-5)
+        cap = pcfg.max_iter
+        args = (CostConfig.for_knots(Ns), SQPConfig(max_iter=2), pcfg)
+        m64 = chain_model(nq, torch, dev, torch.float64)
+        one = sqp_solve(model, *args, xu, lam0, xs, ee, RHO0, DT, linsys="pcg_cuda")
+        plain = sqp_solve(model, *args, xu, lam0, xs, ee, RHO0, DT, linsys="pcg",
+                          merit_impl="plain")
+        f64 = sqp_solve(m64, *args, xu.double(), lam0.double(), xs.double(),
+                        ee.double(), RHO0, DT, linsys="pcg", merit_impl="plain")
+        eo, ep = part_errs(one.xu, f64.xu, 2 * nq), part_errs(plain.xu, f64.xu, 2 * nq)
+        k9 = [k for k in SLICE_KERNELS if k.startswith("K9")]
+        for method, plain_method in (("pipelined_slab", "pipelined"), ("ca_slab", "ca")):
+            sh, n_sh = counted(sqp_solve_sharded, model, *args, xu, lam0, xs, ee,
+                               RHO0, DT, KnotMesh(S), pcg_method=method)
+            sh_plain = sqp_solve_sharded(model, *args, xu, lam0, xs, ee, RHO0, DT,
+                                         KnotMesh(S), fused=False,
+                                         pcg_method=plain_method)
+            torch.cuda.synchronize()
+            it = int(sh.sqp_iters)
+            want = {k: it for k in k9}
+            if method == "pipelined_slab":
+                want["K10a pcg_slab_step_cuda"] = it * (cap + 1)
+            else:
+                want.update({k: it * -(-cap // CA_S) for k in SLICE_KERNELS[-2:]})
+            ok = all(n_sh[k] == want.get(k, 0) for k in n_sh)
+            ok = ok and all(bool(torch.isfinite(t).all())
+                            for t in (sh.xu, sh.lam, sh.rho, sh.merit))
+            ok = ok and bool((sh.ls_alpha_idx >= 0).any())
+            es, eq = part_errs(sh.xu, f64.xu, 2 * nq), part_errs(sh_plain.xu, f64.xu, 2 * nq)
+            near = all(abs(a - b) <= CA_S for a, b in
+                       zip(sh.pcg_iters.tolist(), one.pcg_iters.tolist()))
+            dist_ok = all(es[k] <= 2 * max(eo[k], ep[k], eq[k]) + 1e-4 for k in es)
+            expect(ok and near and dist_ok,
+                   f"sharded SQP nq={nq} N={Ns} over {S} shards ({method}): "
+                   f"launches {n_sh} (K9a-c once per SQP iteration, {it}; the PCG "
+                   f"kernels per CG or outer step); finite; line search "
+                   f"{sh.ls_alpha_idx.tolist()} (a step); PCG iterations "
+                   f"{sh.pcg_iters.tolist()}, pcg_cuda {one.pcg_iters.tolist()} "
+                   f"(within {CA_S}); to f64 per part {fmt(es)}, pcg_cuda "
+                   f"{fmt(eo)}, plain {fmt(ep)}, plain sharded {fmt(eq)} (<= 2x "
+                   f"max + 1e-4)")
+            for k in want:
+                launches[nq][k] = launches[nq].get(k, 0) + n_sh[k]
+
+        # the split routes and pcr_cuda through the tracker's device loop
+        routes = {"default": dict(),
+                  "fused=False": dict(fused=False),
+                  "fused_dz=False": dict(fused_dz=False),
+                  "pcr_cuda": dict(linsys="pcr_cuda")}
+        used = {"default": SLICE_KERNELS[:0],
+                "fused=False": ("K5 build_kkt_cuda", "K2' pcg_solve_cuda"),
+                "fused_dz=False": ("K2' pcg_solve_cuda", "K6 compute_dz_cuda"),
+                "pcr_cuda": ("K5 build_kkt_cuda", "K7 pcr_solve_cuda")}
+        loop = lambda trace, **kw: track_chain.track(
+            model, trace, ee_t, N, ondevice=True, max_updates=updates, **kw)
+        mean_err = lambda run: float(run["tracking_errors"].double().mean())
+        runs = {name: counted(loop, xu_t, **kw) for name, kw in routes.items()}
+        if nq == TRACK_NQ:
+            rng = np.random.default_rng(6)
+            xu32 = xu_t.astype(np.float32)
+            moved = [np.nextafter(xu32, np.where(rng.random(xu32.shape) < 0.5, -np.inf,
+                                                 np.inf).astype(np.float32))
+                     .astype(np.float64) for _ in range(ROUTE_ENSEMBLE)]
+            m_cpu = chain_model(nq, torch, "cpu")
+            plain = {lin: mean_err(track_chain.track(
+                m_cpu, xu_t, ee_t, N, ondevice=True, max_updates=updates, linsys=lin,
+                merit_impl="plain")) for lin in ("pcg", "pcr")}
+        for name, (run, n) in runs.items():
+            its = int(run["sqp_iters"].sum())
+            errs = run["tracking_errors"].double().cpu().numpy()
+            ok = all(n[k] == its for k in used[name])
+            ok = ok and n["K4 simulate_plant"] == updates
+            ok = ok and all(v == 0 for k, v in n.items()
+                            if k in SLICE_KERNELS and k not in used[name])
+            ok = ok and bool(torch.isfinite(run["tracking_errors"]).all())
+            m = float(errs.mean())
+            rule = ""
+            if nq == TRACK_NQ:
+                lo, hi = spread_band([m] + [mean_err(loop(t, **routes[name]))
+                                            for t in moved])
+                yard = plain["pcr" if name == "pcr_cuda" else "pcg"]
+                ok = ok and lo <= yard <= hi
+                rule = (f"; its {ROUTE_ENSEMBLE} runs from 1-ulp trace changes and "
+                        f"it: band {lo:.9g}..{hi:.9g} holds the plain f32 loop's "
+                        f"{yard:.9g}")
+            expect(ok, f"route {name} nq={nq} N={N}, {updates} updates: launches "
+                   f"{n} ({list(used[name])} once per SQP iteration, {its}; K4 once "
+                   f"per update); mean tracking error over {len(errs)} shifts "
+                   f"{m:.9g}{rule}")
+            for k in used[name]:
+                launches[nq].setdefault(k, 0)
+                launches[nq][k] += n[k]
+        same = torch.equal(runs["fused_dz=False"][0]["xs_path"],
+                           runs["default"][0]["xs_path"])
+        expect(same, f"route fused_dz=False nq={nq} == the default route bit for "
+               f"bit over {updates} updates (K2' lam and K6 dz equal K2's): {same}")
+        out[nq] = dict(fleet=fleet)
+    return launches, out
+
+
+def slice_timings(c, launches: dict, errs: dict) -> dict:
+    """Phase 5's times of every kernel beside K1-K4 at nq = 3 and 5, each
+    beside its plain version and its bound at that nq: K5, K2', K6 and K7
+    at N_MAIN (K7 on synthetic_btd, beside the dense library solves), K8a-c
+    and K3b at NQ_BATCH instances, the slab kernels at the first case of
+    NQ_SHARDS (plain, kernel, kernel, plain; the batched plain versions one
+    call)."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig
+    from mpcgpu_tpu_torch.ops.btd import btd_to_dense
+    from mpcgpu_tpu_torch.ops.pcg import pcg_solve
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
+                                               compute_dz_slab,
+                                               compute_dz_slab_plain, pcg_dz_solve,
+                                               pcg_solve_cuda)
+    from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step, slab_state
+    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
+    from mpcgpu_tpu_torch.ops.pcr import pcr_solve_refined
+    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
+    from mpcgpu_tpu_torch.parallel import KnotMesh
+    from mpcgpu_tpu_torch.parallel.batched_cuda import (
+        build_kkt_schur_batched, build_kkt_schur_batched_plain, compute_dz_batched,
+        compute_dz_batched_plain, line_search_merits_batched,
+        line_search_merits_batched_plain, pcg_solve_batched,
+        pcg_solve_batched_plain)
+    from mpcgpu_tpu_torch.solver.kkt import build_kkt
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
+                                                  build_kkt_schur_slab,
+                                                  build_kkt_schur_slab_plain)
+    from mpcgpu_tpu_torch.solver.merit import merit_partials
+    from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merit_partials_slab
+
+    torch, dev = c.torch, c.dev
+    mu = 10.0
+    rows = {}
+    for nq in NQ_CASES:
+        nx = 2 * nq
+        model = chain_model(nq, torch, dev)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        tol0 = _kernels.scalar(0.0, dev)
+        N = N_MAIN
+        cost = CostConfig.for_knots(N)
+        xu, xs, ee = chain_problem(nq, N, torch, dev)
+        u = xu[:, nx:]
+        sys_ = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+        lam0 = torch.zeros((N, nx), dtype=torch.float32, device=dev)
+        pcg_kw = dict(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5)
+        lam_k2, _, k2_iters, _ = pcg_dz_solve(sys_, lam0, u, rho, cost.r_cost, **pcg_kw)
+        k2p_iters = int(pcg_solve_cuda(sys_["S"], sys_["Pinv"], sys_["gamma"], lam0,
+                                       **pcg_kw).iters)
+        bounds = kernel_bounds(N, int(k2_iters), k2p_iters, 1, 1, nq=nq)
+        S7, _, b7 = synthetic_btd(N, torch, dev, n=nx)
+        bounds["K7 pcr_solve_cuda"] = pcr_bound(N, nq=nq)
+        pairs = {
+            "K5 build_kkt_cuda": (lambda: build_kkt_cuda(model, cost, xu, xs, ee, DT),
+                                  lambda: build_kkt(model, cost, xu, xs, ee, DT)),
+            "K2' pcg_solve_cuda": (
+                lambda: pcg_solve_cuda(sys_["S"], sys_["Pinv"], sys_["gamma"], lam0,
+                                       **pcg_kw),
+                lambda: pcg_solve(sys_["S"], sys_["Pinv"], sys_["gamma"], lam0,
+                                  **pcg_kw)),
+            "K6 compute_dz_cuda": (
+                lambda: compute_dz_cuda(sys_, lam_k2, u, rho, cost.r_cost),
+                lambda: compute_dz_plain(sys_, lam_k2, u, rho, cost.r_cost)),
+            "K7 pcr_solve_cuda": (lambda: pcr_solve_cuda(S7, b7),
+                                  lambda: pcr_solve_refined(S7, b7)),
+        }
+        # K8a-c and K3b at NQ_BATCH instances (K8b from the cold start)
+        B = NQ_BATCH
+        xu_b, xs_b, ee_b, rho_b = chain_batch(nq, B, N, torch, dev)
+        lam0_b = torch.zeros((B, N, nx), dtype=torch.float32, device=dev)
+        sys_b = build_kkt_schur_batched(model, cost, xu_b, xs_b, ee_b, rho_b, DT)
+        lam_b, it_b, _ = pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"],
+                                           lam0_b, **pcg_kw)
+        u_b = xu_b[:, :, nx:]
+        dz_b = compute_dz_batched(sys_b, lam_b, u_b, rho_b, cost.r_cost)
+        bounds.update(batched_bounds(N, B, int((it_b.long() + 1).sum()), nq=nq))
+        batched = {
+            "K8a build_kkt_schur_batched": (
+                lambda: build_kkt_schur_batched(model, cost, xu_b, xs_b, ee_b, rho_b, DT),
+                lambda: build_kkt_schur_batched_plain(model, cost, xu_b, xs_b, ee_b,
+                                                      rho_b, DT)),
+            "K8b pcg_solve_batched": (
+                lambda: pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"],
+                                          lam0_b, **pcg_kw),
+                lambda: pcg_solve_batched_plain(sys_b["S"], sys_b["Pinv"],
+                                                sys_b["gamma"], lam0_b, **pcg_kw)),
+            "K8c compute_dz_batched": (
+                lambda: compute_dz_batched(sys_b, lam_b, u_b, rho_b, cost.r_cost),
+                lambda: compute_dz_batched_plain(sys_b, lam_b, u_b, rho_b, cost.r_cost)),
+            "K3b line_search_merits_batched": (
+                lambda: line_search_merits_batched(model, cost, xu_b, dz_b, xs_b, ee_b,
+                                                   mu, DT),
+                lambda: line_search_merits_batched_plain(model, cost, xu_b, dz_b, xs_b,
+                                                         ee_b, mu, DT)),
+        }
+        # the slab kernels at the first shard case: K10a in its init mode (the
+        # whole step's work, as phase 5), K10b and K10b' at the real system's
+        # second outer step
+        Ns, S = NQ_SHARDS[nq][0]
+        L, cost_s = Ns // S, CostConfig.for_knots(Ns)
+        xs_, xss, es_ = chain_problem(nq, Ns, torch, dev)
+        wins = knot_windows(c, Ns, S, -2, 2)
+        first, last = (wins == 0).float(), (wins == Ns - 1).float()
+        xe, ee_x = xs_[wins].contiguous(), es_[wins].contiguous()
+        k1 = build_kkt_schur(model, cost_s, xs_, xss, es_, rho, DT, 0)
+        sl = {k: v[:, 2:2 + L] for k, v in build_kkt_schur_slab(
+            model, cost_s, xe, ee_x, first, last, rho, DT).items()}
+        lam = pcg_solve_cuda(k1["S"], k1["Pinv"], k1["gamma"],
+                             torch.zeros_like(k1["gamma"]), max_iter=20,
+                             exit_tol=0.0).lam
+        lam_s, lam_n = shard_slabs(lam, S), shard_slabs(torch.roll(lam, -1, 0), S)
+        last_s = shard_slabs((torch.arange(Ns, device=dev) == Ns - 1).float(), S)
+        u_s = shard_slabs(xs_, S)[..., nx:]
+        d6 = compute_dz_cuda(k1, lam, xs_[:, nx:], rho, cost_s.r_cost)
+        w1 = knot_windows(c, Ns, S, 0, 1)
+        x1, z1, e1 = xs_[w1].contiguous(), d6[w1].contiguous(), es_[w1].contiguous()
+        mesh = KnotMesh(S)
+        Sl, Pl, gl = (shard_slabs(k1[k], S) for k in ("S", "Pinv", "gamma"))
+        PL, PR = mesh.send_right(Pl[:, -1]), mesh.send_left(Pl[:, 0])
+        st = slab_state(torch.zeros_like(gl), gl)
+        st_plain = clone_state(st)
+        pk = torch.zeros((S, 6, nx), device=dev)
+        k10 = lambda step, state: step(state, Sl, Pl, pk, pk, PL, PR, state["dots"],
+                                       1, tol0, "eta", True)
+        cst, ins = ca_setup_run(c, mesh, k1["S"], k1["Pinv"], k1["gamma"])
+        tot = mesh.psum(cst["parts"])
+        cst_k, cst_p = clone_state(cst), clone_state(cst)
+        bounds.update(shard_bounds(Ns, S, nq=nq))
+        bounds.update(ca_bounds(Ns, S, nq=nq))
+        shards = {
+            "K9a build_kkt_schur_slab": (
+                lambda: build_kkt_schur_slab(model, cost_s, xe, ee_x, first, last, rho, DT),
+                lambda: build_kkt_schur_slab_plain(model, cost_s, xe, ee_x, first, last,
+                                                   rho, DT)),
+            "K9b compute_dz_slab": (
+                lambda: compute_dz_slab(sl, lam_s, lam_n, last_s, u_s, rho, cost_s.r_cost),
+                lambda: compute_dz_slab_plain(sl, lam_s, lam_n, last_s, u_s, rho,
+                                              cost_s.r_cost)),
+            "K9c line_search_merit_partials_slab": (
+                lambda: line_search_merit_partials_slab(model, cost_s, x1, z1, e1, DT),
+                lambda: merit_partials(model, cost_s, x1, z1, e1, DT)),
+            "K10a pcg_slab_step_cuda": (lambda: k10(pcg_slab_step_cuda, st),
+                                        lambda: k10(pcg_slab_step, st_plain)),
+            "K10b ca_basis_cuda": (lambda: ca_basis_cuda(cst_k, *ins, CA_CAP, CA_S),
+                                   lambda: ca_basis(cst_p, *ins, CA_CAP, CA_S)),
+            "K10b' ca_coeff_step_cuda": (
+                lambda: ca_coeff_step_cuda(cst_k, tot, CA_CAP, tol0, "eta", CA_S),
+                lambda: ca_coeff_step(cst_p, tot, CA_CAP, tol0, "eta", CA_S)),
+        }
+        print(f"  nq={nq}: K2' at the timed state {k2p_iters} PCG iterations; K8b "
+              f"{int(it_b.min())}..{int(it_b.max())} over {B} instances; slab "
+              f"kernels at N={Ns} over {S} shards")
+        rows[nq] = {}
+        for group, reps in ((pairs, 3), (batched, 0), (shards, 3)):
+            for name, (kern, plain_fn) in group.items():
+                if reps:
+                    p1 = time_ms(torch, plain_fn, reps)
+                    ms = statistics.median([graph_ms(torch, kern), graph_ms(torch, kern)])
+                    plain_ms = statistics.median([p1, time_ms(torch, plain_fn, reps)])
+                else:
+                    ms = statistics.median([graph_ms(torch, kern, calls=5),
+                                            graph_ms(torch, kern, calls=5)])
+                    plain_ms = once_ms(torch, plain_fn)
+                bound_ms, bound_by = bounds[name]
+                rows[nq][name] = dict(launches=launches[nq].get(name, 0),
+                                      max_abs_err=errs[nq][name], ms=ms,
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, library_ms=None)
+                print(f"  {name} nq={nq}: kernel {ms * 1e3:.1f} us (device), plain "
+                      f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
+                      f"({bound_by})")
+        rows[nq]["K2' pcg_solve_cuda"]["us_per_iter"] = (
+            rows[nq]["K2' pcg_solve_cuda"]["ms"] * 1e3 / max(k2p_iters, 1))
+        rows[nq]["K8b pcg_solve_batched"]["us_per_iter"] = (
+            rows[nq]["K8b pcg_solve_batched"]["ms"] * 1e3 / max(int(it_b.max()), 1))
+        dense, rhs = btd_to_dense(S7), b7.reshape(-1, 1)
+        lib = min(time_ms(torch, lambda: torch.linalg.solve_ex(dense, rhs), 5),
+                  time_ms(torch, lambda: torch.cholesky_solve(
+                      rhs, torch.linalg.cholesky_ex(dense).L), 5))
+        rows[nq]["K7 pcr_solve_cuda"]["library_ms"] = lib
+        print(f"  K7 nq={nq}: dense library solve {lib * 1e3:.1f} us")
+    return rows
+
+
+def clone_state(st):
+    return {k: v.clone() for k, v in st.items()}
+
+
+def f64_state(st):
+    """The state with every float tensor in f64 (the exact step's input)."""
+    return {k: v.double() if v.is_floating_point() else v.clone()
+            for k, v in st.items()}
+
+
+def shard_slabs(t, S: int):
+    """(N, ...) -> (S, N / S, ...): each shard's contiguous slab."""
+    return t.reshape(S, t.shape[0] // S, *t.shape[1:])
+
+
+def slab_pcg_run(c, mesh, SS, PP, gg, step, max_iter, exit_tol, exit_criterion="eta"):
+    """The sharded pipelined slab PCG from lam = 0 with the given step
+    (K10a's wrapper or its plain version): (lam, iters, converged)."""
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import _pcg_local_pipelined_slab
+
+    N, S = gg.shape[0], mesh.size
+    lam, it, done = _pcg_local_pipelined_slab(
+        shard_slabs(SS, S), shard_slabs(PP, S), shard_slabs(gg, S),
+        shard_slabs(c.torch.zeros_like(gg), S), max_iter,
+        _kernels.scalar(exit_tol, c.dev), mesh, exit_criterion, step=step)
+    return lam.reshape(N, -1), int(it[0]), bool(done[0])
+
+
+def ca_setup_run(c, mesh, SS, PP, gg):
+    """The s-step state after one outer step of the plain version from lam
+    = 0 (so g != 1), and K10b's inputs for the next: (st, (S, Pinv, SL, SR,
+    PL, PR, fl, fr))."""
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import _ca_halo_blocks, _ca_init
+
+    S_ = mesh.size
+    S_l, P_l, g_l = (shard_slabs(t, S_) for t in (SS, PP, gg))
+    h = 2 * CA_S + 1
+    blocks = (S_l, P_l, *_ca_halo_blocks(S_l, h, mesh),
+              *_ca_halo_blocks(P_l, h, mesh))
+    lam0 = c.torch.zeros_like(g_l)
+    tol0 = _kernels.scalar(0.0, c.dev)
+    st = ca_state(lam0, *_ca_init(S_l, P_l, g_l, lam0, mesh), tol0, "eta", CA_S)
+    packets = lambda: (mesh.send_right(st["pkt"][:, 0]),
+                       mesh.send_left(st["pkt"][:, 1]))
+    ca_basis(st, *blocks, *packets(), CA_CAP, CA_S)
+    ca_coeff_step(st, mesh.psum(st["parts"]), CA_CAP, tol0, "eta", CA_S)
+    return st, blocks + packets()
+
+
+def ca_pcg_run(c, mesh, SS, PP, gg, kernels, max_iter, exit_tol, exit_criterion="eta"):
+    """The sharded s-step PCG from lam = 0 through K10b and the coefficient
+    step (kernels) or their plain versions: (lam, iters, converged)."""
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import _pcg_local_ca_slab
+
+    N, S_ = gg.shape[0], mesh.size
+    steps = (dict(basis=ca_basis_cuda, coeff=ca_coeff_step_cuda) if kernels
+             else dict(basis=ca_basis, coeff=ca_coeff_step))
+    lam, it, done = _pcg_local_ca_slab(
+        shard_slabs(SS, S_), shard_slabs(PP, S_), shard_slabs(gg, S_),
+        shard_slabs(c.torch.zeros_like(gg), S_), max_iter,
+        _kernels.scalar(exit_tol, c.dev), mesh, exit_criterion, s_steps=CA_S, **steps)
+    return lam.reshape(N, -1), int(it[0]), bool(done[0])
+
+
 def main() -> int:
     import torch
 
@@ -1222,7 +2097,7 @@ def main() -> int:
     from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
     from mpcgpu_tpu_torch import _kernels
     from mpcgpu_tpu_torch.models import iiwa14
-    from mpcgpu_tpu_torch import track_iiwa_qdldl
+    from mpcgpu_tpu_torch import track_chain, track_iiwa_qdldl
     from mpcgpu_tpu_torch.ops.btd import btd_matvec, btd_to_dense
     from mpcgpu_tpu_torch.ops.ldl import btd_ldl_solve
     from mpcgpu_tpu_torch.ops.pcg import pcg_solve
@@ -1233,7 +2108,9 @@ def main() -> int:
         build_kkt_schur_batched, build_kkt_schur_batched_plain, compute_dz_batched,
         compute_dz_batched_plain, line_search_merits_batched,
         line_search_merits_batched_plain, pcg_solve_batched,
-        pcg_solve_batched_plain, sqp_solve_batched_fused)
+        pcg_solve_batched_plain, sqp_solve_batched_fused,
+        sqp_solve_batched_fused_sharded)
+    from mpcgpu_tpu_torch.parallel.mesh import make_mesh
     from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
                                                compute_dz_slab,
                                                compute_dz_slab_plain,
@@ -1241,7 +2118,7 @@ def main() -> int:
                                                k2_cluster_plan, pcg_dz_solve,
                                                pcg_dz_solve_plain,
                                                pcg_solve_cuda)
-    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step, ca_state
+    from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step
     from mpcgpu_tpu_torch.ops.pcg_ca_cuda import (ca_basis_cuda, ca_cluster_plan,
                                                   ca_coeff_step_cuda, coeff_plan)
     from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step, slab_state
@@ -1249,10 +2126,7 @@ def main() -> int:
                                                     slab_cluster_plan)
     from mpcgpu_tpu_torch.parallel import (KnotMesh, pcg_solve_sharded,
                                            sqp_solve_sharded)
-    from mpcgpu_tpu_torch.parallel.pcg_sharded import (_ca_halo_blocks, _ca_init,
-                                                       _pcg_local_ca_slab,
-                                                       _pcg_local_pipelined_slab,
-                                                       btd_matvec_halo)
+    from mpcgpu_tpu_torch.parallel.pcg_sharded import btd_matvec_halo
     from mpcgpu_tpu_torch.sim.mpc import (run_chain, simulate_mpc,
                                           simulate_mpc_ondevice,
                                           simulate_mpc_ondevice_batched)
@@ -1310,9 +2184,8 @@ def main() -> int:
 
     # ---- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
-    # every source at nq = 7 and the slice's at NQ_CASES, all nvcc at once
-    _kernels.load([(src, 7) for src in _kernels.SOURCES]
-                  + [(src, nq) for nq in NQ_CASES for src in NQ_SOURCES])
+    # every source at nq = 7 and at NQ_CASES, all nvcc at once
+    _kernels.load([(src, nq) for nq in (7,) + NQ_CASES for src in _kernels.SOURCES])
     phase(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
     for (src, nq), log in _kernels.build_log.items():
         for line in ptxas_summary(log):
@@ -1606,7 +2479,6 @@ def main() -> int:
               f"{k2_cluster_occupancy(N_MAIN, nx=2 * nq)} clusters resident; K3 "
               f"{tuple(merit_team_plan(N_MAIN, 9 * N_MAIN, nq))}")
     errs_nq = nq_kernel_checks(ctx)
-    out_of_slice_gates(ctx)
     if failures:
         raise SmokeFailure(f"phase 2a: {len(failures)} check(s) failed")
 
@@ -1770,98 +2642,18 @@ def main() -> int:
         return torch.tensor((np.arange(S)[:, None] * L + np.arange(lo, L + hi)) % N,
                             device=dev)
 
-    def slab_pcg(mesh, SS, PP, gg, step, max_iter, exit_tol, exit_criterion="eta"):
-        """The sharded pipelined slab PCG from lam = 0 with the given step
-        (K10a's wrapper or its plain version): (lam, iters, converged)."""
-        N, S = gg.shape[0], mesh.size
-        sc = lambda t: t.reshape(S, N // S, *t.shape[1:])
-        lam, it, done = _pcg_local_pipelined_slab(
-            sc(SS), sc(PP), sc(gg), sc(torch.zeros_like(gg)), max_iter,
-            _kernels.scalar(exit_tol, dev), mesh, exit_criterion, step=step)
-        return lam.reshape(N, -1), int(it[0]), bool(done[0])
-
     tol0 = _kernels.scalar(0.0, dev)
-
-    def clone_state(st):
-        return {k: v.clone() for k, v in st.items()}
-
-    def ca_setup(mesh, SS, PP, gg):
-        """The s-step state after one outer step of the plain version from
-        lam = 0 (so g != 1), and K10b's inputs for the next: (st, (S, Pinv,
-        SL, SR, PL, PR, fl, fr))."""
-        N, S_ = gg.shape[0], mesh.size
-        sc = lambda t: t.reshape(S_, N // S_, *t.shape[1:])
-        S_l, P_l, g_l = sc(SS), sc(PP), sc(gg)
-        h = 2 * CA_S + 1
-        blocks = (S_l, P_l, *_ca_halo_blocks(S_l, h, mesh),
-                  *_ca_halo_blocks(P_l, h, mesh))
-        lam0 = torch.zeros_like(g_l)
-        st = ca_state(lam0, *_ca_init(S_l, P_l, g_l, lam0, mesh), tol0, "eta", CA_S)
-        packets = lambda: (mesh.send_right(st["pkt"][:, 0]),
-                           mesh.send_left(st["pkt"][:, 1]))
-        ca_basis(st, *blocks, *packets(), CA_CAP, CA_S)
-        ca_coeff_step(st, mesh.psum(st["parts"]), CA_CAP, tol0, "eta", CA_S)
-        return st, blocks + packets()
-
-    def ca_pcg(mesh, SS, PP, gg, kernels, max_iter, exit_tol, exit_criterion="eta"):
-        """The sharded s-step PCG from lam = 0 through K10b and the
-        coefficient step (kernels) or their plain versions: (lam, iters,
-        converged)."""
-        N, S_ = gg.shape[0], mesh.size
-        sc = lambda t: t.reshape(S_, N // S_, *t.shape[1:])
-        steps = (dict(basis=ca_basis_cuda, coeff=ca_coeff_step_cuda) if kernels
-                 else dict(basis=ca_basis, coeff=ca_coeff_step))
-        lam, it, done = _pcg_local_ca_slab(
-            sc(SS), sc(PP), sc(gg), sc(torch.zeros_like(gg)), max_iter,
-            _kernels.scalar(exit_tol, dev), mesh, exit_criterion, s_steps=CA_S,
-            **steps)
-        return lam.reshape(N, -1), int(it[0]), bool(done[0])
-
-    f64s = lambda st: {k: v.double() if v.is_floating_point() else v.clone()
-                       for k, v in st.items()}
+    slab_pcg = functools.partial(slab_pcg_run, ctx)
+    ca_setup = functools.partial(ca_setup_run, ctx)
+    ca_pcg = functools.partial(ca_pcg_run, ctx)
+    f64s = f64_state
 
     def ca_kernel_checks(mesh, N, S, label, sys3, record):
-        """K10b and the coefficient step against their plain versions at the
-        second outer step of a solve (g != 1): both do the s-step algebra in
-        f64 from the f32 state, in their own orders, so each output is held
-        to the same step from the state in f64: the kernel's max|d| /
-        max|ref| within 2x the plain step's + 1e-6.  ``record``: the kernels'
-        max|d| against the plain versions go to the kernels line."""
-        st, ins = ca_setup(mesh, *sys3)
-        got, ref, exact = clone_state(st), clone_state(st), f64s(st)
-        ca_basis_cuda(got, *ins, CA_CAP, CA_S)
-        ca_basis(ref, *ins, CA_CAP, CA_S)
-        ca_basis(exact, *(v.double() for v in ins), CA_CAP, CA_S)
-        torch.cuda.synchronize()
-        outs_b = ("Y", "Yt", "parts")
-        eb = {k: (rel_err(got[k], exact[k])[1], rel_err(ref[k], exact[k])[1])
-              for k in outs_b}
+        """ca_step_checks; ``record``: the kernels' max|d| against the plain
+        versions go to the kernels line."""
+        db, dc = ca_step_checks(ctx, mesh, N, S, label, sys3)
         if record:
-            errs["K10b ca_basis_cuda"] = max(rel_err(got[k], ref[k])[0]
-                                             for k in outs_b)
-        expect(all(a <= 2 * b + 1e-6 for a, b in eb.values()),
-               f"K10b N={N} over {S} shards ({ca_cluster_plan(N // S, CA_S)}), "
-               f"{label} system: to the f64 step, kernel / plain "
-               + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in eb.items())
-               + " max|ref| (kernel <= 2x plain + 1e-6)")
-        tot = mesh.psum(ref["parts"])
-        got, ref2, exact = clone_state(ref), clone_state(ref), f64s(ref)
-        ca_coeff_step_cuda(got, tot, CA_CAP, tol0, "eta", CA_S)
-        ca_coeff_step(ref2, tot, CA_CAP, tol0, "eta", CA_S)
-        ca_coeff_step(exact, tot.double(), CA_CAP, tol0.double(), "eta", CA_S)
-        torch.cuda.synchronize()
-        outs_c = ("x", "r", "z", "p", "pkt", "scal")
-        ec = {k: (rel_err(got[k], exact[k])[1], rel_err(ref2[k], exact[k])[1])
-              for k in outs_c}
-        if record:
-            errs["K10b' ca_coeff_step_cuda"] = max(rel_err(got[k], ref2[k])[0]
-                                                   for k in outs_c)
-        same = all(torch.equal(got[k], ref2[k]) for k in ("iters", "done"))
-        expect(all(a <= 2 * b + 1e-6 for a, b in ec.values()) and same,
-               f"K10b' (coefficient step) N={N} over {S} shards, {label} system: "
-               "to the f64 step, kernel / plain "
-               + ", ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in ec.items())
-               + f" max|ref| (kernel <= 2x plain + 1e-6); iters, done equal {same}")
+            errs["K10b ca_basis_cuda"], errs["K10b' ca_coeff_step_cuda"] = db, dc
 
     def k10a_checks(mesh, N, S, cost, rho, syn, record):
         """K10a: the sharded PCG loop with K10a against the same loop with
@@ -1873,23 +2665,9 @@ def main() -> int:
         same loop with the plain step (K2', classic CG, rounds otherwise:
         printed beside them).  ``record``: K10a's max|d| against the plain
         step goes to the kernels line."""
-        for crit, tol, cap in (("eta", 0.0, 20), ("eta", 1e-9, 167),
-                               ("rnorm", 1e-5, 167)):
-            a = slab_pcg(mesh, *syn, pcg_slab_step_cuda, cap, tol, crit)
-            b = slab_pcg(mesh, *syn, pcg_slab_step, cap, tol, crit)
-            k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
-                                 exit_tol=tol, exit_criterion=crit)
-            torch.cuda.synchronize()
-            (dp, ep), e2 = rel_err(a[0], b[0]), rel_err(a[0], k2p.lam)[1]
-            if record and tol == 0.0:
-                errs["K10a pcg_slab_step_cuda"] = dp
-            ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1] == int(k2p.iters)
-            ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
-            expect(ok, f"K10a N={N} over {S} shards ({slab_cluster_plan(N // S)}), "
-                   f"well-conditioned {crit} exit_tol={tol:g} cap={cap}: sharded "
-                   f"PCG vs its plain step {ep:.3e}, vs K2' {e2:.3e} (<= 2e-6); "
-                   f"iterations K10a {a[1]}, plain {b[1]}, K2' {int(k2p.iters)} "
-                   f"(equal); converged {a[2]}")
+        dp = k10a_synthetic_checks(ctx, mesh, N, S, syn)
+        if record:
+            errs["K10a pcg_slab_step_cuda"] = dp
         dist = {"K10a": [], "plain step": [], "K2'": []}
         for seed in range(REAL_SEEDS):
             xu_s, xs_s, ee_s, _ = problem(N, torch, dev, seed)
@@ -2054,27 +2832,7 @@ def main() -> int:
         for label, sys3 in (("well-conditioned", syn),
                             ("real", (k1["S"], k1["Pinv"], k1["gamma"]))):
             ca_kernel_checks(mesh, N, S, label, sys3, main_case and label == "real")
-        # the s-step PCG through the kernels on the well-conditioned system
-        # against the same loop with the plain steps and against K2' (lam
-        # within 2e-6, the same iterations, the exits before the cap; rnorm
-        # at 1e-4: the s-step r.r recurrence has a cancellation floor, and
-        # at 1e-5 on this system it never fires, ROADMAP.md queue 3)
-        for crit, tol, cap in (("eta", 0.0, 20), ("eta", 1e-9, 167),
-                               ("rnorm", 1e-4, 167)):
-            a = ca_pcg(mesh, *syn, True, cap, tol, crit)
-            b = ca_pcg(mesh, *syn, False, cap, tol, crit)
-            k2p = pcg_solve_cuda(*syn, torch.zeros_like(syn[2]), max_iter=cap,
-                                 exit_tol=tol, exit_criterion=crit)
-            torch.cuda.synchronize()
-            ep, e2 = rel_err(a[0], b[0])[1], rel_err(a[0], k2p.lam)[1]
-            ok = ep <= 2e-6 and e2 <= 2e-6 and a[1] == b[1]
-            ok = ok and abs(a[1] - int(k2p.iters)) <= CA_S
-            ok = ok and a[2] == b[2] == bool(k2p.converged) == (tol > 0.0)
-            ok = ok and (tol == 0.0 or a[1] < cap)
-            expect(ok, f"s-step PCG (K10b) N={N} over {S} shards, well-conditioned "
-                   f"{crit} exit_tol={tol:g} cap={cap}: vs the plain steps {ep:.3e}, "
-                   f"vs K2' {e2:.3e} (<= 2e-6); iterations K10b {a[1]}, plain "
-                   f"{b[1]}, K2' {int(k2p.iters)} (within {CA_S}); converged {a[2]}")
+        ca_pcg_synthetic_checks(ctx, mesh, N, S, syn)
         dist = {"K10b": [], "plain steps": [], "K10a": [], "K2'": []}
         for seed in range(REAL_SEEDS):
             xu_s, xs_s, ee_s, _ = problem(N, torch, dev, seed)
@@ -2168,6 +2926,19 @@ def main() -> int:
         one_shard_sqp(N, trace, start)
     if failures:
         raise SmokeFailure(f"phase 2c: {len(failures)} check(s) failed")
+
+    # ---- phase 2d: every kernel beside K1-K4 at the chains' joint counts --
+    phase(f"phase 2d: K5, K2', K6, K7, K8a-c, K3b, K9a-c, K10a, K10b, K10b' at "
+          f"nq = {NQ_CASES} vs plain versions")
+    for nq in NQ_CASES:
+        nx = 2 * nq
+        print(f"  nq={nq}: K7 {pcr_plan(N_MAIN, nx)}; " + "; ".join(
+            f"N={N} over {S}: K10a {tuple(slab_cluster_plan(N // S, nx=nx))}, K10b "
+            f"{tuple(ca_cluster_plan(N // S, CA_S, nx=nx))}, K10b' "
+            f"{tuple(coeff_plan(N // S, CA_S, nx=nx))}" for N, S in NQ_SHARDS[nq]))
+    errs_slice = slice_kernel_checks(ctx)
+    if failures:
+        raise SmokeFailure(f"phase 2d: {len(failures)} check(s) failed")
 
     # ---- phase 3: the main path -------------------------------------------
     phase(f"phase 3: the chain, {CHAIN_STEPS} warm-started steps, N={N_MAIN}")
@@ -2368,11 +3139,7 @@ def main() -> int:
         ens_400.append(e.mean())
         ens_48.append(e[:ROUTE_SHIFTS].mean())
 
-    def band(ens):
-        lo, hi = min(ens), max(ens)
-        return lo * lo / hi, hi * hi / lo
-
-    band_400, band_48 = band(ens_400), band(ens_48)
+    band_400, band_48 = spread_band(ens_400), spread_band(ens_48)
     print(f"  main path under 1-ulp trace changes ({LOOP_ENSEMBLE} runs + the "
           f"main run): mean tracking error over {LOOP_UPDATES} updates "
           f"{min(ens_400):.6g}..{max(ens_400):.6g} (band {band_400[0]:.6g}.."
@@ -2524,7 +3291,7 @@ def main() -> int:
         way = np.where(rng.random(calm32.shape) < 0.5, -np.inf, np.inf).astype(np.float32)
         run = host_loop("pcr_cuda", xu=np.nextafter(calm32, way).astype(np.float64))
         ens_pcr.append(float(np.mean(run.tracking_errors)))
-    band_pcr = band(ens_pcr)
+    band_pcr = spread_band(ens_pcr)
     m_pcr = direct_summary["pcr"]["mean_tracking_error"]
     expect(band_pcr[0] <= m_pcr <= band_pcr[1],
            f"direct pcr (all plain) vs pcr_cuda: mean tracking error {m_pcr:.6g}; "
@@ -2569,6 +3336,19 @@ def main() -> int:
                    if not torch.equal(getattr(res_b, f)[i], getattr(one, f))]
     expect(not differ, f"batched vs single fused solves (K1 -> K2 -> K3) of "
            f"instances {picks}: every field bit for bit; differing {differ}")
+    # the instance-sharded solve: each of FLEET_INSTANCES groups solves its
+    # slab; every field of every instance bit for bit the unsharded solve's
+    b_args = (model, cost, sqp_b, pcg_cfg, xu_b, lam0_b, xs_b, ee_b, rho_b, DT)
+    (sh_b, n_shb), ref_b = (counted(sqp_solve_batched_fused_sharded, *b_args,
+                                    make_mesh(n_instance=FLEET_INSTANCES)),
+                            sqp_solve_batched_fused(*b_args))
+    differ = [f for f in ref_b._fields
+              if not torch.equal(getattr(sh_b, f), getattr(ref_b, f))]
+    expect(not differ and n_shb[k8[0]] >= FLEET_INSTANCES * int(sh_b.sqp_iters.min()),
+           f"sqp_solve_batched_fused_sharded over make_mesh(n_instance="
+           f"{FLEET_INSTANCES}) vs sqp_solve_batched_fused, B={B_MAIN}: xu, lam, "
+           f"rho, iteration counts and line-search choices bit for bit; differing "
+           f"{differ}; launches {n_shb}")
     for k in k8:
         launches[k] = n_b[k]
     if failures:
@@ -2775,48 +3555,13 @@ def main() -> int:
     expect(torch.equal(k4b, k4) and r4 <= 1e-4,
            f"K4b B={B_MAIN}: == K4 per instance bit for bit {torch.equal(k4b, k4)}; "
            f"vs plain on {B_PLAIN} instances {r4:.3e} max|ref| (<= 1e-4)")
-    # the loop, as a user calls it; then BATCH_LOOP_PICKS instances against
-    # the single on-device loop from the same start (the trace with its
-    # first state moved to the instance's), bit for bit
-    bl, n_bl = counted(simulate_mpc_ondevice_batched, model, xu_calm, ee_calm, N, DT,
-                       B_MAIN, sim_cfg=SimConfig(max_control_updates=BATCH_UPDATES),
-                       **bl_kw)
-    k8 = [k for k in KERNELS if k.startswith(("K8", "K3b"))]
-    it_bl = n_bl[k8[0]]
-    ok = all(n_bl[k] == it_bl for k in k8) and BATCH_UPDATES <= it_bl <= 2 * BATCH_UPDATES
-    ok = ok and n_bl["K4b simulate_plant_batched"] == BATCH_UPDATES
-    ok = ok and all(n_bl[k] == 0 for k in KERNELS
-                    if k not in k8 and k != "K4b simulate_plant_batched")
-    err_b = bl["tracking_errors"]
-    ok = ok and tuple(err_b.shape) == (B_MAIN, BATCH_UPDATES) and finite(err_b)
-    spread = float(err_b[:, -1].max() - err_b[:, -1].min())
-    ok = ok and bl["control_updates"] == BATCH_UPDATES and spread > 0
-    expect(ok, f"batched loop B={B_MAIN}: launches {n_bl} (K8a-c, K3b once per "
-           f"batched SQP iteration, {it_bl}; K4b once per update); errors "
-           f"{tuple(err_b.shape)} finite; last-update spread over instances "
-           f"{spread:.3e} (> 0); {int(bl['shift_mask'].sum())} shifts")
+    # the loop, as a user calls it, unsharded and over the instance axis
+    # (make_mesh(n_instance=FLEET_INSTANCES)), every instance bit for bit;
+    # BATCH_LOOP_PICKS instances against the single on-device loop from the
+    # same start (the trace with its first state moved to the instance's)
+    n_bl, batch_summary = fleet_loop_checks(ctx, model, xu_calm, ee_calm, N, B_MAIN,
+                                            BATCH_UPDATES, "IIWA", **bl_kw)
     launches["K4b simulate_plant_batched"] = n_bl["K4b simulate_plant_batched"]
-    gen = torch.Generator(device=dev)      # the function's draw of the starts
-    gen.manual_seed(0)
-    starts = torch.tensor(xu_calm[0, :14], dtype=torch.float32, device=dev) \
-        + 0.05 * torch.randn((B_MAIN, 14), generator=gen, dtype=torch.float32,
-                             device=dev)
-    differ = []
-    picks = [i * (B_MAIN - 1) // (BATCH_LOOP_PICKS - 1) for i in range(BATCH_LOOP_PICKS)]
-    for i in picks:
-        xu_i = xu_calm.copy()
-        xu_i[0, :14] = starts[i].double().cpu().numpy()
-        one = simulate_mpc_ondevice(model, xu_i, ee_calm, N, DT,
-                                    sim_cfg=SimConfig(max_control_updates=BATCH_UPDATES),
-                                    **bl_kw)
-        if not (torch.equal(err_b[i][bl["shift_mask"]], one["tracking_errors"])
-                and torch.equal(bl["final_tracking_error"][i],
-                                one["final_tracking_error"])):
-            differ.append(i)
-    expect(not differ, f"batched loop vs single on-device loops of instances "
-           f"{picks}: tracking errors and final error bit for bit; differing {differ}")
-    batch_summary = dict(mean_tracking_error=float(err_b.mean()),
-                         last_update_spread=spread, sqp_iterations=it_bl)
     if failures:
         raise SmokeFailure(f"phase 4e: {len(failures)} check(s) failed")
 
@@ -2826,6 +3571,13 @@ def main() -> int:
     onboard = onboarding_checks(ctx)
     if failures:
         raise SmokeFailure(f"phase 4f: {len(failures)} check(s) failed")
+
+    # ---- phase 4g: the paths of the other kernels at nq = 3, 5 --------------
+    phase(f"phase 4g: the fleet (instance axis), the knot-sharded SQP, the split "
+          f"routes and pcr_cuda at nq = {NQ_CASES}")
+    slice_launches, slice_paths = nq_path_checks(ctx)
+    if failures:
+        raise SmokeFailure(f"phase 4g: {len(failures)} check(s) failed")
 
     # ---- phase 5: timing ----------------------------------------------------
     phase(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
@@ -3224,24 +3976,51 @@ def main() -> int:
                      max_abs_err=errs["K4b simulate_plant_batched"], ms=k4b_ms,
                      plain_ms=k4b_plain, bound_ms=k4b_bound[0],
                      bound_by=k4b_bound[1], library_ms=None))
-    bl_upd, bl_runs = slope_us(torch, lambda k: simulate_mpc_ondevice_batched(
-        model, xu_calm, ee_calm, N_MAIN, DT, B_MAIN,
-        sim_cfg=SimConfig(max_control_updates=k), **bl_kw), *BATCH_SLOPE)
+    # the fleet, unsharded and over the instance axis, in turns
+    fleet_us = {}
+    for name, mesh in (("unsharded", None), ("instance-sharded", True),
+                       ("instance-sharded", True), ("unsharded", None)):
+        upd, runs_ = slope_us(torch, lambda k: simulate_mpc_ondevice_batched(
+            model, xu_calm, ee_calm, N_MAIN, DT, B_MAIN,
+            sim_cfg=SimConfig(max_control_updates=k),
+            instance_mesh=mesh and make_mesh(n_instance=FLEET_INSTANCES), **bl_kw),
+            *BATCH_SLOPE)
+        fleet_us.setdefault(name, []).append(upd)
+        print(f"  batched loop B={B_MAIN}, {name}: {upd:.1f} us per control update "
+              f"(runs {', '.join(f'{v:.1f}' for v in runs_)}); {card_line()}")
+    bl_upd = statistics.median(fleet_us["unsharded"])
     batch_summary.update(update_us=bl_upd,
-                         instance_updates_per_s=B_MAIN / (bl_upd * 1e-6))
-    print(f"  batched loop B={B_MAIN}: {bl_upd:.1f} us per control update (runs "
-          f"{', '.join(f'{v:.1f}' for v in bl_runs)}) = "
-          f"{batch_summary['instance_updates_per_s']:.0f} instance-updates/s")
+                         instance_updates_per_s=B_MAIN / (bl_upd * 1e-6),
+                         instance_sharded_update_us=statistics.median(
+                             fleet_us["instance-sharded"]))
+    print(f"  batched loop B={B_MAIN}: {bl_upd:.1f} us per control update = "
+          f"{batch_summary['instance_updates_per_s']:.0f} instance-updates/s; over "
+          f"make_mesh(n_instance={FLEET_INSTANCES}) "
+          f"{batch_summary['instance_sharded_update_us']:.1f} us")
+    # the 5-link fleet (phase 4g's), unsharded
+    m5 = chain_model(TRACK_NQ, torch, dev)
+    xu5, ee5 = track_chain.reference_trace(m5, TRACK_STEPS)
+    upd5, runs5 = slope_us(torch, lambda k: simulate_mpc_ondevice_batched(
+        m5, xu5, ee5, N_MAIN, DT, B_MAIN, sim_cfg=SimConfig(max_control_updates=k),
+        cost=track_chain.COST, sqp_cfg=track_chain.DEVICE_SQP,
+        pcg_cfg=track_chain.PCG), *BATCH_SLOPE)
+    slice_paths[TRACK_NQ]["fleet"]["update_us"] = upd5
+    print(f"  batched loop nq={TRACK_NQ} B={B_MAIN} N={N_MAIN}: {upd5:.1f} us per "
+          f"control update (runs {', '.join(f'{v:.1f}' for v in runs5)}); "
+          f"{card_line()}")
 
-    # K1-K4 and K4b at the chains' joint counts; every row of the kernels
-    # line says the nq values its kernel was checked at on the card
+    # every kernel at the chains' joint counts: each row of the kernels line
+    # says the nq values its kernel was checked at on the card and gives its
+    # numbers at nq = 3, 5 beside the IIWA's
+    for nq in NQ_CASES:          # K4b's launches at nq = 3, 5: phase 4g's fleets
+        onboard["launches"][nq]["K4b simulate_plant_batched"] = \
+            slice_launches[nq]["K4b simulate_plant_batched"]
     nq_rows = nq_timings(ctx, onboard["launches"], errs_nq)
+    slice_rows = slice_timings(ctx, slice_launches, errs_slice)
     for row in rows:
-        if row["name"] in NQ_KERNELS:
-            row["nq_checked"] = sorted(NQ_CASES + (7,))
-            row["nq"] = {str(nq): nq_rows[nq][row["name"]] for nq in NQ_CASES}
-        else:
-            row["nq_checked"] = [7]
+        per_nq = nq_rows if row["name"] in NQ_KERNELS else slice_rows
+        row["nq_checked"] = sorted(NQ_CASES + (7,))
+        row["nq"] = {str(nq): per_nq[nq][row["name"]] for nq in NQ_CASES}
 
     # ---- phase 6: results -----------------------------------------------
     print(json.dumps({"kernels": rows, "chain_step_us": step_us,
@@ -3258,6 +4037,7 @@ def main() -> int:
                       "sharded": shard_summary,
                       "batched_loop": batch_summary,
                       "onboarding": onboard,
+                      "nq_paths": slice_paths,
                       "card": card}))
     phase("chip_smoke: done")
     print(card_line())

@@ -126,16 +126,6 @@ def require_nq(nq: int) -> None:
             "direction, at most 15); see ROADMAP.md queue 2, 'Kernels at any nq'")
 
 
-def require_nq7(nq: int, what: str) -> None:
-    """Raise unless nq = 7: the gate of the kernels not yet held to their
-    plain versions on the card at other joint counts."""
-    if nq != NQ_DEFAULT:
-        raise ValueError(
-            f"{what} runs at nq = 7 only, got nq = {nq:g}: it is not yet held "
-            "to its plain version on the card at other joint counts; see "
-            "ROADMAP.md queue 2, 'Kernels still to port at any nq'")
-
-
 def model_floats(nq: int) -> int:
     """MODEL_SIZE of csrc/common.cuh: the packed model of nq joints
     (RobotModel.packed(): 4 nq 6x6 and 3 nq 4x4 matrices)."""
@@ -202,8 +192,9 @@ def libraries() -> dict[str, ctypes.CDLL]:
             load((s, NQ_DEFAULT) for s in SOURCES).items()}
 
 
-def entry(src: str, name: str, nq: int = NQ_DEFAULT):
-    """The C entry point ``name`` of ``src`` built for nq joints."""
+def entry(src: str, name: str, nq: int):
+    """The C entry point ``name`` of ``src`` built for nq joints (every
+    wrapper passes its system's nq: no library is taken by default)."""
     return getattr(load([(src, nq)])[src, nq], name)
 
 

@@ -48,9 +48,9 @@
 // card's f64 units make this nearly free: the work is bytes-bound.
 //
 // What bounds them on an H100: latency.  K10b reads the extended S and
-// Pinv (2 x 3 x 14^2 x (L + 2h) floats, 386 KB at L = 64, s = 4) and does
-// 2s+1 dependent banded products (4s block-row products per row in all),
-// then 181 dot products over the shard's L x 14 rows; the work is ~0.5
+// Pinv (2 x 3 x NX^2 x (L + 2h) floats, 386 KB at L = 64, s = 4, NX =
+// 14) and does 2s+1 dependent banded products (4s block-row products per
+// row in all), then 181 dot products over the shard's L x NX rows; the work is ~0.5
 // MFLOP per shard at L = 64.  The coefficient step is a few hundred
 // dependent f64 flops (s steps of m-term chains and two divisions), then
 // an m-term combination per row over Y and Ytil (129 KB at L = 64).
@@ -88,7 +88,7 @@
 //
 // The coefficient step's design: ONE CLUSTER OF CTAs PER SHARD (grid (C,
 // n_shard)), laid out by ops/pcg_ca_cuda.py::coeff_plan(L, s): the shard's
-// 14 L rows cut into C runs of R rows.  Every CTA runs the s iterations
+// NX L rows cut into C runs of R rows.  Every CTA runs the s iterations
 // itself on its warp 0, from the same inputs in the same order, so every
 // CTA holds the same coefficients with no exchange: lane q keeps row q of
 // G and F in registers, every lane b, f and the coefficient vectors, and
@@ -119,11 +119,16 @@ constexpr int MAX_S = 8;
 
 // K10b's cluster plan limits (ops/pcg_ca_cuda.py): the largest cluster,
 // the most threads of a CTA (two, or one, per own row), and the stride of
-// a knot's S (or Pinv) in a CTA's shared memory, f64 entries (590 = 18 x 32
-// + 14, as K2's)
+// a knot's S (or Pinv) in a CTA's shared memory, f64 entries: K2's
+// KNOT_STRIDE (pcg_dz.cu), the least 32 m + NX >= 3 NN (590 = 18 x 32 + 14
+// at NX = 14)
 constexpr int CA_MAX_CLUSTER = 16;
 constexpr int CA_MAX_THREADS = 512;
-constexpr int CA_KNOT_STRIDE = 590;
+constexpr int CA_KNOT_STRIDE = 3 * NN + (NX - 3 * NN % 32 + 32) % 32;
+static_assert(CA_KNOT_STRIDE >= 3 * NN && CA_KNOT_STRIDE % 32 == NX % 32,
+              "ca knot stride");
+// the block loads take a knot's 3 NN floats as float4s: 3 NN = 12 NQ^2
+static_assert(3 * NN % 4 == 0, "a knot's blocks in whole float4s");
 constexpr int CA_LOAD_BATCH = 8;    // block entries a thread loads at once
 // the coefficient step's plan limits (ops/pcg_ca_cuda.py::coeff_plan): the
 // largest cluster and the most threads of a CTA (warp 0 and the row warps)
@@ -251,8 +256,9 @@ ca_basis_kernel(const float* __restrict__ p, const float* __restrict__ z,
   cluster_arrive();
   if (kBlocks) {
     // S and Pinv, transposed, in f64: 16-byte loads (a knot's 3 NN floats
-    // are 147 of them; the wrapper checks the alignment), CA_LOAD_BATCH of
-    // each a thread in flight, all loaded before any is stored
+    // are 3 NN / 4 of them, 147 at NX = 14; the wrapper checks the
+    // alignment), CA_LOAD_BATCH of each a thread in flight, all loaded
+    // before any is stored
     constexpr int Q = 3 * NN / 4;
     const int nq = nk * Q;
     for (int base = 0; base < nq; base += CA_LOAD_BATCH * nth) {

@@ -32,8 +32,8 @@
 // which gives u = Pinv r0 and w = S u0, and touches no scalar.
 //
 // What bounds it on an H100: latency.  A step reads the shard's S and Pinv
-// once (2 x 3 x 14 x 14 x L floats, 301 KB at L = 64) and does 2 x 3 x 14^2
-// x 2 FLOP per knot, two dependent banded products and three dots.
+// once (2 x 3 x NX^2 x L floats, 301 KB at L = 64 and NX = 14) and does 2 x
+// 3 x NX^2 x 2 FLOP per knot, two dependent banded products and three dots.
 //
 // The design: ONE THREAD-BLOCK CLUSTER PER SHARD (grid (C, n_shard), the
 // cluster along x), laid out by ops/pcg_slab_cuda.py::slab_cluster_plan(L),
@@ -44,7 +44,7 @@
 // and iters and takes the same decision, so an exited cluster returns before
 // any set-up.  Then warp 0 starts the bulk copies (TMA, completing on an
 // mbarrier) of the CTA's own knots' Pinv and S blocks into shared memory,
-// each knot's 588 floats contiguous at a stride of SLAB_KNOT_STRIDE floats,
+// each knot's KB floats contiguous at a stride of SLAB_KNOT_STRIDE floats,
 // so that the rows a half-warp reads as float2 fall in distinct banks; the
 // copies run under the axpy phase.  Each row's band product loads the band's
 // row and the vector's row first, then runs the fma chain in the parent's
@@ -77,11 +77,15 @@ constexpr int KB = 3 * NN;   // one knot's three blocks, floats
 
 // K10a's cluster plan limits (ops/pcg_slab_cuda.py): the largest cluster,
 // the most threads of a CTA (one per own row), and the stride of a knot's
-// blocks in a CTA's shared memory, floats (612 = 19 x 32 + 4: thread t of a
-// CTA reads row t at word 7 t mod 16 of the 8-byte banks)
+// blocks in a CTA's shared memory, floats: the least stride >= KB that is
+// congruent to NN mod 32, so that thread t of a CTA reads row t at word
+// (NX / 2) t mod 16 of the 8-byte banks (612 = 19 x 32 + 4 at NX = 14: word
+// 7 t mod 16; a multiple of 4, as NN is, so each knot is 16-byte aligned)
 constexpr int SLAB_MAX_CLUSTER = 16;
 constexpr int SLAB_MAX_THREADS = 512;
-constexpr int SLAB_KNOT_STRIDE = 612;
+constexpr int SLAB_KNOT_STRIDE = KB + (32 - 2 * NN % 32) % 32;
+static_assert(SLAB_KNOT_STRIDE % 32 == NN % 32 && SLAB_KNOT_STRIDE % 4 == 0,
+              "slab knot stride");
 
 // bytes of a CTA's dynamic shared memory at kc knots (see
 // slab_cluster_plan): four mbarriers, the own knots' Pinv and S blocks,

@@ -11,9 +11,8 @@ Ports of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_dz_solve_pallas_lanes`` (K2),
 shard axis; K2' takes the standard (N, 3, n, n) BTD operands.  Each wrapper
 runs its plain version for CPU tensors and its kernel for CUDA tensors.
 K2, K2' and K8b (``parallel/batched_cuda.py``) run one thread-block
-cluster per solve, laid out by ``k2_cluster_plan(N)``.  K2 is built for the
-system's nx = 2 nq (nq 2..7); K2', K6 and K9b run at nx = 14 only until the
-card holds them to their plain versions at other nq.
+cluster per solve, laid out by ``k2_cluster_plan(N, nx)``.  Each launch
+takes the library built for the system's nq = nx / 2 (2..7).
 """
 
 from __future__ import annotations
@@ -118,16 +117,18 @@ def pcg_dz_solve_plain(sys: dict, lam0, u, rho, r_cost: float,
             res.iters, res.converged)
 
 
-def _require_system(S, Pinv, gamma, lam0, dev, what: str):
-    """Check K2's system (nx = 2 nq, any nq the kernels are built for) or
-    that of ``what`` (nx = 14 only)."""
-    N, nx = lam0.shape
+def require_nx(nx: int) -> None:
+    """Raise unless nx is the state size 2 nq of a chain the kernels are
+    built for."""
     if nx % 2:
         raise ValueError(f"nx = {nx}: the state is (q, qd), nx = 2 nq")
-    if what == "K2":
-        _kernels.require_nq(nx // 2)
-    else:
-        _kernels.require_nq7(nx // 2, what)
+    _kernels.require_nq(nx // 2)
+
+
+def _require_system(S, Pinv, gamma, lam0, dev):
+    """Check K2's and K2''s system (N, 3, nx, nx) blocks."""
+    N, nx = lam0.shape
+    require_nx(nx)
     _kernels.require_knots(N)
     for name, t, shape in (("S", S, (N, 3, nx, nx)), ("Pinv", Pinv, (N, 3, nx, nx)),
                            ("gamma", gamma, (N, nx)), ("lam0", lam0, (N, nx))):
@@ -166,7 +167,7 @@ def pcg_dz_solve(sys: dict, lam0, u, rho, r_cost: float, max_iter: int = 173,
     dev = lam0.device
     N, nx = lam0.shape
     nu = u.shape[-1]
-    _require_system(sys["S"], sys["Pinv"], sys["gamma"], lam0, dev, "K2")
+    _require_system(sys["S"], sys["Pinv"], sys["gamma"], lam0, dev)
     if 2 * nu != nx:
         raise ValueError(f"u: {nu} controls for a state of {nx}; nu = nx / 2")
     _require_dz_inputs(sys, u, dev)
@@ -207,12 +208,12 @@ def pcg_solve_cuda(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
                          exit_criterion)
     dev = lam0.device
     N, nx = lam0.shape
-    _require_system(S, Pinv, gamma, lam0, dev, "K2' (pcg_solve_cuda)")
+    _require_system(S, Pinv, gamma, lam0, dev)
     tol_t = _kernels.scalar(exit_tol, dev)
-    plan = k2_cluster_plan(N)
+    plan = k2_cluster_plan(N, nx)
     lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "pcg_launch")(
+    code = _kernels.entry("pcg_dz.cu", "pcg_launch", nq=nx // 2)(
         S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
         int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
         *plan, 1, lam.data_ptr(), flags.data_ptr(), flags.data_ptr() + 4,
@@ -236,13 +237,13 @@ def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
     N, nx = lam.shape
     if nx != 2 * u.shape[-1]:
         raise ValueError(f"u: {u.shape[-1]} controls for a state of {nx}; nu = nx / 2")
-    _kernels.require_nq7(u.shape[-1], "K6 (compute_dz_cuda)")
+    require_nx(nx)
     _kernels.require_knots(N)
     _kernels.require(lam, "lam", (N, nx), dev)
     _require_dz_inputs(sys, u, dev)
     rho_t = _kernels.scalar(rho, dev)
     dz = torch.empty((N, nx + u.shape[-1]), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_launch")(
+    code = _kernels.entry("pcg_dz.cu", "dz_launch", nq=nx // 2)(
         lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(0),
         0, rho_t.data_ptr(), float(r_cost), N, 1, dz.data_ptr(),
@@ -288,7 +289,7 @@ def compute_dz_slab(sys: dict, lam, lam_next, last_mask, u, rho, r_cost: float):
     nu = u.shape[-1]
     if nx != 2 * nu:
         raise ValueError(f"u: {nu} controls for a state of {nx}; nu = nx / 2")
-    _kernels.require_nq7(nu, "K9b (compute_dz_slab)")
+    require_nx(nx)
     for name, t in (("lam", lam), ("lam_next", lam_next)):
         _kernels.require(t, name, (n_shard, L, nx), dev)
     _kernels.require(last_mask, "last_mask", (n_shard, L), dev)
@@ -306,7 +307,7 @@ def compute_dz_slab(sys: dict, lam, lam_next, last_mask, u, rho, r_cost: float):
         raise ValueError("u: f32 (n_shard, L, nu) on the card with rows of unit stride")
     rho_t = _kernels.scalar(rho, dev)
     dz = torch.empty((n_shard, L, nx + nu), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_slab_launch")(
+    code = _kernels.entry("pcg_dz.cu", "dz_slab_launch", nq=nu)(
         lam.data_ptr(), lam_next.data_ptr(), last_mask.data_ptr(),
         sys["Qinv"].data_ptr(), sys["A"].data_ptr(), sys["B"].data_ptr(),
         sys["q"].data_ptr(), knot_stride, u.data_ptr(), u.stride(1), u.stride(0),

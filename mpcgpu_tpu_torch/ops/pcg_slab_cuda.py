@@ -7,7 +7,8 @@ kernel is ``csrc/pcg_slab.cu`` and the plain version
 ``ops/pcg_slab.py::pcg_slab_step`` (the state and the step are described
 there).  ``pcg_slab_step_cuda`` runs the plain version for CPU tensors and
 the kernel, one thread-block cluster per shard laid out by
-``slab_cluster_plan(L)``, for CUDA tensors.
+``slab_cluster_plan(L, nx=nx)``, for CUDA tensors, from the library built
+for nq = nx / 2.
 """
 
 from __future__ import annotations
@@ -15,17 +16,28 @@ from __future__ import annotations
 from typing import NamedTuple
 
 from mpcgpu_tpu_torch import _kernels
+from mpcgpu_tpu_torch.ops.pcg_cuda import require_nx
 from mpcgpu_tpu_torch.ops.pcg_slab import pcg_slab_step
 
 # csrc/pcg_slab.cu's limits: the largest cluster (16 is above the portable
-# 8), the most threads of a CTA, the stride of one knot's blocks in a CTA's
-# shared memory, floats; the knots a CTA aims at, and the shared memory a
-# block may use on an H100
+# 8), the most threads of a CTA; the knots a CTA aims at, and the shared
+# memory a block may use on an H100
 SLAB_MAX_CLUSTER = 16
 SLAB_MAX_THREADS = 512
-_KNOT_STRIDE = 612
 SLAB_TARGET_KNOTS = 4
 SMEM_LIMIT = 232448
+
+
+def slab_knot_stride(nx: int = 14) -> int:
+    """SLAB_KNOT_STRIDE of csrc/pcg_slab.cu: one knot's three nx x nx
+    blocks in a CTA's shared memory, floats, padded to the least stride
+    congruent to nx^2 mod 32, so that thread t, reading row t as float2,
+    starts at 8-byte word (nx / 2) t mod 16 (612 at nx = 14)."""
+    nn = nx * nx
+    return 3 * nn + (32 - 2 * nn % 32) % 32
+
+
+_KNOT_STRIDE = slab_knot_stride(14)
 
 
 class SlabPlan(NamedTuple):
@@ -35,19 +47,20 @@ class SlabPlan(NamedTuple):
     smem_bytes: int       # dynamic shared memory of one CTA
 
 
-def slab_smem_bytes(kc: int) -> int:
+def slab_smem_bytes(kc: int, nx: int = 14) -> int:
     """One CTA's dynamic shared memory at kc knots (``slab_smem_bytes`` of
     csrc/pcg_slab.cu): four mbarriers, the own knots' Pinv and S blocks,
     the r and u rows with their halo rows, the warp and CTA sums."""
-    return 32 + 4 * (2 * _KNOT_STRIDE * kc + (2 * kc + 6) * 14 + 3 * 32
+    return 32 + 4 * (2 * slab_knot_stride(nx) * kc + (2 * kc + 6) * nx + 3 * 32
                      + 3 * SLAB_MAX_CLUSTER)
 
 
-def slab_cluster_plan(L: int, cluster: int | None = None) -> SlabPlan:
+def slab_cluster_plan(L: int, cluster: int | None = None,
+                      nx: int = 14) -> SlabPlan:
     """K10a's launch for slabs of L knots: the smallest power of two C with
     ceil(L / C) <= SLAB_TARGET_KNOTS, at most 16 (or ``cluster``, a choice
-    the sweep makes by hand).  A fixed function of L; raises on a shape it
-    cannot launch."""
+    the sweep makes by hand).  A fixed function of L (nx sets the threads
+    and the shared memory); raises on a shape it cannot launch."""
     if not 2 <= L <= _kernels.MAX_KNOTS:
         raise ValueError(f"slab of {L} knots; K10a takes 2 <= L <= "
                          f"{_kernels.MAX_KNOTS}")
@@ -59,11 +72,11 @@ def slab_cluster_plan(L: int, cluster: int | None = None) -> SlabPlan:
         raise ValueError(f"cluster of {cluster} CTAs: a power of two <= "
                          f"{SLAB_MAX_CLUSTER}")
     kc = -(-L // cluster)
-    threads = -(-14 * kc // 32) * 32
+    threads = -(-nx * kc // 32) * 32
     if threads > SLAB_MAX_THREADS:
         raise ValueError(f"{kc} knots a CTA: more rows than {SLAB_MAX_THREADS} "
                          "threads")
-    smem = slab_smem_bytes(kc)
+    smem = slab_smem_bytes(kc, nx)
     if smem > SMEM_LIMIT:
         raise ValueError(f"K10a at L = {L}: {smem} bytes of shared memory a "
                          f"CTA, over {SMEM_LIMIT}")
@@ -87,9 +100,8 @@ def pcg_slab_step_cuda(st: dict, S, Pinv, flp, frp, PinvL, PinvR, tot,
 
     dev = st["x"].device
     n_shard, L, n = st["x"].shape
-    if n != 14:
-        _kernels.require_nq7(n / 2, "K10a (pcg_slab_step_cuda)")
-    plan = slab_cluster_plan(L)
+    require_nx(n)
+    plan = slab_cluster_plan(L, nx=n)
     for name in ("x", "r", "p", "s", "u", "w"):
         _kernels.require(st[name], name, (n_shard, L, n), dev)
     _kernels.require(st["pkt"], "pkt", (n_shard, 2, 6, n), dev)
@@ -116,7 +128,7 @@ def pcg_slab_step_cuda(st: dict, S, Pinv, flp, frp, PinvL, PinvR, tot,
         if t.data_ptr() % a or t.stride(0) % (a // 4):
             raise ValueError(f"{name}: K10a needs {a}-byte aligned shard slabs")
     tol_t = _kernels.scalar(exit_tol, dev)
-    code = _kernels.entry("pcg_slab.cu", "pcg_slab_launch")(
+    code = _kernels.entry("pcg_slab.cu", "pcg_slab_launch", nq=n // 2)(
         *(st[k].data_ptr() for k in ("x", "r", "p", "s", "u", "w")),
         S.data_ptr(), Pinv.data_ptr(), S.stride(0), flp.data_ptr(),
         frp.data_ptr(), PinvL.data_ptr(), PinvR.data_ptr(), tot.data_ptr(),

@@ -14,7 +14,8 @@ import torch
 
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
-from mpcgpu_tpu_torch.parallel.batched_cuda import make_batched_fused_solver
+from mpcgpu_tpu_torch.parallel.batched_cuda import (make_batched_fused_solver,
+                                                    over_instance_groups)
 from mpcgpu_tpu_torch.solver.sqp import SQPResult, sqp_solve
 
 
@@ -26,9 +27,17 @@ def make_batched_sqp_solver(
     dt: float,
     linsys: str = "pcg",
     fused: bool | str = "auto",
+    mesh=None,
 ):
     """fn(xu (B,N,nx+nu), lam (B,N,nx), xs (B,nx), ee_goal (B,N,6), rho (B,))
     -> batched SQPResult (each field with a leading instance axis).
+
+    mesh (from ``make_mesh(n_instance, n_knot)`` or
+    ``make_host_aligned_mesh``): the instance groups held here are solved
+    one after another, each as a batch of its own, and joined; the knot
+    axis is not used (each instance's horizon is solved whole, as the JAX
+    ``sqp_solve_batched_fused_sharded`` does).  The result is that of the
+    instances held here: all of them on one device.
 
     fused=True: the K8 path (``sqp_solve_batched_fused``).  fused=False: a
     loop of ``sqp_solve(..., linsys=linsys, fused=False)`` over the
@@ -51,7 +60,9 @@ def make_batched_sqp_solver(
             fused == "auto" and xu_b.device.type == "cuda" and cost.mode == "ee"
             and pcg_cfg.preconditioner == "stair"
             and linsys in ("pcg", "pcg_cuda"))
-        return (fused_solve if use_fused else looped)(xu_b, lam_b, xs_b, ee_b,
-                                                      rho_b)
+        run = fused_solve if use_fused else looped
+        if mesh is None:
+            return run(xu_b, lam_b, xs_b, ee_b, rho_b)
+        return over_instance_groups(mesh, run, xu_b, lam_b, xs_b, ee_b, rho_b)
 
     return solve

@@ -21,8 +21,9 @@ counterpart here and every tensor keeps the (B, N, ...) layout:
     with K3's team rule.
 
 The kernels are the single-instance kernels' bodies with an instance offset
-(``csrc/kkt_schur.cu``, ``pcg_dz.cu``, ``merit.cu``), so each instance's
-result equals the single-instance launch's bit for bit.  Each wrapper runs
+(``csrc/kkt_schur.cu``, ``pcg_dz.cu``, ``merit.cu``), built for the model's
+nq (2..7), so each instance's result equals the single-instance launch's bit
+for bit.  Each wrapper runs
 its plain version (a loop of the single-instance plain versions, stacked)
 for CPU tensors and its kernel for CUDA tensors; the plain versions are
 ``*_batched_plain``.
@@ -31,7 +32,8 @@ for CPU tensors and its kernel for CUDA tensors; the plain versions are
 exit tolerance (no Eisenstat-Walker forcing), a Levenberg-Marquardt rho
 schedule and line search per instance, an instance that gives up frozen
 from then on, per-instance ``sqp_iters``, and iterations while any instance
-is active and ``it < max_iter``.
+is active and ``it < max_iter``.  ``sqp_solve_batched_fused_sharded`` runs it
+on each instance group of an (instance, knot) mesh (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.pcg import pcg_solve
 from mpcgpu_tpu_torch.ops.pcg_cuda import (_check_pcg_args, compute_dz_plain,
-                                           k2_cluster_plan)
+                                           k2_cluster_plan, require_nx)
 from mpcgpu_tpu_torch.solver.kkt_cuda import (_check_args, build_kkt_schur_plain,
                                               kkt_window_plan)
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_plain,
@@ -59,13 +61,14 @@ def _stack(results):
     return tuple(torch.stack(parts) for parts in zip(*results))
 
 
-def _require_batch(model: RobotModel, xu_b, ee_b, what: str):
+def _require_batch(model: RobotModel, xu_b, ee_b):
     """Check the shared kernel inputs; returns (B, N, packed model)."""
-    _kernels.require_nq7(model.nq, what)
+    nq = model.nq
+    _kernels.require_nq(nq)
     dev = xu_b.device
     B, N = xu_b.shape[:2]
     _kernels.require_knots(N)
-    _kernels.require(xu_b, "xu", (B, N, 21), dev)
+    _kernels.require(xu_b, "xu", (B, N, 3 * nq), dev)
     _kernels.require(ee_b, "ee_goal", (B, N, ee_b.shape[-1]), dev)
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)
@@ -120,8 +123,7 @@ def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
                                              rho_b, dt, integrator_type,
                                              angle_wrap)
     dev = xu_b.device
-    B, N, packed = _require_batch(model, xu_b, ee_b,
-                                  "K8a (build_kkt_schur_batched)")
+    B, N, packed = _require_batch(model, xu_b, ee_b)
     _kernels.require(rho_b, "rho", (B,), dev)
     nq = model.nq
     nx = 2 * nq
@@ -133,8 +135,8 @@ def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
                A=torch.empty((B, N, nx, nx), **f32),
                B=torch.empty((B, N, nx, nq), **f32),
                q=torch.empty((B, N, nx), **f32))
-    plan = kkt_window_plan(N)
-    code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch")(
+    plan = kkt_window_plan(N, nq=nq)
+    code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch", nq=nq)(
         xu_b.data_ptr(), xu_b.stride(1), xu_b.stride(0), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), rho_b.data_ptr(), float(dt),
         packed.data_ptr(), float(model.gravity), float(cost.qd_cost),
@@ -163,18 +165,17 @@ def pcg_solve_batched(S, Pinv, gamma, lam0, max_iter: int = 173,
                                        exit_criterion)
     dev = lam0.device
     B, N, nx = lam0.shape
-    if nx != 14:
-        _kernels.require_nq7(nx / 2, "K8b (pcg_solve_batched)")
+    require_nx(nx)
     _kernels.require_knots(N)
     for name, t, shape in (("S", S, (B, N, 3, nx, nx)),
                            ("Pinv", Pinv, (B, N, 3, nx, nx)),
                            ("gamma", gamma, (B, N, nx)), ("lam0", lam0, (B, N, nx))):
         _kernels.require(t, name, shape, dev)
     tol_t = _kernels.scalar(exit_tol, dev)
-    plan = k2_cluster_plan(N)
+    plan = k2_cluster_plan(N, nx)
     lam = torch.empty((B, N, nx), dtype=torch.float32, device=dev)
     flags = torch.empty((2, B), dtype=torch.int32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "pcg_launch")(
+    code = _kernels.entry("pcg_dz.cu", "pcg_launch", nq=nx // 2)(
         S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
         int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
         *plan, B, lam.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
@@ -196,8 +197,9 @@ def compute_dz_batched(sys: dict, lam, u, rho_b, r_cost: float):
     dev = lam.device
     B, N, nx = lam.shape
     nu = u.shape[-1]
-    if nx != 14 or nu != 7:
-        _kernels.require_nq7(nu if nu != 7 else nx / 2, "K8c (compute_dz_batched)")
+    if nx != 2 * nu:
+        raise ValueError(f"u: {nu} controls for a state of {nx}; nu = nx / 2")
+    require_nx(nx)
     _kernels.require_knots(N)
     _kernels.require(lam, "lam", (B, N, nx), dev)
     for name, shape in (("Qinv", (B, N, nx, nx)), ("A", (B, N, nx, nx)),
@@ -208,7 +210,7 @@ def compute_dz_batched(sys: dict, lam, u, rho_b, r_cost: float):
         raise ValueError("u: f32 (B, N, nu) on the card with rows of unit stride")
     _kernels.require(rho_b, "rho", (B,), dev)
     dz = torch.empty((B, N, nx + nu), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_launch")(
+    code = _kernels.entry("pcg_dz.cu", "dz_launch", nq=nu)(
         lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(1),
         u.stride(0), rho_b.data_ptr(), float(r_cost), N, B, dz.data_ptr(),
@@ -237,17 +239,17 @@ def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
                                                 ee_b, mu, dt, num_alphas,
                                                 integrator_type, angle_wrap)
     dev = xu_b.device
-    B, N, packed = _require_batch(model, xu_b, ee_b,
-                                  "K3b (line_search_merits_batched)")
+    B, N, packed = _require_batch(model, xu_b, ee_b)
     if not 1 <= num_alphas <= 32:
         raise ValueError(f"num_alphas must be in 1..32, got {num_alphas}")
-    _kernels.require(dz_b, "dz", (B, N, 21), dev)
-    _kernels.require(xs_b, "xs", (B, 14), dev)
+    nq = model.nq
+    _kernels.require(dz_b, "dz", (B, N, 3 * nq), dev)
+    _kernels.require(xs_b, "xs", (B, 2 * nq), dev)
     A = num_alphas + 1
-    plan = merit_team_plan(N, A * N * B)
+    plan = merit_team_plan(N, A * N * B, nq)
     merits = torch.empty((B, A), dtype=torch.float32, device=dev)
     alphas = torch.empty((B, A), dtype=torch.float32, device=dev)
-    code = _kernels.entry("merit.cu", "merit_launch")(
+    code = _kernels.entry("merit.cu", "merit_launch", nq=nq)(
         xu_b.data_ptr(), dz_b.data_ptr(), xs_b.data_ptr(), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A, B,
@@ -345,3 +347,44 @@ def make_batched_fused_solver(model: RobotModel, cost: CostConfig,
                                        integrator_type=integrator_type)
 
     return solve
+
+
+def sqp_solve_batched_fused_sharded(
+    model: RobotModel,
+    cost: CostConfig,
+    sqp_cfg: SQPConfig,
+    pcg_cfg: PCGConfig,
+    xu_b, lam_b, xs_b, ee_b, rho_b, dt: float,
+    mesh,
+    instance_axis: str = "instance",
+    integrator_type: int = 0,
+    inst_per_prog: int | None = None,
+) -> SQPResult:
+    """The batched solve over the mesh's instance axis: each instance group
+    held here (``mesh.instance_slices(B)``: all of them on a one-device
+    ``KnotMesh``, this process's on a ``DistKnotMesh``) runs
+    ``sqp_solve_batched_fused`` on its slab of B / n_instance problems, with
+    no collective (independent problems never couple), and the groups'
+    results are joined in order.  Port of the JAX function of this name,
+    whose ``shard_map`` runs that slab on each device; the knot axis is not
+    used (its in_specs shard the instance axis only).  Returns the SQPResult
+    of the instances held here.
+
+    ``inst_per_prog`` (the TPU's lane packing of instances) has no
+    counterpart on the card: accepted and ignored."""
+    if instance_axis not in mesh.shape:
+        raise ValueError(f"no {instance_axis!r} axis in the mesh {mesh.shape}")
+    return over_instance_groups(
+        mesh, lambda *slab: sqp_solve_batched_fused(
+            model, cost, sqp_cfg, pcg_cfg, *slab, dt,
+            integrator_type=integrator_type),
+        xu_b, lam_b, xs_b, ee_b, rho_b)
+
+
+def over_instance_groups(mesh, solve, *batch) -> SQPResult:
+    """solve(*slab) on each instance group of the mesh held here (the same
+    slice of every tensor of ``batch``), one group after another, the
+    SQPResults joined along the instance axis."""
+    parts = [solve(*(t[g] for t in batch))
+             for g in mesh.instance_slices(batch[0].shape[0])]
+    return SQPResult(*(torch.cat(field) for field in zip(*parts)))

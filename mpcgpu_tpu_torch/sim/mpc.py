@@ -762,19 +762,23 @@ def simulate_mpc_ondevice_batched(
     stair preconditioner, linsys "pcg" / "pcg_cuda" or "auto") every update
     solves all instances through the instance-grid kernels and rolls their
     plants in one K4b launch; otherwise each instance runs the unfused
-    on-device loop.  ``instance_mesh`` (the instance axis over devices)
-    raises NotImplementedError.
+    on-device loop.  ``instance_mesh`` (``make_mesh(n_instance)`` or
+    ``make_host_aligned_mesh``): each instance group held here runs that
+    loop on its slab of batch / n_instance starts, one group after another,
+    with no collective (the JAX package's shard_map over the instance
+    axis); the starts are drawn for the whole batch first, so an instance's
+    run does not depend on the mesh.
 
     Returns a dict: tracking_errors (batch, steps), shift_mask (steps,) (the
-    shared schedule), final_tracking_error (batch,), control_updates.
+    shared schedule), final_tracking_error (batch,), control_updates; with
+    an instance mesh, the rows of the instances held here (all of them on
+    one device).
     """
-    if instance_mesh is not None:
-        raise NotImplementedError(
-            "simulate_mpc_ondevice_batched(instance_mesh=): the instance axis "
-            "is not ported yet; see ROADMAP.md queue 1, the instance axis "
-            "(items 9 and 10, last)")
     if not sim_cfg.const_update_freq:
         raise ValueError("on-device sim supports const_update_freq mode only")
+    if instance_mesh is not None and batch % instance_mesh.shape["instance"]:
+        raise ValueError(f"batch {batch} not divisible by "
+                         f"{instance_mesh.shape['instance']} instance devices")
     N = knot_points
     nq = model.nq
     nx = 2 * nq
@@ -794,13 +798,18 @@ def simulate_mpc_ondevice_batched(
     gen.manual_seed(seed)
     dx0 = perturb_scale * torch.randn((batch, nx), generator=gen, dtype=dtype,
                                       device=dev)
-    outs, final_err = _ondevice_run_batched(
+    xs0_b = xu_traj_t[0, :nx] + dx0
+    groups = ([slice(0, batch)] if instance_mesh is None
+              else instance_mesh.instance_slices(batch))
+    runs = [_ondevice_run_batched(
         model, cost, sqp_cfg, pcg_cfg, linsys, timestep, period_s,
         int(period_s / sim_cfg.sim_step_time), sim_cfg.sim_step_time,
-        xu_traj_t[:N], ee_traj_t[:N], xu_traj_t[0, :nx] + dx0, shift_flags,
-        tails, goal_tails)
-    return dict(tracking_errors=outs["err"], shift_mask=outs["shifted"],
-                final_tracking_error=final_err, control_updates=len(shift_flags))
+        xu_traj_t[:N], ee_traj_t[:N], xs0_b[g], shift_flags, tails, goal_tails)
+        for g in groups]
+    return dict(tracking_errors=torch.cat([o["err"] for o, _ in runs]),
+                shift_mask=runs[0][0]["shifted"],
+                final_tracking_error=torch.cat([fe for _, fe in runs]),
+                control_updates=len(shift_flags))
 
 
 # ---------------------------------------------------------------------------

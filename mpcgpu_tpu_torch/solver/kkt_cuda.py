@@ -20,8 +20,7 @@ consecutive knots per CTA, a group of ``kkt_group_warps(nq)`` warps per knot
 (K1, K8a, K9a: with two halo knots on the left and one on the right; K5:
 none).  The window is a fixed function of N, so K1, K8a
 (``parallel/batched_cuda.py``) and K9a (N = the shard's Lext) cut a horizon
-alike.  K1 is built for the model's nq (2..7); K5, K8a and K9a run at nq = 7
-only until the card holds them to their plain versions at other nq.
+alike.  Each launch takes the library built for the model's nq (2..7).
 """
 
 from __future__ import annotations
@@ -120,13 +119,9 @@ def _check_args(cost: CostConfig, integrator_type: int) -> None:
         raise ValueError(f"integrator_type {integrator_type} not in (0, 1)")
 
 
-def _require_inputs(model: RobotModel, xu, ee_goal, what: str):
-    """Check the kernel inputs of K1 (any nq the kernels are built for) or
-    of ``what`` (nq = 7 only); returns the packed model."""
-    if what == "K1":
-        _kernels.require_nq(model.nq)
-    else:
-        _kernels.require_nq7(model.nq, what)
+def _require_inputs(model: RobotModel, xu, ee_goal):
+    """Check the kernel inputs of K1 and K5; returns the packed model."""
+    _kernels.require_nq(model.nq)
     dev = xu.device
     N = xu.shape[0]
     _kernels.require_knots(N)
@@ -170,7 +165,7 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
     N = xu.shape[0]
     nq = model.nq
     nx = 2 * nq
-    packed = _require_inputs(model, xu, ee_goal, "K1")
+    packed = _require_inputs(model, xu, ee_goal)
     rho_t = _kernels.scalar(rho, dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -216,7 +211,7 @@ def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: flo
     N = xu.shape[0]
     nq = model.nq
     nx = 2 * nq
-    packed = _require_inputs(model, xu, ee_goal, "K5 (build_kkt_cuda)")
+    packed = _require_inputs(model, xu, ee_goal)
     _kernels.require(xs, "xs", (nx,), dev)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -225,11 +220,11 @@ def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: flo
     A = torch.empty((N, nx, nx), **f32)
     B = torch.empty((N, nx, nq), **f32)
     c = torch.empty((N, nx), **f32)
-    window = kkt_window_plan(N).window
-    code = _kernels.entry("kkt_schur.cu", "kkt_launch")(
+    window = kkt_window_plan(N, nq=nq).window
+    code = _kernels.entry("kkt_schur.cu", "kkt_launch", nq=nq)(
         xu.data_ptr(), xu.stride(0), ee_goal.data_ptr(), ee_goal.stride(0),
         xs.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
-        float(cost.qd_cost), N, window, kkt_smem_bytes(window, schur=False),
+        float(cost.qd_cost), N, window, kkt_smem_bytes(window, schur=False, nq=nq),
         integrator_type, int(angle_wrap),
         int(cost.terminal_at_last_state), Q.data_ptr(), A.data_ptr(),
         B.data_ptr(), q.data_ptr(), c.data_ptr(), _kernels.stream_ptr(dev))
@@ -316,11 +311,11 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
         return build_kkt_schur_slab_plain(model, cost, xu_ext, ee_ext,
                                           first_mask, last_mask, rho, dt,
                                           integrator_type)
-    _kernels.require_nq7(model.nq, "K9a (build_kkt_schur_slab)")
+    nq = model.nq
+    _kernels.require_nq(nq)
     dev = xu_ext.device
     n_shard, Lext = xu_ext.shape[:2]
-    plan = kkt_window_plan(Lext, K9A_MAX_KNOTS)
-    nq = model.nq
+    plan = kkt_window_plan(Lext, K9A_MAX_KNOTS, nq)
     nx = 2 * nq
     _kernels.require(xu_ext, "xu_ext", (n_shard, Lext, 3 * nq), dev)
     _kernels.require(ee_ext, "ee_ext", (n_shard, Lext, ee_ext.shape[-1]), dev)
@@ -338,7 +333,7 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
                A=torch.empty(lead + (nx, nx), **f32),
                B=torch.empty(lead + (nx, nq), **f32),
                q=torch.empty(lead + (nx,), **f32))
-    code = _kernels.entry("kkt_schur.cu", "kkt_schur_slab_launch")(
+    code = _kernels.entry("kkt_schur.cu", "kkt_schur_slab_launch", nq=nq)(
         xu_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1), bmask.data_ptr(),
         rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), Lext, n_shard, plan.window,

@@ -10,9 +10,8 @@ and the kernel for CUDA tensors.
 The kernel gives each (candidate, knot) sample a team of G lanes, P samples
 a block, as ``merit_team_plan`` says for the launch's sample count (one
 rule for K3, K3b in ``parallel/batched_cuda.py`` and K9c); the merits do not
-depend on G or P, since each term is summed as one thread would sum it.  K3
-is built for the model's nq (2..7); K3b and K9c run at nq = 7 only until the
-card holds them to their plain versions at other nq.
+depend on G or P, since each term is summed as one thread would sum it.
+Each launch takes the library built for the model's nq (2..7).
 """
 
 from __future__ import annotations
@@ -196,19 +195,20 @@ def line_search_merit_partials_slab(model: RobotModel, cost: CostConfig, xu_ext,
                               num_alphas, integrator_type)
     dev = xu_ext.device
     n_shard, Le = xu_ext.shape[:2]
-    _kernels.require_nq7(model.nq, "K9c (line_search_merit_partials_slab)")
+    nq = model.nq
+    _kernels.require_nq(nq)
     if not 1 <= num_alphas <= 32:
         raise ValueError(f"num_alphas must be in 1..32, got {num_alphas}")
-    _kernels.require(xu_ext, "xu_ext", (n_shard, Le, 3 * model.nq), dev)
-    _kernels.require(dz_ext, "dz_ext", (n_shard, Le, 3 * model.nq), dev)
+    _kernels.require(xu_ext, "xu_ext", (n_shard, Le, 3 * nq), dev)
+    _kernels.require(dz_ext, "dz_ext", (n_shard, Le, 3 * nq), dev)
     _kernels.require(ee_ext, "ee_ext", (n_shard, Le, ee_ext.shape[-1]), dev)
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)
     A = num_alphas + 1
-    plan = merit_team_plan(Le, A * Le * n_shard)
+    plan = merit_team_plan(Le, A * Le * n_shard, nq)
     part = torch.empty((n_shard, 2, A, Le), dtype=torch.float32, device=dev)
     alphas = torch.empty((n_shard, A), dtype=torch.float32, device=dev)
-    code = _kernels.entry("merit.cu", "merit_partials_launch")(
+    code = _kernels.entry("merit.cu", "merit_partials_launch", nq=nq)(
         xu_ext.data_ptr(), dz_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1),
         ee_ext.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(dt), Le, A, n_shard,

@@ -169,7 +169,9 @@ def recorder(monkeypatch):
     tensors taken as if they were on the card (of 132 SMs)."""
     calls = _Calls()
 
-    def entry(src, name):
+    def entry(src, name, nq):
+        assert nq == 7, (name, nq)       # the IIWA's library
+
         def launch(*args):
             calls.append((name, args))
             if name == "pcr_coop_occupancy":

@@ -24,6 +24,7 @@ from mpcgpu_tpu.sim import mpc as jmpc
 from mpcgpu_tpu_torch import simulate_mpc_ondevice_batched
 from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
 from mpcgpu_tpu_torch.models import iiwa14
+from mpcgpu_tpu_torch.parallel import make_mesh
 from mpcgpu_tpu_torch.sim import mpc
 from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant_batched
 from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
@@ -139,10 +140,14 @@ def test_one_unperturbed_instance_is_the_single_loop():
 
 
 def test_instance_mesh_and_adaptive_mode_raise():
+    """A batch that the instance axis does not divide raises (the JAX
+    message; tests/test_torch_instance_axis.py runs the instance axis), and
+    so does the adaptive mode."""
     xu, ee = _traj()
     model = iiwa14(torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, the instance axis"):
-        simulate_mpc_ondevice_batched(model, xu, ee, N, DT, 2, instance_mesh=object())
+    with pytest.raises(ValueError, match="batch 2 not divisible by 4 instance devices"):
+        simulate_mpc_ondevice_batched(model, xu, ee, N, DT, 2,
+                                      instance_mesh=make_mesh(n_instance=4))
     with pytest.raises(ValueError, match="const_update_freq"):
         simulate_mpc_ondevice_batched(model, xu, ee, N, DT, 2,
                                       sim_cfg=SimConfig(const_update_freq=False))

@@ -1,17 +1,18 @@
-"""K1-K4 at every joint count the kernels are built for (nq = 2..7): the
-plans and launch arguments of the wrappers against the constants of the
-CUDA sources evaluated at that nq, and the gates of the kernels outside the
-slice.
+"""Every kernel at every joint count the kernels are built for (nq =
+2..7): the plans and launch arguments of the wrappers against the constants
+of the CUDA sources evaluated at that nq.
 
 The kernels take nq as the compile-time ``MPC_NQ`` (``csrc/common.cuh``).
 Here every file-scope ``constexpr int`` of ``common.cuh`` and of a kernel's
 source is evaluated with ``MPC_NQ`` set (C's integer division), and the
 Python mirrors (``kkt_window_plan``, ``k2_cluster_plan``,
-``merit_team_plan``) must give the same sizes; the static_asserts of the
-sources must hold.  The launches are replaced by a recorder, so no card is
-needed: K1, K2, K3 and K4 must hand their entry the model's nq and the plan
-of that nq, and every kernel outside the slice must raise at nq != 7, before
-any launch, with a message that names its ROADMAP item.
+``merit_team_plan``, ``pcr_plan``, ``slab_cluster_plan``,
+``ca_cluster_plan``, ``coeff_plan``) must give the same sizes; the
+static_asserts of the sources must hold.  The launches are replaced by a
+recorder of the (source, nq) of the library each one resolves, so no card
+is needed: every wrapper must hand its entry the nq of its system (a
+wrapper that resolved no nq, or another, would load another library and
+read past its buffers) and the plan of that nq.
 """
 
 import re
@@ -23,21 +24,30 @@ import torch
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.config import CostConfig
 from mpcgpu_tpu_torch.models import planar_arm
-from mpcgpu_tpu_torch.ops import pcg_cuda
-from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+from mpcgpu_tpu_torch.ops import pcg_ca_cuda, pcg_cuda, pcg_slab_cuda, pcr_cuda
+from mpcgpu_tpu_torch.ops.pcg_ca import WORK, n_parts
+from mpcgpu_tpu_torch.ops.pcg_ca_cuda import (ca_basis_cuda, ca_cluster_plan,
+                                              ca_coeff_step_cuda, ca_smem_bytes,
+                                              coeff_plan)
 from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
                                            k2_cluster_plan, k2_smem_bytes,
                                            k2_threads, knot_stride, pcg_dz_solve,
                                            pcg_solve_cuda)
-from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
-from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
+from mpcgpu_tpu_torch.ops.pcg_slab_cuda import (pcg_slab_step_cuda,
+                                                slab_cluster_plan, slab_knot_stride,
+                                                slab_smem_bytes)
+from mpcgpu_tpu_torch.ops.pcr import pcr_levels
+from mpcgpu_tpu_torch.ops.pcr_cuda import (pcr_plan, pcr_slot_floats,
+                                           pcr_smem_bytes, pcr_solve_cuda,
+                                           pcr_warp_floats, pcr_workspace_floats)
 from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
                                                     compute_dz_batched,
                                                     line_search_merits_batched,
                                                     pcg_solve_batched)
 from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant, simulate_plant_batched
 from mpcgpu_tpu_torch.solver import kkt_cuda, merit_cuda
-from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
+from mpcgpu_tpu_torch.solver.kkt_cuda import (K9A_MAX_KNOTS, build_kkt_cuda,
+                                              build_kkt_schur,
                                               build_kkt_schur_slab,
                                               kkt_smem_bytes, kkt_window_plan)
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
@@ -158,15 +168,119 @@ def test_k3_plan_matches_the_source(nq):
             assert (G, P) == merit_team_plan(N, samples)[:2]
 
 
+@pytest.mark.parametrize("nq", NQS)
+def test_k8a_k9a_windows_at_every_nq(nq):
+    """K8a takes K1's windows over instances and K9a over halo-extended
+    slabs of up to K9A_MAX_KNOTS knots: the same split at every nq, the
+    shared memory of that nq within the card's."""
+    for N in (2, 5, 64, 512, K9A_MAX_KNOTS):
+        plan = kkt_window_plan(N, K9A_MAX_KNOTS, nq)
+        assert plan[:2] == kkt_window_plan(N, K9A_MAX_KNOTS)[:2]
+        assert plan.smem_bytes == kkt_smem_bytes(plan.window, nq=nq) <= SMEM_LIMIT
+        assert kkt_smem_bytes(plan.window, False, nq) <= plan.smem_bytes
+
+
+@pytest.mark.parametrize("nq", NQS)
+def test_k7_plan_matches_the_source(nq):
+    """K7's slot, warp floats, shared memory and workspace at nq: the
+    Gauss-Jordan's lane c < 2 NX holds column c, so one warp takes every
+    nx <= 16."""
+    nx = 2 * nq
+    src = (CSRC / "pcr.cu").read_text()
+    c = _constexprs(nq, "pcr.cu")
+    assert c["SLOT"] == pcr_slot_floats(nx)
+    assert c["WARP_FLOATS"] == pcr_warp_floats(nx)
+    assert c["PCR_KPC"] == pcr_cuda.PCR_KPC
+    assert 2 * nx <= 32
+    smem = _body(src, "pcr_smem_bytes")
+    assert smem == "4 * kpc * (WARP_FLOATS + cluster * 2 * SLOT)"
+    for cluster in (0, 1):
+        assert eval(smem, {"kpc": c["PCR_KPC"], "cluster": cluster, **c}) \
+            == pcr_smem_bytes(bool(cluster), nx) <= SMEM_LIMIT
+    # Work: th^{-1} (levels + 1), L, U (levels) x N x NN, two slots a knot
+    for N in (2, 3, 64, 65, 512):
+        lv = pcr_levels(N)
+        floats = (2 * lv + 1) * N * nx * nx + lv * N * nx * nx + 2 * N * c["SLOT"]
+        assert pcr_workspace_floats(N, lv, nx) == floats
+        plan = pcr_plan(N, nx)
+        assert plan[:2] == pcr_plan(N)[:2]                 # the split: N alone
+        assert plan.smem_bytes == pcr_smem_bytes(plan.cluster, nx)
+
+
+@pytest.mark.parametrize("nq", NQS)
+def test_k10a_plan_matches_the_source(nq):
+    """K10a's knot stride: the least >= 3 nx^2 congruent to nx^2 mod 32, a
+    multiple of 4 (16-byte aligned bulk copies), 612 at nx = 14; where nq is
+    odd, the rows 16 threads read as float2 fall in 16 distinct 8-byte
+    banks, as at nq = 7.  The plan's threads and shared memory at nx."""
+    nx = 2 * nq
+    src = (CSRC / "pcg_slab.cu").read_text()
+    c = _constexprs(nq, "pcg_slab.cu")
+    stride = c["SLAB_KNOT_STRIDE"]
+    assert stride == slab_knot_stride(nx)
+    assert stride >= 3 * nx * nx and stride % 32 == nx * nx % 32 and stride % 4 == 0
+    assert stride - 3 * nx * nx < 32
+    if nq % 2:
+        for t0 in range(0, 512 - 16, 16):
+            words = {((t // nx) * stride + nx * (t % nx)) // 2 % 16
+                     for t in range(t0, t0 + 16)}
+            assert len(words) == 16, t0
+    terms = _body(src, "slab_smem_bytes")
+    for kc in (1, 2, 4, 32):
+        assert eval(terms, {"NX": nx, "SLAB_KNOT_STRIDE": stride, "kc": kc,
+                            "SLAB_MAX_CLUSTER": c["SLAB_MAX_CLUSTER"]}) \
+            == slab_smem_bytes(kc, nx)
+    for L in range(2, 513):
+        plan = slab_cluster_plan(L, nx=nx)
+        assert plan[:2] == slab_cluster_plan(L)[:2]        # the split: L alone
+        assert plan.threads % 32 == 0 and nx * plan.knots_per_cta <= plan.threads
+        assert plan.threads < nx * plan.knots_per_cta + 32
+        assert plan.threads <= c["SLAB_MAX_THREADS"]
+        assert plan.smem_bytes == slab_smem_bytes(plan.knots_per_cta, nx) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("nq", NQS)
+def test_k10b_plans_match_the_source(nq):
+    """K10b's knot stride is K2's (590 at nx = 14), its blocks load as
+    whole float4s at every even nx; its cluster plan and the coefficient
+    step's plan at nx pass the launches' checks for every admitted slab."""
+    nx = 2 * nq
+    src = (CSRC / "pcg_ca.cu").read_text()
+    c = _constexprs(nq, "pcg_ca.cu")
+    assert c["CA_KNOT_STRIDE"] == knot_stride(nx)
+    assert 3 * c["NN"] % 4 == 0
+    terms = _body(src, "ca_smem_bytes")
+    for ke in (1, 6, 36):
+        for s_ in (1, 4, 8):
+            for blocks in (0, 1):
+                assert eval(terms, {"NX": nx, "CA_KNOT_STRIDE": c["CA_KNOT_STRIDE"],
+                                    "ke": ke, "s": s_, "blocks": blocks}) \
+                    == ca_smem_bytes(ke, s_, bool(blocks), nx)
+    for s_ in (1, 4, 8):
+        h = 2 * s_ + 1
+        for L in range(h, 513):
+            C, ke, blocks, threads, smem = ca_cluster_plan(L, s_, nx=nx)
+            assert (C, ke) == tuple(ca_cluster_plan(L, s_)[:2])
+            # ca_basis_launch's checks
+            assert C * ke >= L + 2 * h and nx * ke <= threads <= c["CA_MAX_THREADS"]
+            assert threads % 32 == 0 and smem == ca_smem_bytes(ke, s_, blocks, nx)
+            assert smem <= SMEM_LIMIT
+            C, R, threads = coeff_plan(L, s_, nx=nx)
+            # ca_coeff_launch's checks
+            assert C * R >= L * nx and R == -(-L * nx // C)
+            assert threads % 32 == 0 and 64 <= threads <= c["COEF_MAX_THREADS"]
+
+
 @pytest.fixture
 def recorder(monkeypatch):
-    """Every kernel entry replaced by a recorder of its nq and arguments;
-    CPU tensors taken as if they were on the card."""
+    """Every kernel entry replaced by a recorder of the (source, nq) of the
+    library it resolves and its arguments; CPU tensors taken as if they were
+    on the card."""
     calls = []
 
-    def entry(src, name, nq=7):
+    def entry(src, name, nq):
         def launch(*args):
-            calls.append((name, nq, args))
+            calls.append((src, name, nq, args))
             return 0
         return launch
 
@@ -201,11 +315,12 @@ def test_k1_to_k4_launch_the_plan_of_their_nq(recorder, nq, N):
     simulate_plant_batched(m, xu[:3, :nx].contiguous(),
                            xu.expand(3, N, 3 * nq).contiguous(), 2e-3, 2e-3,
                            1 / 64, 10, 2e-4)
-    names = [(name, q) for name, q, _ in recorder]
-    assert names == [("kkt_schur_launch", nq), ("pcg_dz_launch", nq),
-                     ("merit_launch", nq), ("plant_launch", nq),
-                     ("plant_launch", nq)]
-    a1, a2, a3, a4, a4b = (args for _, _, args in recorder)
+    names = [(src, name, q) for src, name, q, _ in recorder]
+    assert names == [("kkt_schur.cu", "kkt_schur_launch", nq),
+                     ("pcg_dz.cu", "pcg_dz_launch", nq),
+                     ("merit.cu", "merit_launch", nq), ("plant.cu", "plant_launch", nq),
+                     ("plant.cu", "plant_launch", nq)]
+    a1, a2, a3, a4, a4b = (args for *_, args in recorder)
     plan = kkt_window_plan(N, nq=nq)
     assert tuple(a1[12:16]) == (N, 1, plan.window, plan.smem_bytes)
     assert a1[1] == 3 * nq                                   # xu's row stride
@@ -219,51 +334,122 @@ def test_k1_to_k4_launch_the_plan_of_their_nq(recorder, nq, N):
         assert args[5] == N and args[-2] == B
 
 
-def _out_of_slice_calls(nq, N=16):
-    """Every wrapper of a kernel outside the slice, called at nq."""
-    nx = 2 * nq
+N_CALL, B_CALL, SHARDS, S_STEPS = 32, 3, 2, 4
+
+
+def _slab_state(nq, L, n_shard=SHARDS):
+    """K10a's state and inputs on n_shard slabs of L knots (zeros)."""
+    nx, z = 2 * nq, torch.zeros
+    st = {k: z((n_shard, L, nx)) for k in ("x", "r", "p", "s", "u", "w")}
+    st.update(pkt=z((n_shard, 2, 6, nx)), dots=z((n_shard, 3)),
+              scal=z((n_shard, 2)), iters=z(n_shard, dtype=torch.int32))
+    blocks = z((n_shard, L, 3, nx, nx))
+    return st, (blocks, blocks.clone(), z((n_shard, 6, nx)), z((n_shard, 6, nx)),
+                z((n_shard, 3, nx, nx)), z((n_shard, 3, nx, nx)), z((n_shard, 3)))
+
+
+def _ca_state(nq, L, s=S_STEPS, n_shard=SHARDS):
+    """The s-step state and K10b's inputs on n_shard slabs of L knots."""
+    nx, z, h = 2 * nq, torch.zeros, 2 * s + 1
+    st = {k: z((n_shard, L, nx)) for k in ("x", "r", "z", "p")}
+    st.update(Y=z((n_shard, h, L, nx), dtype=WORK), Yt=z((n_shard, h, L, nx), dtype=WORK),
+              pkt=z((n_shard, 2, 2, h, nx)),
+              parts=z((n_shard, n_parts(s)), dtype=WORK),
+              scal=z((n_shard, 2), dtype=WORK),
+              iters=z(n_shard, dtype=torch.int32), done=z(n_shard, dtype=torch.int32))
+    halo = lambda: z((n_shard, h, 3, nx, nx))
+    return st, (z((n_shard, L, 3, nx, nx)), z((n_shard, L, 3, nx, nx)), halo(),
+                halo(), halo(), halo(), z((n_shard, 2, h, nx)), z((n_shard, 2, h, nx)))
+
+
+def _kernel_calls(nq):
+    """Every wrapper beside K1-K4, called at nq: (kernel, source, entry,
+    call, the launch arguments it must pass as {index: value})."""
+    N, B, n_sh = N_CALL, B_CALL, SHARDS
+    L, nx, w = N // n_sh, 2 * nq, 3 * nq
     m, xu, ee, sys_ = _inputs(nq, N)
     cost = CostConfig.for_knots(N)
-    z, B = torch.zeros, 3
-    st = {k: z((2, N // 2, nx)) for k in ("x", "r", "p", "s", "u", "w", "z")}
+    z = torch.zeros
+    rep = lambda t, b: t.expand(b, *t.shape).contiguous()
+    at = lambda i, *v: dict(zip(range(i, i + len(v)), v))
+    window = kkt_window_plan(N, nq=nq).window
+    k7, k9a = pcr_plan(N, nx), kkt_window_plan(L + 4, K9A_MAX_KNOTS, nq)
+    sys_b = {k: rep(v, B) for k, v in sys_.items()}
+    sys_s = {k: v.reshape(n_sh, L, *v.shape[1:]) for k, v in sys_.items()}
+    st10a, in10a = _slab_state(nq, L)
+    st10b, in10b = _ca_state(nq, L)
+    xu_b = rep(xu, B)
     return {
-        "K5": lambda: build_kkt_cuda(m, cost, xu, xu[0, :nx], ee, 1 / 64),
-        "K2'": lambda: pcg_solve_cuda(sys_["S"], sys_["Pinv"], sys_["gamma"],
-                                      z((N, nx))),
-        "K6": lambda: compute_dz_cuda(sys_, z((N, nx)), xu[:, nx:], 1e-3, 0.1),
-        "K7": lambda: pcr_solve_cuda(sys_["S"], z((N, nx))),
-        "K8a": lambda: build_kkt_schur_batched(
-            m, cost, xu.expand(B, N, 3 * nq), z((B, nx)), ee.expand(B, N, 6),
-            z(B), 1 / 64),
-        "K8b": lambda: pcg_solve_batched(z((B, N, 3, nx, nx)), z((B, N, 3, nx, nx)),
-                                         z((B, N, nx)), z((B, N, nx))),
-        "K8c": lambda: compute_dz_batched(
-            {k: v.expand(B, *v.shape) for k, v in sys_.items()}, z((B, N, nx)),
-            xu[:, nx:].expand(B, N, nq), z(B), 0.1),
-        "K3b": lambda: line_search_merits_batched(
-            m, cost, xu.expand(B, N, 3 * nq), xu.expand(B, N, 3 * nq), z((B, nx)),
-            ee.expand(B, N, 6), 1.0, 1 / 64),
-        "K9a": lambda: build_kkt_schur_slab(m, cost, xu.expand(2, N, 3 * nq),
-                                            ee.expand(2, N, 6), z((2, N)),
-                                            z((2, N)), 1e-3, 1 / 64),
-        "K9b": lambda: compute_dz_slab(
-            {k: v.expand(2, *v.shape) for k, v in sys_.items()}, z((2, N, nx)),
-            z((2, N, nx)), z((2, N)), xu[:, nx:].expand(2, N, nq), 1e-3, 0.1),
-        "K9c": lambda: line_search_merit_partials_slab(
-            m, cost, xu.expand(2, N, 3 * nq), xu.expand(2, N, 3 * nq),
-            ee.expand(2, N, 6), 1 / 64),
-        "K10a": lambda: pcg_slab_step_cuda(
-            dict(st, pkt=z((2, 2, 6, nx)), dots=z((2, 3))), sys_["S"], sys_["Pinv"],
-            None, None, None, None, None, 5, 0.0, "eta", False),
-        "K10b": lambda: ca_basis_cuda(st, sys_["S"], sys_["Pinv"], None, None,
-                                      None, None, None, None, 5, 4),
-        "K10b'": lambda: ca_coeff_step_cuda(st, None, 5, 0.0, "eta", 4),
+        "K5": ("kkt_schur.cu", "kkt_launch",
+               lambda: build_kkt_cuda(m, cost, xu, xu[0, :nx], ee, 1 / 64),
+               at(9, N, window, kkt_smem_bytes(window, False, nq))),
+        "K2'": ("pcg_dz.cu", "pcg_launch",
+                lambda: pcg_solve_cuda(sys_["S"], sys_["Pinv"], sys_["gamma"],
+                                       z((N, nx))),
+                at(7, N, *k2_cluster_plan(N, nx), 1)),
+        "K6": ("pcg_dz.cu", "dz_launch",
+               lambda: compute_dz_cuda(sys_, z((N, nx)), xu[:, nx:], 1e-3, 0.1),
+               {6: w, 10: N, 11: 1}),
+        "K7": ("pcr.cu", "pcr_launch",
+               lambda: pcr_solve_cuda(sys_["S"], z((N, nx))),
+               at(2, N, pcr_levels(N), 1, k7.ctas, int(k7.cluster), k7.smem_bytes)),
+        "K8a": ("kkt_schur.cu", "kkt_schur_launch",
+                lambda: build_kkt_schur_batched(m, cost, xu_b, z((B, nx)),
+                                                rep(ee, B), z(B), 1 / 64),
+                at(12, N, B, window, kkt_smem_bytes(window, nq=nq))),
+        "K8b": ("pcg_dz.cu", "pcg_launch",
+                lambda: pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"],
+                                          z((B, N, nx))),
+                at(7, N, *k2_cluster_plan(N, nx), B)),
+        "K8c": ("pcg_dz.cu", "dz_launch",
+                lambda: compute_dz_batched(sys_b, z((B, N, nx)), xu_b[..., nx:],
+                                           z(B), 0.1),
+                {6: w, 7: N * w, 10: N, 11: B}),
+        "K3b": ("merit.cu", "merit_launch",
+                lambda: line_search_merits_batched(m, cost, xu_b, xu_b, z((B, nx)),
+                                                   rep(ee, B), 1.0, 1 / 64),
+                at(12, N, 9, B, *merit_team_plan(N, 9 * N * B, nq))),
+        "K9a": ("kkt_schur.cu", "kkt_schur_slab_launch",
+                lambda: build_kkt_schur_slab(m, cost, rep(xu[:L + 4], n_sh),
+                                             rep(ee[:L + 4], n_sh), z((n_sh, L + 4)),
+                                             z((n_sh, L + 4)), 1e-3, 1 / 64),
+                at(10, L + 4, n_sh, k9a.window, k9a.smem_bytes)),
+        "K9b": ("pcg_dz.cu", "dz_slab_launch",
+                lambda: compute_dz_slab(sys_s, z((n_sh, L, nx)), z((n_sh, L, nx)),
+                                        z((n_sh, L)),
+                                        xu.reshape(n_sh, L, w)[..., nx:], 1e-3, 0.1),
+                {7: L, 9: w, 10: L * w, 13: L, 14: n_sh}),
+        "K9c": ("merit.cu", "merit_partials_launch",
+                lambda: line_search_merit_partials_slab(
+                    m, cost, rep(xu[:L + 1], n_sh), rep(xu[:L + 1], n_sh),
+                    rep(ee[:L + 1], n_sh), 1 / 64),
+                at(10, L + 1, 9, n_sh, *merit_team_plan(L + 1, 9 * (L + 1) * n_sh, nq))),
+        "K10a": ("pcg_slab.cu", "pcg_slab_launch",
+                 lambda: pcg_slab_step_cuda(st10a, *in10a, 5, 0.0, "eta", False),
+                 at(19, L, n_sh, *slab_cluster_plan(L, nx=nx))),
+        "K10b": ("pcg_ca.cu", "ca_basis_launch",
+                 lambda: ca_basis_cuda(st10b, *in10b, 5, S_STEPS),
+                 {**at(18, L, S_STEPS, n_sh),
+                  **at(22, *(int(v) for v in ca_cluster_plan(L, S_STEPS, nx=nx)))}),
+        "K10b'": ("pcg_ca.cu", "ca_coeff_launch",
+                  lambda: ca_coeff_step_cuda(st10b, z((n_sh, n_parts(S_STEPS)),
+                                                      dtype=WORK),
+                                             5, 0.0, "eta", S_STEPS),
+                  at(12, L, S_STEPS, n_sh, *coeff_plan(L, S_STEPS, nx=nx))),
     }
 
 
+KERNELS = ("K5", "K2'", "K6", "K7", "K8a", "K8b", "K8c", "K3b", "K9a", "K9b",
+           "K9c", "K10a", "K10b", "K10b'")
+
+
 @pytest.mark.parametrize("nq", [3, 5])
-def test_kernels_outside_the_slice_raise_at_other_nq(recorder, nq):
-    for name, call in _out_of_slice_calls(nq).items():
-        with pytest.raises(ValueError, match=r"nq = 7 only.*ROADMAP\.md queue 2"):
-            call()
-        assert recorder == [], name
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_every_wrapper_launches_the_plan_and_library_of_its_nq(recorder, kernel, nq):
+    """One launch, from the library of the kernel's source built for nq,
+    with the plan of that nq (N = 32; B = 3 instances; 2 knot shards)."""
+    src, name, call, want = _kernel_calls(nq)[kernel]
+    call()
+    assert [(s_, n_, q) for s_, n_, q, _ in recorder] == [(src, name, nq)]
+    args = recorder[0][3]
+    assert want and {i: args[i] for i in want} == want

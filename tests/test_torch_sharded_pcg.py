@@ -147,8 +147,9 @@ def test_two_slab_and_mesh_sizes(system, jax_refs):
 def test_unported_methods_and_meshes_raise(system, jax_refs):
     """The s-step methods are ported: at L = 16 (2 shards, s = 4) they run
     and converge to the single-device solve (tests/test_torch_ca_pcg.py
-    holds them to the JAX package); the instance axis still raises, and so
-    does a mesh that does not divide N."""
+    holds them to the JAX package); so is the instance axis: a solve over
+    the knot axis of an (instance, knot) mesh is the knot mesh's bit for
+    bit.  A mesh that does not divide N raises."""
     single = jax_refs["eta"][0]
     for method in ("ca", "ca_slab"):
         got = _port(system, method, "eta", mesh=KnotMesh(2))
@@ -156,7 +157,10 @@ def test_unported_methods_and_meshes_raise(system, jax_refs):
         assert abs(int(got.iters) - int(single.iters)) <= 4
         np.testing.assert_allclose(got.lam.numpy(), np.asarray(single.lam),
                                    rtol=0, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(n_instance=2, n_knot=4)
+    mesh, knots = make_mesh(n_instance=2, n_knot=4), KnotMesh(4)
+    assert mesh.shape == {"instance": 2, "knot": 4}
+    got, ref = (_port(system, "pipelined", "eta", mesh=m) for m in (mesh, knots))
+    assert torch.equal(got.lam, ref.lam) and int(got.iters) == int(ref.iters)
+    assert (mesh.n_psum, mesh.n_send) == (knots.n_psum, knots.n_send) != (0, 0)
     with pytest.raises(ValueError, match="divisible"):
         _port(system, "pipelined", "eta", mesh=KnotMesh(5))

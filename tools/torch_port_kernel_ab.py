@@ -13,13 +13,14 @@ kernels (into TREE's own ``_build/<hash>``) and prints each kernel's device
 time (a CUDA graph of 20 calls, ``chip_smoke.graph_ms``) at the main path's
 shapes, one line per group:
 
-  * K1 at N = 64 and 512, K5 at 64, K8a at B = 256, K9a at N = 512 over 8
-    shards and 64 over 4 (windows of L + 4 knots), on trace 0_0 + noise;
+  * K1 at N = 64 and 512, K5 at 64, K8a at B = 256, K9a and K9b at N = 512
+    over 8 shards and 64 over 4 (windows of L + 4 knots; K9b on K9a's
+    interior blocks and a seeded lam), on trace 0_0 + noise;
   * K3 at N = 64 and 512, K3b at B = 256, K9c at 512 / 8 and 64 / 4, on a
     seeded numpy step dz;
   * K2 / K2' at N = 64 on the real Schur system from a cold start (PCG cap
     167, exit_tol 1e-5), K4 one 2 ms period at a 2 ms offset, K8b / K4b at
-    B = 256;
+    B = 256, K6 on K2's lam and K8c on K8b's;
   * K7 at N = 64 and 512 on ``chip_smoke.synthetic_btd`` and on a calm
     window of a trace (0_0 from row 350 at N = 64; 3_4 from row 0 at
     N = 512: 0_0 has 316 rows from row 350), beside the dense Cholesky solve
@@ -34,9 +35,9 @@ shapes, one line per group:
     outer step, so both trees see the same inputs.
 
 Every input is made from a seed, so two trees see the same inputs; --save
-writes every output of every group: K1, K5, K8a, K9a, K3, K3b, K9c, K7,
-K10b, K10a, K10b', and K2, K2', K4, K8b, K4b (one working call each; CPU
-tensors, ``torch.save``),
+writes every output of every group: K1, K5, K8a, K9a, K9b, K3, K3b, K9c,
+K7, K10b, K10a, K10b', and K2, K2', K4, K8b, K4b, K6, K8c (one working call
+each; CPU tensors, ``torch.save``): all 19 rows of the kernel table,
 and --compare prints, per kernel and output, "bitwise equal" or the largest
 difference.  To compare two trees on one card, run them in turns in one chip
 call (parent, change, change, parent) and compare the saved outputs:
@@ -156,7 +157,7 @@ def ca_pcr(tree, c, torch, dev, keep, sweep: bool) -> None:
         return
     from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_cluster_plan
 
-    launch = _kernels.entry("pcg_ca.cu", "ca_basis_launch")
+    launch = _kernels.entry("pcg_ca.cu", "ca_basis_launch", nq=7)
     for (N, S), (st, ins, want) in cases.items():
         L = N // S
         for C in (1, 2, 4, 8, 16):
@@ -268,7 +269,7 @@ def slab_coeff(tree, c, torch, dev, keep, slab_sweep: bool,
     if slab_sweep:
         from mpcgpu_tpu_torch.ops.pcg_slab_cuda import slab_cluster_plan
 
-        launch = _kernels.entry("pcg_slab.cu", "pcg_slab_launch")
+        launch = _kernels.entry("pcg_slab.cu", "pcg_slab_launch", nq=7)
         for (N, S), (st, ins, want, *_) in cases.items():
             for C in (1, 2, 4, 8, 16):
                 try:
@@ -306,7 +307,7 @@ def slab_coeff(tree, c, torch, dev, keep, slab_sweep: bool,
     if coeff_sweep:
         from mpcgpu_tpu_torch.ops.pcg_ca_cuda import coeff_plan
 
-        launch = _kernels.entry("pcg_ca.cu", "ca_coeff_launch")
+        launch = _kernels.entry("pcg_ca.cu", "ca_coeff_launch", nq=7)
         for (N, S), (*_, cst, tot, want) in cases.items():
             for C in (1, 2, 4, 8, 16):
                 plan = coeff_plan(N // S, s_, C)
@@ -354,8 +355,10 @@ def main():
     import chip_smoke as c
     from mpcgpu_tpu_torch.config import CostConfig
     from mpcgpu_tpu_torch.models import iiwa14
-    from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve, pcg_solve_cuda
+    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
+                                               pcg_dz_solve, pcg_solve_cuda)
     from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
+                                                        compute_dz_batched,
                                                         line_search_merits_batched,
                                                         pcg_solve_batched)
     from mpcgpu_tpu_torch.sim.plant_cuda import (simulate_plant,
@@ -432,6 +435,18 @@ def main():
         k9a = lambda: build_kkt_schur_slab(m, cost_n, xe, ee_x, first, last, rho, c.DT)
         keep(f"K9a N={n}/{S}", k9a())
         times[f"K9a N={n}/{S}"] = c.graph_ms(torch, k9a)
+        # K9b on K9a's interior blocks and a seeded lam (its own generator,
+        # so the other groups' inputs stay as they were)
+        L = n // S
+        sl = {k: v[:, 2:2 + L] for k, v in k9a().items()}
+        lam_s = on_dev(0.1 * np.random.default_rng(7).standard_normal((S, L, 14)))
+        lam_n = torch.roll(lam_s.reshape(n, 14), -1, 0).reshape(S, L, 14)
+        last_s = (torch.arange(n, device=dev) == n - 1).float().reshape(S, L)
+        u_s = xu_n.reshape(S, L, 21)[..., 14:]
+        k9b = lambda: compute_dz_slab(sl, lam_s, lam_n, last_s, u_s, rho,
+                                      cost_n.r_cost)
+        keep(f"K9b N={n}/{S}", k9b())
+        times[f"K9b N={n}/{S}"] = c.graph_ms(torch, k9b)
     print(f"{tree.name or tree}: " + ", ".join(
         f"{k} {v * 1e3:.1f} us" for k, v in times.items()) + f"; {c.card_line()}",
           flush=True)
@@ -488,6 +503,14 @@ def main():
                                                l0, **kw)))
     keep(f"K4b B={B}", simulate_plant_batched(m, xs_b, xu_b, 2e-3, 2e-3, c.DT,
                                               10, 2e-4))
+    # K6 on K2's lam, K8c on K8b's
+    lam2 = pcg_dz_solve(s, lam, xu[:, 14:], rho, cost.r_cost, **kw)[0]
+    lamb = pcg_solve_batched(sb["S"], sb["Pinv"], sb["gamma"], l0, **kw)[0]
+    k6f = lambda: compute_dz_cuda(s, lam2, xu[:, 14:], rho, cost.r_cost)
+    k8cf = lambda: compute_dz_batched(sb, lamb, xu_b[:, :, 14:], rho_b, cost.r_cost)
+    keep("K6", k6f())
+    keep(f"K8c B={B}", k8cf())
+    k6, k8c = c.graph_ms(torch, k6f), c.graph_ms(torch, k8cf)
     if save is not None:
         Path(save).parent.mkdir(parents=True, exist_ok=True)
         torch.save(outs, save)
@@ -495,7 +518,8 @@ def main():
           f"{k2 * 1e3 / max(it, 1):.3f} us each), K2' {k2p * 1e3:.1f} us, K4 "
           f"{k4 * 1e3:.1f} us, K8b {k8b * 1e3:.1f} us (B={B}, iterations "
           f"{int(itb.min())}..{int(itb.max())}, {int(itb.sum())} in all), K4b "
-          f"{k4b * 1e3:.1f} us; {c.card_line()}", flush=True)
+          f"{k4b * 1e3:.1f} us, K6 {k6 * 1e3:.2f} us, K8c {k8c * 1e3:.1f} us; "
+          f"{c.card_line()}", flush=True)
 
     if "--window-sweep" in sys.argv:
         from mpcgpu_tpu_torch.solver import kkt_cuda
@@ -539,7 +563,7 @@ def main():
         from mpcgpu_tpu_torch import _kernels
         from mpcgpu_tpu_torch.ops.pcg_cuda import k2_smem_bytes
 
-        launch = _kernels.entry("pcg_dz.cu", "pcg_launch")
+        launch = _kernels.entry("pcg_dz.cu", "pcg_launch", nq=7)
         tol = torch.full((), 1e-5, device=dev)
         out = torch.empty_like(lam)
         flags = torch.empty(2, dtype=torch.int32, device=dev)
