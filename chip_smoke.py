@@ -18,7 +18,9 @@ Phases (any failure raises and the script exits non-zero):
      epilogue, K6 dz) against its plain PyTorch version on the card, at
      N = 64 and N = 512, and K2 / K2' (one thread-block cluster per solve)
      also at the ragged N = 2, 37, 100; print K2's cluster plan and
-     cudaOccupancyMaxActiveClusters at each N;
+     cudaOccupancyMaxActiveClusters at each N; K6 (a warp per knot,
+     launched with programmatic dependent launch) also bit for bit against
+     the earlier dz_kernel, which K8c still runs;
   2a. hold K1, K2, K3, K4 and K4b at nq = 3 and 5 (the chain tracker's
      planar arms, on their own reference traces) against their plain
      versions at N = 16, 64 and 512, at the tolerances of their nq = 7
@@ -30,13 +32,13 @@ Phases (any failure raises and the script exits non-zero):
      seed on the calm rows (N = 64) and by medians against its plain
      version elsewhere (N = 64, 512); hold K8a-c and K3
      over instances (B = 256, N = 64) against the single-instance kernels
-     bit for bit per instance, and B = 4 instances against the plain
-     versions;
+     bit for bit per instance (K8c also against dz_kernel at batch = 1),
+     and B = 4 instances against the plain versions;
   2c. hold the knot-sharded path's slab kernels (K9a KKT+Schur on the
      halo-extended slabs, K9b dz, K9c merit partials, K10a the pipelined CG
      step) against their plain versions on the card at N = 64 over 4 shards
      and N = 512 over 8, K9a and K9b against K1 and K6 bit for bit on the
-     interior rows, and the sharded PCG through K10a against K2' on the
+     interior rows (K9b also against the earlier dz_kernel), and the sharded PCG through K10a against K2' on the
      well-conditioned system (tightly) and on the real system over noise
      seeds (by medians); check that K9a's corner blocks at the horizon's
      ends are exactly 0; hold K10b (the s-step basis and Gram kernel) and
@@ -55,6 +57,10 @@ Phases (any failure raises and the script exits non-zero):
      tolerance: the single kernels at N = 16-64 (nq = 3) and 64, 512 (nq =
      5), K8a-c and K3b at B = 64, the slab kernels at N = 64 over 4 shards
      and (nq = 5) 512 over 8;
+  2e. the race check of K6 and K9b: K1 then K6, and K9a then K9b, 16 pairs
+     on fresh blocks in one CUDA graph (outputs NaN before the replay) and
+     eagerly, at nq = 3, 5 and 7: every dz bit for bit the earlier
+     dz_kernel's on its blocks and within K6's bound of the plain version;
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -69,7 +75,8 @@ Phases (any failure raises and the script exits non-zero):
      updates through the split routes (fused=False: K5 -> K2';
      fused_dz=False: K1 -> K2' -> K6) and fused=False's first solve against
      the plain and f64 solves; check launches, finiteness and tracking
-     errors;
+     errors; trace one fused_dz=False solve with torch.profiler: every K6
+     launch right after a K2' launch;
   4b. run the host loop for 48 updates from the calm row CALM_ROW through
      each direct solver (pcr_cuda: K5 -> K7 -> K3; pcr all plain; ldl;
      qdldl_host) next to pcg_cuda, hold the exact solvers' tracking to
@@ -115,7 +122,9 @@ Phases (any failure raises and the script exits non-zero):
      plain version, its bound and, for K7, the dense library solve (K2,
      K2' and K8b also per CG iteration); every kernel also at nq = 3 and 5,
      each beside its bound at that nq; the fleet unsharded and over the
-     instance axis, in turns;
+     instance axis, in turns; K6 and K9b beside the earlier dz_kernel and
+     without programmatic dependent launch, the empty kernel on their grids
+     (the launch floor) and the pairs K2' -> K6 and halo glue -> K9b;
   6. print one JSON line of kernel results (each row with the nq values its
      kernel was checked at and its nq = 3, 5 numbers), the card line, and
      the final {"ok": true, ...} line.
@@ -1319,7 +1328,8 @@ def slice_kernel_checks(c) -> dict:
     version on the card, with the tolerances of its nq = 7 check (phases 2,
     2b, 2c): K5 5e-5 max|ref| per block (both integrators); K2' lam bit for
     bit K2's and within 2e-6 of its plain version on synthetic_btd at nx;
-    K6 1e-5 and bit for bit K2's fused dz; K7 1e-5 of the plain and f64
+    K6 1e-5 and bit for bit K2's fused dz and the earlier dz_kernel (K9b
+    too); K7 1e-5 of the plain and f64
     solves on synthetic_btd; K8a-c and K3b at B = NQ_BATCH bit for bit the
     single kernels per instance, and B_PLAIN instances against the plain
     versions (K8b on synthetic systems); K9a-c against their plain versions
@@ -1433,6 +1443,8 @@ def slice_kernel_checks(c) -> dict:
                    f"K6 {tag}: vs plain {r:.3e} max|ref| (<= 1e-5, or within 2x the "
                    f"plain f32 version's distance to f64: kernel {rk:.3e}, plain "
                    f"{rp:.3e}); bitwise equal to K2's fused dz {torch.equal(d6, k2[1])}")
+            same = torch.equal(d6, dz_kernel_ref(torch, sys_, k2[0], u, rho, cost.r_cost))
+            expect(same, f"K6 {tag}: bitwise equal to the earlier dz_kernel {same}")
         # K7 on the well-conditioned system, within 1e-5 of the plain and
         # the f64 solves
         for N in (3,) + NQ_SINGLE_SIZES[nq]:
@@ -1571,6 +1583,9 @@ def slice_kernel_checks(c) -> dict:
             same = torch.equal(d9.reshape(N, w), d6)
             expect(r <= 1e-5 and same, f"K9b {tag}: vs plain {r:.3e} max|ref| "
                    f"(<= 1e-5); == K6 bit for bit {same}")
+            same = torch.equal(d9, dz_slab_kernel_ref(torch, sl, lam_s, lam_n, last_s,
+                                                      u_s, rho, cost.r_cost))
+            expect(same, f"K9b {tag}: bitwise equal to the earlier dz_kernel {same}")
             w1 = knot_windows(c, N, S, 0, 1)
             x1, z1, e1 = xu[w1].contiguous(), d6[w1].contiguous(), ee[w1].contiguous()
             kc, kd, ka = line_search_merit_partials_slab(model, cost, x1, z1, e1, DT)
@@ -2009,6 +2024,288 @@ def slice_timings(c, launches: dict, errs: dict) -> dict:
     return rows
 
 
+# ---- the twelfth slice: K6 and K9b a warp per knot, launched with PDL -----
+RACE_CALLS = 16          # predecessor-then-dz pairs in one CUDA graph
+# nq: (N of K1 -> K6, (N, shards) of K9a -> K9b)
+RACE_CASES = {3: (16, (64, 4)), 5: (N_MAIN, (N_MAIN, 4)), 7: (N_MAIN, (N_BIG, 8))}
+
+
+def dz_kernel_ref(torch, sys_, lam, u, rho, r_cost: float):
+    """The earlier K6 on the same inputs: csrc/pcg_dz.cu::dz_kernel (a
+    32-thread block per knot) through K8c's entry dz_launch at batch = 1;
+    the bits the redesigned K6 keeps."""
+    from mpcgpu_tpu_torch import _kernels
+
+    N, nx = lam.shape
+    dev = lam.device
+    rho_t = _kernels.scalar(rho, dev)
+    dz = torch.empty((N, nx + nx // 2), dtype=torch.float32, device=dev)
+    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_launch", nq=nx // 2)(
+        lam.data_ptr(), sys_["Qinv"].data_ptr(), sys_["A"].data_ptr(),
+        sys_["B"].data_ptr(), sys_["q"].data_ptr(), u.data_ptr(), u.stride(0), 0,
+        rho_t.data_ptr(), float(r_cost), N, 1, dz.data_ptr(),
+        _kernels.stream_ptr(dev)), "dz_launch")
+    return dz
+
+
+def dz_slab_kernel_ref(torch, sl, lam, lam_next, last, u, rho, r_cost: float):
+    """The earlier K9b on the same inputs: dz_kernel through dz_slab_launch."""
+    from mpcgpu_tpu_torch import _kernels
+
+    S, L, nx = lam.shape
+    dev = lam.device
+    rho_t = _kernels.scalar(rho, dev)
+    dz = torch.empty((S, L, nx + nx // 2), dtype=torch.float32, device=dev)
+    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_slab_launch", nq=nx // 2)(
+        lam.data_ptr(), lam_next.data_ptr(), last.data_ptr(), sl["Qinv"].data_ptr(),
+        sl["A"].data_ptr(), sl["B"].data_ptr(), sl["q"].data_ptr(),
+        sl["Qinv"].stride(0) // (nx * nx), u.data_ptr(), u.stride(1), u.stride(0),
+        rho_t.data_ptr(), float(r_cost), L, S, dz.data_ptr(),
+        _kernels.stream_ptr(dev)), "dz_slab_launch")
+    return dz
+
+
+def dz_launch_raw(plan, pdl: int, args: tuple, dz):
+    """dz_warp_launch by hand on a plan, with (pdl = 1) or without (0) the
+    programmatic-stream-serialization attribute; args are the wrapper's
+    arguments up to the batch (lam .. N, batch)."""
+    from mpcgpu_tpu_torch import _kernels
+
+    nq = dz.shape[-1] // 3
+    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_warp_launch", nq=nq)(
+        *args, *plan, pdl, dz.data_ptr(), _kernels.stream_ptr(dz.device)),
+        "dz_warp_launch")
+    return dz
+
+
+def dz_empty(dev, plan, batch: int, pdl: int, nq: int = 7) -> None:
+    """The empty kernel on a dz plan's grid and block (the launch floor)."""
+    from mpcgpu_tpu_torch import _kernels
+
+    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_empty_launch", nq=nq)(
+        batch, *plan, pdl, _kernels.stream_ptr(dev)), "dz_empty_launch")
+
+
+def split_route_order(c, model, cost, pcg_cfg, xu, ee) -> None:
+    """The fused_dz=False route (K1 -> K2' -> K6) under torch.profiler: one
+    sqp_solve of 2 SQP iterations from xu.  Every K6 launch must come right
+    after a K2' launch in the stream (no cast or copy between them: K2''s
+    exit flag is cast where the solve records it), and the results keep
+    their dtypes (pcg_converged bool, pcg_iters int32)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpcgpu_tpu_torch.config import SQPConfig
+    from mpcgpu_tpu_torch.solver.sqp import sqp_solve
+
+    torch, expect = c.torch, c.expect
+    nx = 2 * (xu.shape[1] // 3)
+    run = lambda: sqp_solve(model, cost, SQPConfig(max_iter=2, max_time_us=None),
+                            pcg_cfg, xu, torch.zeros_like(xu[:, :nx]), xu[0, :nx],
+                            ee, RHO0, DT, linsys="pcg_cuda", fused_dz=False)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = run()
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                 key=lambda e: e.time_range.start)
+    names = [e.name for e in ops]
+    k6 = [i for i, n in enumerate(names) if "dz_warp_kernel" in n]
+    before = [names[i - 1] if i else "(none)" for i in k6]
+    iters = int(res.sqp_iters)
+    ok = (len(k6) == iters > 0 and all("pcg_dz_kernel" in b for b in before)
+          and res.pcg_converged.dtype == torch.bool
+          and res.pcg_iters.dtype == torch.int32)
+    expect(ok, f"route fused_dz=False under the profiler: {len(names)} device "
+           f"operations, {len(k6)} K6 launches ({iters} SQP iterations), each right "
+           f"after {sorted(set(b[:60] for b in before))} (K2', pcg_dz_kernel); "
+           f"pcg_converged {res.pcg_converged.dtype}, pcg_iters {res.pcg_iters.dtype}")
+
+
+def dz_slice_timings(c, sys_, lam, u, rho, r_cost: float, exit_tol: float,
+                     slab: dict, n_shard: int) -> dict:
+    """Phase 5's numbers of this slice, device time per call of CUDA graphs
+    of 20 calls, in two rounds (the second in reverse order), medians: K6
+    (N knots) and K9b (``slab``, phase 2c's inputs) beside the earlier
+    dz_kernel on the same inputs and beside themselves launched without
+    programmatic dependent launch; the launch floor (the empty kernel on K6's
+    and K9b's grids, with and without it); and the pairs on their routes:
+    K2' from lam with no CG step (max_iter = 0: r0, z0 and the exit test)
+    then K6 against K2' with its cast then dz_kernel, and the sharded step's
+    halo glue then K9b against the glue then dz_kernel.  Returns {case:
+    us}."""
+    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
+                                               dz_plan, pcg_solve_cuda,
+                                               pcg_solve_cuda_uncast)
+    from mpcgpu_tpu_torch.parallel import KnotMesh
+    from mpcgpu_tpu_torch.parallel.sqp_sharded import _next
+
+    torch, dev = c.torch, c.dev
+    N, nx = lam.shape
+    plan6 = dz_plan(N, nx)
+    lam_s, lam_n, last_s, u_s, sl = (slab[k] for k in ("lam_s", "lam_n", "last_s",
+                                                       "u_s", "sl"))
+    L = lam_s.shape[1]
+    plan9 = dz_plan(L, nx)
+    out6 = torch.empty((N, nx + nx // 2), device=dev)
+    out9 = torch.empty((n_shard, L, nx + nx // 2), device=dev)
+    args6 = (lam.data_ptr(), None, None, *(sys_[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
+             N, u.data_ptr(), u.stride(0), 0, rho.data_ptr(), float(r_cost), N, 1)
+    args9 = (lam_s.data_ptr(), lam_n.data_ptr(), last_s.data_ptr(),
+             *(sl[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
+             sl["Qinv"].stride(0) // (nx * nx), u_s.data_ptr(), u_s.stride(1),
+             u_s.stride(0), rho.data_ptr(), float(r_cost), L, n_shard)
+    mesh = KnotMesh(n_shard)
+    k2p = lambda solve: solve(sys_["S"], sys_["Pinv"], sys_["gamma"], lam,
+                              max_iter=0, exit_tol=exit_tol).lam
+    glue = lambda: _next(lam_s, mesh.send_left(lam_s[:, 0]))
+    cases = {
+        f"K6 N={N}": lambda: compute_dz_cuda(sys_, lam, u, rho, r_cost),
+        f"K6 N={N} without PDL": lambda: dz_launch_raw(plan6, 0, args6, out6),
+        f"K6 N={N} earlier dz_kernel": lambda: dz_kernel_ref(torch, sys_, lam, u, rho,
+                                                             r_cost),
+        f"K9b {n_shard * L}/{n_shard}": lambda: compute_dz_slab(
+            sl, lam_s, lam_n, last_s, u_s, rho, r_cost),
+        f"K9b {n_shard * L}/{n_shard} without PDL": lambda: dz_launch_raw(
+            plan9, 0, args9, out9),
+        f"K9b {n_shard * L}/{n_shard} earlier dz_kernel": lambda: dz_slab_kernel_ref(
+            torch, sl, lam_s, lam_n, last_s, u_s, rho, r_cost),
+        "empty on K6's grid, PDL": lambda: dz_empty(dev, plan6, 1, 1),
+        "empty on K6's grid, no PDL": lambda: dz_empty(dev, plan6, 1, 0),
+        "empty on K9b's grid, PDL": lambda: dz_empty(dev, plan9, n_shard, 1),
+        "empty on K9b's grid, no PDL": lambda: dz_empty(dev, plan9, n_shard, 0),
+        "pair K2' -> K6": lambda: compute_dz_cuda(sys_, k2p(pcg_solve_cuda_uncast), u,
+                                                  rho, r_cost),
+        "pair K2' (cast) -> earlier dz_kernel": lambda: dz_kernel_ref(
+            torch, sys_, k2p(pcg_solve_cuda), u, rho, r_cost),
+        "pair glue -> K9b": lambda: compute_dz_slab(sl, lam_s, glue(), last_s, u_s,
+                                                    rho, r_cost),
+        "pair glue -> earlier dz_kernel": lambda: dz_slab_kernel_ref(
+            torch, sl, lam_s, glue(), last_s, u_s, rho, r_cost),
+    }
+    got = {k: [] for k in cases}
+    for order in (list(cases), list(cases)[::-1]):
+        for k in order:
+            got[k].append(graph_ms(torch, cases[k]) * 1e3)
+    out = {k: statistics.median(v) for k, v in got.items()}
+    for k, v in out.items():
+        print(f"  {k}: {v:.3f} us (rounds {', '.join(f'{t:.3f}' for t in got[k])})")
+    return out
+
+
+def race_problem(nq: int, N: int, torch, dev, seed: int):
+    """(model, xu, xs, ee) of N knots at nq joints: the IIWA on trace 0_0
+    (problem()) at nq = 7, the chain tracker's arm (chain_problem()) else."""
+    if nq == 7:
+        from mpcgpu_tpu_torch.models import iiwa14
+
+        return (iiwa14(torch.float32, device=dev),
+                *problem(N, torch, dev, seed)[:3])
+    return chain_model(nq, torch, dev), *chain_problem(nq, N, torch, dev, seed)
+
+
+def dz_race_checks(c) -> None:
+    """Phase 2e, the race check of K6 and K9b: K1 then K6 at once (and K9a
+    then K9b), RACE_CALLS times in one CUDA graph, every pair on fresh
+    blocks (the trace under another noise seed) that its predecessor has
+    just written, every output of the graph set to NaN before the replay;
+    then the same pairs eagerly on the stream.  Each dz must equal the
+    earlier dz_kernel on its blocks bit for bit and lie within K6's bound of
+    the plain version (1e-5 max|ref|, or 2x the plain f32 version's
+    distance to f64, as phase 2d holds K6).  A load placed before
+    griddepcontrol.wait would read NaN or another pair's blocks."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
+                                               compute_dz_slab,
+                                               compute_dz_slab_plain)
+    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur, build_kkt_schur_slab
+
+    torch, dev, expect = c.torch, c.dev, c.expect
+    rho = torch.full((), RHO0, device=dev)
+    f64 = lambda d: {k: v.double() for k, v in d.items()}
+
+    def held(dz, ref, plain, exact):
+        r, rk, rp = rel_err(dz, plain)[1], rel_err(dz, exact)[1], rel_err(plain, exact)[1]
+        return torch.equal(dz, ref) and (r <= 1e-5 or rk <= 2 * rp), r
+
+    def run(pair, check, what):
+        """pair(i) -> (the blocks its predecessor wrote, dz); check(i,
+        blocks, dz) -> (held, its distance to the plain version)"""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [pair(i) for i in range(RACE_CALLS)]
+        for blocks, dz in outs:
+            for v in list(blocks.values()) + [dz]:
+                v.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        res = [check(i, *o) for i, o in enumerate(outs)]
+        eager = [check(i, *pair(i)) for i in range(RACE_CALLS)]
+        n_g, n_e = sum(ok for ok, _ in res), sum(ok for ok, _ in eager)
+        worst = max(e for _, e in res + eager)
+        expect(n_g == n_e == RACE_CALLS,
+               f"race {what}: {RACE_CALLS} pairs in one graph (outputs NaN before "
+               f"the replay) / eagerly: dz == dz_kernel on the fresh blocks bit for "
+               f"bit and within K6's bound of the plain version in {n_g} / {n_e} "
+               f"(vs plain worst {worst:.3e} max|ref|)")
+
+    for nq, (N, (Ns, S)) in RACE_CASES.items():
+        nx, w = 2 * nq, 3 * nq
+        rng = np.random.default_rng(5)
+        # K1 -> K6
+        cost = CostConfig.for_knots(N)
+        probs = [race_problem(nq, N, torch, dev, seed) for seed in range(RACE_CALLS)]
+        lam = torch.tensor(0.1 * rng.standard_normal((N, nx)), dtype=torch.float32,
+                           device=dev)
+
+        def k1_k6(i):
+            model, xu, xs, ee = probs[i]
+            sys_ = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+            return sys_, compute_dz_cuda(sys_, lam, xu[:, nx:], rho, cost.r_cost)
+
+        def check_k6(i, sys_, dz):
+            u = probs[i][1][:, nx:]
+            return held(dz, dz_kernel_ref(torch, sys_, lam, u, rho, cost.r_cost),
+                        compute_dz_plain(sys_, lam, u, rho, cost.r_cost),
+                        compute_dz_plain(f64(sys_), lam.double(), u.double(),
+                                         rho.double(), cost.r_cost))
+        run(k1_k6, check_k6, f"K1 -> K6 nq={nq} N={N}")
+
+        # K9a -> K9b on the shards' halo-extended windows
+        L, cost_s = Ns // S, CostConfig.for_knots(Ns)
+        win = torch.tensor((np.arange(S)[:, None] * L + np.arange(-2, L + 2)) % Ns,
+                           device=dev)
+        first, last = (win == 0).float(), (win == Ns - 1).float()
+        probs_s = [race_problem(nq, Ns, torch, dev, seed) for seed in range(RACE_CALLS)]
+        ext = [(m, xu[win].contiguous(), ee[win].contiguous(), xu.reshape(S, L, w)[..., nx:])
+               for m, xu, _, ee in probs_s]
+        lam_g = torch.tensor(0.1 * rng.standard_normal((Ns, nx)), dtype=torch.float32,
+                             device=dev)
+        lam_s = lam_g.reshape(S, L, nx)
+        lam_n = torch.roll(lam_g, -1, 0).reshape(S, L, nx)
+        last_s = (torch.arange(Ns, device=dev) == Ns - 1).float().reshape(S, L)
+
+        def k9a_k9b(i):
+            model, xe, ee_x, u_s = ext[i]
+            out = build_kkt_schur_slab(model, cost_s, xe, ee_x, first, last, rho, DT)
+            sl = {k: v[:, 2:2 + L] for k, v in out.items()}
+            return out, compute_dz_slab(sl, lam_s, lam_n, last_s, u_s, rho, cost_s.r_cost)
+
+        def check_k9b(i, out, dz):
+            u_s = ext[i][3]
+            sl = {k: v[:, 2:2 + L] for k, v in out.items()}
+            return held(dz, dz_slab_kernel_ref(torch, sl, lam_s, lam_n, last_s, u_s,
+                                               rho, cost_s.r_cost),
+                        compute_dz_slab_plain(sl, lam_s, lam_n, last_s, u_s, rho,
+                                              cost_s.r_cost),
+                        compute_dz_slab_plain(f64(sl), lam_s.double(), lam_n.double(),
+                                              last_s.double(), u_s.double(),
+                                              rho.double(), cost_s.r_cost))
+        run(k9a_k9b, check_k9b, f"K9a -> K9b nq={nq} N={Ns} over {S} shards")
+
+
 def clone_state(st):
     return {k: v.clone() for k, v in st.items()}
 
@@ -2114,10 +2411,10 @@ def main() -> int:
     from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_plain,
                                                compute_dz_slab,
                                                compute_dz_slab_plain,
-                                               k2_cluster_occupancy,
+                                               dz_plan, k2_cluster_occupancy,
                                                k2_cluster_plan, pcg_dz_solve,
                                                pcg_dz_solve_plain,
-                                               pcg_solve_cuda)
+                                               pcg_solve_cuda, pcg_solve_cuda_uncast)
     from mpcgpu_tpu_torch.ops.pcg_ca import ca_basis, ca_coeff_step
     from mpcgpu_tpu_torch.ops.pcg_ca_cuda import (ca_basis_cuda, ca_cluster_plan,
                                                   ca_coeff_step_cuda, coeff_plan)
@@ -2179,7 +2476,10 @@ def main() -> int:
     torch.cuda.set_device(dev)
     card = card_line()
     print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} driver {driver} "
           f"python {sys.version.split()[0]}")
 
     # ---- phase 1: build -------------------------------------------------
@@ -2197,6 +2497,8 @@ def main() -> int:
         print(f"  K10b plan N={N} over {S} shards: {ca_cluster_plan(N // S, CA_S)}")
         print(f"  K10a plan N={N} over {S} shards: {slab_cluster_plan(N // S)}")
         print(f"  K10b' plan N={N} over {S} shards: {coeff_plan(N // S, CA_S)}")
+    for N in (N_MAIN, N_BIG) + tuple(N // S for N, S in SHARD_CASES):
+        print(f"  K6 / K9b plan at {N} knots (per shard): {dz_plan(N)}")
 
     model = iiwa14(torch.float32, device=dev)
     mu = SQPConfig().mu
@@ -2377,6 +2679,8 @@ def main() -> int:
                f"K6 N={N}: vs plain compute_dz max|d|={d:.3e} = {r:.3e} "
                f"max|ref| (<= 1e-5); bitwise equal to K2's fused dz "
                f"{torch.equal(d6, got[1])}")
+        same = torch.equal(d6, dz_kernel_ref(torch, sys_, got[0], u, rho, cost.r_cost))
+        expect(same, f"K6 N={N}: bitwise equal to the earlier dz_kernel {same}")
 
         # K5 against build_kkt per output (K1 reaches <= 1.8e-5 max|ref|);
         # the second case takes the semi-implicit integrator, the angle wrap
@@ -2566,7 +2870,7 @@ def main() -> int:
     dz_b = compute_dz_batched(sys_b, lam_b, xu_b[:, :, 14:], rho_b, cost.r_cost)
     m_b, a_b = line_search_merits_batched(model, cost, xu_b, dz_b, xs_b, ee_b, mu, DT)
     torch.cuda.synchronize()
-    differ = {"K8a": 0, "K8b": 0, "K8c": 0, "K3b": 0}
+    differ = {"K8a": 0, "K8b": 0, "K8c": 0, "K8c vs dz_kernel": 0, "K3b": 0}
     for i in range(B):
         one = build_kkt_schur(model, cost, xu_b[i], xs_b[i], ee_b[i], rho_b[i], DT, 0)
         differ["K8a"] += not all(torch.equal(one[k], sys_b[k][i]) for k in one)
@@ -2578,12 +2882,15 @@ def main() -> int:
                               and torch.equal(p1.converged, cv_b[i]))
         d1 = compute_dz_cuda(one_i, lam_b[i], xu_b[i, :, 14:], rho_b[i], cost.r_cost)
         differ["K8c"] += not torch.equal(d1, dz_b[i])
+        differ["K8c vs dz_kernel"] += not torch.equal(dz_kernel_ref(
+            torch, one_i, lam_b[i], xu_b[i, :, 14:], rho_b[i], cost.r_cost), dz_b[i])
         m1, a1 = line_search_merits_fused(model, cost, xu_b[i], dz_b[i], xs_b[i],
                                           ee_b[i], mu, DT)
         differ["K3b"] += not (torch.equal(m1, m_b[i]) and torch.equal(a1, a_b[i]))
     expect(all(v == 0 for v in differ.values()),
            f"K8a/K8b/K8c/K3b B={B} N={N}: instances that differ from the single "
-           f"kernels (K1/K2'/K6/K3) bit for bit: {differ}; PCG iterations "
+           f"kernels (K1/K2'/K6/K3; K8c also from dz_kernel at batch = 1, the "
+           f"earlier K6) bit for bit: {differ}; PCG iterations "
            f"{int(it_b.min())}..{int(it_b.max())}")
     P = B_PLAIN
     ref_b = build_kkt_schur_batched_plain(model, cost, xu_b[:P], xs_b[:P], ee_b[:P],
@@ -2790,6 +3097,10 @@ def main() -> int:
         same = torch.equal(d9.reshape(N, 21), d6)
         expect(r <= 1e-5 and same, f"K9b N={N} over {S} shards: vs plain "
                f"{r:.3e} max|ref| (<= 1e-5); == K6 bit for bit {same}")
+        same = torch.equal(d9, dz_slab_kernel_ref(torch, sl, lam_s, lam_n, last_s, u_s,
+                                                  rho, cost.r_cost))
+        expect(same, f"K9b N={N} over {S} shards: bitwise equal to the earlier "
+               f"dz_kernel {same}")
         # K9c on each shard's L knots and the next shard's first: per-knot
         # terms against its plain version, and, corrected at the global ends
         # and summed, against K3's merits (both 1e-4 relative, K3's bound)
@@ -2939,6 +3250,13 @@ def main() -> int:
     errs_slice = slice_kernel_checks(ctx)
     if failures:
         raise SmokeFailure(f"phase 2d: {len(failures)} check(s) failed")
+
+    # ---- phase 2e: K6 and K9b right behind the kernels that write their inputs
+    phase(f"phase 2e: race check, K1 -> K6 and K9a -> K9b, {RACE_CALLS} pairs in a "
+          f"graph, at nq = {tuple(RACE_CASES)}")
+    dz_race_checks(ctx)
+    if failures:
+        raise SmokeFailure(f"phase 2e: {len(failures)} check(s) failed")
 
     # ---- phase 3: the main path -------------------------------------------
     phase(f"phase 3: the chain, {CHAIN_STEPS} warm-started steps, N={N_MAIN}")
@@ -3214,6 +3532,7 @@ def main() -> int:
                f"max|{key}| (<= {bound:g}); to f64: fused=False {ek[key]:.3e}, "
                f"plain card {ep[key]:.3e}, plain cpu {ec[key]:.3e} "
                f"(<= 1.5x max(plain))")
+    split_route_order(ctx, model, cost, loop_kw["pcg_cfg"], xu_l0, ee_l0)
     launches = {k: n_main[k] for k in list(KERNELS)[:4]}
     launches["K5 build_kkt_cuda"] = route_n["fused=False"]["K5 build_kkt_cuda"]
     for k in ("K2' pcg_solve_cuda", "K6 compute_dz_cuda"):
@@ -3688,6 +4007,13 @@ def main() -> int:
             print(f"    {name}: {rows[-1]['us_per_iter']:.3f} us per CG "
                   f"iteration ({steps[name]} iterations)")
 
+    # this slice: K6 / K9b against the earlier dz_kernel, without PDL, the
+    # launch floor and the pairs on their routes (phase 2c's 512/8 inputs)
+    n9, s9 = SHARD_CASES[0]
+    dz_slice = dz_slice_timings(ctx, sys_, lam_k2, xu[:, 14:], rho, cost.r_cost,
+                                pcg_kw["exit_tol"], slab_ref[n9], s9)
+    print(f"  {card_line()}")
+
     # K7 at N_MAIN (its row) and N_BIG on the well-conditioned system (its
     # time does not depend on the values; a dense Cholesky of the real
     # Schur system would fail in f32), beside the dense library solves of
@@ -4038,6 +4364,7 @@ def main() -> int:
                       "batched_loop": batch_summary,
                       "onboarding": onboard,
                       "nq_paths": slice_paths,
+                      "dz_slice_us": dz_slice,
                       "card": card}))
     phase("chip_smoke: done")
     print(card_line())

@@ -54,6 +54,9 @@ _SIGNATURES = {
         "pcg_cluster_occupancy": [I, I, I, I, P],
         "dz_launch": [P, P, P, P, P, P, I, I, P, F, I, I, P, P],
         "dz_slab_launch": [P, P, P, P, P, P, P, I, P, I, I, P, F, I, I, P, P],
+        "dz_warp_launch": [P, P, P, P, P, P, P, I, P, I, I, P, F, I, I, I, I, I,
+                           I, P, P],
+        "dz_empty_launch": [I, I, I, I, I, P],
     },
     "merit.cu": {
         "merit_launch": [P, P, P, P, I, I, P, F, F, F, F, F,

@@ -84,26 +84,47 @@
 //   dx_k = Qinv_k (q_k - lam_k + A_k^T lam_{k+1}),
 //   du_k = (r_cost u_k + B_k^T lam_{k+1}) / (r_cost + rho).
 // Each CTA recovers its own knots, lam_{k+1} of its last knot pushed by the
-// right neighbour.  K6 is latency-bound: it reads Qinv, A, B (~3 x NX x NX
-// x N floats) once and does ~1.5 KFLOP per knot at NX = 14; one block per knot, one
-// thread per output.  Its per-output arithmetic is K2's epilogue (the same
-// device functions), so K6 on K2's lam equals K2's dz bit for bit.
+// right neighbour.
+//
+// K6 (dz_warp_kernel) is latency-bound: it reads Qinv, A, B (~2.5 x NX x NX
+// x N floats, 0.14 MB at N = 64) once and does ~1 KFLOP per knot at NX =
+// 14, a bound of ~0.04 us against ~1.3-1.8 us for a launch that returns at
+// once in a CUDA graph.  What it can save is its own latency: A WARP PER
+// KNOT, a few knots per CTA (ops/pcg_cuda.py::dz_plan), and ONE ROUND TRIP
+// to memory: after griddepcontrol.wait the warp's lanes copy every input of
+// its knot at once by cp.async into the knot's slot of shared memory
+// (Qinv and A in 16-byte chunks, B, q, lam and lam_{k+1} in 8-byte ones, u,
+// rho and the last flag in 4-byte ones; the wrapper refuses base addresses
+// those chunks cannot take), wait once, and compute from shared memory
+// only: lanes 0..NX-1 the right-hand side (into the slot's rhs row, one
+// __syncwarp) and then dx, lanes NX..NX+NU-1 du in the same pass; no block
+// barrier.  It is launched with programmatic dependent launch (the
+// programmatic-stream-serialization attribute): its CTAs may be scheduled
+// while the preceding kernel drains, and griddepcontrol.wait, before which
+// nothing is loaded, holds them until that kernel's writes are visible.
+// The per-output arithmetic is K2's epilogue (the same device functions on
+// shared-memory rows), so K6 on K2's lam equals K2's dz bit for bit.
 //
 // K8c replaces mpcgpu_tpu/parallel/batched_fused.py::compute_dz_batched:
-// K6 over a (knot, instance) grid with a per-instance rho.  K8b replaces
+// the earlier dz recovery (dz_kernel: a 32-thread block per knot, rhs and
+// then dx loaded from global memory one after the other) over a (knot,
+// instance) grid with a per-instance rho; at B = 256 it reaches 76% of its
+// bound and stays as it is.  dz_kernel's batch = 1 entry (dz_launch) and
+// its slab entry (dz_slab_launch) keep the earlier K6 and K9b launchable:
+// chip_smoke.py holds dz_warp_kernel to them bit for bit.  K8b replaces
 // batched_fused.py::pcg_solve_batched_lanes (_make_pcg_kernel_packed:
 // instances packed on lanes with segmented reductions, emulated here by
 // one cluster per instance).
 //
 // K9b replaces mpcgpu_tpu/solver/kkt_pallas.py::compute_dz_pallas_slab
 // (_make_dz_kernel with boundary_masks=True), the dz recovery of one knot
-// shard's slab in the knot-sharded SQP.  It is K6 over a (knot, shard) grid
-// where lam_{k+1} comes from a second input, the shard's lam shifted by one
-// knot with the right neighbour's first row appended (the halo the caller
-// exchanged), and "k is the last knot" from a runtime flag per knot.  The
-// blocks Qinv, A, B, q are read in place from K9a's halo-extended slabs (a
-// knot stride between shards).  Its dz equals K6's on the same rows bit for
-// bit (the same device functions); latency-bound as K6.
+// shard's slab in the knot-sharded SQP.  It is dz_warp_kernel over a (CTA,
+// shard) grid where lam_{k+1} comes from a second input, the shard's lam
+// shifted by one knot with the right neighbour's first row appended (the
+// halo the caller exchanged), and "k is the last knot" from a runtime flag
+// per knot.  The blocks Qinv, A, B, q are read in place from K9a's
+// halo-extended slabs (a knot stride between shards).  Its dz equals K6's
+// on the same rows bit for bit (the same device functions).
 #include <cooperative_groups.h>
 
 #include <cstdint>
@@ -139,6 +160,52 @@ __host__ __device__ constexpr int k2_smem_floats(int kp) {
          + 3 * NX * kp            // lam, z, Sp
          + 4 * NX                 // the neighbours' boundary rows of Sp, z
          + 3 * K2_MAX_CLUSTER * (k2_threads(kp) / 32);  // warp parts, 3 sums
+}
+
+// One knot's slot of dz_warp_kernel's shared memory (floats from the slot's
+// start): Qinv, A (16-byte chunks), B, q, lam_k, lam_{k+1} (8-byte chunks),
+// the rhs row, u, rho, the last flag (4-byte), padded to 16 bytes
+constexpr int DZ_QINV = 0;
+constexpr int DZ_A = NN;
+constexpr int DZ_B = 2 * NN;
+constexpr int DZ_Q = DZ_B + NX * NU;
+constexpr int DZ_LAM = DZ_Q + NX;
+constexpr int DZ_LAMN = DZ_LAM + NX;
+constexpr int DZ_RHS = DZ_LAMN + NX;
+constexpr int DZ_U = DZ_RHS + NX;
+constexpr int DZ_RHO = DZ_U + NU;
+constexpr int DZ_LAST = DZ_RHO + 1;
+constexpr int DZ_KNOT_FLOATS = (DZ_LAST + 1 + 3) / 4 * 4;
+constexpr int DZ_MAX_KPC = 8;         // knots (warps) per CTA
+static_assert(NN % 4 == 0 && DZ_B % 2 == 0 && DZ_Q % 2 == 0 && DZ_LAM % 2 == 0 &&
+              DZ_LAMN % 2 == 0, "chunks of 16 and 8 bytes");
+static_assert(W <= 32, "one lane per output of a knot");
+
+// An asynchronous copy of kBytes from global to shared memory (cp.async;
+// the 16-byte copy bypasses L1)
+template <int kBytes>
+__device__ inline void cp_async(float* dst, const float* src) {
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "n"(kBytes) : "memory");
+}
+
+// n floats from src to dst in kBytes chunks, spread over the warp's lanes
+template <int kBytes, int n>
+__device__ inline void stage(float* dst, const float* src, int lane) {
+  constexpr int F = kBytes / 4;
+  static_assert(n % F == 0, "whole chunks");
+  FOR_STRIDED(e, lane, n / F, 32) cp_async<kBytes>(dst + e * F, src + e * F);
+}
+
+// Programmatic dependent launch: wait until the preceding kernel of the
+// stream has completed and its writes are visible (returns at once for a
+// launch without the attribute)
+__device__ inline void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // Right-hand side of dx at row (k, c): (q_k - lam_k)_c + (A_k^T lam_{k+1})_c,
@@ -446,9 +513,10 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
   }
 }
 
-// lam_next, lastm: K9b's lam_{k+1} rows and last-knot flags (N per shard),
-// or nullptr (K6, K8c: the next row of lam, and k = N - 1).  The blocks of
-// instance b start sys_nstride knots after those of instance b - 1.
+// The earlier dz recovery, K8c's (and the earlier K6's and K9b's): a block
+// per knot.  lam_next, lastm: K9b's lam_{k+1} rows and last-knot flags (N
+// per shard), or nullptr (K8c, K6: the next row of lam, and k = N - 1).  The
+// blocks of instance b start sys_nstride knots after those of instance b - 1.
 __global__ void __launch_bounds__(32)
 dz_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next,
           const float* __restrict__ lastm, const float* __restrict__ Qinv,
@@ -482,6 +550,77 @@ dz_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next,
     dz[k * W + tid] = dz_du(B, lam_n, has_next, u, u_stride, r_cost, s_r, k,
                             tid - NX);
   }
+}
+
+// K6 and K9b: warp w of CTA (x, b) recovers knot x kpc + w of instance or
+// shard b, as dz_kernel reads its inputs (lam_next, lastm nullptr for K6).
+// Before griddepcontrol.wait only indices are computed: the inputs may be
+// the preceding kernel's outputs.
+__global__ void __launch_bounds__(32 * DZ_MAX_KPC)
+dz_warp_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next,
+               const float* __restrict__ lastm, const float* __restrict__ Qinv,
+               const float* __restrict__ A, const float* __restrict__ B,
+               const float* __restrict__ q, int sys_nstride,
+               const float* __restrict__ u, int u_stride, int u_bstride,
+               const float* __restrict__ rho_p, float r_cost, int N, int kpc,
+               float* __restrict__ dz) {
+  extern __shared__ __align__(16) float sh[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int b = blockIdx.y, k = blockIdx.x * kpc + w;
+  if (k >= N) return;
+  float* s = sh + w * DZ_KNOT_FLOATS;
+  const size_t kb = (size_t)b * sys_nstride + k;   // the knot's blocks
+  const size_t kr = (size_t)b * N + k;             // its rows of lam, dz
+  const bool slab = lastm != nullptr;
+  griddep_wait();
+  stage<16, NN>(s + DZ_QINV, Qinv + kb * NN, lane);
+  stage<16, NN>(s + DZ_A, A + kb * NN, lane);
+  stage<8, NX * NU>(s + DZ_B, B + kb * NX * NU, lane);
+  stage<8, NX>(s + DZ_Q, q + kb * NX, lane);
+  stage<8, NX>(s + DZ_LAM, lam + kr * NX, lane);
+  // K6's last knot has no row lam_{k+1} (and reads none)
+  if (slab)
+    stage<8, NX>(s + DZ_LAMN, lam_next + kr * NX, lane);
+  else if (k < N - 1)
+    stage<8, NX>(s + DZ_LAMN, lam + (kr + 1) * NX, lane);
+  stage<4, NU>(s + DZ_U, u + (size_t)b * u_bstride + (size_t)k * u_stride, lane);
+  if (lane == 0) cp_async<4>(s + DZ_RHO, rho_p);
+  if (slab && lane == 1) cp_async<4>(s + DZ_LAST, lastm + kr);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+  const bool has_next = slab ? s[DZ_LAST] == 0.f : k < N - 1;
+  float v = 0.f;
+  if (lane < NX) {
+    s[DZ_RHS + lane] = dz_rhs(s + DZ_A, s + DZ_Q, s + DZ_LAM, s + DZ_LAMN,
+                              has_next, 0, lane);
+  } else if (lane < W) {
+    const float s_r = 1.f / (r_cost + s[DZ_RHO]);
+    v = dz_du(s + DZ_B, s + DZ_LAMN, has_next, s + DZ_U, 0, r_cost, s_r, 0,
+              lane - NX);
+  }
+  __syncwarp();
+  if (lane < NX) v = dz_dx(s + DZ_QINV, s + DZ_RHS, 0, lane);
+  if (lane < W) dz[kr * W + lane] = v;
+}
+
+// the launch floor: dz_warp_kernel's launch with no work
+__global__ void dz_empty_kernel() { griddep_wait(); }
+
+// the launch of dz_warp_kernel / dz_empty_kernel: ctas x batch CTAs of kpc
+// warps, smem bytes of dynamic shared memory, with programmatic dependent
+// launch when pdl is set
+cudaLaunchConfig_t dz_config(int ctas, int batch, int kpc, int smem, int pdl,
+                             void* stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, batch, 1);
+  cfg.blockDim = dim3(32 * kpc, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cfg;
 }
 
 // the cluster launch of K2 / K2' / K8b: cluster C CTAs of k2_threads(kp)
@@ -590,8 +729,9 @@ extern "C" int pcg_cluster_occupancy(int cluster, int kp, int smem, int dz,
   return static_cast<int>(err);
 }
 
-// batch instances side by side (K8c; K6 is batch = 1): instance b reads
-// u + b u_bstride, rho[b] and the b-th (N, ...) slab of the other inputs
+// batch instances side by side (K8c; batch = 1 the earlier K6): instance b
+// reads u + b u_bstride, rho[b] and the b-th (N, ...) slab of the other
+// inputs
 extern "C" int dz_launch(const float* lam, const float* Qinv, const float* A,
                          const float* B, const float* q, const float* u,
                          int u_stride, int u_bstride, const float* rho,
@@ -603,9 +743,10 @@ extern "C" int dz_launch(const float* lam, const float* Qinv, const float* A,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9b: shards side by side: shard b reads the b-th (L, ...) slab of lam,
-// lam_next and lastm, the blocks from knot b sys_nstride on, u + b u_bstride
-// and the one rho, and writes the b-th (L, NX + NU) slab of dz
+// the earlier K9b (dz_kernel), shards side by side: shard b reads the b-th
+// (L, ...) slab of lam, lam_next and lastm, the blocks from knot b
+// sys_nstride on, u + b u_bstride and the one rho, and writes the b-th (L,
+// NX + NU) slab of dz
 extern "C" int dz_slab_launch(const float* lam, const float* lam_next,
                               const float* lastm, const float* Qinv,
                               const float* A, const float* B, const float* q,
@@ -615,5 +756,42 @@ extern "C" int dz_slab_launch(const float* lam, const float* lam_next,
   dz_kernel<<<dim3(L, n_shard), 32, 0, static_cast<cudaStream_t>(stream)>>>(
       lam, lam_next, lastm, Qinv, A, B, q, sys_nstride, u, u_stride,
       u_bstride, rho, 0, r_cost, L, dz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 (lam_next, lastm nullptr; batch = 1) and K9b (batch = shards, the
+// arguments of dz_slab_launch): dz_warp_kernel on the plan (kpc knots per
+// CTA, ctas CTAs per instance, smem bytes; ops/pcg_cuda.py::dz_plan), with
+// programmatic dependent launch when pdl is set (the wrappers always set
+// it; 0 is the measurement of what it gains)
+extern "C" int dz_warp_launch(const float* lam, const float* lam_next,
+                              const float* lastm, const float* Qinv,
+                              const float* A, const float* B, const float* q,
+                              int sys_nstride, const float* u, int u_stride,
+                              int u_bstride, const float* rho, float r_cost,
+                              int N, int batch, int kpc, int ctas, int smem,
+                              int pdl, float* dz, void* stream) {
+  if (N < 2 || batch < 1 || kpc < 1 || kpc > DZ_MAX_KPC || ctas * kpc < N ||
+      smem < static_cast<int>(sizeof(float)) * kpc * DZ_KNOT_FLOATS ||
+      (lam_next == nullptr) != (lastm == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = dz_config(ctas, batch, kpc, smem, pdl, stream, attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, dz_warp_kernel, lam, lam_next, lastm, Qinv, A, B, q, sys_nstride,
+      u, u_stride, u_bstride, rho, r_cost, N, kpc, dz);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the empty kernel on the same grid, block and launch as dz_warp_launch
+extern "C" int dz_empty_launch(int batch, int kpc, int ctas, int smem, int pdl,
+                               void* stream) {
+  if (batch < 1 || kpc < 1 || kpc > DZ_MAX_KPC || ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = dz_config(ctas, batch, kpc, smem, pdl, stream, attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, dz_empty_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

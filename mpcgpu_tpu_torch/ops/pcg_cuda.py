@@ -11,8 +11,10 @@ Ports of ``mpcgpu_tpu/ops/pcg_pallas.py::pcg_dz_solve_pallas_lanes`` (K2),
 shard axis; K2' takes the standard (N, 3, n, n) BTD operands.  Each wrapper
 runs its plain version for CPU tensors and its kernel for CUDA tensors.
 K2, K2' and K8b (``parallel/batched_cuda.py``) run one thread-block
-cluster per solve, laid out by ``k2_cluster_plan(N, nx)``.  Each launch
-takes the library built for the system's nq = nx / 2 (2..7).
+cluster per solve, laid out by ``k2_cluster_plan(N, nx)``; K6 and K9b a
+warp per knot, ``dz_plan(N, nx)``, launched with programmatic dependent
+launch.  Each launch takes the library built for the system's nq = nx / 2
+(2..7).
 """
 
 from __future__ import annotations
@@ -90,6 +92,51 @@ def k2_cluster_occupancy(N: int, dz: bool = True, nx: int = 14) -> int:
         out.data_ptr())
     _kernels.check(code, "pcg_cluster_occupancy")
     return int(out)
+
+
+# K6's and K9b's plan (csrc/pcg_dz.cu::dz_warp_kernel): knots (warps) per
+# CTA, and the most the kernel takes
+DZ_KNOTS_PER_CTA = 4
+DZ_MAX_KPC = 8
+
+# the bytes each dz input's base address must be a multiple of: the kernel
+# stages Qinv and A in 16-byte copies, B, q, lam and lam_{k+1} in 8-byte
+# ones (a knot's block, row or shard slab is a whole number of chunks at
+# every even nx, so only the base can break the rule), u, rho and the last
+# flags in 4-byte ones
+DZ_ALIGN = {"Qinv": 16, "A": 16, "B": 8, "q": 8, "lam": 8, "lam_next": 8}
+
+
+class DzPlan(NamedTuple):
+    knots_per_cta: int    # warps of a CTA, one knot each
+    ctas: int             # CTAs per instance or shard: ceil(N / knots_per_cta)
+    smem_bytes: int       # dynamic shared memory of one CTA
+
+
+def dz_knot_floats(nx: int = 14) -> int:
+    """DZ_KNOT_FLOATS: one knot's slot of the kernel's shared memory (Qinv,
+    A, B, q, lam, lam_{k+1}, the rhs row, u, rho, the last flag), padded to
+    16 bytes (556 floats at nx = 14)."""
+    nu = nx // 2
+    return (2 * nx * nx + nx * nu + 4 * nx + nu + 2 + 3) // 4 * 4
+
+
+def dz_plan(N: int, nx: int = 14) -> DzPlan:
+    """The grid K6 and K9b launch for N knots (per shard): a warp per knot,
+    DZ_KNOTS_PER_CTA knots per CTA (fewer when N is smaller)."""
+    _kernels.require_knots(N)
+    kpc = min(DZ_KNOTS_PER_CTA, N)
+    return DzPlan(kpc, -(-N // kpc), 4 * kpc * dz_knot_floats(nx))
+
+
+def require_dz_alignment(**tensors) -> None:
+    """Raise unless each named dz input's base address is a multiple of
+    its ``DZ_ALIGN`` bytes."""
+    for name, t in tensors.items():
+        if t.data_ptr() % DZ_ALIGN[name]:
+            raise ValueError(
+                f"{name}: base address {t.data_ptr():#x} is not a multiple of "
+                f"{DZ_ALIGN[name]} bytes, which the dz kernel's staging copies need")
 
 
 def compute_dz_plain(sys: dict, lam, u, rho, r_cost: float):
@@ -198,6 +245,17 @@ def pcg_solve_cuda(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
     """K2': K2's PCG without the dz epilogue, on BTD S and a 3-band Pinv
     (N, 3, n, n).  A 5-band Pinv (stair2) raises, as the TPU kernel's
     wrapper does.  The plain version is ``pcg_solve``."""
+    res = pcg_solve_cuda_uncast(S, Pinv, gamma, lam0, max_iter, exit_tol,
+                                exit_criterion)
+    return res._replace(converged=res.converged.bool())
+
+
+def pcg_solve_cuda_uncast(S, Pinv, gamma, lam0, max_iter: int = 173,
+                          exit_tol=1e-6, exit_criterion: str = "eta") -> PCGResult:
+    """``pcg_solve_cuda`` with the exit flag as K2' wrote it: on the card a
+    0-d int32 (1: converged), so that no cast is enqueued behind the kernel
+    and the next launch (K6 on the ``fused_dz=False`` route) follows K2'
+    directly; the caller casts where it reads the flag."""
     if Pinv.shape[1] != 3:
         raise ValueError(
             f"pcg_solve_cuda takes a 3-band preconditioner, got {Pinv.shape[1]} "
@@ -220,7 +278,7 @@ def pcg_solve_cuda(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
         _kernels.stream_ptr(dev))
     _kernels.check(code, "pcg_launch")
     pcg_solve_cuda.launches += 1
-    return PCGResult(lam=lam, iters=flags[0], converged=flags[1].bool())
+    return PCGResult(lam=lam, iters=flags[0], converged=flags[1])
 
 
 pcg_solve_cuda.launches = 0
@@ -241,14 +299,15 @@ def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
     _kernels.require_knots(N)
     _kernels.require(lam, "lam", (N, nx), dev)
     _require_dz_inputs(sys, u, dev)
+    require_dz_alignment(lam=lam, **{k: sys[k] for k in ("Qinv", "A", "B", "q")})
     rho_t = _kernels.scalar(rho, dev)
     dz = torch.empty((N, nx + u.shape[-1]), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_launch", nq=nx // 2)(
-        lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
-        sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(0),
-        0, rho_t.data_ptr(), float(r_cost), N, 1, dz.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "dz_launch")
+    code = _kernels.entry("pcg_dz.cu", "dz_warp_launch", nq=nx // 2)(
+        lam.data_ptr(), None, None, sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
+        sys["B"].data_ptr(), sys["q"].data_ptr(), N, u.data_ptr(), u.stride(0),
+        0, rho_t.data_ptr(), float(r_cost), N, 1, *dz_plan(N, nx), 1,
+        dz.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check(code, "dz_warp_launch")
     compute_dz_cuda.launches += 1
     return dz
 
@@ -305,15 +364,17 @@ def compute_dz_slab(sys: dict, lam, lam_next, last_mask, u, rho, r_cost: float):
     if tuple(u.shape) != (n_shard, L, nu) or u.stride(2) != 1 \
             or u.dtype != torch.float32 or u.device != dev:
         raise ValueError("u: f32 (n_shard, L, nu) on the card with rows of unit stride")
+    require_dz_alignment(lam=lam, lam_next=lam_next,
+                         **{k: sys[k] for k in ("Qinv", "A", "B", "q")})
     rho_t = _kernels.scalar(rho, dev)
     dz = torch.empty((n_shard, L, nx + nu), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_slab_launch", nq=nu)(
+    code = _kernels.entry("pcg_dz.cu", "dz_warp_launch", nq=nu)(
         lam.data_ptr(), lam_next.data_ptr(), last_mask.data_ptr(),
         sys["Qinv"].data_ptr(), sys["A"].data_ptr(), sys["B"].data_ptr(),
         sys["q"].data_ptr(), knot_stride, u.data_ptr(), u.stride(1), u.stride(0),
-        rho_t.data_ptr(), float(r_cost), L, n_shard, dz.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "dz_slab_launch")
+        rho_t.data_ptr(), float(r_cost), L, n_shard, *dz_plan(L, nx), 1,
+        dz.data_ptr(), _kernels.stream_ptr(dev))
+    _kernels.check(code, "dz_warp_launch")
     compute_dz_slab.launches += 1
     return dz
 

@@ -43,7 +43,7 @@ from mpcgpu_tpu_torch.native import qdldl_solve_schur_cached
 from mpcgpu_tpu_torch.ops.ldl import btd_ldl_solve
 from mpcgpu_tpu_torch.ops.pcg import pcg_solve
 from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, pcg_dz_solve,
-                                           pcg_solve_cuda)
+                                           pcg_solve_cuda, pcg_solve_cuda_uncast)
 from mpcgpu_tpu_torch.ops.pcr import pcr_solve_refined
 from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
 from mpcgpu_tpu_torch.ops.schur import compute_dz, form_schur_system
@@ -207,7 +207,9 @@ def sqp_solve(
                 lam, dz, lin_iters, lin_ok = pcg_dz_solve(
                     sys, lam, xu[:, nx:], rho, cost.r_cost, **pcg_kw)
             else:
-                lam, lin_iters, lin_ok = pcg_solve_cuda(
+                # K2''s exit flag stays int32 until pcg_converged[it] casts
+                # it, so that K6 follows K2' in the stream
+                lam, lin_iters, lin_ok = pcg_solve_cuda_uncast(
                     sys["S"], sys["Pinv"], sys["gamma"], lam, **pcg_kw)
                 dz = compute_dz_cuda(sys, lam, xu[:, nx:], rho, cost.r_cost)
         else:

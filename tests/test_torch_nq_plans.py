@@ -30,7 +30,7 @@ from mpcgpu_tpu_torch.ops.pcg_ca_cuda import (ca_basis_cuda, ca_cluster_plan,
                                               ca_coeff_step_cuda, ca_smem_bytes,
                                               coeff_plan)
 from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
-                                           k2_cluster_plan, k2_smem_bytes,
+                                           dz_plan, k2_cluster_plan, k2_smem_bytes,
                                            k2_threads, knot_stride, pcg_dz_solve,
                                            pcg_solve_cuda)
 from mpcgpu_tpu_torch.ops.pcg_slab_cuda import (pcg_slab_step_cuda,
@@ -387,9 +387,9 @@ def _kernel_calls(nq):
                 lambda: pcg_solve_cuda(sys_["S"], sys_["Pinv"], sys_["gamma"],
                                        z((N, nx))),
                 at(7, N, *k2_cluster_plan(N, nx), 1)),
-        "K6": ("pcg_dz.cu", "dz_launch",
+        "K6": ("pcg_dz.cu", "dz_warp_launch",
                lambda: compute_dz_cuda(sys_, z((N, nx)), xu[:, nx:], 1e-3, 0.1),
-               {6: w, 10: N, 11: 1}),
+               {7: N, 9: w, **at(13, N, 1, *dz_plan(N, nx), 1)}),
         "K7": ("pcr.cu", "pcr_launch",
                lambda: pcr_solve_cuda(sys_["S"], z((N, nx))),
                at(2, N, pcr_levels(N), 1, k7.ctas, int(k7.cluster), k7.smem_bytes)),
@@ -414,11 +414,11 @@ def _kernel_calls(nq):
                                              rep(ee[:L + 4], n_sh), z((n_sh, L + 4)),
                                              z((n_sh, L + 4)), 1e-3, 1 / 64),
                 at(10, L + 4, n_sh, k9a.window, k9a.smem_bytes)),
-        "K9b": ("pcg_dz.cu", "dz_slab_launch",
+        "K9b": ("pcg_dz.cu", "dz_warp_launch",
                 lambda: compute_dz_slab(sys_s, z((n_sh, L, nx)), z((n_sh, L, nx)),
                                         z((n_sh, L)),
                                         xu.reshape(n_sh, L, w)[..., nx:], 1e-3, 0.1),
-                {7: L, 9: w, 10: L * w, 13: L, 14: n_sh}),
+                {7: L, 9: w, 10: L * w, **at(13, L, n_sh, *dz_plan(L, nx), 1)}),
         "K9c": ("merit.cu", "merit_partials_launch",
                 lambda: line_search_merit_partials_slab(
                     m, cost, rep(xu[:L + 1], n_sh), rep(xu[:L + 1], n_sh),

@@ -5,6 +5,7 @@ source tree.
     python3 tools/torch_port_kernel_ab.py TREE [--save FILE]
     python3 tools/torch_port_kernel_ab.py --compare FILE_A FILE_B
     python3 tools/torch_port_kernel_ab.py . --window-sweep --team-sweep --cluster-sweep
+    python3 tools/torch_port_kernel_ab.py --turns PARENT_TREE SAVE_DIR [flags]
 
 TREE is the root of a checkout (this one: ``.``; an earlier commit unpacked
 with ``git archive <commit> | tar -x -C devscratch/parent``).  The script
@@ -32,7 +33,15 @@ shapes, one line per group:
     fires at once, max_iter = 0; K10b': every shard done), on trace 0_0 +
     noise: K10a from the state after the plain init step and one plain step
     (its next step's inputs), K10b' on the plain K10b's state at the second
-    outer step, so both trees see the same inputs.
+    outer step, so both trees see the same inputs;
+  * the dz group: K6 at N = 64 and 512 and K9b at 512 over 8 and 64 over 4
+    (on halo-extended slabs) at nq = 7, 3 and 5 on seeded blocks, K8c at B =
+    256, and the pairs on their routes: K2' (from K2's lam, with no CG step:
+    r0, z0 and the exit test) then K6, and the sharded step's halo glue
+    then K9b; with a tree whose pcg_dz.cu has dz_warp_launch also each
+    K6 / K9b case without programmatic dependent launch (the ablation) and
+    the empty kernel on each case's grid with and without it (the launch
+    floor).
 
 Every input is made from a seed, so two trees see the same inputs; --save
 writes every output of every group: K1, K5, K8a, K9a, K9b, K3, K3b, K9c,
@@ -67,8 +76,14 @@ admits, ``--coeff-cluster-sweep`` K10b''s with every one
 ``ops/pcg_ca_cuda.py::coeff_plan(L, s, C)`` admits, both launched by hand,
 and print whether the outputs equal the default plan's bit for bit (K10a's
 dots: how far).  ``--ca-pcr`` runs only the K7 / K10b group and
-``--slab-coeff`` only the K10a / K10b' group.  The sweeps need a tree of
-the slice that added them or later.
+``--slab-coeff`` only the K10a / K10b' group, ``--dz`` only the dz group
+(``--dz-sweep`` adds K6 / K9b at 1..8 knots per CTA, launched by hand).
+The sweeps need a tree of the slice that added them or later.
+
+``--turns PARENT_TREE SAVE_DIR [flags]`` runs the A/B of this tree against
+PARENT_TREE in one call, one process per run: parent (saving), this tree
+(saving), this tree, parent, then ``--compare`` of the saved outputs, e.g.
+``--turns devscratch/parent devscratch/ab --dz``.
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -78,7 +93,25 @@ from pathlib import Path
 
 FLAGS = ("--cluster-sweep", "--window-sweep", "--team-sweep",
          "--ca-cluster-sweep", "--ca-pcr", "--slab-cluster-sweep",
-         "--coeff-cluster-sweep", "--slab-coeff")
+         "--coeff-cluster-sweep", "--slab-coeff", "--dz", "--dz-sweep")
+
+
+def turns(parent: str, save_dir: str, flags: list) -> None:
+    """The A/B in one call: this script on the parent tree, this tree, this
+    tree and the parent tree, one process each (each builds its tree's
+    kernels), the first two saving their outputs under save_dir; then
+    --compare of the two."""
+    import subprocess
+
+    here = str(Path(__file__).resolve())
+    saved = {"parent": f"{save_dir}/parent.pt", "change": f"{save_dir}/change.pt"}
+    for tree, save in ((parent, saved["parent"]), (".", saved["change"]),
+                       (".", None), (parent, None)):
+        cmd = [sys.executable, here, tree, *flags] + (["--save", save] if save else [])
+        print(f"== {' '.join(cmd[1:])}", flush=True)
+        subprocess.run(cmd, check=True)
+    subprocess.run([sys.executable, here, "--compare", saved["parent"],
+                    saved["change"]], check=True)
 
 
 def compare(path_a: str, path_b: str) -> None:
@@ -336,10 +369,138 @@ def slab_coeff(tree, c, torch, dev, keep, slab_sweep: bool,
                       flush=True)
 
 
+def dz_group(tree, c, torch, dev, keep, sweep: bool) -> None:
+    """K6 (N = 64, 512) and K9b (512 over 8, 64 over 4 shards, on
+    halo-extended slabs of L + 4 knots) at nq = 7, 3 and 5 on seeded blocks,
+    and K8c at B = 256: outputs kept, device times printed; the pairs on
+    their routes: K2' (from K2's lam on the real system at N = 64, with no
+    CG step: max_iter = 0) then K6, and the sharded step's halo glue then
+    K9b; with a tree that has dz_warp_launch also each K6 / K9b case
+    without programmatic dependent launch and the launch floor (the empty
+    kernel on each case's grid, with and without it); with ``sweep`` K6 /
+    K9b at every number of knots per CTA its kernel takes."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch import _kernels
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.models import iiwa14
+    from mpcgpu_tpu_torch.ops import pcg_cuda
+    from mpcgpu_tpu_torch.parallel import KnotMesh
+    from mpcgpu_tpu_torch.parallel.batched_cuda import compute_dz_batched
+    from mpcgpu_tpu_torch.parallel.sqp_sharded import _next
+    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
+
+    new = "dz_warp_launch" in _kernels._SIGNATURES["pcg_dz.cu"]
+    rng = np.random.default_rng(11)
+    T = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                    device=dev)
+    rho = torch.full((), c.RHO0, device=dev)
+    times, raw = {}, {}
+    for nq in (7, 3, 5):
+        nx, w = 2 * nq, 3 * nq
+        for N in (c.N_MAIN, c.N_BIG):
+            sys_ = {"Qinv": T(N, nx, nx), "A": T(N, nx, nx), "B": T(N, nx, nq),
+                    "q": T(N, nx)}
+            lam, u = T(N, nx), T(N, w)[:, nx:]
+            name = f"K6 nq={nq} N={N}"
+            fn = lambda sys_=sys_, lam=lam, u=u: pcg_cuda.compute_dz_cuda(
+                sys_, lam, u, rho, 0.1)
+            keep(name, fn())
+            times[name] = c.graph_ms(torch, fn)
+            raw[name] = (N, 1, (lam.data_ptr(), None, None,
+                                *(sys_[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
+                                N, u.data_ptr(), u.stride(0), 0, rho.data_ptr(), 0.1,
+                                N, 1), nq, (sys_, lam, u))
+        for N, S in c.SHARD_CASES:
+            L = N // S
+            ext = {"Qinv": T(S, L + 4, nx, nx), "A": T(S, L + 4, nx, nx),
+                   "B": T(S, L + 4, nx, nq), "q": T(S, L + 4, nx)}
+            sl = {k: v[:, 2:2 + L] for k, v in ext.items()}
+            lam_s = T(S, L, nx)
+            lam_n = torch.roll(lam_s.reshape(N, nx), -1, 0).reshape(S, L, nx)
+            last_s = (torch.arange(N, device=dev) == N - 1).float().reshape(S, L)
+            u_s = T(S, L, w)[..., nx:]
+            name = f"K9b nq={nq} N={N}/{S}"
+            fn = lambda a=(sl, lam_s, lam_n, last_s, u_s): pcg_cuda.compute_dz_slab(
+                *a, rho, 0.1)
+            keep(name, fn())
+            times[name] = c.graph_ms(torch, fn)
+            raw[name] = (L, S, (lam_s.data_ptr(), lam_n.data_ptr(), last_s.data_ptr(),
+                                *(sl[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
+                                L + 4, u_s.data_ptr(), u_s.stride(1), u_s.stride(0),
+                                rho.data_ptr(), 0.1, L, S), nq,
+                         (ext, lam_s, lam_n, last_s, u_s))
+    # K8c at B = 256 on seeded blocks
+    B, N = c.B_MAIN, c.N_MAIN
+    sb = {"Qinv": T(B, N, 14, 14), "A": T(B, N, 14, 14), "B": T(B, N, 14, 7),
+          "q": T(B, N, 14)}
+    lam_b, u_b, rho_b = T(B, N, 14), T(B, N, 21)[..., 14:], torch.full((B,), c.RHO0,
+                                                                      device=dev)
+    k8c = lambda: compute_dz_batched(sb, lam_b, u_b, rho_b, 0.1)
+    keep(f"dz K8c B={B}", k8c())
+    times[f"K8c B={B}"] = c.graph_ms(torch, k8c)
+    # the pairs: K2' (no CG step: r0, z0 and the exit test) then K6 on the
+    # real system, the halo glue then K9b
+    m = iiwa14(torch.float32, device=dev)
+    cost = CostConfig.for_knots(N)
+    xu, xs, ee, _ = c.problem(N, torch, dev)
+    s = build_kkt_schur(m, cost, xu, xs, ee, rho, c.DT, 0)
+    lam2 = pcg_cuda.pcg_dz_solve(s, torch.zeros_like(s["gamma"]), xu[:, 14:], rho,
+                                 cost.r_cost, max_iter=167, exit_tol=1e-5)[0]
+    solve = getattr(pcg_cuda, "pcg_solve_cuda_uncast", pcg_cuda.pcg_solve_cuda)
+    pair6 = lambda: pcg_cuda.compute_dz_cuda(
+        s, solve(s["S"], s["Pinv"], s["gamma"], lam2, max_iter=0).lam, xu[:, 14:],
+        rho, cost.r_cost)
+    keep("dz pair K2' -> K6", pair6())
+    times[f"pair K2' -> K6 N={N}"] = c.graph_ms(torch, pair6)
+    N9, S9 = c.SHARD_CASES[0]
+    L9 = N9 // S9
+    mesh = KnotMesh(S9)
+    sl9 = {k: T(S9, L9 + 4, *shape)[:, 2:2 + L9]
+           for k, shape in (("Qinv", (14, 14)), ("A", (14, 14)), ("B", (14, 7)),
+                            ("q", (14,)))}
+    lam9, u9 = T(S9, L9, 14), T(S9, L9, 21)[..., 14:]
+    last9 = (torch.arange(N9, device=dev) == N9 - 1).float().reshape(S9, L9)
+    pair9 = lambda: pcg_cuda.compute_dz_slab(
+        sl9, lam9, _next(lam9, mesh.send_left(lam9[:, 0])), last9, u9, rho, 0.1)
+    keep("dz pair glue -> K9b", pair9())
+    times[f"pair glue -> K9b N={N9}/{S9}"] = c.graph_ms(torch, pair9)
+    if new:
+        for name, (n, batch, args, nq, _) in raw.items():
+            plan = pcg_cuda.dz_plan(n, 2 * nq)
+            out = torch.empty((batch * n, 3 * nq), device=dev)
+            times[f"{name} without PDL"] = c.graph_ms(
+                torch, lambda: c.dz_launch_raw(plan, 0, args, out))
+            for pdl in (1, 0):
+                times[f"empty on {name}'s grid{'' if pdl else ' without PDL'}"] = \
+                    c.graph_ms(torch, lambda: c.dz_empty(dev, plan, batch, pdl, nq))
+    print(f"{tree.name or tree}: " + ", ".join(
+        f"{k} {v * 1e3:.3f} us" for k, v in times.items()) + f"; {c.card_line()}",
+          flush=True)
+    if not (sweep and new):
+        return
+    for name in ("K6 nq=7 N=64", "K6 nq=7 N=512", "K9b nq=7 N=512/8", "K9b nq=7 N=64/4"):
+        n, batch, args, nq, _ = raw[name]
+        out = torch.empty((batch * n, 3 * nq), device=dev)
+        ref = None
+        for kpc in range(1, pcg_cuda.DZ_MAX_KPC + 1):
+            plan = pcg_cuda.DzPlan(kpc, -(-n // kpc), 4 * kpc * pcg_cuda.dz_knot_floats(14))
+            fn = lambda plan=plan: c.dz_launch_raw(plan, 1, args, out)
+            fn()
+            torch.cuda.synchronize()
+            ref = out.clone() if ref is None else ref
+            print(f"  dz sweep {name}: {kpc} knots per CTA ({plan.ctas} CTAs per "
+                  f"instance): {c.graph_ms(torch, fn) * 1e3:.3f} us; equal to 1 knot "
+                  f"per CTA bit for bit {torch.equal(out, ref)}", flush=True)
+
+
 def main():
     args = sys.argv[1:]
     if args[:1] == ["--compare"]:
         compare(args[1], args[2])
+        return
+    if args[:1] == ["--turns"]:
+        turns(args[1], args[2], args[3:])
         return
     save = None
     if "--save" in args:
@@ -388,8 +549,10 @@ def main():
         else:
             outs[name] = res.detach().cpu()
 
-    group = [f for f in ("--ca-pcr", "--slab-coeff") if f in sys.argv]
+    group = [f for f in ("--ca-pcr", "--slab-coeff", "--dz") if f in sys.argv]
     if group:
+        if "--dz" in group:
+            dz_group(tree, c, torch, dev, keep, "--dz-sweep" in sys.argv)
         if "--ca-pcr" in group:
             ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
         if "--slab-coeff" in group:
@@ -475,6 +638,7 @@ def main():
     ca_pcr(tree, c, torch, dev, keep, "--ca-cluster-sweep" in sys.argv)
     slab_coeff(tree, c, torch, dev, keep, "--slab-cluster-sweep" in sys.argv,
                "--coeff-cluster-sweep" in sys.argv)
+    dz_group(tree, c, torch, dev, keep, "--dz-sweep" in sys.argv)
 
     # K2, K2', K4, K8b, K4b
     s = build_kkt_schur(m, cost, xu, xs, ee, rho, c.DT, 0)

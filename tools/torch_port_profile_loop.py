@@ -16,11 +16,12 @@ s-step kernels).  ``--batch B`` traces the batched loop instead
 (``simulate_mpc_ondevice_batched``, B instances; phase 4e: ``--batch 256
 --start 350``).  ``--chain`` traces ``--updates`` steps of chip_smoke.py's
 warm-started chain instead (phase 3: ``run_chain``, SQPConfig(max_iter=1),
-the noisy trace ``chip_smoke.problem`` makes).
+the noisy trace ``chip_smoke.problem`` makes).  ``--split-dz`` runs the
+single-device loop on its ``fused_dz=False`` route (K1 -> K2' -> K6).
 
     python3 tools/torch_port_profile_loop.py [--updates 48] [--trace out.json]
         [--knots 64] [--knot-shards 0] [--pcg-method pipelined] [--batch 0]
-        [--traj 0_0] [--start 0] [--chain]
+        [--traj 0_0] [--start 0] [--chain] [--split-dz] [--top 15]
 
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -49,6 +50,10 @@ def main():
     ap.add_argument("--start", type=int, default=0)
     ap.add_argument("--chain", action="store_true",
                     help="trace the warm-started chain (one SQP iteration a step)")
+    ap.add_argument("--top", type=int, default=15,
+                    help="print this many kernels by device time")
+    ap.add_argument("--split-dz", action="store_true",
+                    help="the fused_dz=False route (K2' then K6)")
     args = ap.parse_args()
 
     import torch
@@ -69,6 +74,8 @@ def main():
     cap = PCGConfig.tuned_max_iter(N)
     mesh = dict(knot_mesh=KnotMesh(args.knot_shards),
                 pcg_method=args.pcg_method) if args.knot_shards else {}
+    if args.split_dz:
+        mesh["fused_dz"] = False
     kw = dict(sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
               pcg_cfg=PCGConfig(max_iter=cap, exit_tol=1e-5),
               sim_cfg=SimConfig(max_control_updates=args.updates))
@@ -120,7 +127,7 @@ def main():
           f"us each (under the profiler), device kernel time {busy / n:.1f} "
           f"us each, busy share {100 * busy / wall_us:.1f}%, "
           f"{launches / n:.1f} kernel launches each")
-    for key, us in device.most_common(15):
+    for key, us in device.most_common(args.top):
         print(f"  {us / n:10.2f} us/update {100 * us / busy:6.2f}%  {key[:90]}")
     for key in sorted(calls):
         print(f"  host call {key}: {calls[key]} ({calls[key] / n:.2f} per update)")
