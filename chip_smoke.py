@@ -125,9 +125,29 @@ Phases (any failure raises and the script exits non-zero):
      instance axis, in turns; K6 and K9b beside the earlier dz_kernel and
      without programmatic dependent launch, the empty kernel on their grids
      (the launch floor) and the pairs K2' -> K6 and halo glue -> K9b;
+  7. the multi-card path (``multicard_checks``): one worker process per
+     visible card, at most four, in one NCCL group on a localhost
+     coordinator (this script with ``--multicard-worker``), each finding its
+     card through ``initialize_distributed``; one wall limit for all of
+     them, and any worker that fails or hangs fails the script.  With one
+     visible card, one worker in a world of 1: the sharded SQP through
+     every route over the one-process mesh == KnotMesh(1) bit for bit (its
+     psum and gather go through NCCL), its loop likewise, and the fleet
+     over make_host_aligned_mesh(1).  With four: the knot axis over 2
+     cards (N = 64, 512; every pcg_method and route) == KnotMesh(2) bit
+     for bit, which with two instance groups is also the 2 x 2 grid (its
+     batched solve == make_mesh(2, 2) bit for bit); the knot axis over 4
+     cards (N = 512, 64; ca_slab and pipelined_slab) held to pcg_cuda and
+     f64 at phase 4d's bounds, every rank the same bits, and its loops
+     within phase 4d's band; the fleet over the instance axis (B = 256,
+     each card's 64 instances == the one-card loop's bit for bit); the
+     launches and collectives per SQP iteration of every path; the times
+     of the knot axis beside KnotMesh(4) and pcg_cuda on one card, of the
+     fleet beside one card's loop, of one collective of each kind the
+     solves issue, and of the card guard;
   6. print one JSON line of kernel results (each row with the nq values its
-     kernel was checked at and its nq = 3, 5 numbers), the card line, and
-     the final {"ok": true, ...} line.
+     kernel was checked at, its nq = 3, 5 numbers and the cards it ran on),
+     the card line, and the final {"ok": true, ...} line.
 
 Without a CUDA device it exits at once with a non-zero code.  It imports
 nothing of JAX.
@@ -2376,6 +2396,599 @@ def ca_pcg_run(c, mesh, SS, PP, gg, kernels, max_iter, exit_tol, exit_criterion=
     return lam.reshape(N, -1), int(it[0]), bool(done[0])
 
 
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper (KERNELS' order), whose .launches counts its
+    launches."""
+    from mpcgpu_tpu_torch.ops.pcg_ca_cuda import ca_basis_cuda, ca_coeff_step_cuda
+    from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
+                                               pcg_dz_solve, pcg_solve_cuda)
+    from mpcgpu_tpu_torch.ops.pcg_slab_cuda import pcg_slab_step_cuda
+    from mpcgpu_tpu_torch.ops.pcr_cuda import pcr_solve_cuda
+    from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
+                                                        compute_dz_batched,
+                                                        line_search_merits_batched,
+                                                        pcg_solve_batched)
+    from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant, simulate_plant_batched
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
+                                                  build_kkt_schur_slab)
+    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
+                                                    line_search_merits_fused)
+
+    return dict(zip(KERNELS, (build_kkt_schur, pcg_dz_solve,
+                              line_search_merits_fused, simulate_plant,
+                              build_kkt_cuda, pcg_solve_cuda, compute_dz_cuda,
+                              pcr_solve_cuda, build_kkt_schur_batched,
+                              pcg_solve_batched, compute_dz_batched,
+                              line_search_merits_batched, build_kkt_schur_slab,
+                              compute_dz_slab, line_search_merit_partials_slab,
+                              pcg_slab_step_cuda, ca_basis_cuda,
+                              ca_coeff_step_cuda, simulate_plant_batched)))
+
+
+# ---- phase 7: the multi-card path --------------------------------------------
+MULTI_CARDS = 4           # the most cards phase 7 spreads over (one host)
+# one wall limit for all of phase 7's workers (s), with one visible card
+# and with more: a hang is the likely failure of a collective, and it fails
+# the script
+MULTI_TIMEOUT = (300, 900)
+# the sharded solve's routes held bit for bit to the same solve on a
+# one-card mesh of as many shards: (fused, pcg_method, preconditioner)
+MULTI_ROUTES = tuple((True, m, "stair") for m in
+                     ("classic", "pipelined_slab", "ca", "ca_slab")) + tuple(
+    (False, m, "stair") for m in
+    ("classic", "pipelined", "pipelined_slab", "ca", "ca_slab")) + (
+    (False, "pipelined", "jacobi"), (False, "pipelined", "none"))
+MULTI_METHODS = ("ca_slab", "pipelined_slab")   # the knot axis over every card
+GRID_B = 8                 # the (instance, knot) grid's batch
+ONE_CARD_UPDATES = 16      # the one-process mesh's loop (one visible card)
+NCCL_CALLS = 200           # calls per timing of one collective
+CHECKS_FAILED = 3          # a worker's exit code when it ran to its end with failed checks
+GUARD_CALLS = 10_000       # entries of the card guard per timing
+
+
+def shard_configs(N: int):
+    """Phase 4d's configuration of the sharded solves and loops at N."""
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
+
+    return (CostConfig.for_knots(N), SQPConfig(max_iter=2, max_time_us=None),
+            PCGConfig(max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5))
+
+
+def nccl_packets(torch, dev, s: int = CA_S, nx: int = 14) -> dict:
+    """One tensor per kind of collective the knot-sharded solves issue, at
+    its size: name -> (send pair or all_reduce, tensor)."""
+    from mpcgpu_tpu_torch.ops.pcg_ca import n_parts
+
+    h = 2 * s + 1
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        f"K10b' packet, send pair (2, {h}, {nx}) f32":
+            ("send", torch.ones((1, 2, h, nx), **f32)),
+        f"K10a packet, send pair (6, {nx}) f32": ("send", torch.ones((1, 6, nx), **f32)),
+        "K9a halo rows, send pair (2, 21) f32": ("send", torch.ones((1, 2, 21), **f32)),
+        f"s-step halo blocks, send pair ({h}, 3, {nx}, {nx}) f32 (once a solve)":
+            ("send", torch.ones((1, h, 3, nx, nx), **f32)),
+        f"Gram parts, all_reduce ({n_parts(s)},) f64":
+            ("psum", torch.ones((1, n_parts(s)), dtype=torch.float64, device=dev)),
+        "K10a dots, all_reduce (3,) f32": ("psum", torch.ones((1, 3), **f32)),
+        "merits, all_reduce (9,) f32": ("psum", torch.ones((1, 9), **f32)),
+    }
+
+
+def collective_us(torch, mesh, kind: str, x, calls: int = NCCL_CALLS) -> tuple:
+    """(device us, host us) per call of one collective on mesh, over
+    ``calls`` calls in a row after 10 warm ones: CUDA events on the current
+    stream, which waits on each call's NCCL work."""
+    fn = mesh.send_right if kind == "send" else mesh.psum
+    for _ in range(10):
+        fn(x)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(calls):
+        fn(x)
+    b.record()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) * 1e3 / calls, host * 1e6 / calls
+
+
+def multicard_checks(c) -> dict:
+    """Phase 7 (module docstring): min(MULTI_CARDS, visible cards) worker
+    processes of ``multicard_worker``, one per card, in one NCCL group on a
+    localhost coordinator.  The kernels are built here first, so the
+    workers only load them.  Every worker must exit 0 within
+    MULTI_TIMEOUT; if one fails or the limit passes, every worker is killed
+    and this raises.  Returns rank 0's summary, each kernel's count of the
+    cards it ran on in this phase and every rank's check count."""
+    import socket
+    import tempfile
+
+    from mpcgpu_tpu_torch import _kernels
+
+    torch, expect = c.torch, c.expect
+    _kernels.load([(src, _kernels.NQ_DEFAULT) for src in _kernels.SOURCES])
+    world = min(MULTI_CARDS, torch.cuda.device_count())
+    if world < 2:
+        print(f"  {torch.cuda.device_count()} visible card: one worker in a world "
+              "of 1 over NCCL; the 2- and 4-card checks need 2 or more visible "
+              "cards (4 on one host for all of them)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    sock.close()
+    limit = MULTI_TIMEOUT[world > 1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multicard_") as tmp:
+        tmp = Path(tmp)
+        logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--multicard-worker",
+             coord, str(world), str(r), str(tmp)],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+            for r in range(world)]
+        deadline = time.monotonic() + limit
+        failed = None
+        try:
+            while failed is None:
+                codes = [p.poll() for p in procs]
+                if any(code not in (None, 0, CHECKS_FAILED) for code in codes):
+                    failed = f"worker exit codes {codes} (None: still running)"
+                elif all(code in (0, CHECKS_FAILED) for code in codes):
+                    break
+                elif time.monotonic() > deadline:
+                    failed = (f"the workers ran past {limit} s: exit codes {codes} "
+                              "(None: still running)")
+                else:
+                    time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for p in procs:
+                p.wait()
+            for f in logs:
+                f.close()
+        texts = [(tmp / f"rank{r}.log").read_text() for r in range(world)]
+        print(texts[0], end="")          # rank 0's checks and times in full
+        for r, text in enumerate(texts[1:], 1):
+            lines = text.splitlines()
+            bad = [ln[:300] for ln in lines if ln.startswith("  FAIL")]
+            print(f"  [rank {r}] checks passed "
+                  f"{sum(ln.startswith('  ok') for ln in lines)}, failed "
+                  f"{len(bad)}" + "".join(f"\n  {ln}" for ln in bad))
+            if failed:
+                print(f"---- rank {r}: last lines ----\n"
+                      + "\n".join(lines[-20:]))
+        if failed:
+            raise SmokeFailure(f"phase 7: {failed}")
+        results = [json.loads((tmp / f"rank{r}.json").read_text())
+                   for r in range(world)]
+    for res in results:
+        expect(not res["failures"],
+               f"phase 7 rank {res['rank']} on cuda:{res['card']} of {world}: "
+               f"{res['checks']} checks, failed {res['failures'] or 'none'}")
+    cards = {k: sum(1 for res in results if res["launches"][k] > 0) for k in KERNELS}
+    return dict(world=world, cards=cards, summary=results[0]["summary"],
+                checks=[res["checks"] for res in results],
+                launches=results[0]["launches"],
+                timings_by_rank=[res["summary"].get("timings") for res in results])
+
+
+def multicard_worker(argv) -> int:
+    """One process of phase 7: argv = (the coordinator "host:port", the
+    world size, this rank, the directory for its results).  It finds its
+    card through ``initialize_distributed`` (under test), runs the checks
+    its world allows, writes rank<r>.json and exits with CHECKS_FAILED if
+    a check failed."""
+    coord, world, rank, out_dir = argv[0], int(argv[1]), int(argv[2]), Path(argv[3])
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from mpcgpu_tpu_torch.config import PCGConfig, SimConfig, SQPConfig
+    from mpcgpu_tpu_torch.models import iiwa14
+    from mpcgpu_tpu_torch.parallel import (KnotMesh, initialize_distributed,
+                                           make_host_aligned_mesh, make_mesh,
+                                           sqp_solve_batched_fused_sharded,
+                                           sqp_solve_sharded)
+    from mpcgpu_tpu_torch.sim.mpc import (simulate_mpc_ondevice,
+                                          simulate_mpc_ondevice_batched)
+    from mpcgpu_tpu_torch.sim.plant_cuda import simulate_plant
+    from mpcgpu_tpu_torch.solver.sqp import sqp_solve
+    from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
+
+    initialize_distributed(coord, num_processes=world, process_id=rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    wrappers = kernel_wrappers()
+    failures, n_checks = [], [0]
+    total = {k: 0 for k in KERNELS}     # launches of the multi-card paths
+
+    def expect(ok: bool, msg: str):
+        n_checks[0] += 1
+        print(("  ok   " if ok else "  FAIL ") + f"[rank {rank}] {msg}", flush=True)
+        if not ok:
+            failures.append(msg)
+
+    def counted(fn, *args, **kw):
+        """fn(*args, **kw) with every launch count set to 0 just before it;
+        (result, the counts just after), added to this phase's total."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        n = {k: w.launches for k, w in wrappers.items()}
+        for k, v in n.items():
+            total[k] += v
+        return out, n
+
+    def everywhere(t) -> bool:
+        """Every rank of the world holds t's bits."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(parts, t)
+        return all(torch.equal(p, parts[0]) for p in parts)
+
+    def finite(*ts) -> bool:
+        return all(bool(torch.isfinite(t).all()) for t in ts)
+
+    def per_iter(mesh, before, n, it) -> dict:
+        """Sends, psums and each kernel's launches per SQP iteration."""
+        return dict(sends=(mesh.n_send - before[0]) / it,
+                    psums=(mesh.n_psum - before[1]) / it,
+                    launches={k.split()[0]: v / it for k, v in n.items() if v})
+
+    visible = torch.cuda.device_count()
+    model = iiwa14(torch.float32)            # the entry point's default device
+    m64 = iiwa14(torch.float64)
+    expect(dev.index == rank % visible and model.xc.device == dev
+           and dist.get_backend() == "nccl",
+           f"initialize_distributed made cuda:{dev.index} current ({visible} "
+           f"visible, rank {rank} of {world}); iiwa14() on {model.xc.device}; "
+           f"backend {dist.get_backend()}")
+    summary = dict(world=world, card=dev.index)
+
+    def setup(N):
+        trace, start = SHARD_START[N]
+        xu, xs, ee, _ = problem(N, torch, dev, 0, start, trace)
+        lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+        xu_tr = load_xu_traj(trace)[start:start + N + LOOP_ROWS]
+        ee_tr = load_eepos_traj(trace)[start:start + N + LOOP_ROWS]
+        return (trace, start), (xu, lam0, xs, ee), (xu_tr, ee_tr)
+
+    def loop(N, xu_tr, ee_tr, updates, **kw):
+        cost, sqp, pcg = shard_configs(N)
+        return simulate_mpc_ondevice(model, xu_tr, ee_tr, N, DT, cost=cost,
+                                     sqp_cfg=sqp, pcg_cfg=pcg,
+                                     sim_cfg=SimConfig(max_control_updates=updates),
+                                     **kw)
+
+    def held_to_one_card(mesh, N):
+        """Every route of the sharded solve over ``mesh`` == the same solve
+        on KnotMesh(mesh.size) on this card, bit for bit: a psum of one or
+        two terms and a halo copy do not depend on where the shards are,
+        and the bodies take their per-shard sums shard by shard
+        (``parallel/pcg_sharded.py::_per_shard``)."""
+        (trace, start), (xu, lam0, xs, ee), _ = setup(N)
+        cost, sqp, pcg = shard_configs(N)
+        rows = {}
+        for fused, method, prec in MULTI_ROUTES:
+            pc = dataclasses.replace(pcg, preconditioner=prec)
+            before = (mesh.n_send, mesh.n_psum)
+            got, n = counted(sqp_solve_sharded, model, cost, sqp, pc, xu, lam0, xs,
+                             ee, RHO0, DT, mesh, fused=fused, pcg_method=method)
+            ref = sqp_solve_sharded(model, cost, sqp, pc, xu, lam0, xs, ee, RHO0,
+                                    DT, KnotMesh(mesh.size), fused=fused,
+                                    pcg_method=method)
+            torch.cuda.synchronize()
+            it = int(got.sqp_iters)
+            differ = [f for f in got._fields
+                      if not torch.equal(getattr(got, f), getattr(ref, f))]
+            route = f"{'fused' if fused else 'unfused'} {method} {prec}"
+            rows[route] = per_iter(mesh, before, n, it)
+            expect(not differ and finite(got.xu, got.lam),
+                   f"N={N} over {mesh.size} card(s) ({trace} row {start}), {route}: "
+                   f"== KnotMesh({mesh.size}) on one card bit for bit (differing "
+                   f"{differ or 'none'}); per SQP iteration ({it}): {rows[route]}")
+        return rows
+
+    def knot_axis_checks(mesh):
+        """The knot axis over every card: each solve held to the one-card
+        pcg_cuda and f64 solves at phase 4d's bounds, every rank the same
+        bits; the loops within phase 4d's band of the one-card loop."""
+        out = {}
+        for N in (N_BIG, N_MAIN):
+            (trace, start), (xu, lam0, xs, ee), (xu_tr, ee_tr) = setup(N)
+            args = shard_configs(N)
+            one = sqp_solve(model, *args, xu, lam0, xs, ee, RHO0, DT, linsys="pcg_cuda")
+            plain = sqp_solve(model, *args, xu, lam0, xs, ee, RHO0, DT, linsys="pcg",
+                              merit_impl="plain")
+            f64 = sqp_solve(m64, *args, xu.double(), lam0.double(), xs.double(),
+                            ee.double(), RHO0, DT, linsys="pcg", merit_impl="plain")
+            sh_plain = sqp_solve_sharded(model, *args, xu, lam0, xs, ee, RHO0, DT,
+                                         KnotMesh(mesh.size), fused=False,
+                                         pcg_method="pipelined")
+            ca_plain = sqp_solve_sharded(model, *args, xu, lam0, xs, ee, RHO0, DT,
+                                         KnotMesh(mesh.size), fused=False,
+                                         pcg_method="ca")
+            res, rows = {}, {}
+            for method in MULTI_METHODS:
+                before = (mesh.n_send, mesh.n_psum)
+                res[method], n = counted(sqp_solve_sharded, model, *args, xu, lam0,
+                                         xs, ee, RHO0, DT, mesh, pcg_method=method)
+                rows[method] = per_iter(mesh, before, n, int(res[method].sqp_iters))
+            e = {k: part_errs(r.xu, f64.xu) for k, r in
+                 (("pcg_cuda", one), ("plain", plain), ("plain sharded", sh_plain),
+                  ("plain s-step", ca_plain), *res.items())}
+            ca, pl = res["ca_slab"], res["pipelined_slab"]
+            near = all(abs(a - b) <= CA_S for a, b in
+                       zip(ca.pcg_iters.tolist(), one.pcg_iters.tolist()))
+            same_ls = ca.ls_alpha_idx.tolist() == one.ls_alpha_idx.tolist()
+            for key in ("x", "u"):
+                lim = 2 * max(e[k][key] for k in ("pcg_cuda", "plain",
+                                                  "plain sharded")) + 1e-4
+                expect(e["pipelined_slab"][key] <= lim,
+                       f"N={N} over {mesh.size} card(s), pipelined_slab, {key} part: "
+                       f"to f64 {e['pipelined_slab'][key]:.3e} (<= 2x max of "
+                       f"pcg_cuda, plain, plain sharded + 1e-4 = {lim:.3e}); "
+                       f"{fmt({k: v[key] for k, v in e.items()})}")
+                lim_c = 2 * max(e[k][key] for k in e if k != "ca_slab") + 1e-4
+                expect(near and same_ls and e["ca_slab"][key] <= lim_c,
+                       f"N={N} over {mesh.size} card(s), ca_slab, {key} part: to f64 "
+                       f"{e['ca_slab'][key]:.3e} (<= {lim_c:.3e}); PCG iterations "
+                       f"{ca.pcg_iters.tolist()} (pcg_cuda {one.pcg_iters.tolist()}, "
+                       f"within {CA_S}); line search {ca.ls_alpha_idx.tolist()} "
+                       f"(pcg_cuda {one.ls_alpha_idx.tolist()})")
+            for method, r in res.items():
+                expect(everywhere(r.xu) and everywhere(r.lam) and finite(r.xu, r.lam)
+                       and bool((r.ls_alpha_idx >= 0).any()),
+                       f"N={N} over {mesh.size} card(s), {method}: every rank's xu and "
+                       f"lam the same bits; finite; line search took "
+                       f"{r.ls_alpha_idx.tolist()} (a step); per SQP iteration "
+                       f"{rows[method]}")
+            single = loop(N, xu_tr, ee_tr, SHARD_UPDATES)
+            m_1 = float(single["tracking_errors"].double().mean())
+            loops = {}
+            for method in MULTI_METHODS:
+                before = (mesh.n_send, mesh.n_psum)
+                run, n = counted(loop, N, xu_tr, ee_tr, SHARD_UPDATES, knot_mesh=mesh,
+                                 pcg_method=method)
+                it = int(run["sqp_iters"].sum())
+                m_ = float(run["tracking_errors"].double().mean())
+                loops[method] = dict(mean_tracking_error=m_, sqp_iters=it,
+                                     per_update=per_iter(mesh, before, n,
+                                                         SHARD_UPDATES))
+                expect(abs(m_ / m_1 - 1) <= 1e-2 and n["K4 simulate_plant"] == SHARD_UPDATES
+                       and len(run["tracking_errors"]) == ROUTE_SHIFTS
+                       and finite(run["tracking_errors"], run["xs_path"])
+                       and everywhere(run["xs_path"])
+                       and everywhere(run["tracking_errors"]),
+                       f"loop N={N} over {mesh.size} card(s), {method}, {SHARD_UPDATES} "
+                       f"updates: mean tracking error {m_:.6g} (within 1% of the "
+                       f"one-card loop's {m_1:.6g}); every rank's path the same "
+                       f"bits; {it} SQP iterations; per update {loops[method]['per_update']}")
+            out[f"N={N} cards={mesh.size}"] = dict(
+                trace=trace, start_row=start, solve_per_sqp_iter=rows,
+                x_err={k: v["x"] for k, v in e.items()},
+                u_err={k: v["u"] for k, v in e.items()},
+                single_loop_mean_tracking_error=m_1, loops=loops)
+        return out
+
+    def other_card_checks():
+        """Every kernel source launched on the tensors of another card
+        while this process's card stays current: the same bits as on its
+        own card (an entry launches in the current device's context)."""
+        other = torch.device("cuda", (dev.index + 1) % visible)
+        (trace, start), _, _ = setup(N_MAIN)
+        args = shard_configs(N_MAIN)
+        outs = {}
+        for d in (dev, other):
+            m_ = iiwa14(torch.float32, device=d)
+            xu, xs, ee, _ = problem(N_MAIN, torch, d, 0, start, trace)
+            lam0 = torch.zeros((N_MAIN, 14), dtype=torch.float32, device=d)
+            solve = lambda **kw: sqp_solve(m_, *args, xu, lam0, xs, ee, RHO0, DT, **kw)
+            sharded = lambda meth: sqp_solve_sharded(m_, *args, xu, lam0, xs, ee, RHO0,
+                                                     DT, KnotMesh(4), pcg_method=meth)
+            outs[d] = [solve(linsys="pcg_cuda").xu, solve(linsys="pcr_cuda").xu,
+                       sharded("ca_slab").xu, sharded("pipelined_slab").xu,
+                       simulate_plant(m_, xs, xu, 2e-3, 2e-3, DT, 10, 2e-4)]
+        torch.cuda.synchronize(other)
+        same = [torch.equal(a, b.to(dev)) for a, b in zip(outs[dev], outs[other])]
+        expect(all(same) and torch.cuda.current_device() == dev.index
+               and all(t.device == other for t in outs[other]),
+               f"with cuda:{dev.index} current, pcg_cuda (K1-K3), pcr_cuda (K5, K7, "
+               f"K3), ca_slab and pipelined_slab over KnotMesh(4) (K9a-c, K10a, K10b, "
+               f"K10b') and K4 on cuda:{other.index}'s tensors == on cuda:{dev.index} "
+               f"bit for bit {same}")
+
+    def grid_checks(mesh):
+        """The batched solve over the (instance, knot) grid: this rank's
+        instance slab == the same rows of make_mesh(n_instance, n_knot) on
+        one card, bit for bit."""
+        N = N_MAIN
+        xu_b, xs_b, ee_b, rho_b = batch_problem(GRID_B, N, torch, dev)
+        cost, sqp, pcg = shard_configs(N)
+        lam_b = torch.zeros((GRID_B, N, 14), dtype=torch.float32, device=dev)
+        got, n = counted(sqp_solve_batched_fused_sharded, model, cost, sqp, pcg,
+                         xu_b, lam_b, xs_b, ee_b, rho_b, DT, mesh)
+        ref = sqp_solve_batched_fused_sharded(
+            model, cost, sqp, pcg, xu_b, lam_b, xs_b, ee_b, rho_b, DT,
+            make_mesh(mesh.n_instance, mesh.size))
+        rows = mesh.instance_slices(GRID_B)[0]
+        differ = [f for f in got._fields
+                  if not torch.equal(getattr(got, f), getattr(ref, f)[rows])]
+        expect(not differ and got.xu.shape[0] == GRID_B // mesh.n_instance,
+               f"batched solve B={GRID_B} over the ({mesh.n_instance}, {mesh.size}) "
+               f"grid: instances {rows.start}..{rows.stop - 1} == "
+               f"make_mesh({mesh.n_instance}, {mesh.size}) on one card bit for bit "
+               f"(differing {differ or 'none'}); launches "
+               f"{ {k.split()[0]: v for k, v in n.items() if v} }")
+
+    def fleet_checks(fleet):
+        """The fleet over the instance axis: each card's instances of the
+        B_MAIN loop == the same rows of the unsharded loop on this card."""
+        xu_calm = load_xu_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
+        ee_calm = load_eepos_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
+        kw = dict(sqp_cfg=SQPConfig(max_iter=2),
+                  pcg_cfg=PCGConfig(max_iter=PCGConfig.tuned_max_iter(N_MAIN),
+                                    exit_tol=1e-5),
+                  sim_cfg=SimConfig(max_control_updates=BATCH_UPDATES))
+        mine, n = counted(simulate_mpc_ondevice_batched, model, xu_calm, ee_calm,
+                          N_MAIN, DT, B_MAIN, instance_mesh=fleet, **kw)
+        whole = simulate_mpc_ondevice_batched(model, xu_calm, ee_calm, N_MAIN, DT,
+                                              B_MAIN, **kw)
+        rows = fleet.instance_slices(B_MAIN)[0]
+        same = torch.equal(mine["shift_mask"], whole["shift_mask"]) and all(
+            torch.equal(mine[k], whole[k][rows])
+            for k in ("tracking_errors", "final_tracking_error"))
+        k8 = [k for k in KERNELS if k.startswith(("K8", "K3b"))]
+        it = n[k8[0]]
+        ok = all(n[k] == it for k in k8) and n["K4b simulate_plant_batched"] == BATCH_UPDATES
+        ok = ok and tuple(mine["tracking_errors"].shape) == (
+            B_MAIN // fleet.n_instance, BATCH_UPDATES)
+        expect(same and ok and finite(mine["tracking_errors"]),
+               f"fleet B={B_MAIN} N={N_MAIN} over {fleet.n_instance} card(s), "
+               f"{BATCH_UPDATES} updates from row {CALM_ROW}: instances "
+               f"{rows.start}..{rows.stop - 1} == the unsharded one-card loop's "
+               f"bit for bit {same}; launches "
+               f"{ {k.split()[0]: v for k, v in n.items() if v} } (K8a-c, K3b once "
+               f"per batched SQP iteration, {it}; K4b once per update)")
+        return dict(mean_tracking_error=float(mine["tracking_errors"].double().mean()),
+                    sqp_iterations=it, instances=rows.stop - rows.start)
+
+    def timings(mesh, fleet):
+        """CUDA-event slopes, medians of 3 (phase 5's), on every card at once:
+        the knot axis over all cards beside KnotMesh(W) and pcg_cuda on one
+        card; the fleet beside one card's B_MAIN loop; one collective of
+        each kind; the card guard's entry and exit on the host."""
+        W = mesh.size
+        out = {}
+        for N in (N_BIG, N_MAIN):
+            _, (xu, lam0, xs, ee), (xu_tr, ee_tr) = setup(N)
+            cost, _, pcg = shard_configs(N)
+            solve = lambda k, **kw: sqp_solve_sharded(
+                model, cost, SQPConfig(max_iter=k), pcg, xu, lam0, xs, ee, RHO0,
+                DT, **kw)
+            row = {}
+            for method in MULTI_METHODS:
+                for name, m_ in (("cards", mesh), ("one_card_mesh", KnotMesh(W))):
+                    it_us, it_runs = slope_us(torch, lambda k: solve(
+                        k, mesh=m_, pcg_method=method), 1, 3)
+                    upd_us, upd_runs = slope_us(torch, lambda k: loop(
+                        N, xu_tr, ee_tr, k, knot_mesh=m_, pcg_method=method),
+                        *SHARD_SLOPE)
+                    row[f"{method} {name}"] = dict(
+                        sqp_iter_us=it_us, sqp_iter_runs=it_runs, update_us=upd_us,
+                        update_runs=upd_runs)
+            it_us, it_runs = slope_us(torch, lambda k: sqp_solve(
+                model, cost, SQPConfig(max_iter=k), pcg, xu, lam0, xs, ee, RHO0, DT,
+                linsys="pcg_cuda"), 1, 3)
+            upd_us, upd_runs = slope_us(torch, lambda k: loop(N, xu_tr, ee_tr, k),
+                                        *SHARD_SLOPE)
+            row["pcg_cuda one card"] = dict(sqp_iter_us=it_us, sqp_iter_runs=it_runs,
+                                            update_us=upd_us, update_runs=upd_runs)
+            out[f"N={N} cards={W}"] = row
+            for name, r in row.items():
+                print(f"  [rank {rank}] N={N}, {name}: {r['sqp_iter_us']:.1f} us per "
+                      f"SQP iteration (runs {', '.join(f'{v:.1f}' for v in r['sqp_iter_runs'])}), "
+                      f"{r['update_us']:.1f} us per update (runs "
+                      f"{', '.join(f'{v:.1f}' for v in r['update_runs'])})", flush=True)
+        xu_calm = load_xu_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
+        ee_calm = load_eepos_traj("0_0")[CALM_ROW:CALM_ROW + LOOP_ROWS]
+        bl_kw = dict(sqp_cfg=SQPConfig(max_iter=2),
+                     pcg_cfg=PCGConfig(max_iter=PCGConfig.tuned_max_iter(N_MAIN),
+                                       exit_tol=1e-5))
+        fl = {}
+        # B_MAIN over the cards (B_MAIN / W a card), the same on one card, and
+        # B_MAIN a card (W B_MAIN over the cards)
+        for name, B, inst in (("cards", B_MAIN, fleet), ("one card", B_MAIN, None),
+                              ("cards, B_MAIN a card", W * B_MAIN, fleet)):
+            upd, runs = slope_us(torch, lambda k: simulate_mpc_ondevice_batched(
+                model, xu_calm, ee_calm, N_MAIN, DT, B,
+                sim_cfg=SimConfig(max_control_updates=k), instance_mesh=inst,
+                **bl_kw), *BATCH_SLOPE)
+            fl[name] = dict(batch=B, update_us=upd, runs=runs)
+            print(f"  [rank {rank}] fleet B={B}, {name}: {upd:.1f} us per update "
+                  f"(runs {', '.join(f'{v:.1f}' for v in runs)})", flush=True)
+        out["fleet"] = fl
+        coll = {}
+        for name, (kind, x) in nccl_packets(torch, dev).items():
+            runs = [collective_us(torch, mesh, kind, x) for _ in range(3)]
+            coll[name] = dict(device_us=statistics.median(r[0] for r in runs),
+                              host_us=statistics.median(r[1] for r in runs))
+            print(f"  [rank {rank}] {name} over {W} cards: {coll[name]['device_us']:.2f} "
+                  f"us (device), {coll[name]['host_us']:.2f} us (host) per call",
+                  flush=True)
+        x = torch.ones(3, device=dev)
+        raw = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(NCCL_CALLS):
+                dist.all_reduce(x)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            raw.append(((time.perf_counter() - t0) * 1e6 / NCCL_CALLS,
+                        host * 1e6 / NCCL_CALLS))
+        coll["dist.all_reduce (3,) f32, no mesh"] = dict(
+            wall_us=statistics.median(r[0] for r in raw),
+            host_us=statistics.median(r[1] for r in raw))
+        print(f"  [rank {rank}] dist.all_reduce (3,) f32 alone: "
+              f"{coll['dist.all_reduce (3,) f32, no mesh']}", flush=True)
+        out["collectives"] = coll
+        t0 = time.perf_counter()
+        for _ in range(GUARD_CALLS):
+            with torch.cuda.device(dev):
+                pass
+        t1 = time.perf_counter()
+        for _ in range(GUARD_CALLS):
+            torch.cuda.current_device() == dev.index
+        t2 = time.perf_counter()
+        out["card_guard_host_us"] = (t1 - t0) * 1e6 / GUARD_CALLS
+        out["current_card_test_host_us"] = (t2 - t1) * 1e6 / GUARD_CALLS
+        print(f"  [rank {rank}] host time of the card guard (torch.cuda.device) "
+              f"entered and left {out['card_guard_host_us']:.3f} us; of the test "
+              f"that skips it on the current card {out['current_card_test_host_us']:.3f} "
+              "us", flush=True)
+        return out
+
+    if world == 1:
+        # the one-process mesh: its psum and gather go through NCCL
+        mesh = make_host_aligned_mesh()
+        summary["one_process_routes"] = held_to_one_card(mesh, N_MAIN)
+        _, _, (xu_tr, ee_tr) = setup(N_MAIN)
+        got, _ = counted(loop, N_MAIN, xu_tr, ee_tr, ONE_CARD_UPDATES,
+                         knot_mesh=mesh, pcg_method="ca_slab")
+        ref = loop(N_MAIN, xu_tr, ee_tr, ONE_CARD_UPDATES, knot_mesh=KnotMesh(1),
+                   pcg_method="ca_slab")
+        keys = ("tracking_errors", "xs_path", "sqp_iters", "pcg_iters")
+        differ = [k for k in keys if not torch.equal(got[k], ref[k])]
+        expect(not differ, f"loop N={N_MAIN} over the one-process mesh, ca_slab, "
+               f"{ONE_CARD_UPDATES} updates: == KnotMesh(1) bit for bit (differing "
+               f"{differ or 'none'})")
+        summary["fleet"] = fleet_checks(make_host_aligned_mesh(1))
+    else:
+        other_card_checks()
+        mesh2 = make_host_aligned_mesh(2)
+        summary["two_rank_routes"] = {N: held_to_one_card(mesh2, N)
+                                      for N in (N_MAIN, N_BIG)}
+        if mesh2.n_instance > 1:
+            grid_checks(mesh2)
+        mesh = make_host_aligned_mesh()
+        summary["knot_axis"] = knot_axis_checks(mesh)
+        fleet = make_host_aligned_mesh(1)
+        summary["fleet"] = fleet_checks(fleet)
+        summary["timings"] = timings(mesh, fleet)
+    dist.barrier()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, card=dev.index, failures=failures, checks=n_checks[0],
+        launches=total, summary=summary)))
+    dist.destroy_process_group()
+    return CHECKS_FAILED if failures else 0
+
+
 def main() -> int:
     import torch
 
@@ -2445,18 +3058,7 @@ def main() -> int:
                                                     merit_team_plan)
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
-    # each kernel's wrapper, whose .launches counts its launches
-    wrappers = dict(zip(KERNELS, (build_kkt_schur, pcg_dz_solve,
-                                  line_search_merits_fused, simulate_plant,
-                                  build_kkt_cuda, pcg_solve_cuda,
-                                  compute_dz_cuda, pcr_solve_cuda,
-                                  build_kkt_schur_batched, pcg_solve_batched,
-                                  compute_dz_batched,
-                                  line_search_merits_batched,
-                                  build_kkt_schur_slab, compute_dz_slab,
-                                  line_search_merit_partials_slab,
-                                  pcg_slab_step_cuda, ca_basis_cuda,
-                                  ca_coeff_step_cuda, simulate_plant_batched)))
+    wrappers = kernel_wrappers()
 
     def counted(fn, *args, **kw):
         """fn(*args, **kw) with every launch count set to 0 just before it;
@@ -4348,6 +4950,16 @@ def main() -> int:
         row["nq_checked"] = sorted(NQ_CASES + (7,))
         row["nq"] = {str(nq): per_nq[nq][row["name"]] for nq in NQ_CASES}
 
+    # ---- phase 7: the multi-card path ----------------------------------------
+    world = min(MULTI_CARDS, torch.cuda.device_count())
+    phase(f"phase 7: multi-card: {world} worker process(es), one card each, "
+          "in one NCCL group")
+    multi = multicard_checks(ctx)
+    if failures:
+        raise SmokeFailure(f"phase 7: {len(failures)} check(s) failed")
+    for row in rows:             # the cards each kernel ran on: phase 7's, else card 0
+        row["cards"] = multi["cards"][row["name"]] or 1
+
     # ---- phase 6: results -----------------------------------------------
     print(json.dumps({"kernels": rows, "chain_step_us": step_us,
                       "mean_pcg_iters": it_k, "plain_mean_pcg_iters": it_p,
@@ -4365,6 +4977,7 @@ def main() -> int:
                       "onboarding": onboard,
                       "nq_paths": slice_paths,
                       "dz_slice_us": dz_slice,
+                      "multicard": multi,
                       "card": card}))
     phase("chip_smoke: done")
     print(card_line())
@@ -4375,4 +4988,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multicard-worker"]:
+        sys.exit(multicard_worker(sys.argv[2:]))
     sys.exit(main())

@@ -212,6 +212,26 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(device, src: str, name: str, nq: int, *args) -> None:
+    """Call the C entry point ``name`` of ``src`` built for nq joints with
+    ``args`` and the current stream of ``device``, with ``device`` the
+    current card for the call, and raise on its error code.  An entry
+    launches in the current device's context (kkt_schur.cu and merit.cu
+    also size their grids from it), so a wrapper that launches here
+    launches on its tensors' card whichever card its caller left current.
+    The guard (``torch.cuda.device``, ~3.5 us of host time on an H100's
+    host) is entered only when another card is current; a device that is
+    not a card raises."""
+    import torch
+
+    fn = entry(src, name, nq)
+    if torch.cuda.current_device() == device.index:
+        check(fn(*args, stream_ptr(device)), name)
+        return
+    with torch.cuda.device(device):
+        check(fn(*args, stream_ptr(device)), name)
+
+
 MAX_KNOTS = 512
 
 

@@ -180,7 +180,8 @@ def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
             raise ValueError(f"{name}: K10b needs 16-byte aligned shard slabs")
     for name, t in (("fl", fl), ("fr", fr)):
         _kernels.require(t, name, (n_shard, 2, h, nx), dev)
-    code = _kernels.entry("pcg_ca.cu", "ca_basis_launch", nq=nx // 2)(
+    _kernels.launch(
+        dev, "pcg_ca.cu", "ca_basis_launch", nx // 2,
         st["p"].data_ptr(), st["z"].data_ptr(), st["r"].data_ptr(),
         S.data_ptr(), Pinv.data_ptr(), S.stride(0), SL.data_ptr(),
         SR.data_ptr(), PL.data_ptr(), PR.data_ptr(), fl.data_ptr(),
@@ -188,8 +189,7 @@ def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
         st["done"].data_ptr(), st["Y"].data_ptr(), st["Yt"].data_ptr(),
         st["parts"].data_ptr(), L, s, n_shard, int(max_iter), plan.cluster,
         plan.knots_per_cta, int(plan.blocks_in_smem), plan.threads,
-        plan.smem_bytes, _kernels.stream_ptr(dev))
-    _kernels.check(code, "ca_basis_launch")
+        plan.smem_bytes)
     ca_basis_cuda.launches += 1
 
 
@@ -210,14 +210,13 @@ def ca_coeff_step_cuda(st: dict, tot, max_iter: int, exit_tol,
                          "of unit stride")
     plan = coeff_plan(L, s, nx=nx)
     tol_t = _kernels.scalar(exit_tol, dev)
-    code = _kernels.entry("pcg_ca.cu", "ca_coeff_launch", nq=nx // 2)(
+    _kernels.launch(
+        dev, "pcg_ca.cu", "ca_coeff_launch", nx // 2,
         *(st[k].data_ptr() for k in ("x", "r", "z", "p", "Y", "Yt")),
         tot.data_ptr(), tot.stride(0), st["scal"].data_ptr(),
         st["iters"].data_ptr(), st["done"].data_ptr(), st["pkt"].data_ptr(),
         L, s, n_shard, plan.cluster, plan.rows_per_cta, plan.threads,
-        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "ca_coeff_launch")
+        int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"))
     ca_coeff_step_cuda.launches += 1
 
 

@@ -225,14 +225,14 @@ def pcg_dz_solve(sys: dict, lam0, u, rho, r_cost: float, max_iter: int = 173,
     lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
     dz = torch.empty((N, nx + nu), dtype=torch.float32, device=dev)
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "pcg_dz_launch", nq=nu)(
+    _kernels.launch(
+        dev, "pcg_dz.cu", "pcg_dz_launch", nu,
         sys["S"].data_ptr(), sys["Pinv"].data_ptr(), sys["gamma"].data_ptr(),
         lam0.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(0),
         rho_t.data_ptr(), float(r_cost), int(max_iter), tol_t.data_ptr(),
         int(exit_criterion == "rnorm"), N, *plan, lam.data_ptr(), dz.data_ptr(),
-        flags.data_ptr(), flags.data_ptr() + 4, _kernels.stream_ptr(dev))
-    _kernels.check(code, "pcg_dz_launch")
+        flags.data_ptr(), flags.data_ptr() + 4)
     pcg_dz_solve.launches += 1
     return lam, dz, flags[0], flags[1].bool()
 
@@ -271,12 +271,11 @@ def pcg_solve_cuda_uncast(S, Pinv, gamma, lam0, max_iter: int = 173,
     plan = k2_cluster_plan(N, nx)
     lam = torch.empty((N, nx), dtype=torch.float32, device=dev)
     flags = torch.empty((2,), dtype=torch.int32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "pcg_launch", nq=nx // 2)(
+    _kernels.launch(
+        dev, "pcg_dz.cu", "pcg_launch", nx // 2,
         S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
         int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
-        *plan, 1, lam.data_ptr(), flags.data_ptr(), flags.data_ptr() + 4,
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "pcg_launch")
+        *plan, 1, lam.data_ptr(), flags.data_ptr(), flags.data_ptr() + 4)
     pcg_solve_cuda.launches += 1
     return PCGResult(lam=lam, iters=flags[0], converged=flags[1])
 
@@ -302,12 +301,12 @@ def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
     require_dz_alignment(lam=lam, **{k: sys[k] for k in ("Qinv", "A", "B", "q")})
     rho_t = _kernels.scalar(rho, dev)
     dz = torch.empty((N, nx + u.shape[-1]), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_warp_launch", nq=nx // 2)(
+    _kernels.launch(
+        dev, "pcg_dz.cu", "dz_warp_launch", nx // 2,
         lam.data_ptr(), None, None, sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), N, u.data_ptr(), u.stride(0),
         0, rho_t.data_ptr(), float(r_cost), N, 1, *dz_plan(N, nx), 1,
-        dz.data_ptr(), _kernels.stream_ptr(dev))
-    _kernels.check(code, "dz_warp_launch")
+        dz.data_ptr())
     compute_dz_cuda.launches += 1
     return dz
 
@@ -368,13 +367,13 @@ def compute_dz_slab(sys: dict, lam, lam_next, last_mask, u, rho, r_cost: float):
                          **{k: sys[k] for k in ("Qinv", "A", "B", "q")})
     rho_t = _kernels.scalar(rho, dev)
     dz = torch.empty((n_shard, L, nx + nu), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_warp_launch", nq=nu)(
+    _kernels.launch(
+        dev, "pcg_dz.cu", "dz_warp_launch", nu,
         lam.data_ptr(), lam_next.data_ptr(), last_mask.data_ptr(),
         sys["Qinv"].data_ptr(), sys["A"].data_ptr(), sys["B"].data_ptr(),
         sys["q"].data_ptr(), knot_stride, u.data_ptr(), u.stride(1), u.stride(0),
         rho_t.data_ptr(), float(r_cost), L, n_shard, *dz_plan(L, nx), 1,
-        dz.data_ptr(), _kernels.stream_ptr(dev))
-    _kernels.check(code, "dz_warp_launch")
+        dz.data_ptr())
     compute_dz_slab.launches += 1
     return dz
 

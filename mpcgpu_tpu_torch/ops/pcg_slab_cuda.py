@@ -128,16 +128,15 @@ def pcg_slab_step_cuda(st: dict, S, Pinv, flp, frp, PinvL, PinvR, tot,
         if t.data_ptr() % a or t.stride(0) % (a // 4):
             raise ValueError(f"{name}: K10a needs {a}-byte aligned shard slabs")
     tol_t = _kernels.scalar(exit_tol, dev)
-    code = _kernels.entry("pcg_slab.cu", "pcg_slab_launch", nq=n // 2)(
+    _kernels.launch(
+        dev, "pcg_slab.cu", "pcg_slab_launch", n // 2,
         *(st[k].data_ptr() for k in ("x", "r", "p", "s", "u", "w")),
         S.data_ptr(), Pinv.data_ptr(), S.stride(0), flp.data_ptr(),
         frp.data_ptr(), PinvL.data_ptr(), PinvR.data_ptr(), tot.data_ptr(),
         tot.stride(0), st["scal"].data_ptr(), st["iters"].data_ptr(),
         st["dots"].data_ptr(), st["pkt"].data_ptr(), L, n_shard, plan.cluster,
         plan.knots_per_cta, plan.threads, plan.smem_bytes, int(max_iter),
-        tol_t.data_ptr(), int(exit_criterion == "rnorm"), int(init),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "pcg_slab_launch")
+        tol_t.data_ptr(), int(exit_criterion == "rnorm"), int(init))
     pcg_slab_step_cuda.launches += 1
 
 

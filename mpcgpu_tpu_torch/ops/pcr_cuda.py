@@ -74,10 +74,12 @@ def pcr_workspace_floats(N: int, levels: int, n: int = 14) -> int:
 @functools.cache
 def resident_ctas(device_index: int, smem_bytes: int, nq: int = 7) -> int:
     """How many CTAs of K7's cooperative launch (built for nq) the card
-    holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor x its SMs."""
+    holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor x its SMs,
+    asked of that card."""
     out = torch.zeros((), dtype=torch.int32)
-    code = _kernels.entry("pcr.cu", "pcr_coop_occupancy", nq=nq)(
-        smem_bytes, out.data_ptr())
+    with torch.cuda.device(device_index):
+        code = _kernels.entry("pcr.cu", "pcr_coop_occupancy", nq=nq)(
+            smem_bytes, out.data_ptr())
     _kernels.check(code, "pcr_coop_occupancy")
     return int(out) * torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -109,11 +111,10 @@ def pcr_solve_cuda(S, b, refine: int = 1):
     ws = torch.empty((pcr_workspace_floats(N, levels, n),), dtype=torch.float32,
                      device=dev)
     x = torch.empty((N, n), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcr.cu", "pcr_launch", nq=nq)(
+    _kernels.launch(
+        dev, "pcr.cu", "pcr_launch", nq,
         S.data_ptr(), b.data_ptr(), N, levels, int(refine), plan.ctas,
-        int(plan.cluster), plan.smem_bytes, ws.data_ptr(), x.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "pcr_launch")
+        int(plan.cluster), plan.smem_bytes, ws.data_ptr(), x.data_ptr())
     pcr_solve_cuda.launches += 1
     return x
 

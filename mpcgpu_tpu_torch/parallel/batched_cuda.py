@@ -136,7 +136,8 @@ def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
                B=torch.empty((B, N, nx, nq), **f32),
                q=torch.empty((B, N, nx), **f32))
     plan = kkt_window_plan(N, nq=nq)
-    code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch", nq=nq)(
+    _kernels.launch(
+        dev, "kkt_schur.cu", "kkt_schur_launch", nq,
         xu_b.data_ptr(), xu_b.stride(1), xu_b.stride(0), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), rho_b.data_ptr(), float(dt),
         packed.data_ptr(), float(model.gravity), float(cost.qd_cost),
@@ -144,8 +145,7 @@ def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
         integrator_type, int(angle_wrap), int(cost.terminal_at_last_state),
         out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
         out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
-        out["q"].data_ptr(), _kernels.stream_ptr(dev))
-    _kernels.check(code, "kkt_schur_launch (batched)")
+        out["q"].data_ptr())
     build_kkt_schur_batched.launches += 1
     return out
 
@@ -175,12 +175,11 @@ def pcg_solve_batched(S, Pinv, gamma, lam0, max_iter: int = 173,
     plan = k2_cluster_plan(N, nx)
     lam = torch.empty((B, N, nx), dtype=torch.float32, device=dev)
     flags = torch.empty((2, B), dtype=torch.int32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "pcg_launch", nq=nx // 2)(
+    _kernels.launch(
+        dev, "pcg_dz.cu", "pcg_launch", nx // 2,
         S.data_ptr(), Pinv.data_ptr(), gamma.data_ptr(), lam0.data_ptr(),
         int(max_iter), tol_t.data_ptr(), int(exit_criterion == "rnorm"), N,
-        *plan, B, lam.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "pcg_launch (batched)")
+        *plan, B, lam.data_ptr(), flags[0].data_ptr(), flags[1].data_ptr())
     pcg_solve_batched.launches += 1
     return lam, flags[0], flags[1].bool()
 
@@ -210,12 +209,11 @@ def compute_dz_batched(sys: dict, lam, u, rho_b, r_cost: float):
         raise ValueError("u: f32 (B, N, nu) on the card with rows of unit stride")
     _kernels.require(rho_b, "rho", (B,), dev)
     dz = torch.empty((B, N, nx + nu), dtype=torch.float32, device=dev)
-    code = _kernels.entry("pcg_dz.cu", "dz_launch", nq=nu)(
+    _kernels.launch(
+        dev, "pcg_dz.cu", "dz_launch", nu,
         lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(1),
-        u.stride(0), rho_b.data_ptr(), float(r_cost), N, B, dz.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "dz_launch (batched)")
+        u.stride(0), rho_b.data_ptr(), float(r_cost), N, B, dz.data_ptr())
     compute_dz_batched.launches += 1
     return dz
 
@@ -249,14 +247,13 @@ def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
     plan = merit_team_plan(N, A * N * B, nq)
     merits = torch.empty((B, A), dtype=torch.float32, device=dev)
     alphas = torch.empty((B, A), dtype=torch.float32, device=dev)
-    code = _kernels.entry("merit.cu", "merit_launch", nq=nq)(
+    _kernels.launch(
+        dev, "merit.cu", "merit_launch", nq,
         xu_b.data_ptr(), dz_b.data_ptr(), xs_b.data_ptr(), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A, B,
         *plan, integrator_type, int(angle_wrap), merits.data_ptr(),
-        alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A * B),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "merit_launch (batched)")
+        alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A * B))
     line_search_merits_batched.launches += 1
     return merits, alphas
 
@@ -368,7 +365,12 @@ def sqp_solve_batched_fused_sharded(
     results are joined in order.  Port of the JAX function of this name,
     whose ``shard_map`` runs that slab on each device; the knot axis is not
     used (its in_specs shard the instance axis only).  Returns the SQPResult
-    of the instances held here.
+    of the instances held here: on one device all B; on a ``DistKnotMesh``
+    (one process and card per group, all groups at once) only this
+    process's slab of B / n_instance, where the JAX function returns the
+    global (B, ...) array sharded over the devices.  A caller who needs
+    the whole batch on every process all-gathers the slabs; a knot axis of
+    more than one process repeats the slab on each of its ranks.
 
     ``inst_per_prog`` (the TPU's lane packing of instances) has no
     counterpart on the card: accepted and ignored."""

@@ -27,6 +27,7 @@ CPU run asks for gloo with ``device="cpu"``:
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -43,12 +44,27 @@ def initialize_distributed(
 ) -> None:
     """``torch.distributed.init_process_group`` over TCP at
     ``coordinator_address`` ("host:port"): NCCL for ``device`` "cuda" (the
-    default), gloo for "cpu"; a no-op for one process and no coordinator."""
+    default), gloo for "cpu"; a no-op for one process and no coordinator.
+
+    On the card each process takes one card of its host first: its local
+    rank, from ``LOCAL_RANK`` where a launcher sets it (``python -m
+    torch.distributed.run``), else ``process_id`` modulo the visible
+    cards.  That card becomes the process's current device (NCCL puts no
+    two ranks on one card, and the port's entry points default to the
+    current card) and the group is bound to it."""
     if coordinator_address is None and num_processes in (None, 1):
         return
-    dist.init_process_group(process_group_backend(device),
-                            init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+    backend = process_group_backend(device)
+    kw = {}
+    if backend == "nccl":
+        local = os.environ.get("LOCAL_RANK")
+        index = int(local) if local is not None \
+            else process_id % torch.cuda.device_count()
+        card = torch.device("cuda", index)
+        torch.cuda.set_device(card)
+        kw["device_id"] = card
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
+                            world_size=num_processes, rank=process_id, **kw)
 
 
 def process_group_backend(device) -> str:

@@ -88,8 +88,26 @@ def btd_matvec_halo(S_loc, x_loc, mesh):
     return band_rows(S_loc, x_prev, x_loc, x_next)
 
 
+def _per_shard(fn, *xs):
+    """fn(*xs) for each local shard alone (its slab with a leading axis of
+    1), joined along the shard axis (each tensor of a tuple result).
+    PyTorch's CUDA reductions and batched products split their work by the
+    whole tensor's shape, so per-shard sums taken over all the shards of a
+    virtual mesh at once round apart from the same sums of one process's
+    single shard; taken shard by shard, a body's arithmetic is the same
+    wherever its shards live, and a one-card mesh reproduces a run across
+    processes bit for bit."""
+    n = xs[0].shape[0]
+    if n == 1:
+        return fn(*xs)
+    outs = [fn(*(x[i:i + 1] for x in xs)) for i in range(n)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def _pdot(a, b, mesh):
-    return mesh.psum((a * b).sum(dim=(1, 2)))
+    return mesh.psum(_per_shard(lambda a, b: (a * b).sum(dim=(1, 2)), a, b))
 
 
 def _keep(act, new, old):
@@ -150,8 +168,9 @@ def _pcg_local_pipelined(S_loc, Pinv_loc, gamma_loc, lam_loc, max_iter: int,
 
     def reduce3(r, u, w):
         """ONE psum: (eta = r.u, d = w.u, rr = r.r)."""
-        return mesh.psum(torch.stack([(r * u).sum((1, 2)), (w * u).sum((1, 2)),
-                                      (r * r).sum((1, 2))], dim=1))
+        return mesh.psum(_per_shard(lambda r, u, w: torch.stack(
+            [(r * u).sum((1, 2)), (w * u).sum((1, 2)), (r * r).sum((1, 2))],
+            dim=1), r, u, w))
 
     x, r = lam_loc, gamma_loc - btd_matvec_halo(S_loc, lam_loc, mesh)
     u, w = dual_apply(r)
@@ -215,7 +234,8 @@ def _ca_init(S_loc, Pinv_loc, gamma_loc, lam_loc, mesh):
     iteration)."""
     r0 = gamma_loc - btd_matvec_halo(S_loc, lam_loc, mesh)
     z0 = btd_matvec_halo(Pinv_loc, r0, mesh)
-    tot0 = mesh.psum(torch.stack([(r0 * z0).sum((1, 2)), (r0 * r0).sum((1, 2))], 1))
+    tot0 = mesh.psum(_per_shard(lambda r, z: torch.stack(
+        [(r * z).sum((1, 2)), (r * r).sum((1, 2))], 1), r0, z0))
     return r0, z0, tot0
 
 
@@ -239,22 +259,19 @@ def _pcg_local_ca(S_loc, Pinv_loc, gamma_loc, lam_loc, max_iter: int, exit_tol,
             return rr < exit_tol * exit_tol
         return torch.abs(eta) < exit_tol
 
-    r, z, tot0 = _ca_init(S_loc, Pinv_loc, gamma_loc, lam_loc, mesh)
-    x, p = lam_loc, z
-    eta = tot0[:, 0].to(WORK)
-    g = torch.ones_like(eta)
-    it = torch.zeros_like(eta, dtype=torch.int32)
-    done = exit_test(tot0[:, 0], tot0[:, 1])
-    for _ in range(math.ceil(max_iter / s)):
-        run = ~done & (it < max_iter)
-        fl = mesh.send_right(torch.stack([p[:, L - h:], z[:, L - h:]], 1))
-        fr = mesh.send_left(torch.stack([p[:, :h], z[:, :h]], 1))
+    def bases(S_ext, P_ext, p, z, fl, fr, g, r):
+        """The shard's bases on its extended slab and its Gram parts."""
         p_ext = torch.cat([fl[:, 0], p, fr[:, 0]], 1).to(WORK)
         z_ext = torch.cat([fl[:, 1], z, fr[:, 1]], 1).to(WORK)
         Ys, Yts = basis_chains(S_ext, P_ext, p_ext, z_ext, (1 / g)[:, None, None], s)
         Y = torch.stack(Ys, 1)[:, :, h:h + L]
         Yt = torch.stack(Yts, 1)[:, :, h:h + L]
-        G, b, F, f, rr0 = split_parts(mesh.psum(gram_parts(Y, Yt, r.to(WORK))), s)
+        return Y, Yt, gram_parts(Y, Yt, r.to(WORK))
+
+    def step(tot, g, eta, it, done, x, r, z, p, Y, Yt):
+        """The s iterations in coefficient space and the recovery."""
+        run = ~done & (it < max_iter)
+        G, b, F, f, rr0 = split_parts(tot, s)
         e, a, c, eta, it, done = _ca_coeff_iters(
             G, b, F, f, rr0, g[:, None, None] * T, eta, it, done, s, max_iter,
             exit_test)
@@ -262,7 +279,20 @@ def _pcg_local_ca(S_loc, Pinv_loc, gamma_loc, lam_loc, max_iter: int, exit_tol,
         x = _keep(run, (x + comb(e, Y)).to(dt), x)
         r = _keep(run, (r - comb(e, Yt)).to(dt), r)
         z, p = _keep(run, comb(c, Y).to(dt), z), _keep(run, comb(a, Y).to(dt), p)
-        g = _keep(run, _ca_next_scale(G, g, s), g)
+        return x, r, z, p, _keep(run, _ca_next_scale(G, g, s), g), eta, it, done
+
+    r, z, tot0 = _ca_init(S_loc, Pinv_loc, gamma_loc, lam_loc, mesh)
+    x, p = lam_loc, z
+    eta = tot0[:, 0].to(WORK)
+    g = torch.ones_like(eta)
+    it = torch.zeros_like(eta, dtype=torch.int32)
+    done = exit_test(tot0[:, 0], tot0[:, 1])
+    for _ in range(math.ceil(max_iter / s)):
+        fl = mesh.send_right(torch.stack([p[:, L - h:], z[:, L - h:]], 1))
+        fr = mesh.send_left(torch.stack([p[:, :h], z[:, :h]], 1))
+        Y, Yt, parts = _per_shard(bases, S_ext, P_ext, p, z, fl, fr, g, r)
+        x, r, z, p, g, eta, it, done = _per_shard(
+            step, mesh.psum(parts), g, eta, it, done, x, r, z, p, Y, Yt)
     return x, it, done
 
 

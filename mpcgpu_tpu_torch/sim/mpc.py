@@ -764,10 +764,12 @@ def simulate_mpc_ondevice_batched(
     plants in one K4b launch; otherwise each instance runs the unfused
     on-device loop.  ``instance_mesh`` (``make_mesh(n_instance)`` or
     ``make_host_aligned_mesh``): each instance group held here runs that
-    loop on its slab of batch / n_instance starts, one group after another,
-    with no collective (the JAX package's shard_map over the instance
-    axis); the starts are drawn for the whole batch first, so an instance's
-    run does not depend on the mesh.
+    loop on its slab of batch / n_instance starts, with no collective (the
+    JAX package's shard_map over the instance axis): on one device the
+    groups one after another, across processes each process its own group
+    on its own card, at the same time as the others.  The starts are drawn
+    for the whole batch first, so an instance's run does not depend on the
+    mesh.
 
     Returns a dict: tracking_errors (batch, steps), shift_mask (steps,) (the
     shared schedule), final_tracking_error (batch,), control_updates; with

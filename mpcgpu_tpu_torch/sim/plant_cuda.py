@@ -68,12 +68,11 @@ def _launch(model: RobotModel, xs, xu_plan, time_offset_s, sim_time_s,
     _kernels.require(packed, "model", (packed.numel(),), dev)
     scal = [_kernels.scalar(v, dev) for v in (time_offset_s, sim_time_s, timestep)]
     out = torch.empty((B, nx), dtype=torch.float32, device=dev)
-    code = _kernels.entry("plant.cu", "plant_launch", nq=nq)(
+    _kernels.launch(
+        dev, "plant.cu", "plant_launch", nq,
         xs.data_ptr(), xs.stride(0), xu_plan.data_ptr(), xu_plan.stride(1),
         xu_plan.stride(0), N, *(t.data_ptr() for t in scal), float(sim_step),
-        int(n_steps), packed.data_ptr(), float(model.gravity), out.data_ptr(), B,
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "plant_launch")
+        int(n_steps), packed.data_ptr(), float(model.gravity), out.data_ptr(), B)
     return out
 
 

@@ -177,16 +177,15 @@ def build_kkt_schur(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, rho,
                B=torch.empty((N, nx, nq), **f32),
                q=torch.empty((N, nx), **f32))
     plan = kkt_window_plan(N, nq=nq)
-    code = _kernels.entry("kkt_schur.cu", "kkt_schur_launch", nq=nq)(
+    _kernels.launch(
+        dev, "kkt_schur.cu", "kkt_schur_launch", nq,
         xu.data_ptr(), xu.stride(0), 0, ee_goal.data_ptr(), ee_goal.stride(0),
         0, rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), N, 1, plan.window,
         plan.smem_bytes, integrator_type, int(angle_wrap),
         int(cost.terminal_at_last_state), out["S"].data_ptr(),
         out["Pinv"].data_ptr(), out["gamma"].data_ptr(), out["Qinv"].data_ptr(),
-        out["A"].data_ptr(), out["B"].data_ptr(), out["q"].data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "kkt_schur_launch")
+        out["A"].data_ptr(), out["B"].data_ptr(), out["q"].data_ptr())
     build_kkt_schur.launches += 1
     return out
 
@@ -221,14 +220,14 @@ def build_kkt_cuda(model: RobotModel, cost: CostConfig, xu, xs, ee_goal, dt: flo
     B = torch.empty((N, nx, nq), **f32)
     c = torch.empty((N, nx), **f32)
     window = kkt_window_plan(N, nq=nq).window
-    code = _kernels.entry("kkt_schur.cu", "kkt_launch", nq=nq)(
+    _kernels.launch(
+        dev, "kkt_schur.cu", "kkt_launch", nq,
         xu.data_ptr(), xu.stride(0), ee_goal.data_ptr(), ee_goal.stride(0),
         xs.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), N, window, kkt_smem_bytes(window, schur=False, nq=nq),
         integrator_type, int(angle_wrap),
         int(cost.terminal_at_last_state), Q.data_ptr(), A.data_ptr(),
-        B.data_ptr(), q.data_ptr(), c.data_ptr(), _kernels.stream_ptr(dev))
-    _kernels.check(code, "kkt_launch")
+        B.data_ptr(), q.data_ptr(), c.data_ptr())
     build_kkt_cuda.launches += 1
     u = xu[:-1, nx:]
     R = (cost.r_cost * torch.eye(nq, **f32)).expand(N - 1, nq, nq)
@@ -333,15 +332,15 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
                A=torch.empty(lead + (nx, nx), **f32),
                B=torch.empty(lead + (nx, nq), **f32),
                q=torch.empty(lead + (nx,), **f32))
-    code = _kernels.entry("kkt_schur.cu", "kkt_schur_slab_launch", nq=nq)(
+    _kernels.launch(
+        dev, "kkt_schur.cu", "kkt_schur_slab_launch", nq,
         xu_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1), bmask.data_ptr(),
         rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), Lext, n_shard, plan.window,
         plan.smem_bytes, integrator_type, int(cost.terminal_at_last_state),
         out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
         out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
-        out["q"].data_ptr(), _kernels.stream_ptr(dev))
-    _kernels.check(code, "kkt_schur_slab_launch")
+        out["q"].data_ptr())
     build_kkt_schur_slab.launches += 1
     return out
 

@@ -161,14 +161,13 @@ def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
     plan = merit_team_plan(N, A * N, nq)
     merits = torch.empty((A,), dtype=torch.float32, device=dev)
     alphas = torch.empty((A,), dtype=torch.float32, device=dev)
-    code = _kernels.entry("merit.cu", "merit_launch", nq=nq)(
+    _kernels.launch(
+        dev, "merit.cu", "merit_launch", nq,
         xu.data_ptr(), dz.data_ptr(), xs.data_ptr(), ee_goal.data_ptr(),
         ee_goal.stride(0), 0, packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A,
         1, *plan, integrator_type, int(angle_wrap), merits.data_ptr(),
-        alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "merit_launch")
+        alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A))
     line_search_merits_fused.launches += 1
     return merits, alphas
 
@@ -208,13 +207,12 @@ def line_search_merit_partials_slab(model: RobotModel, cost: CostConfig, xu_ext,
     plan = merit_team_plan(Le, A * Le * n_shard, nq)
     part = torch.empty((n_shard, 2, A, Le), dtype=torch.float32, device=dev)
     alphas = torch.empty((n_shard, A), dtype=torch.float32, device=dev)
-    code = _kernels.entry("merit.cu", "merit_partials_launch", nq=nq)(
+    _kernels.launch(
+        dev, "merit.cu", "merit_partials_launch", nq,
         xu_ext.data_ptr(), dz_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1),
         ee_ext.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(dt), Le, A, n_shard,
-        *plan, integrator_type, part.data_ptr(), alphas.data_ptr(),
-        _kernels.stream_ptr(dev))
-    _kernels.check(code, "merit_partials_launch")
+        *plan, integrator_type, part.data_ptr(), alphas.data_ptr())
     line_search_merit_partials_slab.launches += 1
     return part[:, 0], part[:, 1], alphas[0]
 

@@ -7,23 +7,31 @@ closed-loop MPC tracker, and writes per-run .result files plus an
 are the JAX tracker's; ``--device`` (default cuda) picks where the tracker
 runs.  Both loops run ``linsys="auto"``: the kernels' fused PCG on the card,
 the plain PCG on the CPU.  ``--knot-shards S`` (with ``--ondevice``) runs
-every solve knot-sharded over a virtual mesh of S shards on the one device
-(``parallel/sqp_sharded.py``, the pipelined slab PCG: on the card the slab
-kernels K9a-c and K10a).
+every solve knot-sharded (``parallel/sqp_sharded.py``, the pipelined slab
+PCG: on the card the slab kernels K9a-c and K10a): over a virtual mesh of S
+shards on the one device, or, launched as S processes by
+``torch.distributed.run`` (``WORLD_SIZE`` set), over those processes, one
+shard and one card each (``initialize_distributed`` from the launcher's
+environment, ``make_host_aligned_mesh()``); then only rank 0 prints.
 
 Usage:  python -m mpcgpu_tpu_torch.track_iiwa_pcg [--knots 32] [--steps 200]
         [--ondevice [--knot-shards S]] [--save] [--device cuda]
+        python -m torch.distributed.run --nproc-per-node S \
+            -m mpcgpu_tpu_torch.track_iiwa_pcg --ondevice --knot-shards S ...
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 
 from mpcgpu_tpu_torch.config import PCGConfig, SimConfig, SQPConfig
 from mpcgpu_tpu_torch.models import iiwa14
+from mpcgpu_tpu_torch.parallel.distributed import (initialize_distributed,
+                                                   make_host_aligned_mesh)
 from mpcgpu_tpu_torch.parallel.mesh import make_mesh
 from mpcgpu_tpu_torch.sim.mpc import simulate_mpc, simulate_mpc_ondevice
 from mpcgpu_tpu_torch.utils.experiment import (dump_tracking_data, print_stats,
@@ -60,7 +68,8 @@ def parse_args(argv=None):
                          "the CPU), pcg, pcg_cuda")
     ap.add_argument("--knot-shards", type=int, default=0,
                     help="with --ondevice: run every solve knot-sharded over "
-                         "this many shards of a virtual mesh on the device")
+                         "this many shards of a virtual mesh on the device, "
+                         "or over as many processes of torch.distributed.run")
     ap.add_argument("--ondevice", action="store_true",
                     help="run the closed loop as device work with no "
                          "read-back per control step")
@@ -84,6 +93,16 @@ def main(argv=None):
     if args.knot_shards and not args.ondevice:
         ap.error("--knot-shards needs --ondevice")
     device = torch.device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        if args.knot_shards != world:
+            ap.error(f"under {world} processes of torch.distributed.run the "
+                     f"tracker takes --ondevice --knot-shards {world}")
+        # before the model: this sets the process's card
+        initialize_distributed(
+            f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+            num_processes=world, process_id=int(os.environ["RANK"]),
+            device=device)
     model = iiwa14(torch.float32, device=device)
     if args.grid:
         # 5x5 start/goal grid, skip start == goal != 0 -> 21 pairs
@@ -109,8 +128,9 @@ def main(argv=None):
         xu_traj, ee_traj = load_pair(traj_names[0])
         mesh_kw = {}
         if args.knot_shards:
-            mesh_kw = dict(knot_mesh=make_mesh(1, args.knot_shards),
-                           pcg_method="pipelined_slab")
+            mesh = make_host_aligned_mesh() if world > 1 \
+                else make_mesh(1, args.knot_shards)
+            mesh_kw = dict(knot_mesh=mesh, pcg_method="pipelined_slab")
         for tol in args.tols or [1e-5]:
             kw = dict(sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
                       pcg_cfg=PCGConfig(max_iter=PCGConfig.tuned_max_iter(args.knots),
@@ -128,10 +148,14 @@ def main(argv=None):
             wall = time.perf_counter() - t0
             steps = int(dev["control_updates"])
             errs = dev["tracking_errors"].cpu().numpy()
+            if world > 1 and int(os.environ["RANK"]) != 0:
+                continue
             print(f"tol={tol}: {steps} control steps in {wall:.3f}s "
                   f"({1e6 * wall / steps:.0f} us/step), "
                   f"avg_tracking_error={float(errs.mean()):.5f}, "
                   f"final={float(dev['final_tracking_error']):.5f}")
+        if world > 1:
+            torch.distributed.destroy_process_group()
         return
 
     tols = args.tols or TOL_SWEEP.get(args.knots, DEFAULT_TOLS)

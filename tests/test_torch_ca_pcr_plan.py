@@ -14,6 +14,7 @@ partials over its local rows summed in rank order) reproduces the plain
 ``ca_basis``.
 """
 
+import contextlib
 import ctypes
 import re
 from pathlib import Path
@@ -183,6 +184,8 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_kernels, "require", lambda *a, **k: None)
     monkeypatch.setattr(_kernels, "entry", entry)
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: SimpleNamespace(multi_processor_count=132))
     pcr_cuda.resident_ctas.cache_clear()

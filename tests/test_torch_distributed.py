@@ -117,8 +117,13 @@ def test_two_process_gloo_knot_mesh(tmp_path):
 
 def test_initialize_distributed_defaults_to_the_card(monkeypatch):
     """The entry point's default group runs on the card (NCCL); gloo only
-    when a CPU run asks for it.  The group itself is not started: the call
-    is recorded."""
+    when a CPU run asks for it.  On the card each process first takes its
+    own card, the local rank: ``LOCAL_RANK`` where a launcher sets it, else
+    the process id modulo the visible cards; it becomes the current device
+    before the group starts, and the group is bound to it.  The group
+    itself is not started and no card is touched: the calls are
+    recorded."""
+    import torch
     import torch.distributed as dist
 
     from mpcgpu_tpu_torch.parallel import distributed
@@ -126,14 +131,33 @@ def test_initialize_distributed_defaults_to_the_card(monkeypatch):
     calls = []
     monkeypatch.setattr(dist, "init_process_group",
                         lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda dev: calls.append(("set_device", dev)))
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
     distributed.initialize_distributed("localhost:29500", num_processes=2,
                                        process_id=1)
     distributed.initialize_distributed("localhost:29500", num_processes=2,
                                        process_id=0, device="cpu")
     distributed.initialize_distributed()         # one process: nothing
-    assert [c[0] for c in calls] == ["nccl", "gloo"]
-    assert calls[0][1] == dict(init_method="tcp://localhost:29500",
-                               world_size=2, rank=1)
+    card1 = torch.device("cuda", 1)
+    assert calls == [
+        ("set_device", card1),
+        ("nccl", dict(init_method="tcp://localhost:29500", world_size=2,
+                      rank=1, device_id=card1)),
+        ("gloo", dict(init_method="tcp://localhost:29500", world_size=2,
+                      rank=0))]
+    # the process id modulo the visible cards, 6 % 4; LOCAL_RANK wins
+    calls.clear()
+    distributed.initialize_distributed("localhost:29500", num_processes=8,
+                                       process_id=6)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    distributed.initialize_distributed("localhost:29500", num_processes=8,
+                                       process_id=6)
+    assert [c[1] for c in calls[0::2]] == [torch.device("cuda", 2),
+                                          torch.device("cuda", 3)]
+    assert [c[1]["device_id"] for c in calls[1::2]] == [
+        torch.device("cuda", 2), torch.device("cuda", 3)]
     assert distributed.process_group_backend("cuda:0") == "nccl"
     with pytest.raises(ValueError, match="unsupported device"):
         distributed.process_group_backend("meta")

@@ -14,6 +14,7 @@ order) at f64 against the plain versions ``compute_dz_plain`` /
 ``compute_dz_pallas_slab`` (interpret mode) oracles.
 """
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -134,6 +135,8 @@ def recorder(monkeypatch):
                         lambda t, name, shape, device, **kw: real(t, name, shape, t.device, **kw))
     monkeypatch.setattr(_kernels, "entry", entry)
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     return calls
 
 

@@ -9,6 +9,7 @@ round, alike), and raise on N outside [2, 512] before any launch.  The
 launch is replaced by a recorder, so no card is needed.
 """
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -86,6 +87,8 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_kernels, "require", lambda *a, **k: None)
     monkeypatch.setattr(_kernels, "entry", entry)
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     return calls
 
 

@@ -11,6 +11,7 @@ version, run over K1's windows with their halo knots, reproduces K1's plain
 rows at f64 bit for bit, the decomposition the one-launch K1 relies on.
 """
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -172,6 +173,8 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_kernels, "require", lambda *a, **k: None)
     monkeypatch.setattr(_kernels, "entry", entry)
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     return calls
 
 

@@ -15,6 +15,7 @@ wrapper that resolved no nq, or another, would load another library and
 read past its buffers) and the plan of that nq.
 """
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -271,16 +272,38 @@ def test_k10b_plans_match_the_source(nq):
             assert threads % 32 == 0 and 64 <= threads <= c["COEF_MAX_THREADS"]
 
 
+class _Calls(list):
+    """The recorded launches, and per launch the card its guard made
+    current (``cards``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.cards = []
+
+
 @pytest.fixture
 def recorder(monkeypatch):
     """Every kernel entry replaced by a recorder of the (source, nq) of the
     library it resolves and its arguments; CPU tensors taken as if they were
-    on the card."""
-    calls = []
+    on the card.  The card guard ``torch.cuda.device`` is replaced by one
+    that records the device it makes current, with cuda:0 current outside
+    it (the caller's card), so ``cards`` shows whether each entry was
+    called under its tensors' device."""
+    calls = _Calls()
+    current = [torch.device("cuda", 0)]
+
+    @contextlib.contextmanager
+    def card(dev):
+        prev, current[0] = current[0], torch.device(dev)
+        try:
+            yield
+        finally:
+            current[0] = prev
 
     def entry(src, name, nq):
         def launch(*args):
             calls.append((src, name, nq, args))
+            calls.cards.append(current[0])
             return 0
         return launch
 
@@ -288,6 +311,8 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_kernels, "require", lambda *a, **k: None)
     monkeypatch.setattr(_kernels, "entry", entry)
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", card)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0].index)
     return calls
 
 
@@ -302,19 +327,31 @@ def _inputs(nq, N):
     return m, xu, ee, sys_
 
 
+def _main_calls(nq, N):
+    """K1-K4 and K4b, called at nq on N knots: {kernel: call}."""
+    nx = 2 * nq
+    m, xu, ee, sys_ = _inputs(nq, N)
+    cost = CostConfig.for_knots(N)
+    return {
+        "K1": lambda: build_kkt_schur(m, cost, xu, xu[0, :nx], ee, 1e-3, 1 / 64),
+        "K2": lambda: pcg_dz_solve(sys_, torch.zeros((N, nx)), xu[:, nx:], 1e-3,
+                                   0.1, max_iter=5),
+        "K3": lambda: line_search_merits_fused(m, cost, xu, xu, xu[0, :nx], ee,
+                                               1.0, 1 / 64),
+        "K4": lambda: simulate_plant(m, xu[0, :nx], xu, 2e-3, 2e-3, 1 / 64, 10,
+                                     2e-4),
+        "K4b": lambda: simulate_plant_batched(
+            m, xu[:3, :nx].contiguous(), xu.expand(3, N, 3 * nq).contiguous(),
+            2e-3, 2e-3, 1 / 64, 10, 2e-4),
+    }
+
+
 @pytest.mark.parametrize("nq", NQS)
 @pytest.mark.parametrize("N", [2, 37, 64, 512])
 def test_k1_to_k4_launch_the_plan_of_their_nq(recorder, nq, N):
     nx = 2 * nq
-    m, xu, ee, sys_ = _inputs(nq, N)
-    cost = CostConfig.for_knots(N)
-    build_kkt_schur(m, cost, xu, xu[0, :nx], ee, 1e-3, 1 / 64)
-    pcg_dz_solve(sys_, torch.zeros((N, nx)), xu[:, nx:], 1e-3, 0.1, max_iter=5)
-    line_search_merits_fused(m, cost, xu, xu, xu[0, :nx], ee, 1.0, 1 / 64)
-    simulate_plant(m, xu[0, :nx], xu, 2e-3, 2e-3, 1 / 64, 10, 2e-4)
-    simulate_plant_batched(m, xu[:3, :nx].contiguous(),
-                           xu.expand(3, N, 3 * nq).contiguous(), 2e-3, 2e-3,
-                           1 / 64, 10, 2e-4)
+    for call in _main_calls(nq, N).values():
+        call()
     names = [(src, name, q) for src, name, q, _ in recorder]
     assert names == [("kkt_schur.cu", "kkt_schur_launch", nq),
                      ("pcg_dz.cu", "pcg_dz_launch", nq),
@@ -453,3 +490,16 @@ def test_every_wrapper_launches_the_plan_and_library_of_its_nq(recorder, kernel,
     assert [(s_, n_, q) for s_, n_, q, _ in recorder] == [(src, name, nq)]
     args = recorder[0][3]
     assert want and {i: args[i] for i in want} == want
+
+
+@pytest.mark.parametrize("kernel", ("K1", "K2", "K3", "K4", "K4b") + KERNELS)
+def test_every_wrapper_launches_under_its_tensors_card(recorder, kernel):
+    """Each wrapper calls its entry inside the card guard of its tensors'
+    device, whatever card the caller left current (cuda:0 in the
+    recorder): one launch, made current for it the tensors' device (here
+    the CPU, as the recorder takes CPU tensors for the card's)."""
+    calls = {**_main_calls(5, N_CALL),
+             **{k: v[2] for k, v in _kernel_calls(5).items()}}
+    calls[kernel]()
+    assert len(recorder) == 1
+    assert recorder.cards == [torch.device("cpu")]

@@ -16,6 +16,7 @@ repeating the iterations, each recovering its own rows and packets) the
 plain ``ca_coeff_step``, with some shards exited and their state unchanged.
 """
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -196,6 +197,8 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_kernels, "require", lambda *a, **k: None)
     monkeypatch.setattr(_kernels, "entry", entry)
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     return calls
 
 
