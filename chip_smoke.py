@@ -113,6 +113,14 @@ Phases (any failure raises and the script exits non-zero):
      against the single-device, plain and f64 solves, and the split routes
      and pcr_cuda through the chain tracker's loop (at nq = 5 each route's
      band of runs from 1-ulp trace changes holds its plain f32 loop);
+  4h. the last gaps to the JAX package (``gap_checks``): the main-path
+     loop of phase 4 at PCGConfig.tuned_max_iter_h100(64) inside phase 4's
+     band, with K2's time per call, the loops' mean PCG iterations and us
+     per update at both caps; pcg_solve(precond_poly=2) at f64 on the card
+     against the dense solve and precond_poly=1; the batched solve's
+     merit_impl "plain" against "cuda" (B = 256, one SQP iteration): the
+     launches, and the line-search choices equal or tied within the
+     merits' own gap;
   5. time the chain per step, the on-device loop per control update (the
      main path, pcr_cuda and the knot-sharded loops), the batched solve per
      SQP iteration against 256 single solves, the sharded solve per SQP
@@ -2425,6 +2433,176 @@ def kernel_wrappers() -> dict:
                               ca_coeff_step_cuda, simulate_plant_batched)))
 
 
+# ---- phase 4h: the last gaps to the JAX package ------------------------------
+
+def gap_checks(c, model, main_run, band_400, xu_traj, ee_traj, xu_calm,
+               ee_calm) -> dict:
+    """Phase 4h.  (1) The main-path loop (phase 4's: N = N_MAIN, LOOP_UPDATES
+    updates, K1-K4) at PCGConfig.tuned_max_iter_h100(N), its mean tracking
+    error inside phase 4's band_400; K2's device time per call at the phase
+    5 state, the loops' mean PCG iterations and us per update at both caps,
+    in turns (where the table keeps the reference cap, one line says so and
+    the second loop is skipped).  (2) pcg_solve(precond_poly=2) at f64 on
+    synthetic_btd(N_MAIN) on the card: converged at rnorm 1e-10, within
+    1e-8 max|x| of the dense solve on the CPU, in no more iterations than
+    precond_poly=1.  (3) sqp_solve_batched_fused's merit_impl on phase 4e's
+    first solve (B_MAIN instances from fleet_starts, one SQP iteration):
+    "plain" launches K8a-c once and K3b never, "cuda" all four once; every
+    instance takes the same line-search choice or one whose plain merit
+    lies within that instance's kernel-vs-plain merit gap of the other
+    (the f32 merits' own tie), and its xu is the same bits where the
+    choices agree.  Returns the numbers for the results line."""
+    import numpy as np
+
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
+    from mpcgpu_tpu_torch.ops.btd import btd_to_dense
+    from mpcgpu_tpu_torch.ops.pcg import pcg_solve
+    from mpcgpu_tpu_torch.ops.pcg_cuda import pcg_dz_solve
+    from mpcgpu_tpu_torch.parallel.batched_cuda import (
+        build_kkt_schur_batched, compute_dz_batched, line_search_merits_batched,
+        line_search_merits_batched_plain, pcg_solve_batched, sqp_solve_batched_fused)
+    from mpcgpu_tpu_torch.sim.mpc import simulate_mpc_ondevice
+    from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
+
+    torch, dev, expect, counted = c.torch, c.dev, c.expect, c.counted
+    N = N_MAIN
+    cost = CostConfig.for_knots(N)
+    card = card_line()
+    out = {}
+
+    # (1) the tuned cap on the main path
+    cap_ref, cap_h100 = PCGConfig.tuned_max_iter(N), PCGConfig.tuned_max_iter_h100(N)
+    out["caps"] = dict(reference=cap_ref, h100=cap_h100)
+    k1_k4 = list(KERNELS)[:4]
+
+    def loop_at(cap):
+        return lambda k: simulate_mpc_ondevice(
+            model, xu_traj, ee_traj, N, DT,
+            sqp_cfg=SQPConfig(max_iter=2, max_time_us=None),
+            pcg_cfg=PCGConfig(max_iter=cap, exit_tol=1e-5),
+            sim_cfg=SimConfig(max_control_updates=k))
+
+    def mean_iters(run):
+        it = run["pcg_iters"]
+        return float(it[it >= 0].double().mean())
+
+    xu, xs, ee, _ = problem(N, torch, dev)
+    rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+    sys_ = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+    lam0 = torch.zeros((N, 14), dtype=torch.float32, device=dev)
+
+    def k2_call(cap):
+        return lambda: pcg_dz_solve(sys_, lam0, xu[:, 14:], rho, cost.r_cost,
+                                    max_iter=cap, exit_tol=1e-5)
+
+    caps = (cap_ref,) if cap_h100 == cap_ref else (cap_ref, cap_h100)
+    runs = {cap_ref: main_run}
+    if cap_h100 == cap_ref:
+        print(f"  the H100 table keeps the reference cap {cap_ref} at N={N}: no "
+              f"second loop")
+    else:
+        runs[cap_h100], n_t = counted(loop_at(cap_h100), LOOP_UPDATES)
+        run = runs[cap_h100]
+        solves = int(run["sqp_iters"].sum())
+        m = float(run["tracking_errors"].double().mean())
+        ok = run["control_updates"] == LOOP_UPDATES
+        ok = ok and n_t["K4 simulate_plant"] == LOOP_UPDATES
+        ok = ok and all(n_t[k] == solves for k in k1_k4[:3])
+        ok = ok and all(n_t[k] == 0 for k in KERNELS if k not in k1_k4)
+        ok = ok and all(bool(torch.isfinite(run[k]).all())
+                        for k in ("tracking_errors", "xs_path", "final_tracking_error"))
+        expect(ok and band_400[0] <= m <= band_400[1],
+               f"main path at the H100 cap {cap_h100} (reference {cap_ref}), "
+               f"{LOOP_UPDATES} updates: launches {n_t} (K1-K3 once per SQP "
+               f"iteration, {solves}; K4 once per update); mean tracking error "
+               f"{m:.6g} (in phase 4's band {band_400[0]:.6g}..{band_400[1]:.6g})")
+    # in turns: the reference cap, the tuned, the tuned, the reference
+    order = caps + caps[::-1]
+    k2_ms = {cap: [] for cap in caps}
+    loop_us = {cap: [] for cap in caps}
+    for cap in order:
+        k2_ms[cap].append(graph_ms(torch, k2_call(cap)))
+        loop_us[cap].append(slope_us(torch, loop_at(cap), *LOOP_SLOPE)[0])
+    out["by_cap"] = {}
+    for cap in caps:
+        row = dict(k2_us_per_call=statistics.median(k2_ms[cap]) * 1e3,
+                   k2_iters=int(k2_call(cap)()[2]),
+                   loop_mean_pcg_iters=mean_iters(runs[cap]),
+                   loop_mean_tracking_error=float(
+                       runs[cap]["tracking_errors"].double().mean()),
+                   loop_update_us=statistics.median(loop_us[cap]),
+                   loop_update_us_runs=loop_us[cap])
+        out["by_cap"][str(cap)] = row
+        print(f"  cap {cap}: K2 {row['k2_us_per_call']:.1f} us per call (device, "
+              f"{row['k2_iters']} CG iterations at the phase 5 state); the loop's "
+              f"mean PCG iterations {row['loop_mean_pcg_iters']:.2f}, mean tracking "
+              f"error {row['loop_mean_tracking_error']:.6g}, "
+              f"{row['loop_update_us']:.1f} us per update (slope {LOOP_SLOPE}, "
+              f"turns {', '.join(f'{v:.1f}' for v in loop_us[cap])}); {card}")
+
+    # (2) precond_poly=2 at f64 on the card
+    S, P, g = (t.double() for t in synthetic_btd(N, torch, dev))
+    x_dense = np.linalg.solve(btd_to_dense(S.cpu()).numpy(),
+                              g.cpu().numpy().ravel()).reshape(g.shape)
+    poly = {p: pcg_solve(S, P, g, torch.zeros_like(g), max_iter=500, exit_tol=1e-10,
+                         exit_criterion="rnorm", precond_poly=p) for p in (1, 2)}
+    err = float(np.abs(poly[2].lam.cpu().numpy() - x_dense).max()
+                / np.abs(x_dense).max())
+    it1, it2 = int(poly[1].iters), int(poly[2].iters)
+    out["precond_poly"] = dict(iters_1=it1, iters_2=it2, max_abs_err_rel=err)
+    expect(bool(poly[2].converged) and err <= 1e-8 and it2 <= it1,
+           f"pcg_solve(precond_poly=2), f64 on the card, synthetic_btd N={N}, rnorm "
+           f"1e-10: converged {bool(poly[2].converged)} in {it2} iterations "
+           f"(precond_poly=1: {it1}); vs the dense solve on the CPU {err:.3e} "
+           f"max|x| (<= 1e-8)")
+
+    # (3) the batched merit_impl on phase 4e's first solve
+    B = B_MAIN
+    window = lambda a: torch.tensor(a[:N], dtype=torch.float32,
+                                    device=dev).expand(B, -1, -1).contiguous()
+    xu_b, ee_b = window(xu_calm), window(ee_calm)
+    xs_b = fleet_starts(torch, dev, xu_b[0, 0, :14], B)
+    lam_b = torch.zeros((B, N, 14), dtype=torch.float32, device=dev)
+    rho_b = torch.full((B,), RHO0, dtype=torch.float32, device=dev)
+    args = (model, cost, SQPConfig(max_iter=1), PCGConfig(
+        max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5),
+        xu_b, lam_b, xs_b, ee_b, rho_b, DT)
+    res, n_r = {}, {}
+    for impl in ("plain", "cuda"):
+        res[impl], n_r[impl] = counted(sqp_solve_batched_fused, *args, merit_impl=impl)
+    k8 = ("K8a build_kkt_schur_batched", "K8b pcg_solve_batched",
+          "K8c compute_dz_batched")
+    k3b = "K3b line_search_merits_batched"
+    expect(all(n_r[i][k] == 1 for i in n_r for k in k8)
+           and n_r["plain"][k3b] == 0 and n_r["cuda"][k3b] == 1
+           and all(v == 0 for i in n_r for k, v in n_r[i].items() if k not in k8 + (k3b,)),
+           f"batched merit_impl, B={B}, one SQP iteration: launches plain "
+           f"{n_r['plain']}, cuda {n_r['cuda']} (K8a-c once each; K3b 0 / 1)")
+    # the merits of the step both solves took, by both routes
+    sys_b = build_kkt_schur_batched(model, cost, xu_b, xs_b, ee_b, rho_b, DT)
+    lam_n, _, _ = pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"], lam_b,
+                                    max_iter=PCGConfig.tuned_max_iter(N), exit_tol=1e-5)
+    dz_b = compute_dz_batched(sys_b, lam_n, xu_b[:, :, 14:], rho_b, cost.r_cost)
+    mu = SQPConfig().mu
+    mk, _ = line_search_merits_batched(model, cost, xu_b, dz_b, xs_b, ee_b, mu, DT)
+    mp, _ = line_search_merits_batched_plain(model, cost, xu_b, dz_b, xs_b, ee_b, mu, DT)
+    ck = res["cuda"].ls_alpha_idx[:, 0].long() + 1    # merit column (0: failed)
+    cp = res["plain"].ls_alpha_idx[:, 0].long() + 1
+    gap = (mk.double() - mp.double()).abs().amax(1)
+    tie = (mp.double().gather(1, ck[:, None]) - mp.double().gather(1, cp[:, None])).abs()[:, 0]
+    same = ck == cp
+    ok_ties = bool((same | (tie <= gap)).all())
+    xu_same = bool(torch.equal(res["cuda"].xu[same], res["plain"].xu[same]))
+    out["merit_impl"] = dict(differing=int((~same).sum()),
+                             max_merit_gap=float(gap.max()))
+    expect(ok_ties and xu_same,
+           f"batched merit_impl plain vs cuda, B={B}: line-search choices differ in "
+           f"{int((~same).sum())} instance(s), each within its merits' own gap "
+           f"(kernel vs plain, max {float(gap.max()):.3e}): {ok_ties}; xu bit for "
+           f"bit where the choices agree ({int(same.sum())}): {xu_same}")
+    return out
+
+
 # ---- phase 7: the multi-card path --------------------------------------------
 MULTI_CARDS = 4           # the most cards phase 7 spreads over (one host)
 # one wall limit for all of phase 7's workers (s), with one visible card
@@ -4500,6 +4678,16 @@ def main() -> int:
     if failures:
         raise SmokeFailure(f"phase 4g: {len(failures)} check(s) failed")
 
+    # ---- phase 4h: the last gaps to the JAX package --------------------------
+    phase(f"phase 4h: the H100 cap table at N={N_MAIN} (cap "
+          f"{PCGConfig.tuned_max_iter_h100(N_MAIN)}, reference "
+          f"{PCGConfig.tuned_max_iter(N_MAIN)}), pcg_solve(precond_poly=2), the "
+          f"batched merit_impl")
+    gaps = gap_checks(ctx, model, main_run, band_400, xu_traj, ee_traj, xu_calm,
+                      ee_calm)
+    if failures:
+        raise SmokeFailure(f"phase 4h: {len(failures)} check(s) failed")
+
     # ---- phase 5: timing ----------------------------------------------------
     phase(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
     lo, hi = SLOPE_STEPS
@@ -4977,6 +5165,7 @@ def main() -> int:
                       "onboarding": onboard,
                       "nq_paths": slice_paths,
                       "dz_slice_us": dz_slice,
+                      "gaps": gaps,
                       "multicard": multi,
                       "card": card}))
     phase("chip_smoke: done")

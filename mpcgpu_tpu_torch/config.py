@@ -66,6 +66,27 @@ class PCGConfig:
         # settings.cuh:124-144 ("values found using experiments")
         return {32: 173, 64: 167, 128: 167, 256: 118, 512: 67}.get(knot_points, 200)
 
+    @staticmethod
+    def tuned_max_iter_h100(knot_points: int) -> int:
+        """H100-retuned per-N iteration caps, opt-in as the JAX package's
+        ``tuned_max_iter_tpu`` is: the horizons where re-tuning won on the
+        card, the reference caps everywhere else.
+
+        The reference's caps were "found using experiments" on its hardware
+        (settings.cuh:124-144); ``tools/torch_port_tune_pcg_caps.py``
+        repeats that workflow on an NVIDIA H100 80GB HBM3 at its 700 W
+        power limit: the on-device closed loop over trace 0_0 rows [:300],
+        600 updates, 2 SQP iterations, the eta exit at 1e-5, caps 20, 40,
+        80, 120 and the reference cap, each judged by the median mean
+        tracking error of nine loops from 1-ulp trace changes and by a
+        CUDA-event latency slope (``select_cap``).  At N = 32, 64 and 128
+        every solve ran to its cap and K2's device time per update fell
+        with it (546 -> 81 us at N = 64), but the loop's wall is the host's
+        enqueue: no lower cap's latency beat the reference cap's by more
+        than their run-to-run ranges, so no horizon is re-tuned (PERF.md).
+        """
+        return {}.get(knot_points, PCGConfig.tuned_max_iter(knot_points))
+
 
 @_frozen
 class SQPConfig:

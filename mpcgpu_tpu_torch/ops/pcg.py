@@ -24,15 +24,27 @@ class PCGResult(NamedTuple):
 
 
 def pcg_solve(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
-              exit_criterion: str = "eta") -> PCGResult:
+              exit_criterion: str = "eta", precond_poly: int = 1) -> PCGResult:
     """Solve S lam = gamma with BTD S (N, 3, n, n) and block-banded Pinv
     (N, 2b+1, n, n), warm-started from lam0 (N, n).
 
-    exit_tol may be a float or a 0-d tensor.
+    exit_tol may be a float or a 0-d tensor.  precond_poly: 1 applies Pinv
+    directly; 2 applies the first-order polynomial refinement
+    z = (2 Pinv - Pinv S Pinv) r (one more S and Pinv matvec per iteration;
+    SPD only while lambda_max(S Pinv) < 2).  Only this plain route takes
+    it, as in the JAX package, where no kernel does.
     """
     if exit_criterion not in ("eta", "rnorm"):
         raise ValueError(f"unknown exit_criterion {exit_criterion!r}")
+    if precond_poly not in (1, 2):
+        raise ValueError(f"precond_poly must be 1 or 2, got {precond_poly}")
     tol = torch.as_tensor(exit_tol, dtype=gamma.dtype, device=gamma.device)
+
+    def apply_precond(r):
+        z = btd_matvec(Pinv, r)
+        if precond_poly == 2:
+            z = 2.0 * z - btd_matvec(Pinv, btd_matvec(S, z))
+        return z
 
     def exit_test(r, eta):
         if exit_criterion == "rnorm":
@@ -40,7 +52,7 @@ def pcg_solve(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
         return torch.abs(eta) < tol
 
     r = gamma - btd_matvec(S, lam0)
-    p = btd_matvec(Pinv, r)
+    p = apply_precond(r)
     eta = torch.sum(r * p)
     lam = lam0
     done = exit_test(r, eta)
@@ -51,7 +63,7 @@ def pcg_solve(S, Pinv, gamma, lam0, max_iter: int = 173, exit_tol=1e-6,
         alpha = eta / torch.sum(p * Sp)
         lam = lam + alpha * p
         r = r - alpha * Sp
-        z = btd_matvec(Pinv, r)
+        z = apply_precond(r)
         eta_new = torch.sum(r * z)
         done = exit_test(r, eta_new)
         p = z + (eta_new / eta) * p

@@ -269,16 +269,28 @@ def sqp_solve_batched_fused(
     xu_b, lam_b, xs_b, ee_b, rho_b, dt: float,
     integrator_type: int = 0,
     angle_wrap: bool = False,
+    merit_impl: str = "auto",
 ) -> SQPResult:
     """B SQP solves through K8a -> K8b -> K8c -> batched K3 per iteration.
 
     xu_b (B, N, nx+nu), lam_b (B, N, nx), xs_b (B, nx), ee_b (B, N, 6), rho_b
     (B,) tensor.  Every SQPResult field gains a leading instance axis.  The
     loop reads ``all(stop)`` back to the host once per iteration after the
-    first."""
+    first.  merit_impl picks the merits, as ``sqp_solve``'s does: "cuda"
+    the batched K3 (its plain version on CPU tensors), "plain"
+    ``line_search_merits(include_zero=True)`` per instance, "auto" the
+    batched K3 on the card in ee cost mode and the plain merits otherwise."""
     if pcg_cfg.preconditioner != "stair":
         raise ValueError("the batched kernels implement the stair "
                          "preconditioner only")
+    if merit_impl == "auto":
+        use_kernel = xu_b.device.type == "cuda" and cost.mode == "ee"
+    elif merit_impl in ("cuda", "plain"):
+        use_kernel = merit_impl == "cuda"
+    else:
+        raise ValueError(f"unknown merit_impl {merit_impl!r}")
+    merits_of = (line_search_merits_batched if use_kernel
+                 else line_search_merits_batched_plain)
     B = xu_b.shape[0]
     nx = 2 * model.nq
     dev, dtype = xu_b.device, xu_b.dtype
@@ -306,7 +318,7 @@ def sqp_solve_batched_fused(
             max_iter=pcg_cfg.max_iter, exit_tol=exit_tol,
             exit_criterion=pcg_cfg.exit_criterion)
         dz = compute_dz_batched(sys, lam_new, xu[:, :, nx:], rho, cost.r_cost)
-        merits, alphas = line_search_merits_batched(
+        merits, alphas = merits_of(
             model, cost, xu, dz, xs_b, ee_b, mu, dt,
             num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
             angle_wrap=angle_wrap)
