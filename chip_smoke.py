@@ -121,6 +121,16 @@ Phases (any failure raises and the script exits non-zero):
      merit_impl "plain" against "cuda" (B = 256, one SQP iteration): the
      launches, and the line-search choices equal or tied within the
      merits' own gap;
+  4i. the flags of the JAX wrappers (``flag_checks``) on joint angles
+     near +-pi, where the integrator's angle wrap fires: K3 at N = 64 with
+     include_zero=False and with angle_wrap=True, K9a at 512 / 8 and 64 / 4
+     with angle_wrap=True, K9c there with include_zero=False,
+     angle_wrap=True and both, each against its plain version with the
+     same flags at its phase 2 / 2c bound, each flag shown to change the
+     output (the alphas shift by one index, the defects and gamma move),
+     K9a's interior rows against K1 with the wrap bit for bit, K9c's
+     assembled merits against K3's; each flagged launch's device time
+     beside the default launch's, in turns;
   5. time the chain per step, the on-device loop per control update (the
      main path, pcr_cuda and the knot-sharded loops), the batched solve per
      SQP iteration against 256 single solves, the sharded solve per SQP
@@ -2603,6 +2613,164 @@ def gap_checks(c, model, main_run, band_400, xu_traj, ee_traj, xu_calm,
     return out
 
 
+# ---- phase 4i: the flags of K3, K9a and K9c -----------------------------------
+
+FLAG_K3_N = N_MAIN       # K3's flagged launches; K9a and K9c at SHARD_CASES
+
+
+def wrap_problem(N: int, torch, device, seed: int = 0):
+    """xu with joint angles 3.05 + 0.3 N(0, 1) and velocities and controls
+    0.5 N(0, 1) (tests/test_angle_wrap.py::_problem's states: the
+    integrated angles cross +-pi), xs = its first state, a goal N(0, 1) and
+    a step 0.1 N(0, 1); f32 tensors on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q = 3.05 + 0.3 * rng.standard_normal((N, 7))
+    xu = np.concatenate([q, 0.5 * rng.standard_normal((N, 14))], axis=1)
+    ee, dz = rng.standard_normal((N, 6)), 0.1 * rng.standard_normal((N, 21))
+    f = lambda a: torch.tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=device)
+    return f(xu), f(xu[0, :14]), f(ee), f(dz)
+
+
+def flag_checks(c, model) -> dict:
+    """Phase 4i.  The JAX wrappers' flags through the kernels on states
+    where the wrap fires (wrap_problem): each flagged launch against its
+    plain version with the same flags at the bound phase 2 / 2c holds the
+    kernel to (K3: merits 1e-4 relative, alphas equal; K9a: 5e-5 max|ref|
+    per output; K9c: 1e-4 max|ref| per term, alphas equal), and against the
+    kernel's own default launch, so that a flag that never reached the
+    kernel fails: without the zero candidate the alphas, merits and terms
+    are the default's from index 1 on, bit for bit; the wrap moves K3's
+    merits, K9a's gamma (its other outputs bit for bit the unwrapped
+    call's) and K9c's defects (its costs bit for bit).  K9a's interior rows
+    equal K1's with the wrap bit for bit; K9c's terms, corrected at the
+    global ends and summed, K3's merits with the same flags (1e-4).  Each
+    flagged launch's device time (graph_ms) beside the default launch's,
+    in turns (default, flagged, flagged, default).  Returns the times."""
+    from mpcgpu_tpu_torch.config import CostConfig, SQPConfig
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_schur, build_kkt_schur_slab,
+                                                  build_kkt_schur_slab_plain)
+    from mpcgpu_tpu_torch.solver.merit import merit_partials
+    from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
+                                                    line_search_merits_fused,
+                                                    line_search_merits_plain)
+
+    torch, dev, expect = c.torch, c.dev, c.expect
+    mu = SQPConfig().mu
+    card = card_line()
+    out = {}
+
+    def relm(a, b):
+        return float(((a.double() - b.double()).abs() / b.double().abs()).max())
+
+    def timed(label, default, flagged):
+        t = {"default": [], "flagged": []}
+        for which in ("default", "flagged", "flagged", "default"):
+            t[which].append(graph_ms(torch, default if which == "default" else flagged)
+                            * 1e3)
+        row = {k: statistics.median(v) for k, v in t.items()}
+        row["turns"] = t
+        out[label] = row
+        print(f"  {label}: {row['flagged']:.3f} us flagged, {row['default']:.3f} us "
+              f"default (device, graph of 20 calls; turns flagged "
+              f"{', '.join(f'{v:.3f}' for v in t['flagged'])}, default "
+              f"{', '.join(f'{v:.3f}' for v in t['default'])}); {card}")
+
+    # K3 at N = 64
+    N = FLAG_K3_N
+    cost = CostConfig.for_knots(N)
+    xu, xs, ee, dz = wrap_problem(N, torch, dev)
+    k3 = lambda **f: line_search_merits_fused(model, cost, xu, dz, xs, ee, mu, DT, **f)
+    m_def, a_def = k3()
+    for flags in (dict(include_zero=False), dict(angle_wrap=True)):
+        m_k, a_k = k3(**flags)
+        m_p, a_p = line_search_merits_plain(model, cost, xu, dz, xs, ee, mu, DT, **flags)
+        torch.cuda.synchronize()
+        rel = relm(m_k, m_p)
+        if "include_zero" in flags:
+            moved = (m_k.shape == (8,) and torch.equal(a_k, a_def[1:])
+                     and torch.equal(m_k, m_def[1:]))
+            how = "alphas and merits == the default's [1:] bit for bit"
+        else:
+            moved = relm(m_k, m_def) > 1e-4
+            how = (f"merits moved {relm(m_k, m_def):.3e} relative from the "
+                   f"default's (> 1e-4)")
+        expect(rel <= 1e-4 and torch.equal(a_k, a_p) and moved,
+               f"K3 N={N} {flags}: vs plain merits {rel:.3e} relative (<= 1e-4), "
+               f"alphas equal {torch.equal(a_k, a_p)}; {how}: {moved}")
+        timed(f"K3 N={N} {flags}", k3, lambda f=flags: k3(**f))
+
+    for N, S in SHARD_CASES:
+        L = N // S
+        cost = CostConfig.for_knots(N)
+        xu, xs, ee, dz = wrap_problem(N, torch, dev)
+        rho = torch.tensor(RHO0, dtype=torch.float32, device=dev)
+        # K9a with angle_wrap=True on the halo-extended windows
+        w = knot_windows(c, N, S, -2, 2)
+        first, last = (w == 0).float(), (w == N - 1).float()
+        xe, ee_x = xu[w].contiguous(), ee[w].contiguous()
+        k9a = lambda **f: build_kkt_schur_slab(model, cost, xe, ee_x, first, last,
+                                               rho, DT, **f)
+        got, plain = k9a(angle_wrap=True), k9a()
+        ref = build_kkt_schur_slab_plain(model, cost, xe, ee_x, first, last, rho, DT,
+                                         angle_wrap=True)
+        k1 = build_kkt_schur(model, cost, xu, xs, ee, rho, DT, angle_wrap=True)
+        torch.cuda.synchronize()
+        worst = max(rel_err(got[k], ref[k])[1] for k in got)
+        same_k1 = all(torch.equal(got[k][:, 2:2 + L].reshape(k1[k].shape), k1[k])
+                      for k in got)
+        moved = rel_err(got["gamma"], plain["gamma"])[1]
+        kept = all(torch.equal(got[k], plain[k]) for k in got if k != "gamma")
+        expect(worst <= 5e-5 and same_k1 and moved > 5e-5 and kept,
+               f"K9a N={N} over {S} shards, angle_wrap=True: vs plain per output, "
+               f"worst {worst:.3e} max|ref| (<= 5e-5); interior rows == K1's with the "
+               f"wrap bit for bit {same_k1}; gamma moved {moved:.3e} max|ref| from "
+               f"the unwrapped call's (> 5e-5), its other outputs bit for bit {kept}")
+        timed(f"K9a N={N}/{S} angle_wrap=True", k9a, lambda: k9a(angle_wrap=True))
+        # K9c on each shard's L knots and the next shard's first
+        w1 = knot_windows(c, N, S, 0, 1)
+        x1, z1, e1 = xu[w1].contiguous(), dz[w1].contiguous(), ee[w1].contiguous()
+        k9c = lambda **f: line_search_merit_partials_slab(model, cost, x1, z1, e1, DT,
+                                                          **f)
+        kc0, kd0, ka0 = k9c()
+        kcw0, kdw0, _ = k9c(angle_wrap=True)
+        for flags in (dict(include_zero=False), dict(angle_wrap=True),
+                      dict(include_zero=False, angle_wrap=True)):
+            kc, kd, ka = k9c(**flags)
+            pc, pd, pa = merit_partials(model, cost, x1, z1, e1, DT, **flags)
+            m3 = line_search_merits_fused(model, cost, xu, dz, xs, ee, mu, DT, **flags)[0]
+            torch.cuda.synchronize()
+            rc, rd = rel_err(kc, pc)[1], rel_err(kd, pd)[1]
+            zero, wrap = flags.get("include_zero", True), flags.get("angle_wrap", False)
+            drop = 1 - int(zero)
+            # the default's candidates from index `drop` on, with the same wrap
+            c_ref, d_ref = (kcw0, kdw0) if wrap else (kc0, kd0)
+            shifted = (ka.shape == (8 + zero,) and torch.equal(ka, ka0[drop:])
+                       and torch.equal(kc, c_ref[:, drop:]))
+            d_same = torch.equal(kd, d_ref[:, drop:])
+            d_moved = rel_err(kd, kd0[:, drop:])[1]
+            moved = shifted and d_same and (not wrap or d_moved > 1e-4)
+            kc_, kd_ = kc[..., :L], kd[..., :L]
+            u_last = xu[-1, 14:] + ka[:, None] * dz[-1, 14:]
+            x0 = (xu[0, :14] + ka[:, None] * dz[0, :14] - xs).abs().sum(-1)
+            m9 = (kc_.sum((0, 2)) - 0.5 * cost.r_cost * (u_last * u_last).sum(-1)) \
+                + mu * ((kd_.sum((0, 2)) - kd_[-1, :, -1]) + x0)
+            r3 = relm(m9, m3)
+            expect(rc <= 1e-4 and rd <= 1e-4 and torch.equal(ka, pa) and moved
+                   and r3 <= 1e-4,
+                   f"K9c N={N} over {S} shards {flags}: per-knot cost {rc:.3e}, "
+                   f"defect {rd:.3e} max|ref| vs plain (<= 1e-4), alphas equal "
+                   f"{torch.equal(ka, pa)}; alphas and costs == the default's "
+                   f"[{drop}:] bit for bit {shifted}, defects == those of the call "
+                   f"with the same wrap {d_same}, {d_moved:.3e} max|ref| from the "
+                   f"unwrapped call's (> 1e-4 with the wrap): {moved}; "
+                   f"assembled merits vs K3's with the flags {r3:.3e} (<= 1e-4)")
+            timed(f"K9c N={N}/{S} {flags}", k9c, lambda f=flags: k9c(**f))
+    return out
+
+
 # ---- phase 7: the multi-card path --------------------------------------------
 MULTI_CARDS = 4           # the most cards phase 7 spreads over (one host)
 # one wall limit for all of phase 7's workers (s), with one visible card
@@ -4688,6 +4856,14 @@ def main() -> int:
     if failures:
         raise SmokeFailure(f"phase 4h: {len(failures)} check(s) failed")
 
+    # ---- phase 4i: the flags of K3, K9a and K9c ------------------------------
+    phase(f"phase 4i: K3 (N={FLAG_K3_N}) with include_zero=False / angle_wrap=True, "
+          f"K9a and K9c at {SHARD_CASES} with angle_wrap=True / include_zero=False, "
+          f"on joint angles near +-pi")
+    flags = flag_checks(ctx, model)
+    if failures:
+        raise SmokeFailure(f"phase 4i: {len(failures)} check(s) failed")
+
     # ---- phase 5: timing ----------------------------------------------------
     phase(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
     lo, hi = SLOPE_STEPS
@@ -5166,6 +5342,7 @@ def main() -> int:
                       "nq_paths": slice_paths,
                       "dz_slice_us": dz_slice,
                       "gaps": gaps,
+                      "flags": flags,
                       "multicard": multi,
                       "card": card}))
     phase("chip_smoke: done")

@@ -45,7 +45,7 @@ _SIGNATURES = {
         "kkt_launch": [P, I, P, I, P, F, P, F, F, I, I, I, I, I, I,
                        P, P, P, P, P, P],
         "kkt_schur_slab_launch": [P, P, I, P, P, F, P, F, F, F, I, I, I, I,
-                                  I, I, P, P, P, P, P, P, P, P],
+                                  I, I, I, P, P, P, P, P, P, P, P],
     },
     "pcg_dz.cu": {
         "pcg_dz_launch": [P, P, P, P, P, P, P, P, P, I, P, F,
@@ -60,9 +60,9 @@ _SIGNATURES = {
     },
     "merit.cu": {
         "merit_launch": [P, P, P, P, I, I, P, F, F, F, F, F,
-                         I, I, I, I, I, I, I, I, P, P, P, P, P],
+                         I, I, I, I, I, I, I, I, I, P, P, P, P, P],
         "merit_partials_launch": [P, P, P, I, I, P, F, F, F, F, I, I, I, I, I,
-                                  I, I, P, P, P],
+                                  I, I, I, I, P, P, P],
     },
     "plant.cu": {
         "plant_launch": [P, I, P, I, I, I, P, P, P, F, I, P, F, P, I, P],

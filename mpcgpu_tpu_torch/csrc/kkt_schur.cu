@@ -925,12 +925,13 @@ extern "C" int kkt_schur_slab_launch(
     const float* xu, const float* goal, int goal_stride, const float* bmask,
     const float* rho, float dt, const float* model, float gravity,
     float qd_cost, float r_cost, int Lext, int n_shard, int Kc, int smem,
-    int integrator_type, int terminal_at_last, float* S, float* Pinv,
-    float* gamma, float* Qinv, float* A, float* B, float* q, void* stream) {
+    int integrator_type, int wrap, int terminal_at_last, float* S,
+    float* Pinv, float* gamma, float* Qinv, float* A, float* B, float* q,
+    void* stream) {
   return launch_window<true>(
       Lext, n_shard, Kc, smem, static_cast<cudaStream_t>(stream), xu, W,
       Lext * W, goal, goal_stride, Lext * goal_stride, nullptr, rho, 0, bmask,
-      dt, model, gravity, qd_cost, r_cost, integrator_type, 0,
+      dt, model, gravity, qd_cost, r_cost, integrator_type, wrap,
       terminal_at_last, S, Pinv, gamma, Qinv, A, B, q, nullptr);
 }
 

@@ -2,10 +2,12 @@
 //
 // Replaces the TPU kernel mpcgpu_tpu/solver/merit_pallas.py::
 // line_search_merits_pallas (_make_merit_kernel).  For candidate a
-// (alpha_0 = 0, alpha_a = -1/2^(a-1)) and knot k it runs articulated-body
-// forward dynamics, the integrator defect |x_{k+1} - f(x_k, u_k)|_1 to the
-// next knot's candidate (none at k = N-1), and the ee tracking cost
-// 1/2 (|ee - goal|^2 + QD |qd|^2 + R |u|^2) with no control term at k = N-1.
+// (alpha_0 = 0, alpha_a = -1/2^(a-1); without the zero candidate, the
+// wrappers' include_zero=False, alpha_a = -1/2^a) and knot k it runs
+// articulated-body forward dynamics, the integrator defect
+// |x_{k+1} - f(x_k, u_k)|_1 to the next knot's candidate (none at k = N-1),
+// and the ee tracking cost 1/2 (|ee - goal|^2 + QD |qd|^2 + R |u|^2) with
+// no control term at k = N-1.
 // The merit is sum_k cost + mu (sum_k defect + |x_0 - xs|_1).
 //
 // What bounds it on an H100: latency at one instance (9 x 64 samples),
@@ -286,7 +288,8 @@ merit_kernel(const float* __restrict__ xu, const float* __restrict__ dz,
              int goal_stride, int goal_bstride,
              const float* __restrict__ model, float gravity, float qd_cost,
              float r_cost, float mu, float dt, int N, int P, int red_threads,
-             int integrator_type, int wrap, float* __restrict__ merits,
+             int integrator_type, int wrap, int zero,
+             float* __restrict__ merits,
              float* __restrict__ alphas, float* __restrict__ part,
              float* __restrict__ terms, int* __restrict__ done) {
   extern __shared__ __align__(16) float dsm[];
@@ -308,7 +311,9 @@ merit_kernel(const float* __restrict__ xu, const float* __restrict__ dz,
       ? part + ((size_t)b * 2 * gridDim.x + a) * N : nullptr;
   float* part_defect = part != nullptr ? part_cost + (size_t)gridDim.x * N
                                        : nullptr;
-  const float alpha = a == 0 ? 0.f : -ldexpf(1.f, -(a - 1));
+  // powers of two are exact: the plain version's -1 / 2^i bit for bit
+  const float alpha = !zero ? -ldexpf(1.f, -a)
+                            : a == 0 ? 0.f : -ldexpf(1.f, -(a - 1));
   load_model(sm, model);
   __syncthreads();
 
@@ -481,8 +486,8 @@ int launch_team(dim3 grid, int P, int smem, cudaStream_t st, const float* xu,
                 int goal_stride, int goal_bstride, const float* model,
                 float gravity, float qd_cost, float r_cost, float mu, float dt,
                 int N, int red_threads, int integrator_type, int wrap,
-                float* merits, float* alphas, float* part, float* terms,
-                int* done) {
+                int zero, float* merits, float* alphas, float* part,
+                float* terms, int* done) {
   // the attribute is the kernel's on each device; set it when a launch
   // needs more
   static int smem_set[64] = {};
@@ -497,8 +502,8 @@ int launch_team(dim3 grid, int P, int smem, cudaStream_t st, const float* xu,
   }
   merit_kernel<G><<<grid, P * G, smem, st>>>(
       xu, dz, xs, goal, goal_stride, goal_bstride, model, gravity, qd_cost,
-      r_cost, mu, dt, N, P, red_threads, integrator_type, wrap, merits, alphas,
-      part, terms, done);
+      r_cost, mu, dt, N, P, red_threads, integrator_type, wrap, zero, merits,
+      alphas, part, terms, done);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -512,8 +517,8 @@ int launch(dim3 grid, int G, int P, int smem, cudaStream_t st, const float* xu,
            const float* dz, const float* xs, const float* goal,
            int goal_stride, int goal_bstride, const float* model, float gravity,
            float qd_cost, float r_cost, float mu, float dt, int N,
-           int integrator_type, int wrap, float* merits, float* alphas,
-           float* part, float* terms, int* done) {
+           int integrator_type, int wrap, int zero, float* merits,
+           float* alphas, float* part, float* terms, int* done) {
   const int red_threads = min(512, (N + 31) / 32 * 32);
   grid.z = (N + P - 1) / P;
   if (grid.z > 1 && part == nullptr && (terms == nullptr || done == nullptr))
@@ -525,8 +530,8 @@ int launch(dim3 grid, int G, int P, int smem, cudaStream_t st, const float* xu,
   case g:                                                                    \
     return launch_team<g>(grid, P, smem, st, xu, dz, xs, goal, goal_stride,  \
                           goal_bstride, model, gravity, qd_cost, r_cost, mu, \
-                          dt, N, red_threads, integrator_type, wrap, merits, \
-                          alphas, part, terms, done);
+                          dt, N, red_threads, integrator_type, wrap, zero,   \
+                          merits, alphas, part, terms, done);
   switch (G) {
     MERIT_TEAM(1)
     MERIT_TEAM(2)
@@ -547,35 +552,37 @@ int launch(dim3 grid, int G, int P, int smem, cudaStream_t st, const float* xu,
 // alphas (batch, num_cand); teams of G lanes, P samples per block, smem
 // bytes (solver/merit_cuda.py::merit_team_plan); terms (2 N batch num_cand
 // floats) and done (batch num_cand ints, zero, and zero again after the
-// launch) when N > P
+// launch) when N > P; zero: candidate 0 is alpha = 0 (include_zero)
 extern "C" int merit_launch(const float* xu, const float* dz, const float* xs,
                             const float* goal, int goal_stride,
                             int goal_bstride, const float* model,
                             float gravity, float qd_cost, float r_cost,
                             float mu, float dt, int N, int num_cand,
                             int batch, int G, int P, int smem,
-                            int integrator_type, int wrap, float* merits,
-                            float* alphas, float* terms, int* done,
-                            void* stream) {
+                            int integrator_type, int wrap, int zero,
+                            float* merits, float* alphas, float* terms,
+                            int* done, void* stream) {
   return launch(dim3(num_cand, batch), G, P, smem,
                 static_cast<cudaStream_t>(stream), xu, dz, xs, goal,
                 goal_stride, goal_bstride, model, gravity, qd_cost, r_cost,
-                mu, dt, N, integrator_type, wrap, merits, alphas, nullptr,
-                terms, done);
+                mu, dt, N, integrator_type, wrap, zero, merits, alphas,
+                nullptr, terms, done);
 }
 
 // K9c: shards side by side: shard b reads the b-th (N, W) slab of xu and dz
 // (its L knots and the next shard's first) and goal + b goal_bstride, and
 // writes part[b] (2, num_cand, N): each knot's cost, then its defect (0 at
-// the slab's last knot), and the candidates' alphas (n_shard, num_cand)
+// the slab's last knot), and the candidates' alphas (n_shard, num_cand);
+// wrap and zero as merit_launch's
 extern "C" int merit_partials_launch(
     const float* xu, const float* dz, const float* goal, int goal_stride,
     int goal_bstride, const float* model, float gravity, float qd_cost,
     float r_cost, float dt, int N, int num_cand, int n_shard, int G, int P,
-    int smem, int integrator_type, float* part, float* alphas, void* stream) {
+    int smem, int integrator_type, int wrap, int zero, float* part,
+    float* alphas, void* stream) {
   return launch(dim3(num_cand, n_shard), G, P, smem,
                 static_cast<cudaStream_t>(stream), xu, dz, nullptr, goal,
                 goal_stride, goal_bstride, model, gravity, qd_cost, r_cost,
-                0.f, dt, N, integrator_type, 0, nullptr, alphas, part, nullptr,
-                nullptr);
+                0.f, dt, N, integrator_type, wrap, zero, nullptr, alphas, part,
+                nullptr, nullptr);
 }

@@ -156,11 +156,13 @@ def _require_state(st: dict, s: int) -> tuple:
 
 
 def ca_basis_cuda(st: dict, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter: int,
-                  s: int) -> None:
-    """K10b, in place on ``st``; arguments as ``ops/pcg_ca.py::ca_basis``.
-    On the card S and Pinv may be slabs of a larger tensor (K9a's
-    halo-extended output): each shard's rows contiguous, the shards
+                  s_steps: int = 4) -> None:
+    """K10b, in place on ``st``; arguments as ``ops/pcg_ca.py::ca_basis``,
+    whose ``s`` is ``s_steps`` here (the JAX ``pcg_ca_basis_pallas``'s name
+    and default).  On the card S and Pinv may be slabs of a larger tensor
+    (K9a's halo-extended output): each shard's rows contiguous, the shards
     S.stride(0) floats apart."""
+    s = s_steps
     if _kernels.on_cpu(st["x"]):
         ca_basis(st, S, Pinv, SL, SR, PL, PR, fl, fr, max_iter, s)
         return

@@ -108,7 +108,7 @@ def line_search_merits_batched_plain(model: RobotModel, cost: CostConfig, xu_b,
     """``line_search_merits_plain`` per instance, stacked."""
     return _stack([line_search_merits_plain(
         model, cost, xu_b[i], dz_b[i], xs_b[i], ee_b[i], mu, dt, num_alphas,
-        integrator_type, angle_wrap) for i in range(xu_b.shape[0])])
+        integrator_type, angle_wrap=angle_wrap) for i in range(xu_b.shape[0])])
 
 
 def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
@@ -247,12 +247,13 @@ def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
     plan = merit_team_plan(N, A * N * B, nq)
     merits = torch.empty((B, A), dtype=torch.float32, device=dev)
     alphas = torch.empty((B, A), dtype=torch.float32, device=dev)
+    # always the zero candidate, as the JAX batched solve fixes include_zero
     _kernels.launch(
         dev, "merit.cu", "merit_launch", nq,
         xu_b.data_ptr(), dz_b.data_ptr(), xs_b.data_ptr(), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A, B,
-        *plan, integrator_type, int(angle_wrap), merits.data_ptr(),
+        *plan, integrator_type, int(angle_wrap), 1, merits.data_ptr(),
         alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A * B))
     line_search_merits_batched.launches += 1
     return merits, alphas

@@ -245,7 +245,8 @@ def _shift(t, axis: int):
 
 def build_kkt_schur_slab_plain(model: RobotModel, cost: CostConfig, xu_ext,
                                ee_ext, first_mask, last_mask, rho, dt,
-                               integrator_type: int = 0) -> dict:
+                               integrator_type: int = 0,
+                               angle_wrap: bool = False) -> dict:
     """K9a's plain version, in the kernel's order: per knot the KKT blocks
     (``euler_step_and_jacobians``, ``tracking_cost_grad_hess``) and Qinv by
     Gauss-Jordan, then the Schur blocks and the stair bands from the
@@ -257,7 +258,8 @@ def build_kkt_schur_slab_plain(model: RobotModel, cost: CostConfig, xu_ext,
     has_prev = (first_mask == 0) & (lane > 0)
     has_next = (last_mask == 0) & (lane < Lext - 1)
     x, u = xu_ext[..., :nx], xu_ext[..., nx:]
-    xnext, A, B = euler_step_and_jacobians(model, x, u, dt, integrator_type)
+    xnext, A, B = euler_step_and_jacobians(model, x, u, dt, integrator_type,
+                                           wrap=angle_wrap)
     x_eval = x
     if not cost.terminal_at_last_state:
         # the reference's terminal quirk: the last knot's cost at x_{N-2}
@@ -295,7 +297,8 @@ def build_kkt_schur_slab_plain(model: RobotModel, cost: CostConfig, xu_ext,
 
 def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
                          first_mask, last_mask, rho, dt: float,
-                         integrator_type: int = 0) -> dict:
+                         integrator_type: int = 0,
+                         angle_wrap: bool = False) -> dict:
     """K9a: K1 on n_shard windows of the horizon at once.
 
     xu_ext (n_shard, Lext, nx+nu), ee_ext (n_shard, Lext, 6): each shard's
@@ -303,13 +306,15 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
     Lext): nonzero at the GLOBAL first / last knot.  Returns K1's outputs
     per window, (n_shard, Lext, ...); a window's interior rows are the
     horizon's rows (the caller drops the halo knots).  ee cost mode only;
-    rho may be a float or a 0-d tensor.
+    rho may be a float or a 0-d tensor.  ``angle_wrap`` reflects the
+    integrated joint angles at +-pi (``solver/kkt.py::angle_wrap``), which
+    moves the defects and so gamma, as in K1.
     """
     _check_args(cost, integrator_type)
     if _kernels.on_cpu(xu_ext):
         return build_kkt_schur_slab_plain(model, cost, xu_ext, ee_ext,
                                           first_mask, last_mask, rho, dt,
-                                          integrator_type)
+                                          integrator_type, angle_wrap)
     nq = model.nq
     _kernels.require_nq(nq)
     dev = xu_ext.device
@@ -337,7 +342,8 @@ def build_kkt_schur_slab(model: RobotModel, cost: CostConfig, xu_ext, ee_ext,
         xu_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1), bmask.data_ptr(),
         rho_t.data_ptr(), float(dt), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), Lext, n_shard, plan.window,
-        plan.smem_bytes, integrator_type, int(cost.terminal_at_last_state),
+        plan.smem_bytes, integrator_type, int(angle_wrap),
+        int(cost.terminal_at_last_state),
         out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
         out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
         out["q"].data_ptr())

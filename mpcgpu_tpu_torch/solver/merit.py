@@ -97,9 +97,10 @@ def line_search_merits(model: RobotModel, cost: CostConfig, xu, dz, xs, ee_goal,
 
 def merit_partials(model: RobotModel, cost: CostConfig, xu, dz, ee_goal, dt,
                    num_alphas: int = 8, integrator_type: int = 0,
-                   angle_wrap: bool = False):
+                   include_zero: bool = True, angle_wrap: bool = False):
     """Each knot's merit terms at every candidate xu + alpha dz, alpha in
-    (0, -1, -1/2, ..., -1/2^(num_alphas-1)): the cost J_k and the defect
+    (0, -1, -1/2, ..., -1/2^(num_alphas-1)), the 0 only with
+    ``include_zero``: the cost J_k and the defect
     |x_{k+1} - f(x_k, u_k)|_1 (0 at the last knot), with the candidates
     after any leading axes of xu (..., N, w).  Returns (cost (..., A, N),
     defect (..., A, N), alphas (A,)): the plain version of K9c, which sums
@@ -108,7 +109,7 @@ def merit_partials(model: RobotModel, cost: CostConfig, xu, dz, ee_goal, dt,
     from mpcgpu_tpu_torch.solver.kkt import integrator_step
 
     nx = 2 * model.nq
-    alphas = line_search_alphas(num_alphas, True, xu.dtype, xu.device)
+    alphas = line_search_alphas(num_alphas, include_zero, xu.dtype, xu.device)
     cand = xu[..., None, :, :] + alphas[:, None, None] * dz[..., None, :, :]
     cost_k = tracking_cost_per_knot(model, cost, cand, ee_goal[..., None, :, :])
     x, u = cand[..., :nx], cand[..., nx:]

@@ -1,4 +1,4 @@
-"""K3: all line-search merits (alpha = 0 and -1/2^i) in one call; K9c:
+"""K3: all line-search merits (alpha = -1/2^i, and 0) in one call; K9c:
 their per-knot terms on the knot shards' slabs.
 
 Ports of ``mpcgpu_tpu/solver/merit_pallas.py::line_search_merits_pallas``
@@ -118,21 +118,25 @@ def merit_team_plan(N: int, num_samples: int, nq: int = 7) -> MeritPlan:
 
 def line_search_merits_plain(model: RobotModel, cost: CostConfig, xu, dz, xs,
                              ee_goal, mu: float, dt: float, num_alphas: int = 8,
-                             integrator_type: int = 0, angle_wrap: bool = False):
-    """``line_search_merits(include_zero=True)``."""
+                             integrator_type: int = 0, include_zero: bool = True,
+                             angle_wrap: bool = False):
+    """``line_search_merits``, with the zero candidate by default."""
     return line_search_merits(model, cost, xu, dz, xs, ee_goal, mu, dt,
                               num_alphas=num_alphas,
                               integrator_type=integrator_type,
-                              include_zero=True, angle_wrap=angle_wrap)
+                              include_zero=include_zero, angle_wrap=angle_wrap)
 
 
 def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
                              ee_goal, mu: float, dt: float, num_alphas: int = 8,
-                             integrator_type: int = 0, angle_wrap: bool = False):
-    """Merits of xu + alpha dz for alpha in (0, -1, -1/2, ..., -1/2^(A-2)).
+                             integrator_type: int = 0, include_zero: bool = True,
+                             angle_wrap: bool = False):
+    """Merits of xu + alpha dz for alpha in (0, -1, -1/2, ...,
+    -1/2^(num_alphas-1)), the 0 only with ``include_zero``.
 
-    Returns (merits (A,), alphas (A,)) with A = num_alphas + 1; merits[0] is
-    the merit of xu itself.  ee cost mode only.
+    Returns (merits (A,), alphas (A,)) with A = num_alphas + include_zero;
+    with the zero candidate merits[0] is the merit of xu itself.  ee cost
+    mode only.
     """
     if cost.mode != "ee":
         raise ValueError("line_search_merits_fused supports ee cost mode only")
@@ -141,7 +145,7 @@ def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
     if _kernels.on_cpu(xu):
         return line_search_merits_plain(model, cost, xu, dz, xs, ee_goal, mu,
                                         dt, num_alphas, integrator_type,
-                                        angle_wrap)
+                                        include_zero, angle_wrap)
     dev = xu.device
     nq = model.nq
     _kernels.require_nq(nq)
@@ -157,7 +161,7 @@ def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)
 
-    A = num_alphas + 1
+    A = num_alphas + int(include_zero)
     plan = merit_team_plan(N, A * N, nq)
     merits = torch.empty((A,), dtype=torch.float32, device=dev)
     alphas = torch.empty((A,), dtype=torch.float32, device=dev)
@@ -166,8 +170,9 @@ def line_search_merits_fused(model: RobotModel, cost: CostConfig, xu, dz, xs,
         xu.data_ptr(), dz.data_ptr(), xs.data_ptr(), ee_goal.data_ptr(),
         ee_goal.stride(0), 0, packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(mu), float(dt), N, A,
-        1, *plan, integrator_type, int(angle_wrap), merits.data_ptr(),
-        alphas.data_ptr(), *merit_span_scratch(dev, N, plan.samples, A))
+        1, *plan, integrator_type, int(angle_wrap), int(include_zero),
+        merits.data_ptr(), alphas.data_ptr(),
+        *merit_span_scratch(dev, N, plan.samples, A))
     line_search_merits_fused.launches += 1
     return merits, alphas
 
@@ -178,20 +183,24 @@ line_search_merits_fused.launches = 0
 def line_search_merit_partials_slab(model: RobotModel, cost: CostConfig, xu_ext,
                                     dz_ext, ee_ext, dt: float,
                                     num_alphas: int = 8,
-                                    integrator_type: int = 0):
+                                    integrator_type: int = 0,
+                                    include_zero: bool = True,
+                                    angle_wrap: bool = False):
     """K9c: each knot's cost and defect terms at every line-search candidate
     on n_shard slabs.  xu_ext, dz_ext (n_shard, Le, nx+nu): a shard's knots
     and its right neighbour's first; ee_ext (n_shard, Le, 6).  Returns
     (cost (n_shard, A, Le), defect (n_shard, A, Le), alphas (A,)), A =
-    num_alphas + 1; the slab's last knot has no control term and no defect.
-    The plain version is ``solver/merit.py::merit_partials``."""
+    num_alphas + include_zero, the candidates of
+    ``line_search_merits_fused``; the slab's last knot has no control term
+    and no defect.  The plain version is ``solver/merit.py::merit_partials``."""
     if cost.mode != "ee":
         raise ValueError("line_search_merit_partials_slab supports ee cost mode only")
     if integrator_type not in (0, 1):
         raise ValueError(f"integrator_type {integrator_type} not in (0, 1)")
     if _kernels.on_cpu(xu_ext):
         return merit_partials(model, cost, xu_ext, dz_ext, ee_ext, dt,
-                              num_alphas, integrator_type)
+                              num_alphas, integrator_type, include_zero,
+                              angle_wrap)
     dev = xu_ext.device
     n_shard, Le = xu_ext.shape[:2]
     nq = model.nq
@@ -203,7 +212,7 @@ def line_search_merit_partials_slab(model: RobotModel, cost: CostConfig, xu_ext,
     _kernels.require(ee_ext, "ee_ext", (n_shard, Le, ee_ext.shape[-1]), dev)
     packed = model.packed()
     _kernels.require(packed, "model", (packed.numel(),), dev)
-    A = num_alphas + 1
+    A = num_alphas + int(include_zero)
     plan = merit_team_plan(Le, A * Le * n_shard, nq)
     part = torch.empty((n_shard, 2, A, Le), dtype=torch.float32, device=dev)
     alphas = torch.empty((n_shard, A), dtype=torch.float32, device=dev)
@@ -212,7 +221,8 @@ def line_search_merit_partials_slab(model: RobotModel, cost: CostConfig, xu_ext,
         xu_ext.data_ptr(), dz_ext.data_ptr(), ee_ext.data_ptr(), ee_ext.stride(1),
         ee_ext.stride(0), packed.data_ptr(), float(model.gravity),
         float(cost.qd_cost), float(cost.r_cost), float(dt), Le, A, n_shard,
-        *plan, integrator_type, part.data_ptr(), alphas.data_ptr())
+        *plan, integrator_type, int(angle_wrap), int(include_zero),
+        part.data_ptr(), alphas.data_ptr())
     line_search_merit_partials_slab.launches += 1
     return part[:, 0], part[:, 1], alphas[0]
 

@@ -140,6 +140,40 @@ def test_k3_line_search_merits_matches_jax(problem, prec, integrator_type):
     _close(alphas, alphas_ref, 0, "alphas")
 
 
+@pytest.mark.parametrize("include_zero,angle_wrap",
+                         [(False, False), (True, True), (False, True)])
+def test_k3_flags_match_jax(include_zero, angle_wrap):
+    """K3's ``include_zero=`` and ``angle_wrap=`` at f64, on joint angles
+    3.05 + 0.3 N(0, 1) (``tests/test_angle_wrap.py``'s states, where the
+    wrap fires): the JAX ``line_search_merits`` with the same flags, the
+    alphas bit for bit, the merits to rtol 1e-12.  Without the zero
+    candidate the result is the default call's shifted by one index; the
+    wrap changes the merits."""
+    rng = np.random.default_rng(3)
+    q = 3.05 + 0.3 * rng.standard_normal((N, 7))
+    xu = np.concatenate([q, 0.5 * rng.standard_normal((N, 14))], axis=1)
+    xs, ee = xu[0, :14].copy(), rng.standard_normal((N, 6))
+    dz = 0.1 * rng.standard_normal((N, 21))
+    jm = jax_iiwa14(dtype=jnp.float64)
+    ref, alphas_ref = jax.jit(lambda *a: jmerit.line_search_merits(
+        jm, JCostConfig.for_knots(N), *a, MU, DT, include_zero=include_zero,
+        angle_wrap=angle_wrap))(*(jnp.asarray(v) for v in (xu, dz, xs, ee)))
+    call = lambda **flags: line_search_merits_fused(
+        iiwa14(torch.float64, device="cpu"), CostConfig.for_knots(N),
+        *(torch.tensor(v) for v in (xu, dz, xs, ee)), MU, DT, **flags)
+    merits, alphas = call(include_zero=include_zero, angle_wrap=angle_wrap)
+    assert merits.shape == alphas.shape == (8 + include_zero,)
+    np.testing.assert_array_equal(alphas.numpy(), np.asarray(alphas_ref))
+    np.testing.assert_allclose(merits.numpy(), np.asarray(ref), rtol=1e-12)
+    full, full_alphas = call(angle_wrap=angle_wrap)
+    drop = 1 - int(include_zero)
+    assert torch.equal(alphas, full_alphas[drop:])
+    torch.testing.assert_close(merits, full[drop:], rtol=1e-14, atol=0)
+    if angle_wrap:
+        unwrapped = call(include_zero=include_zero)[0]
+        assert not torch.allclose(merits, unwrapped, rtol=1e-6, atol=0)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(problem):
     model, (xu, xs, ee) = _port_inputs(problem, "f64")
     with pytest.raises(ValueError, match="ee cost mode"):

@@ -223,6 +223,48 @@ def test_k3_k3b_k9c_launch_the_team_rule(recorder, N):
     assert tuple(ac[10:16]) == (N, 9, 8, *merit_team_plan(N, 9 * N * 8))
 
 
+@pytest.mark.parametrize("include_zero,angle_wrap",
+                         [(True, False), (False, False), (True, True), (False, True)])
+def test_k3_k3b_k9a_k9c_pass_their_flags(recorder, include_zero, angle_wrap):
+    """The flags reach their slots: merit_launch's wrap, zero; K3b's zero
+    always 1 (the JAX batched solve's include_zero=True);
+    merit_partials_launch's integrator_type, wrap, zero;
+    kkt_schur_slab_launch's integrator_type, wrap, terminal_at_last.  The
+    candidate count and the alphas' length follow include_zero."""
+    N, B = 33, 4
+    m = iiwa14(torch.float32, device="cpu")
+    cost = CostConfig.for_knots(N)
+    xu, ee = torch.zeros((N, 21)), torch.zeros((N, 6))
+    flags = dict(include_zero=include_zero, angle_wrap=angle_wrap)
+    merits, alphas = line_search_merits_fused(m, cost, xu, xu, xu[0, :14], ee,
+                                              1.0, 1 / 64, 8, 1, **flags)
+    xb, eb = xu.expand(B, N, 21).contiguous(), ee.expand(B, N, 6).contiguous()
+    line_search_merits_batched(m, cost, xb, xb, torch.zeros((B, 14)), eb, 1.0,
+                               1 / 64, angle_wrap=angle_wrap)
+    pc, pd, pa = line_search_merit_partials_slab(m, cost, xb, xb, eb, 1 / 64, 8, 1,
+                                                 **flags)
+    z = torch.zeros((B, N))
+    build_kkt_schur_slab(m, cost, xb, eb, z, z, 1e-3, 1 / 64, 1,
+                         angle_wrap=angle_wrap)
+    (n3, a3), (nb, ab), (nc, ac), (n9, a9) = recorder
+    A = 8 + include_zero
+    wrap, zero = int(angle_wrap), int(include_zero)
+    # merit_launch: ..., N, num_cand, batch, G, P, smem, integrator_type,
+    # wrap, zero, merits, ...
+    assert tuple(a3[12:21]) == (N, A, 1, *merit_team_plan(N, A * N), 1, wrap, zero)
+    assert tuple(ab[12:21]) == (N, 9, B, *merit_team_plan(N, 9 * N * B), 0, wrap, 1)
+    # merit_partials_launch: ..., N, num_cand, n_shard, G, P, smem,
+    # integrator_type, wrap, zero, part, ...
+    assert tuple(ac[10:19]) == (N, A, B, *merit_team_plan(N, A * N * B), 1, wrap, zero)
+    # kkt_schur_slab_launch: ..., Lext, n_shard, Kc, smem, integrator_type,
+    # wrap, terminal_at_last, S, ...
+    plan = kkt_window_plan(N, kkt_cuda.K9A_MAX_KNOTS)
+    assert tuple(a9[10:17]) == (N, B, plan.window, plan.smem_bytes, 1, wrap,
+                                int(cost.terminal_at_last_state))
+    assert merits.shape == alphas.shape == (A,)
+    assert pc.shape == pd.shape == (B, A, N) and pa.shape == (A,)
+
+
 def _slab_plain(m, cost, xu, ee, knots, N):
     """K9a's plain version on the given knots of the horizon, flagged at the
     global ends."""
