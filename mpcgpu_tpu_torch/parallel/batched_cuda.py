@@ -34,6 +34,9 @@ schedule and line search per instance, an instance that gives up frozen
 from then on, per-instance ``sqp_iters``, and iterations while any instance
 is active and ``it < max_iter``.  ``sqp_solve_batched_fused_sharded`` runs it
 on each instance group of an (instance, knot) mesh (``parallel/mesh.py``).
+Under a ``torch.profiler`` session it records the spans and counters that
+``solver/sqp.py::sqp_solve`` records (``utils/profiling.py``), with the
+batch size on each span and frozen instances left out of the counters.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_plain,
                                                 merit_span_scratch,
                                                 merit_team_plan)
 from mpcgpu_tpu_torch.solver.sqp import SQPResult, line_search_update
+from mpcgpu_tpu_torch.utils import profiling
 
 
 def _stack(results):
@@ -293,6 +297,7 @@ def sqp_solve_batched_fused(
     merits_of = (line_search_merits_batched if use_kernel
                  else line_search_merits_batched_plain)
     B = xu_b.shape[0]
+    tr = profiling.solve_trace(B)
     nx = 2 * model.nq
     dev, dtype = xu_b.device, xu_b.dtype
     max_iter = sqp_cfg.max_iter
@@ -311,19 +316,35 @@ def sqp_solve_batched_fused(
     ls_alpha_idx = torch.full((B, max_iter), -1, dtype=torch.int32, device=dev)
 
     it = 0
-    while it < max_iter and (it == 0 or not bool(stop.all())):
+    while it < max_iter:
+        if it:
+            if tr:
+                tr.phase("sqp.stop_read", it - 1)
+            if bool(stop.all()):
+                break
+        if tr:
+            tr.phase("sqp.kkt", it)
         sys = build_kkt_schur_batched(model, cost, xu, xs_b, ee_b, rho, dt,
                                       integrator_type, angle_wrap)
+        if tr:
+            tr.phase("sqp.linsys")
         lam_new, lin_iters, lin_ok = pcg_solve_batched(
             sys["S"], sys["Pinv"], sys["gamma"], lam,
             max_iter=pcg_cfg.max_iter, exit_tol=exit_tol,
             exit_criterion=pcg_cfg.exit_criterion)
+        if tr:
+            tr.phase("sqp.dz")
         dz = compute_dz_batched(sys, lam_new, xu[:, :, nx:], rho, cost.r_cost)
+        if tr:
+            tr.lam_solved(lam_new)
+            tr.phase("sqp.merits")
         merits, alphas = merits_of(
             model, cost, xu, dz, xs_b, ee_b, mu, dt,
             num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
             angle_wrap=angle_wrap)
 
+        if tr:
+            tr.phase("sqp.step")
         step = line_search_update(merits, alphas, rho, drho, sqp_cfg)
         # an instance that gave up earlier is frozen: nothing of it changes
         frozen = stop
@@ -341,9 +362,12 @@ def sqp_solve_batched_fused(
             buf[:, it] = torch.where(frozen, buf[:, it], v)
         it += 1
 
-    return SQPResult(xu=xu, lam=lam, rho=rho, drho=drho, sqp_iters=sqp_iters,
-                     merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
-                     pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+    result = SQPResult(xu=xu, lam=lam, rho=rho, drho=drho, sqp_iters=sqp_iters,
+                       merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
+                       pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+    if tr:
+        tr.finish(result)
+    return result
 
 
 def make_batched_fused_solver(model: RobotModel, cost: CostConfig,

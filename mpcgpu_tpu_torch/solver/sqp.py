@@ -28,6 +28,11 @@ The merit argmin, the Levenberg-Marquardt rho schedule and the
 Eisenstat-Walker forcing stay on the device as tensor ops.  The loop reads
 its stop flag back to the host once per SQP iteration after the first; a
 one-iteration solve (the MPC chain) never syncs.
+
+Under a ``torch.profiler`` session the solve records the spans and counters
+of ``utils/profiling.py`` (``sqp.solve``; per iteration ``sqp.kkt``,
+``sqp.linsys``, ``sqp.dz`` off the fused K2 route, ``sqp.merits``,
+``sqp.step``, ``sqp.stop_read``); with none, one flag check per boundary.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from mpcgpu_tpu_torch.solver.kkt import build_kkt
 from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_cuda, build_kkt_schur
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_fused,
                                                 line_search_merits_plain)
+from mpcgpu_tpu_torch.utils import profiling
 
 # the JAX package's names for linsys values the port spells with "cuda"
 _RENAMED = {"pcg_pallas": "pcg_cuda", "pcr_pallas": "pcr_cuda"}
@@ -175,6 +181,7 @@ def sqp_solve(
         raise ValueError(f"the fused route solves by PCG; linsys={linsys!r} "
                          "runs unfused")
 
+    tr = profiling.solve_trace(1)
     dev, dtype = xu.device, xu.dtype
     nx = lam.shape[-1]
     max_iter = sqp_cfg.max_iter if max_sqp_iter is None else max_sqp_iter
@@ -197,12 +204,21 @@ def sqp_solve(
     converged = torch.ones((), dtype=torch.bool, device=dev)
 
     it = 0
-    while it < iter_bound and (it == 0 or not bool(stop)):
+    while it < iter_bound:
+        if it:
+            if tr:
+                tr.phase("sqp.stop_read", it - 1)
+            if bool(stop):
+                break
+        if tr:
+            tr.phase("sqp.kkt", it)
         pcg_kw = dict(max_iter=pcg_cfg.max_iter, exit_tol=lin_tol,
                       exit_criterion=pcg_cfg.exit_criterion)
         if fused:
             sys = build_kkt_schur(model, cost, xu, xs, ee_goal, rho, dt,
                                   integrator_type, angle_wrap)
+            if tr:
+                tr.phase("sqp.linsys")
             if fused_dz:
                 lam, dz, lin_iters, lin_ok = pcg_dz_solve(
                     sys, lam, xu[:, nx:], rho, cost.r_cost, **pcg_kw)
@@ -211,6 +227,8 @@ def sqp_solve(
                 # it, so that K6 follows K2' in the stream
                 lam, lin_iters, lin_ok = pcg_solve_cuda_uncast(
                     sys["S"], sys["Pinv"], sys["gamma"], lam, **pcg_kw)
+                if tr:
+                    tr.phase("sqp.dz")
                 dz = compute_dz_cuda(sys, lam, xu[:, nx:], rho, cost.r_cost)
         else:
             make_kkt = build_kkt_cuda if use_kernels else build_kkt
@@ -218,6 +236,8 @@ def sqp_solve(
                            angle_wrap)
             schur = form_schur_system(kkt, rho,
                                       preconditioner=pcg_cfg.preconditioner)
+            if tr:
+                tr.phase("sqp.linsys")
             if linsys in _DIRECT:
                 lam = _DIRECT[linsys](schur.S, schur.gamma)
                 lin_iters, lin_ok = one_iter, converged
@@ -225,7 +245,12 @@ def sqp_solve(
                 solve = pcg_solve_cuda if linsys == "pcg_cuda" else pcg_solve
                 lam, lin_iters, lin_ok = solve(schur.S, schur.Pinv, schur.gamma,
                                                lam, **pcg_kw)
+            if tr:
+                tr.phase("sqp.dz")
             dz = compute_dz(kkt, schur, lam)
+        if tr:
+            tr.lam_solved(lam)
+            tr.phase("sqp.merits")
         search = (line_search_merits_fused if use_kernels
                   else line_search_merits_plain)
         merits, alphas = search(
@@ -233,6 +258,8 @@ def sqp_solve(
             num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
             angle_wrap=angle_wrap)
 
+        if tr:
+            tr.phase("sqp.step")
         step = line_search_update(merits, alphas, rho, drho, sqp_cfg)
         xu = torch.where(step.success, xu + step.alpha * dz, xu)
         rho, drho, merit, stop = step.rho, step.drho, step.merit, step.stop
@@ -254,11 +281,14 @@ def sqp_solve(
         ls_alpha_idx[it] = step.alpha_idx
         it += 1
 
-    return SQPResult(
+    result = SQPResult(
         xu=xu, lam=lam, rho=rho, drho=drho,
         sqp_iters=torch.full((), it, dtype=torch.int32, device=dev),
         merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
         pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+    if tr:
+        tr.finish(result)
+    return result
 
 
 def make_sqp_solver(model: RobotModel, cost: CostConfig, sqp_cfg: SQPConfig,
