@@ -131,6 +131,12 @@ Phases (any failure raises and the script exits non-zero):
      K9a's interior rows against K1 with the wrap bit for bit, K9c's
      assembled merits against K3's; each flagged launch's device time
      beside the default launch's, in turns;
+  4j. the one-arm fused route's CUDA graph per SQP iteration
+     (``graph_checks``): GRAPH_UPDATES updates of the on-device closed loop
+     at N = 64 on the K2 and the split route, every output bit for bit
+     against the eager body, a result unchanged after later solves, us per
+     update of chained solves each way and the replay's host us, and
+     K1, K2, K3 by name in a profiler trace of replays;
   5. time the chain per step, the on-device loop per control update (the
      main path, pcr_cuda and the knot-sharded loops), the batched solve per
      SQP iteration against 256 single solves, the sharded solve per SQP
@@ -2771,6 +2777,130 @@ def flag_checks(c, model) -> dict:
     return out
 
 
+# ---- phase 4j: the SQP iteration as a CUDA graph ------------------------------
+GRAPH_UPDATES = 64       # closed-loop updates held graph against eager
+GRAPH_ROWS = (220, 420)  # trace 0_0's rows they track (the benchmark's calm rows)
+GRAPH_TIMED = 200        # chained 2-iteration solves timed each way
+GRAPH_PROFILED = 10      # solves whose replays a profiler trace must hold
+
+
+def graph_checks(c, model) -> dict:
+    """Phase 4j.  The fused route's CUDA graph per SQP iteration
+    (``solver/sqp_graph.py``) against the eager body (``sqp.graph_engages``
+    patched to False): GRAPH_UPDATES updates of the on-device closed loop
+    (plant and shift) at N_MAIN on trace 0_0's GRAPH_ROWS, every output bit
+    for bit, on the K2 and the split (K2' -> K6) route, with every SQP
+    iteration after the first capture a replay; a result unchanged after
+    later solves; GRAPH_TIMED chained solves each way (host clock to a
+    synchronize, median us a solve) and the host us of a replay (the
+    ``sqp.replay`` spans of 20 traced solves); K1, K2 and K3 by name in
+    a torch.profiler trace of GRAPH_PROFILED solves' replays, one launch
+    each per SQP iteration, less at most a tenth (in one run of the whole
+    smoke test the trace of 3 solves held 5 of 6 of each: the profiler
+    drops a record now and then, as ``portbench/metrics/k2_roofline.py``
+    notes).
+    Returns the times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SimConfig, SQPConfig
+    from mpcgpu_tpu_torch.sim.mpc import simulate_mpc_ondevice
+    from mpcgpu_tpu_torch.solver import sqp, sqp_graph
+    from mpcgpu_tpu_torch.utils import profiling
+    from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
+
+    torch, dev, expect = c.torch, c.dev, c.expect
+    cost = CostConfig.for_knots(N_MAIN)
+    sqp_cfg = SQPConfig(max_iter=2, max_time_us=None)
+    pcg_cfg = PCGConfig(max_iter=PCGConfig.tuned_max_iter(N_MAIN))
+    xu_tr = load_xu_traj("0_0")[GRAPH_ROWS[0]:GRAPH_ROWS[1]]
+    ee_tr = load_eepos_traj("0_0")[GRAPH_ROWS[0]:GRAPH_ROWS[1]]
+    engages = sqp.graph_engages
+
+    def eager(fn):
+        sqp.graph_engages = lambda *a: False
+        try:
+            return fn()
+        finally:
+            sqp.graph_engages = engages
+
+    out = {}
+    for fused_dz in (True, False):
+        sqp_graph.clear()
+        run = lambda: simulate_mpc_ondevice(
+            model, xu_tr, ee_tr, N_MAIN, DT, cost=cost, sqp_cfg=sqp_cfg,
+            pcg_cfg=pcg_cfg, sim_cfg=SimConfig(max_control_updates=GRAPH_UPDATES),
+            linsys="pcg_cuda", fused_dz=fused_dz)
+        with profiling.trace():
+            got = run()
+            torch.cuda.synchronize()
+        n = profiling.counters()
+        want = eager(run)
+        diff = [k for k, v in want.items()
+                if not (torch.equal(v, got[k]) if isinstance(v, torch.Tensor)
+                        else v == got[k])]
+        expect(not diff and n["sqp.captures"] == 1
+               and n["sqp.replays"] + 1 == n["pcg.solves"]
+               == int((want["pcg_iters"] >= 0).sum()),
+               f"graph fused_dz={fused_dz}: {GRAPH_UPDATES} closed-loop updates "
+               f"bit for bit against the eager body (differ: {diff or 'none'}); "
+               f"{n['sqp.captures']} capture, {n['sqp.replays']} replays of "
+               f"{n['pcg.solves']} SQP iterations")
+
+    xu, xs, ee, _ = problem(N_MAIN, torch, dev, 0, GRAPH_ROWS[0])
+    lam0 = torch.zeros((N_MAIN, 14), dtype=torch.float32, device=dev)
+    solve = sqp.make_sqp_solver(model, cost, sqp_cfg, pcg_cfg, DT, linsys="pcg_cuda")
+    first = solve(xu, lam0, xs, ee, RHO0)
+    kept = [t.clone() for t in first]
+    r = first
+    for _ in range(8):
+        r = solve(r.xu, r.lam, xs, ee, r.rho)
+    torch.cuda.synchronize()
+    expect(all(torch.equal(a, b) for a, b in zip(first, kept)),
+           "graph: a result is unchanged after 8 later solves")
+
+    def chained():
+        r, times = first, []
+        for _ in range(GRAPH_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve(r.xu, r.lam, xs, ee, r.rho)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e6)
+        return statistics.median(times)
+
+    for turn in ("graph", "eager", "eager", "graph"):
+        us = chained() if turn == "graph" else eager(chained)
+        out.setdefault(f"{turn} us a solve", []).append(us)
+    with profiling.trace():
+        r = first
+        for _ in range(20):
+            r = solve(r.xu, r.lam, xs, ee, r.rho)
+        torch.cuda.synchronize()
+    replays = [s.end_ns - s.start_ns for s in profiling.spans() if s.name == "sqp.replay"]
+    out["replay host us (traced)"] = statistics.median(replays) / 1e3 if replays else None
+    print(f"  graph: us a 2-iteration solve at N={N_MAIN} (median of {GRAPH_TIMED}, "
+          f"turns graph, eager, eager, graph): graph "
+          f"{out['graph us a solve']}, eager {out['eager us a solve']}; a replay's "
+          f"host us (median, traced) {out['replay host us (traced)']}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r, iters = first, 0
+        for _ in range(GRAPH_PROFILED):
+            r = solve(r.xu, r.lam, xs, ee, r.rho)
+            iters += int(r.sqp_iters)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    counts = {k: sum(k in nm for nm in names)
+              for k in ("kkt_window_kernel", "pcg_dz_kernel", "merit_kernel")}
+    least = iters - max(1, iters // 10)
+    expect(all(least <= v <= iters for v in counts.values()),
+           f"graph: a profiler trace of {GRAPH_PROFILED} solves ({iters} SQP "
+           f"iterations, all replays) holds {counts} (one each per iteration; "
+           f"at least {least}: the profiler now and then drops a record)")
+    sqp_graph.clear()
+    return out
+
+
 # ---- phase 7: the multi-card path --------------------------------------------
 MULTI_CARDS = 4           # the most cards phase 7 spreads over (one host)
 # one wall limit for all of phase 7's workers (s), with one visible card
@@ -4864,6 +4994,13 @@ def main() -> int:
     if failures:
         raise SmokeFailure(f"phase 4i: {len(failures)} check(s) failed")
 
+    # ---- phase 4j: the SQP iteration as a CUDA graph -------------------------
+    phase(f"phase 4j: the fused route's CUDA graph per SQP iteration, N={N_MAIN}, "
+          f"{GRAPH_UPDATES} closed-loop updates against the eager body")
+    graph_times = graph_checks(ctx, model)
+    if failures:
+        raise SmokeFailure(f"phase 4j: {len(failures)} check(s) failed")
+
     # ---- phase 5: timing ----------------------------------------------------
     phase(f"phase 5: timing at N={N_MAIN} (CUDA events, medians)")
     lo, hi = SLOPE_STEPS
@@ -5342,7 +5479,7 @@ def main() -> int:
                       "nq_paths": slice_paths,
                       "dz_slice_us": dz_slice,
                       "gaps": gaps,
-                      "flags": flags,
+                      "flags": flags, "graph": graph_times,
                       "multicard": multi,
                       "card": card}))
     phase("chip_smoke: done")

@@ -16,6 +16,7 @@ Each launch takes the library built for the model's nq (2..7).
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -80,6 +81,23 @@ def merit_span_scratch(dev, N: int, samples: int, rows: int):
         done = torch.zeros((rows,), dtype=torch.int32, device=dev)
     _SPAN_SCRATCH[dev] = (terms, done)
     return terms.data_ptr(), done.data_ptr()
+
+
+@contextlib.contextmanager
+def fresh_span_scratch(dev):
+    """Inside the block, merit launches on ``dev`` take span scratch that
+    the block allocates itself, and the per-device cache is as it was
+    after it.  A CUDA graph captured in the block so owns the scratch its
+    merit launches write (its own memory pool): a larger launch outside it
+    reallocates the cache and would otherwise free that memory under the
+    graph."""
+    saved = _SPAN_SCRATCH.pop(dev, None)
+    try:
+        yield
+    finally:
+        _SPAN_SCRATCH.pop(dev, None)
+        if saved is not None:
+            _SPAN_SCRATCH[dev] = saved
 
 
 class MeritPlan(NamedTuple):

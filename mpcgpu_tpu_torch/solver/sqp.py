@@ -29,10 +29,16 @@ Eisenstat-Walker forcing stay on the device as tensor ops.  The loop reads
 its stop flag back to the host once per SQP iteration after the first; a
 one-iteration solve (the MPC chain) never syncs.
 
+One SQP iteration is ``_iteration``.  On the fused route with the K3
+merits and xu on a card (``graph_engages``) the solve replays it as a CUDA
+graph, one replay per iteration (``sqp_graph``); every other call runs it
+eagerly, each iteration's launches enqueued by the host.
+
 Under a ``torch.profiler`` session the solve records the spans and counters
 of ``utils/profiling.py`` (``sqp.solve``; per iteration ``sqp.kkt``,
 ``sqp.linsys``, ``sqp.dz`` off the fused K2 route, ``sqp.merits``,
-``sqp.step``, ``sqp.stop_read``); with none, one flag check per boundary.
+``sqp.step``, ``sqp.stop_read``, or on the graph path ``sqp.replay`` and
+``sqp.stop_read``); with none, one flag check per boundary.
 """
 
 from __future__ import annotations
@@ -132,6 +138,139 @@ class SQPResult(NamedTuple):
     ls_alpha_idx: torch.Tensor  # (max_sqp_iter,) int32 chosen alpha index (-1 = fail)
 
 
+class _Route(NamedTuple):
+    """What a solve's SQP iterations read besides the carried state: the
+    problem, the settings and the route (module docstring)."""
+    model: RobotModel
+    cost: CostConfig
+    sqp_cfg: SQPConfig
+    pcg_cfg: PCGConfig
+    xs: torch.Tensor
+    ee_goal: torch.Tensor
+    dt: float
+    linsys: str
+    integrator_type: int
+    angle_wrap: bool
+    use_kernels: bool
+    fused: bool
+    fused_dz: bool
+    exit_tol_target: torch.Tensor   # () pcg_cfg.exit_tol
+    one_iter: torch.Tensor | None   # () int32 1: a direct solve's iterations
+    converged: torch.Tensor | None  # () bool True: and its exit flag
+
+
+class _State(NamedTuple):
+    """What the SQP loop carries from one iteration to the next.  The last
+    three are the result's per-iteration buffers, each iteration writes its
+    entry in place."""
+    xu: torch.Tensor
+    lam: torch.Tensor
+    rho: torch.Tensor
+    drho: torch.Tensor
+    merit: torch.Tensor
+    stop: torch.Tensor
+    gave_up: torch.Tensor
+    lin_tol: torch.Tensor
+    pcg_iters: torch.Tensor
+    pcg_converged: torch.Tensor
+    ls_alpha_idx: torch.Tensor
+
+
+def _put(buf, it, value) -> None:
+    """buf[it] = value, for ``it`` a Python int or a device int64 (1,): an
+    index the card reads, so that one captured graph writes the entry of
+    whichever iteration it replays."""
+    if isinstance(it, int):
+        buf[it] = value
+    else:
+        buf.index_copy_(0, it, value.reshape(1).to(buf.dtype))
+
+
+def _iteration(r: _Route, st: _State, it, tr=None) -> _State:
+    """One SQP iteration from ``st`` on ``r``'s route: the KKT system, the
+    linear solve and dz, the merits, the line-search step and rho, the
+    Eisenstat-Walker forcing, and the iteration's entries of the
+    per-iteration buffers (at ``it``, ``_put``).  Returns the next state.
+    The eager loop runs it with ``it`` an int and the solve's recorder
+    ``tr``; ``sqp_graph`` captures it with ``it`` on the card and no
+    recorder."""
+    xu, lam, rho = st.xu, st.lam, st.rho
+    cost, pcg_cfg, sqp_cfg = r.cost, r.pcg_cfg, r.sqp_cfg
+    nx = lam.shape[-1]
+    if tr:
+        tr.phase("sqp.kkt", it)
+    pcg_kw = dict(max_iter=pcg_cfg.max_iter, exit_tol=st.lin_tol,
+                  exit_criterion=pcg_cfg.exit_criterion)
+    if r.fused:
+        sys = build_kkt_schur(r.model, cost, xu, r.xs, r.ee_goal, rho, r.dt,
+                              r.integrator_type, r.angle_wrap)
+        if tr:
+            tr.phase("sqp.linsys")
+        if r.fused_dz:
+            lam, dz, lin_iters, lin_ok = pcg_dz_solve(
+                sys, lam, xu[:, nx:], rho, cost.r_cost, **pcg_kw)
+        else:
+            # K2''s exit flag stays int32 until pcg_converged[it] casts
+            # it, so that K6 follows K2' in the stream
+            lam, lin_iters, lin_ok = pcg_solve_cuda_uncast(
+                sys["S"], sys["Pinv"], sys["gamma"], lam, **pcg_kw)
+            if tr:
+                tr.phase("sqp.dz")
+            dz = compute_dz_cuda(sys, lam, xu[:, nx:], rho, cost.r_cost)
+    else:
+        make_kkt = build_kkt_cuda if r.use_kernels else build_kkt
+        kkt = make_kkt(r.model, cost, xu, r.xs, r.ee_goal, r.dt,
+                       r.integrator_type, r.angle_wrap)
+        schur = form_schur_system(kkt, rho,
+                                  preconditioner=pcg_cfg.preconditioner)
+        if tr:
+            tr.phase("sqp.linsys")
+        if r.linsys in _DIRECT:
+            lam = _DIRECT[r.linsys](schur.S, schur.gamma)
+            lin_iters, lin_ok = r.one_iter, r.converged
+        else:
+            solve = pcg_solve_cuda if r.linsys == "pcg_cuda" else pcg_solve
+            lam, lin_iters, lin_ok = solve(schur.S, schur.Pinv, schur.gamma,
+                                           lam, **pcg_kw)
+        if tr:
+            tr.phase("sqp.dz")
+        dz = compute_dz(kkt, schur, lam)
+    if tr:
+        tr.lam_solved(lam)
+        tr.phase("sqp.merits")
+    search = (line_search_merits_fused if r.use_kernels
+              else line_search_merits_plain)
+    merits, alphas = search(
+        r.model, cost, xu, dz, r.xs, r.ee_goal, float(sqp_cfg.mu), r.dt,
+        num_alphas=sqp_cfg.num_alphas, integrator_type=r.integrator_type,
+        angle_wrap=r.angle_wrap)
+
+    if tr:
+        tr.phase("sqp.step")
+    step = line_search_update(merits, alphas, rho, st.drho, sqp_cfg)
+    xu = torch.where(step.success, xu + step.alpha * dz, xu)
+    gave_up = st.gave_up | step.stop
+
+    # Eisenstat-Walker-style forcing: decay the linear-solve tolerance
+    # with the merit-decrease ratio; a failed line search drops straight
+    # to full accuracy
+    lin_tol = st.lin_tol
+    if pcg_cfg.forcing == "ew":
+        ratio = torch.clamp(step.min_merit / torch.clamp(step.merit_cur, min=1e-30),
+                            0.0, 1.0)
+        factor = torch.clamp(torch.pow(ratio, pcg_cfg.ew_alpha),
+                             max=pcg_cfg.ew_decay)
+        decayed = torch.maximum(r.exit_tol_target, lin_tol * factor)
+        lin_tol = torch.where(step.success, decayed, r.exit_tol_target)
+
+    _put(st.pcg_iters, it, lin_iters)
+    _put(st.pcg_converged, it, lin_ok)
+    _put(st.ls_alpha_idx, it, step.alpha_idx)
+    return st._replace(xu=xu, lam=lam, rho=step.rho, drho=step.drho,
+                       merit=step.merit, stop=step.stop, gave_up=gave_up,
+                       lin_tol=lin_tol)
+
+
 def sqp_solve(
     model: RobotModel,
     cost: CostConfig,
@@ -158,7 +297,10 @@ def sqp_solve(
     rho and drho0 may be floats or 0-d tensors.  iter_budget is an optional
     iteration cap <= max_iter (the equivalent of the reference's wall-clock
     exit once converted to iterations).  merit_impl, fused and fused_dz pick
-    the route (module docstring).
+    the route (module docstring).  On the fused route with the K3 merits
+    and xu on a card, each SQP iteration is one replay of a CUDA graph
+    (``sqp_graph``); every other call runs the iterations eagerly.  Both
+    run ``_iteration``, with the same results.
     """
     if linsys in _RENAMED:
         raise NotImplementedError(
@@ -180,115 +322,72 @@ def sqp_solve(
     if fused and linsys in _DIRECT:
         raise ValueError(f"the fused route solves by PCG; linsys={linsys!r} "
                          "runs unfused")
-
-    tr = profiling.solve_trace(1)
-    dev, dtype = xu.device, xu.dtype
-    nx = lam.shape[-1]
     max_iter = sqp_cfg.max_iter if max_sqp_iter is None else max_sqp_iter
     iter_bound = max_iter if iter_budget is None else min(max_iter, int(iter_budget))
+    if graph_engages(fused, use_kernels, xu):
+        from mpcgpu_tpu_torch.solver import sqp_graph
 
+        return sqp_graph.solve(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs,
+                               ee_goal, rho, dt, max_iter, iter_bound,
+                               integrator_type, drho0, angle_wrap, fused_dz)
+    return _solve_eager(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal,
+                        rho, dt, linsys, max_iter, iter_bound, integrator_type,
+                        drho0, angle_wrap, use_kernels, fused, fused_dz)
+
+
+def _solve_eager(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal, rho, dt,
+                 linsys: str, max_iter: int, iter_bound: int,
+                 integrator_type: int, drho0, angle_wrap: bool,
+                 use_kernels: bool, fused: bool, fused_dz: bool) -> SQPResult:
+    """``sqp_solve``'s loop with every iteration enqueued by the host (the
+    route checked and resolved by the caller)."""
+    tr = profiling.solve_trace(1)
+    dev, dtype = xu.device, xu.dtype
     rho = _kernels.scalar(rho, dev, dtype)
     drho = _kernels.scalar(drho0, dev, dtype)
-    mu = float(sqp_cfg.mu)
     exit_tol_target = _kernels.scalar(pcg_cfg.exit_tol, dev, dtype)
     lin_tol = exit_tol_target * pcg_cfg.ew_boost0 if pcg_cfg.forcing == "ew" \
         else exit_tol_target
-    merit = _kernels.scalar(float("inf"), dev, dtype)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    gave_up_any = torch.zeros((), dtype=torch.bool, device=dev)
-    pcg_iters = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
-    pcg_converged = torch.zeros((max_iter,), dtype=torch.bool, device=dev)
-    ls_alpha_idx = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
-    # what a direct solve records as its iteration count and exit flag
-    one_iter = torch.ones((), dtype=torch.int32, device=dev)
-    converged = torch.ones((), dtype=torch.bool, device=dev)
+    st = _State(
+        xu=xu, lam=lam, rho=rho, drho=drho,
+        merit=_kernels.scalar(float("inf"), dev, dtype),
+        stop=torch.zeros((), dtype=torch.bool, device=dev),
+        gave_up=torch.zeros((), dtype=torch.bool, device=dev), lin_tol=lin_tol,
+        pcg_iters=torch.full((max_iter,), -1, dtype=torch.int32, device=dev),
+        pcg_converged=torch.zeros((max_iter,), dtype=torch.bool, device=dev),
+        ls_alpha_idx=torch.full((max_iter,), -1, dtype=torch.int32, device=dev))
+    r = _Route(model, cost, sqp_cfg, pcg_cfg, xs, ee_goal, dt, linsys,
+               integrator_type, angle_wrap, use_kernels, fused, fused_dz,
+               exit_tol_target,
+               one_iter=torch.ones((), dtype=torch.int32, device=dev),
+               converged=torch.ones((), dtype=torch.bool, device=dev))
 
     it = 0
     while it < iter_bound:
         if it:
             if tr:
                 tr.phase("sqp.stop_read", it - 1)
-            if bool(stop):
+            if bool(st.stop):
                 break
-        if tr:
-            tr.phase("sqp.kkt", it)
-        pcg_kw = dict(max_iter=pcg_cfg.max_iter, exit_tol=lin_tol,
-                      exit_criterion=pcg_cfg.exit_criterion)
-        if fused:
-            sys = build_kkt_schur(model, cost, xu, xs, ee_goal, rho, dt,
-                                  integrator_type, angle_wrap)
-            if tr:
-                tr.phase("sqp.linsys")
-            if fused_dz:
-                lam, dz, lin_iters, lin_ok = pcg_dz_solve(
-                    sys, lam, xu[:, nx:], rho, cost.r_cost, **pcg_kw)
-            else:
-                # K2''s exit flag stays int32 until pcg_converged[it] casts
-                # it, so that K6 follows K2' in the stream
-                lam, lin_iters, lin_ok = pcg_solve_cuda_uncast(
-                    sys["S"], sys["Pinv"], sys["gamma"], lam, **pcg_kw)
-                if tr:
-                    tr.phase("sqp.dz")
-                dz = compute_dz_cuda(sys, lam, xu[:, nx:], rho, cost.r_cost)
-        else:
-            make_kkt = build_kkt_cuda if use_kernels else build_kkt
-            kkt = make_kkt(model, cost, xu, xs, ee_goal, dt, integrator_type,
-                           angle_wrap)
-            schur = form_schur_system(kkt, rho,
-                                      preconditioner=pcg_cfg.preconditioner)
-            if tr:
-                tr.phase("sqp.linsys")
-            if linsys in _DIRECT:
-                lam = _DIRECT[linsys](schur.S, schur.gamma)
-                lin_iters, lin_ok = one_iter, converged
-            else:
-                solve = pcg_solve_cuda if linsys == "pcg_cuda" else pcg_solve
-                lam, lin_iters, lin_ok = solve(schur.S, schur.Pinv, schur.gamma,
-                                               lam, **pcg_kw)
-            if tr:
-                tr.phase("sqp.dz")
-            dz = compute_dz(kkt, schur, lam)
-        if tr:
-            tr.lam_solved(lam)
-            tr.phase("sqp.merits")
-        search = (line_search_merits_fused if use_kernels
-                  else line_search_merits_plain)
-        merits, alphas = search(
-            model, cost, xu, dz, xs, ee_goal, mu, dt,
-            num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
-            angle_wrap=angle_wrap)
-
-        if tr:
-            tr.phase("sqp.step")
-        step = line_search_update(merits, alphas, rho, drho, sqp_cfg)
-        xu = torch.where(step.success, xu + step.alpha * dz, xu)
-        rho, drho, merit, stop = step.rho, step.drho, step.merit, step.stop
-        gave_up_any = gave_up_any | stop
-
-        # Eisenstat-Walker-style forcing: decay the linear-solve tolerance
-        # with the merit-decrease ratio; a failed line search drops straight
-        # to full accuracy
-        if pcg_cfg.forcing == "ew":
-            ratio = torch.clamp(step.min_merit / torch.clamp(step.merit_cur, min=1e-30),
-                                0.0, 1.0)
-            factor = torch.clamp(torch.pow(ratio, pcg_cfg.ew_alpha),
-                                 max=pcg_cfg.ew_decay)
-            decayed = torch.maximum(exit_tol_target, lin_tol * factor)
-            lin_tol = torch.where(step.success, decayed, exit_tol_target)
-
-        pcg_iters[it] = lin_iters
-        pcg_converged[it] = lin_ok
-        ls_alpha_idx[it] = step.alpha_idx
+        st = _iteration(r, st, it, tr)
         it += 1
 
     result = SQPResult(
-        xu=xu, lam=lam, rho=rho, drho=drho,
+        xu=st.xu, lam=st.lam, rho=st.rho, drho=st.drho,
         sqp_iters=torch.full((), it, dtype=torch.int32, device=dev),
-        merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
-        pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+        merit=st.merit, gave_up=st.gave_up, pcg_iters=st.pcg_iters,
+        pcg_converged=st.pcg_converged, ls_alpha_idx=st.ls_alpha_idx)
     if tr:
         tr.finish(result)
     return result
+
+
+def graph_engages(fused: bool, use_kernels: bool, xu) -> bool:
+    """Whether a solve runs its iterations as CUDA graph replays: exactly
+    on the fused route (K1 -> K2, or K2' -> K6) with the K3 merits and xu on
+    a card.  The direct solvers, the unfused PCG, the plain merits and CPU
+    tensors run eagerly."""
+    return fused and use_kernels and xu.device.type == "cuda"
 
 
 def make_sqp_solver(model: RobotModel, cost: CostConfig, sqp_cfg: SQPConfig,

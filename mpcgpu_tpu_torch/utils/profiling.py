@@ -15,7 +15,9 @@ pays one flag check per span boundary and records nothing.  Spans
 (``SPAN_NAMES``): ``sqp.solve``, one per solve call, and under it per SQP
 iteration ``sqp.kkt``, ``sqp.linsys``, ``sqp.dz`` (absent where the linear
 solve returns dz), ``sqp.merits``, ``sqp.step``, and ``sqp.stop_read``, the
-host's read of the stop flag (the solve's only wait on the card).  Each
+host's read of the stop flag (the solve's only wait on the card); where
+``solver/sqp_graph.py`` runs an iteration as a CUDA graph replay,
+``sqp.replay`` (the replay call) in place of the phases.  Each
 is kept in memory (name, ``time.perf_counter_ns()`` start and end, parent,
 solve id, SQP iteration, batch size) and entered as a profiler range of
 its name, so the session's events and Chrome trace hold the spans on the
@@ -23,11 +25,14 @@ device trace's clock.  Counters (``COUNTER_NAMES``), per instance and SQP
 iteration, frozen instances of a batch left out: linear solves and those
 that stopped at the PCG cap, line searches and those that took no step,
 and linear solves whose lam holds a NaN or inf (the f32 breakdown's
-alarm).  They stay on the card, as references to the tensors the loop
-writes (its result buffers and each linear solve's lam; a large lam is
-reduced per instance when the solve ends, outside its phases), and are
-reduced and read back once, by ``counters()``.  ``spans()``, ``counters()`` read the recorder,
-``reset()`` clears it; ``trace()`` clears it when it starts.
+alarm); and on the host (``HOST_COUNTER_NAMES``) the SQP iterations run
+by a graph replay and the graphs captured.  The others stay on the card,
+as references to the tensors the loop writes (its result buffers and each
+linear solve's lam, or a copy where the graph's next replay overwrites it;
+a large lam is reduced per instance when the solve ends, outside its
+phases), and are reduced and read back once, by ``counters()``.
+``spans()``, ``counters()`` read the recorder, ``reset()`` clears it;
+``trace()`` clears it when it starts.
 """
 
 from __future__ import annotations
@@ -136,9 +141,12 @@ def trace(logdir: str | None = None):
 # ---- spans and counters of the SQP loops ---------------------------------
 
 SPAN_NAMES = ("sqp.solve", "sqp.kkt", "sqp.linsys", "sqp.dz", "sqp.merits",
-              "sqp.step", "sqp.stop_read")
+              "sqp.step", "sqp.stop_read", "sqp.replay")
 COUNTER_NAMES = ("pcg.solves", "pcg.cap_exits", "ls.searches", "ls.rejects",
                  "pcg.nonfinite")
+# counted on the host as the solves run: SQP iterations run by a CUDA graph
+# replay, and graphs captured (solver/sqp_graph.py)
+HOST_COUNTER_NAMES = ("sqp.replays", "sqp.captures")
 
 
 class Span(NamedTuple):
@@ -168,6 +176,7 @@ class _Recorder:
 
     def __init__(self):
         self.spans, self.ends, self.solves, self.solve_ids = [], [], [], 0
+        self.host_counts = dict.fromkeys(HOST_COUNTER_NAMES, 0)
 
 
 def _finite(lam):
@@ -199,9 +208,10 @@ def spans() -> list:
 
 def counters() -> dict:
     """The recorded counters (``COUNTER_NAMES``) summed over the solves, read
-    back from the card at once.  Every SQP iteration an instance runs is one
-    linear solve and one line search, so ``pcg.solves`` and ``ls.searches``
-    are one count under two names."""
+    back from the card at once, and the host's (``HOST_COUNTER_NAMES``).
+    Every SQP iteration an instance runs is one linear solve and one line
+    search, so ``pcg.solves`` and ``ls.searches`` are one count under two
+    names."""
     by_device = {}
     for pcg_iters, converged, alpha_idx, lams in _RECORDER.solves:
         k = len(lams)
@@ -218,7 +228,7 @@ def counters() -> dict:
     totals = [0] * len(COUNTER_NAMES)
     for row in by_device.values():
         totals = [a + b for a, b in zip(totals, row.tolist())]
-    return dict(zip(COUNTER_NAMES, totals))
+    return dict(zip(COUNTER_NAMES, totals)) | _RECORDER.host_counts
 
 
 def solve_trace(batch: int):
@@ -233,7 +243,8 @@ def solve_trace(batch: int):
 class SolveTrace:
     """One solve's spans and counters (module docstring).  The solve calls
     ``phase`` at each boundary between its phases, ``lam_solved`` on each
-    linear solve's lam and ``finish`` on its result."""
+    linear solve's lam, ``count`` on each host event it counts and
+    ``finish`` on its result."""
 
     __slots__ = ("_rec", "_solve", "_batch", "_iteration", "_top", "_top_range",
                  "_open", "_open_range", "_lams")
@@ -271,10 +282,23 @@ class SolveTrace:
         if name is not None:
             self._open, self._open_range = self._begin(name, self._top)
 
-    def lam_solved(self, lam) -> None:
-        """Keep a linear solve's lam, for the count of non-finite solves (the
-        program writes no lam in place)."""
+    def lam_solved(self, lam, copy: bool = False) -> None:
+        """Keep a linear solve's lam, for the count of non-finite solves:
+        the tensor itself (the eager loops write no lam in place), or with
+        ``copy`` a copy of it, made with the profiler's per-operation
+        callbacks off (a CUDA graph's lam, which its next replay
+        overwrites)."""
+        if copy:
+            _enable_record_function(False)
+            try:
+                lam = lam.clone()
+            finally:
+                _enable_record_function(True)
         self._lams.append(lam)
+
+    def count(self, name: str) -> None:
+        """Add one to the host counter ``name`` (``HOST_COUNTER_NAMES``)."""
+        self._rec.host_counts[name] += 1
 
     def finish(self, result) -> None:
         """End the open phase; reduce each large lam (KEEP_LAM_BYTES); end the

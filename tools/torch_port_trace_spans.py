@@ -11,8 +11,9 @@ warms it up as the benchmark does, then:
     benchmark's traced segment does, and splits each update's solve call
     into the spans of ``mpcgpu_tpu_torch/utils/profiling.py``: the kernel
     wrappers (``sqp.kkt``, ``sqp.linsys``, ``sqp.dz``, ``sqp.merits``), the
-    loop's own ops (``sqp.step``), the stop-flag wait (``sqp.stop_read``)
-    and the rest of ``sqp.solve``; it compares the solve spans with the
+    loop's own ops (``sqp.step``), or on the CUDA graph path the replays
+    (``sqp.replay``), the stop-flag wait (``sqp.stop_read``) and the rest
+    of ``sqp.solve``; it compares the solve spans with the
     harness's host time of the solve calls, the counters with the traced
     PCG counts, and puts the segment's device idle gaps down to the span
     the host was in at each gap's middle (outside any: the plant, the
@@ -51,7 +52,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 PHASES = ("sqp.kkt", "sqp.linsys", "sqp.dz", "sqp.merits", "sqp.step",
-          "sqp.stop_read")
+          "sqp.replay", "sqp.stop_read")
 WRAPPERS = ("sqp.kkt", "sqp.linsys", "sqp.dz", "sqp.merits")
 
 
@@ -81,10 +82,11 @@ def split(spans, updates: int) -> dict:
     return dict(
         per_update_us={k: per[k] for k in sorted(per)},
         wrappers_us=sum(per.get(p, 0.0) for p in WRAPPERS),
-        step_us=per.get("sqp.step", 0.0), wait_us=per.get("sqp.stop_read", 0.0),
+        step_us=per.get("sqp.step", 0.0), replay_us=per.get("sqp.replay", 0.0),
+        wait_us=per.get("sqp.stop_read", 0.0),
         enqueue_us=solve - per.get("sqp.stop_read", 0.0),
         rest_us=solve - phases, phase_cover=phases / solve,
-        iterations=sum(s.name == "sqp.kkt" for s in spans))
+        iterations=sum(s.name in ("sqp.kkt", "sqp.replay") for s in spans))
 
 
 class _SpansAndDevice:
