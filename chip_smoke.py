@@ -133,10 +133,11 @@ Phases (any failure raises and the script exits non-zero):
      beside the default launch's, in turns;
   4j. the one-arm fused route's CUDA graph per SQP iteration
      (``graph_checks``): GRAPH_UPDATES updates of the on-device closed loop
-     at N = 64 on the K2 and the split route, every output bit for bit
-     against the eager body, a result unchanged after later solves, us per
-     update of chained solves each way and the replay's host us, and
-     K1, K2, K3 by name in a profiler trace of replays;
+     at N = 64 and at N = 512 (K2's 16-CTA cluster) on the K2 and the split
+     route, every output bit for bit against the eager body, a result
+     unchanged after later solves, us per update of chained solves each way
+     at both N and the replay's host us, and K1, K2, K3 by name in a
+     profiler trace of replays;
   5. time the chain per step, the on-device loop per control update (the
      main path, pcr_cuda and the knot-sharded loops), the batched solve per
      SQP iteration against 256 single solves, the sharded solve per SQP
@@ -181,6 +182,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import re
 import statistics
@@ -2780,6 +2782,8 @@ def flag_checks(c, model) -> dict:
 # ---- phase 4j: the SQP iteration as a CUDA graph ------------------------------
 GRAPH_UPDATES = 64       # closed-loop updates held graph against eager
 GRAPH_ROWS = (220, 420)  # trace 0_0's rows they track (the benchmark's calm rows)
+# at N_BIG, trace 3_4's calm rows (SHARD_START; the benchmark's arm512-calm)
+GRAPH_BIG_ROWS = (0, 650)
 GRAPH_TIMED = 200        # chained 2-iteration solves timed each way
 GRAPH_PROFILED = 10      # solves whose replays a profiler trace must hold
 
@@ -2790,8 +2794,10 @@ def graph_checks(c, model) -> dict:
     patched to False): GRAPH_UPDATES updates of the on-device closed loop
     (plant and shift) at N_MAIN on trace 0_0's GRAPH_ROWS, every output bit
     for bit, on the K2 and the split (K2' -> K6) route, with every SQP
-    iteration after the first capture a replay; a result unchanged after
-    later solves; GRAPH_TIMED chained solves each way (host clock to a
+    iteration after the first capture a replay; the same at N_BIG on trace
+    3_4's GRAPH_BIG_ROWS (K2's non-portable 16-CTA cluster of 32 knots a
+    CTA, captured); a result unchanged after later solves; GRAPH_TIMED
+    chained solves each way at N_MAIN and at N_BIG (host clock to a
     synchronize, median us a solve) and the host us of a replay (the
     ``sqp.replay`` spans of 20 traced solves); K1, K2 and K3 by name in
     a torch.profiler trace of GRAPH_PROFILED solves' replays, one launch
@@ -2809,11 +2815,10 @@ def graph_checks(c, model) -> dict:
     from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
     torch, dev, expect = c.torch, c.dev, c.expect
-    cost = CostConfig.for_knots(N_MAIN)
     sqp_cfg = SQPConfig(max_iter=2, max_time_us=None)
-    pcg_cfg = PCGConfig(max_iter=PCGConfig.tuned_max_iter(N_MAIN))
-    xu_tr = load_xu_traj("0_0")[GRAPH_ROWS[0]:GRAPH_ROWS[1]]
-    ee_tr = load_eepos_traj("0_0")[GRAPH_ROWS[0]:GRAPH_ROWS[1]]
+    cfgs = lambda N: (CostConfig.for_knots(N),
+                      PCGConfig(max_iter=PCGConfig.tuned_max_iter(N)))
+    cost, pcg_cfg = cfgs(N_MAIN)
     engages = sqp.graph_engages
 
     def eager(fn):
@@ -2824,11 +2829,14 @@ def graph_checks(c, model) -> dict:
             sqp.graph_engages = engages
 
     out = {}
-    for fused_dz in (True, False):
+    loops = ((N_MAIN, "0_0", GRAPH_ROWS), (N_BIG, "3_4", GRAPH_BIG_ROWS))
+    for (N, trace, rows), fused_dz in itertools.product(loops, (True, False)):
         sqp_graph.clear()
+        xu_tr = load_xu_traj(trace)[rows[0]:rows[1]]
+        ee_tr = load_eepos_traj(trace)[rows[0]:rows[1]]
         run = lambda: simulate_mpc_ondevice(
-            model, xu_tr, ee_tr, N_MAIN, DT, cost=cost, sqp_cfg=sqp_cfg,
-            pcg_cfg=pcg_cfg, sim_cfg=SimConfig(max_control_updates=GRAPH_UPDATES),
+            model, xu_tr, ee_tr, N, DT, cost=cfgs(N)[0], sqp_cfg=sqp_cfg,
+            pcg_cfg=cfgs(N)[1], sim_cfg=SimConfig(max_control_updates=GRAPH_UPDATES),
             linsys="pcg_cuda", fused_dz=fused_dz)
         with profiling.trace():
             got = run()
@@ -2841,7 +2849,7 @@ def graph_checks(c, model) -> dict:
         expect(not diff and n["sqp.captures"] == 1
                and n["sqp.replays"] + 1 == n["pcg.solves"]
                == int((want["pcg_iters"] >= 0).sum()),
-               f"graph fused_dz={fused_dz}: {GRAPH_UPDATES} closed-loop updates "
+               f"graph N={N} fused_dz={fused_dz}: {GRAPH_UPDATES} closed-loop updates "
                f"bit for bit against the eager body (differ: {diff or 'none'}); "
                f"{n['sqp.captures']} capture, {n['sqp.replays']} replays of "
                f"{n['pcg.solves']} SQP iterations")
@@ -2858,7 +2866,7 @@ def graph_checks(c, model) -> dict:
     expect(all(torch.equal(a, b) for a, b in zip(first, kept)),
            "graph: a result is unchanged after 8 later solves")
 
-    def chained():
+    def chained(solve, first, xs, ee):
         r, times = first, []
         for _ in range(GRAPH_TIMED):
             torch.cuda.synchronize()
@@ -2868,9 +2876,17 @@ def graph_checks(c, model) -> dict:
             times.append((time.perf_counter() - t0) * 1e6)
         return statistics.median(times)
 
-    for turn in ("graph", "eager", "eager", "graph"):
-        us = chained() if turn == "graph" else eager(chained)
-        out.setdefault(f"{turn} us a solve", []).append(us)
+    xu_b, xs_b, ee_b, _ = problem(N_BIG, torch, dev, 0, GRAPH_BIG_ROWS[0], "3_4")
+    solve_b = sqp.make_sqp_solver(model, cfgs(N_BIG)[0], sqp_cfg, cfgs(N_BIG)[1],
+                                  DT, linsys="pcg_cuda")
+    first_b = solve_b(xu_b, torch.zeros((N_BIG, 14), dtype=torch.float32,
+                                        device=dev), xs_b, ee_b, RHO0)
+    for N, args in ((N_MAIN, (solve, first, xs, ee)),
+                    (N_BIG, (solve_b, first_b, xs_b, ee_b))):
+        tag = "" if N == N_MAIN else f" N={N}"
+        for turn in ("graph", "eager", "eager", "graph"):
+            us = chained(*args) if turn == "graph" else eager(lambda: chained(*args))
+            out.setdefault(f"{turn} us a solve{tag}", []).append(us)
     with profiling.trace():
         r = first
         for _ in range(20):
@@ -2880,8 +2896,10 @@ def graph_checks(c, model) -> dict:
     out["replay host us (traced)"] = statistics.median(replays) / 1e3 if replays else None
     print(f"  graph: us a 2-iteration solve at N={N_MAIN} (median of {GRAPH_TIMED}, "
           f"turns graph, eager, eager, graph): graph "
-          f"{out['graph us a solve']}, eager {out['eager us a solve']}; a replay's "
-          f"host us (median, traced) {out['replay host us (traced)']}")
+          f"{out['graph us a solve']}, eager {out['eager us a solve']}; at "
+          f"N={N_BIG}: graph {out[f'graph us a solve N={N_BIG}']}, eager "
+          f"{out[f'eager us a solve N={N_BIG}']}; a replay's host us (median, "
+          f"traced) {out['replay host us (traced)']}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         r, iters = first, 0
@@ -4995,7 +5013,8 @@ def main() -> int:
         raise SmokeFailure(f"phase 4i: {len(failures)} check(s) failed")
 
     # ---- phase 4j: the SQP iteration as a CUDA graph -------------------------
-    phase(f"phase 4j: the fused route's CUDA graph per SQP iteration, N={N_MAIN}, "
+    phase(f"phase 4j: the fused route's CUDA graph per SQP iteration, N={N_MAIN} "
+          f"and N={N_BIG}, "
           f"{GRAPH_UPDATES} closed-loop updates against the eager body")
     graph_times = graph_checks(ctx, model)
     if failures:

@@ -24,9 +24,11 @@ its name, so the session's events and Chrome trace hold the spans on the
 device trace's clock.  Counters (``COUNTER_NAMES``), per instance and SQP
 iteration, frozen instances of a batch left out: linear solves and those
 that stopped at the PCG cap, line searches and those that took no step,
-and linear solves whose lam holds a NaN or inf (the f32 breakdown's
-alarm); and on the host (``HOST_COUNTER_NAMES``) the SQP iterations run
-by a graph replay and the graphs captured.  The others stay on the card,
+linear solves whose lam holds a NaN or inf (the f32 breakdown's alarm),
+and the halvings of the steps the line searches took (the sum of the
+accepted ``ls_alpha_idx``: 0 for alpha = 1, 7 for 1/128); and on the host
+(``HOST_COUNTER_NAMES``) the SQP iterations run by a graph replay and the
+graphs captured.  The others stay on the card,
 as references to the tensors the loop writes (its result buffers and each
 linear solve's lam, or a copy where the graph's next replay overwrites it;
 a large lam is reduced per instance when the solve ends, outside its
@@ -143,7 +145,7 @@ def trace(logdir: str | None = None):
 SPAN_NAMES = ("sqp.solve", "sqp.kkt", "sqp.linsys", "sqp.dz", "sqp.merits",
               "sqp.step", "sqp.stop_read", "sqp.replay")
 COUNTER_NAMES = ("pcg.solves", "pcg.cap_exits", "ls.searches", "ls.rejects",
-                 "pcg.nonfinite")
+                 "pcg.nonfinite", "ls.halvings")
 # counted on the host as the solves run: SQP iterations run by a CUDA graph
 # replay, and graphs captured (solver/sqp_graph.py)
 HOST_COUNTER_NAMES = ("sqp.replays", "sqp.captures")
@@ -221,9 +223,10 @@ def counters() -> dict:
         finite = torch.stack([kept if kept.dtype == torch.bool else _finite(kept)
                               for kept in lams], dim=-1)
         runs = ran.sum()
+        idx = alpha_idx[..., :k]
         row = torch.stack([runs, (ran & ~converged[..., :k]).sum(), runs,
-                           (ran & (alpha_idx[..., :k] == -1)).sum(),
-                           (ran & ~finite).sum()])
+                           (ran & (idx == -1)).sum(), (ran & ~finite).sum(),
+                           torch.where(ran & (idx >= 0), idx, 0).sum()])
         by_device[row.device] = by_device.get(row.device, 0) + row
     totals = [0] * len(COUNTER_NAMES)
     for row in by_device.values():

@@ -492,6 +492,41 @@ def test_card_closed_loop_bit_for_bit(card, monkeypatch):
 
 
 @pytest.mark.card
+def test_card_closed_loop_bit_for_bit_at_n512(card, monkeypatch):
+    """The same at the reference's longest tuned horizon: 64 updates at
+    N = 512 from trace 3_4's row 0 (calm in rows 0-649), PCG capped at 67,
+    where K2 runs its 16-CTA cluster of 32 knots a CTA.  The graph
+    captures that non-portable cluster launch and its shared memory, and
+    every output equals the eager body's bit for bit."""
+    from mpcgpu_tpu_torch.config import SimConfig
+    from mpcgpu_tpu_torch.ops.pcg_cuda import k2_cluster_plan
+    from mpcgpu_tpu_torch.sim.mpc import simulate_mpc_ondevice
+
+    n = 512
+    assert k2_cluster_plan(n)[:2] == (16, 32)
+    model, cost, sqp_cfg, pcg_cfg = _card_setup(card, n)
+    assert pcg_cfg.max_iter == 67
+    xu_tr, ee_tr = load_xu_traj("3_4")[:650], load_eepos_traj("3_4")[:650]
+    run = lambda: simulate_mpc_ondevice(
+        model, xu_tr, ee_tr, n, 1 / 64.0, cost=cost, sqp_cfg=sqp_cfg,
+        pcg_cfg=pcg_cfg, sim_cfg=SimConfig(max_control_updates=64),
+        linsys="pcg_cuda")
+    with profiling.trace():
+        got = run()
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    with monkeypatch.context() as m:
+        _eager(m)
+        want = run()
+    for k, v in want.items():
+        assert (torch.equal(v, got[k]) if isinstance(v, torch.Tensor)
+                else v == got[k]), k
+    assert counts["sqp.captures"] == 1
+    assert counts["sqp.replays"] + 1 == counts["pcg.solves"] \
+        == int((want["pcg_iters"] >= 0).sum())
+
+
+@pytest.mark.card
 def test_card_results_survive_later_solves(card):
     """A result equals its copy after later solves from other inputs."""
     model, cost, sqp_cfg, pcg_cfg = _card_setup(card)

@@ -203,6 +203,20 @@ def test_counters_equal_the_results(route, case, tmp_path_factory):
         assert got["pcg.cap_exits"] == 0
 
 
+@pytest.mark.parametrize("route, case", CASES,
+                         ids=[f"{r}-{'-'.join(c) or 'plain'}" for r, c in CASES])
+def test_halvings_equal_the_accepted_steps(route, case, tmp_path_factory):
+    """``ls.halvings`` is the sum of the result's ls_alpha_idx over the
+    SQP iterations an instance ran whose line search took a step (index
+    0 is alpha = 1, 7 is 1/128); rejections (-1) and frozen instances add
+    nothing."""
+    run = _run(route, tmp_path_factory, **case)
+    res, got = run["on"], run["counters"]
+    took = (res.pcg_iters >= 0) & (res.ls_alpha_idx >= 0)
+    assert got["ls.halvings"] == int(res.ls_alpha_idx[took].sum())
+    assert got["ls.searches"] - got["ls.rejects"] == int(took.sum())
+
+
 @pytest.mark.parametrize("keep", [0, profiling.KEEP_LAM_BYTES],
                          ids=["every-lam-reduced-at-once", "small-lam-kept"])
 def test_nonfinite_lam_kept_or_reduced_across_shapes(keep, monkeypatch,
