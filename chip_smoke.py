@@ -33,7 +33,10 @@ Phases (any failure raises and the script exits non-zero):
      version elsewhere (N = 64, 512); hold K8a-c and K3
      over instances (B = 256, N = 64) against the single-instance kernels
      bit for bit per instance (K8c also against dz_kernel at batch = 1),
-     and B = 4 instances against the plain versions;
+     and B = 4 instances against the plain versions; K8a's window plan
+     (k8a_plan_checks: its registers and residency, bit for bit against K1
+     at B = 16, N = 512 too, its time against K1's windows at B = 256, K1's
+     time within 3% of K1_US_REF);
   2c. hold the knot-sharded path's slab kernels (K9a KKT+Schur on the
      halo-extended slabs, K9b dz, K9c merit partials, K10a the pipelined CG
      step) against their plain versions on the card at N = 64 over 4 shards
@@ -2626,6 +2629,75 @@ def gap_checks(c, model, main_run, band_400, xu_traj, ee_traj, xu_calm,
 FLAG_K3_N = N_MAIN       # K3's flagged launches; K9a and K9c at SHARD_CASES
 
 
+K1_US_REF = 28.2         # K1 at N_MAIN with no slot loop (PERF.md §6 table)
+
+
+def k8a_plan_checks(c, model) -> dict:
+    """K8a's window plan (``kkt_batched_plan``): its registers and CTAs an
+    SM at 7 groups; at B_MAIN instances of N_MAIN knots and at 16 of N_BIG
+    every instance equal bit for bit to K1 under the plan; the A/B of K8a
+    under K1's windows and under the plan at B_MAIN (µs a call, a CUDA
+    graph of 5 calls, in turns), and K1's µs a call within 3% of
+    K1_US_REF.  Returns the times."""
+    torch, dev, expect = c.torch, c.dev, c.expect
+    from mpcgpu_tpu_torch.config import CostConfig
+    from mpcgpu_tpu_torch.parallel import batched_cuda
+    from mpcgpu_tpu_torch.solver.kkt_cuda import (KKTBatchedPlan, build_kkt_schur,
+                                                  kkt_smem_bytes, kkt_window_occupancy,
+                                                  kkt_window_plan)
+
+    for Kc in (4, 32):
+        regs, local, ctas = kkt_window_occupancy(7, kkt_smem_bytes(Kc, groups=7), 7, dev)
+        print(f"  K8a nq=7 Kc={Kc}, 7 groups: {regs} registers, {local} B local a "
+              f"thread, {ctas} CTA(s) an SM")
+    for B, N in ((B_MAIN, N_MAIN), (16, N_BIG)):
+        cost = CostConfig.for_knots(N)
+        xu_b, xs_b, ee_b, rho_b = batch_problem(B, N, torch, dev)
+        plan = batched_cuda.k8a_plan(N, B, 7, dev)
+        got = batched_cuda.build_kkt_schur_batched(model, cost, xu_b, xs_b, ee_b, rho_b, DT)
+        differ = 0
+        for i in range(B):
+            one = build_kkt_schur(model, cost, xu_b[i], xs_b[i], ee_b[i], rho_b[i], DT, 0)
+            differ += not all(torch.equal(one[k], got[k][i]) for k in one)
+        expect(differ == 0 and plan.window > kkt_window_plan(N).window,
+               f"K8a B={B} N={N} plan {tuple(plan)}: instances that differ from K1 "
+               f"bit for bit: {differ}")
+    cost = CostConfig.for_knots(N_MAIN)
+    xu_b, xs_b, ee_b, rho_b = batch_problem(B_MAIN, N_MAIN, torch, dev)
+    k1w = kkt_window_plan(N_MAIN)
+    old = KKTBatchedPlan(k1w.window, k1w.window + 3, k1w.ctas, k1w.smem_bytes)
+    new = batched_cuda.k8a_plan(N_MAIN, B_MAIN, 7, dev)
+
+    def k8a(plan):
+        def fn():
+            saved = batched_cuda.k8a_plan
+            batched_cuda.k8a_plan = lambda *a: plan
+            try:
+                return batched_cuda.build_kkt_schur_batched(model, cost, xu_b, xs_b,
+                                                            ee_b, rho_b, DT)
+            finally:
+                batched_cuda.k8a_plan = saved
+        return fn
+
+    xu, xs, ee, _ = problem(N_MAIN, torch, dev)
+    rho = torch.full((), RHO0, device=dev)
+    k1 = lambda: build_kkt_schur(model, cost, xu, xs, ee, rho, DT, 0)
+    times = {"K8a K1 windows": [], "K8a plan": [], "K1": []}
+    for _ in range(2):
+        times["K8a K1 windows"].append(graph_ms(torch, k8a(old), calls=5) * 1e3)
+        times["K8a plan"].append(graph_ms(torch, k8a(new), calls=5) * 1e3)
+        times["K1"].append(graph_ms(torch, k1) * 1e3)
+    t = {k: statistics.median(v) for k, v in times.items()}
+    print(f"  K8a B={B_MAIN} N={N_MAIN}: K1 windows {times['K8a K1 windows']} us, plan "
+          f"{tuple(new)} {times['K8a plan']} us; K1 {times['K1']} us; {card_line()}")
+    expect(t["K8a plan"] < t["K8a K1 windows"],
+           f"K8a B={B_MAIN}: the plan {t['K8a plan']:.1f} us a call below K1's windows "
+           f"{t['K8a K1 windows']:.1f} us")
+    expect(t["K1"] <= 1.03 * K1_US_REF,
+           f"K1 N={N_MAIN}: {t['K1']:.2f} us a call within 3% of {K1_US_REF}")
+    return t
+
+
 def wrap_problem(N: int, torch, device, seed: int = 0):
     """xu with joint angles 3.05 + 0.3 N(0, 1) and velocities and controls
     0.5 N(0, 1) (tests/test_angle_wrap.py::_problem's states: the
@@ -4000,6 +4072,7 @@ def main() -> int:
             worst = max(worst, r)
     expect(worst <= 5e-5, f"K8a B={P}: vs plain per instance and output, worst "
            f"{worst:.3e} max|ref| (<= 5e-5)")
+    k8a_plan_checks(ctx, model)
     # K8b on well-conditioned systems (as K2 is held): lam within 2e-6, the
     # fixed-step counts equal, the early exits within 2 iterations
     syn = [synthetic_btd(N, torch, dev, seed=1 + i) for i in range(P)]

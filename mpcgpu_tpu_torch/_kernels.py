@@ -46,6 +46,10 @@ _SIGNATURES = {
                        P, P, P, P, P, P],
         "kkt_schur_slab_launch": [P, P, I, P, P, F, P, F, F, F, I, I, I, I,
                                   I, I, I, P, P, P, P, P, P, P, P],
+        "kkt_schur_batched_launch": [P, I, I, P, I, I, P, F, P, F, F, F,
+                                     I, I, I, I, I, I, I, I, P, P, P, P, P, P,
+                                     P, P],
+        "kkt_window_occupancy": [I, I, P],
     },
     "pcg_dz.cu": {
         "pcg_dz_launch": [P, P, P, P, P, P, P, P, P, I, P, F,

@@ -16,15 +16,17 @@
 // the syncs between them.
 //
 // Design: ONE LAUNCH, a WINDOW of Kc consecutive knots per CTA, a GROUP of
-// KW warps per knot (3 at NQ = 6, 7; 2 below: one team of 6 lanes per
-// tangent direction, 5 teams a warp).  Kc is a fixed function of N (solver/kkt_cuda.py::
-// kkt_window_plan), never of the batch, so every caller rounds alike.  CTA w
-// owns the knots [s, e) = [w Kc, min(N, (w + 1) Kc)) and has Kc + 3 groups;
-// the knot coupling runs in three stages inside the CTA, through shared
-// memory, with a block barrier between them:
-//   1 knot stage, slots 0 .. Kc + 2 (knots s - 2 .. e): group i linearizes
-//     knot s - 2 + i and keeps what the Schur rows need (T = A Qinv A^T +
-//     B Rinv B^T, A Qinv, xnext, A Qinv q, B Rinv r, Qinv, q) in its slot;
+// KW warps per knot slot (3 at NQ = 6, 7; 2 below: one team of 6 lanes per
+// tangent direction, 5 teams a warp).  For K1, K5 and K9a Kc is a fixed
+// function of N (solver/kkt_cuda.py::kkt_window_plan) and a CTA has a group
+// per slot; K8a's plan is below.  CTA w owns the knots [s, e) = [w Kc,
+// min(N, (w + 1) Kc)) and has Kc + 3 slots; the knot coupling runs in
+// three stages inside the CTA, through shared memory, with a block barrier
+// between them:
+//   1 knot stage, slots 0 .. Kc + 2 (knots s - 2 .. e): slot i's group
+//     linearizes knot s - 2 + i and keeps what the Schur rows need (T = A
+//     Qinv A^T + B Rinv B^T, A Qinv, xnext, A Qinv q, B Rinv r, Qinv, q)
+//     in the slot;
 //   2 Schur stage, slots 1 .. Kc + 2: theta, phi, phi^T, gamma and D =
 //     theta^{-1} by Gauss-Jordan, from the slot before;
 //   3 stair stage, the own slots 2 .. Kc + 1: -D_k S_{k,k+-1} D_{k+-1}.
@@ -60,10 +62,22 @@
 // needs no rho, no inverse and no neighbour.  Latency-bound like K1.
 //
 // K8a replaces mpcgpu_tpu/parallel/batched_fused.py::build_kkt_schur_batched
-// (K1 over instance groups packed on lanes).  It is K1's launch over a
+// (K1 over instance groups packed on lanes).  It is K1's kernel over a
 // (window, instance) grid: instance blockIdx.y offsets its rows of xu and
 // the goal, reads its own rho and writes its own (N, ...) slab of every
-// output, with K1's windows, so each instance's result is K1's bit for bit.
+// output.  K1 is built for one arm's latency; K8a, where the batch fills
+// the card, for the owned knots an SM finishes per unit of time, under
+// its own plan (solver/kkt_cuda.py::kkt_batched_plan): LONG windows of Kc
+// knots (32 at N = 64, B = 256), whose G <= KKT_MAX_GROUPS groups take the
+// Kc + 3 slots of each stage in turn, so a knot's stage 1 runs (Kc + 3) /
+// Kc times, not 7 / 4.  What bounds it on an H100: register residency (7
+// groups are 672 threads at NQ = 6, 7, which ptxas caps at 80 registers,
+// 448 at 115-128 below: one CTA an SM at every NQ, so the CTAs run in
+// waves of 132) and the halo's share of the knot stages.  The plan takes
+// the Kc of the fewest waves x rounds of the groups over the slots; a
+// batch whose K1 windows fit in one wave keeps them.  Every output entry
+// is formed as K1 forms it, so each instance's result is K1's bit for bit
+// under any plan.
 //
 // K9a replaces mpcgpu_tpu/solver/kkt_pallas.py::build_kkt_schur_pallas_slab
 // (_make_kkt_schur_kernel with boundary_masks=True), the shard-local kernel
@@ -140,11 +154,12 @@ static_assert(3 * (NQ + 1) <= FKT, "the FK's ee entries and Jacobian, a thread e
 // the working set
 static_assert(NX * 2 * NX + 2 * NX + NX <= WS_FLOATS, "Schur stage");
 
-// Dynamic shared memory of a CTA of `groups` knot groups (kSchur: Kc + 3
-// groups and as many slots; K5: Kc groups, no slot): the model, the slots,
-// one working set per group.  Mirrored by solver/kkt_cuda.py::kkt_smem_bytes.
-__host__ __device__ constexpr int kkt_smem_floats(int groups, bool schur) {
-  return MODEL_SIZE + (schur ? groups * SLOT_FLOATS : 0) + groups * WS_FLOATS;
+// Dynamic shared memory of a CTA of windows of Kc knots and `groups` knot
+// groups (kSchur: Kc + 3 slots, one per knot of the window and its halo;
+// K5: no slot): the model, the slots, one working set per group.  Mirrored
+// by solver/kkt_cuda.py::kkt_smem_bytes.
+__host__ __device__ constexpr int kkt_smem_floats(int Kc, int groups, bool schur) {
+  return MODEL_SIZE + (schur ? (Kc + 3) * SLOT_FLOATS : 0) + groups * WS_FLOATS;
 }
 
 // barrier over the `count` threads (a multiple of 32) of named barrier id
@@ -691,10 +706,33 @@ __device__ void knot_stage(const KktArgs& g, const float* sm, int k, bool own,
   }
 }
 
+// A special register read afresh (volatile, so never hoisted out of a loop)
+__device__ inline int fresh_tid_x() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+__device__ inline int fresh_ctaid_x() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(v));
+  return v;
+}
+__device__ inline int fresh_ctaid_y() {
+  int v;
+  asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(v));
+  return v;
+}
+
 // One launch of K1 / K8a / K9a (kSchur) or K5 (!kSchur): CTA blockIdx.x owns
 // the window [s, e) = [x Kc, min(N, (x + 1) Kc)) of instance / shard
-// blockIdx.y.  kSchur: Kc + 3 groups of KW warps, group i on knot s - 2 + i;
-// !kSchur: Kc groups, group i on knot s + i.
+// blockIdx.y.  kSchur: Kc + 3 slots, slot i on knot s - 2 + i; !kSchur: Kc
+// slots, slot i on knot s + i.  The blockDim.x / KT groups of KW warps take
+// the slots of each stage in turn, group gi the slots gi, gi + G, ... (one
+// turn where there is a group per slot: K1, K5, K9a).  Each turn reads its
+// thread's place, its window and its instance's arguments afresh: at 672
+// threads a thread has 80 registers, and what the compiler hoists out of a
+// loop and holds across a knot stage spills (hoisted, K1 took 15% longer
+// on an H100).
 template <bool kSchur>
 __global__ void __launch_bounds__(KT * KKT_MAX_GROUPS)
 kkt_window_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
@@ -710,57 +748,65 @@ kkt_window_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
                   float* __restrict__ A_o, float* __restrict__ B_o,
                   float* __restrict__ q_o, float* __restrict__ c_o) {
   extern __shared__ __align__(16) float dsm[];
-  const int gi = threadIdx.x / KT, gl = threadIdx.x - gi * KT;
+  const int gi = threadIdx.x / KT;
   const int ngroups = blockDim.x / KT;
   const auto gsync = [gi]() { named_sync(1 + gi, KT); };
-  const int b = blockIdx.y;
-  const int s = blockIdx.x * Kc, e = min(s + Kc, N);
   const int halo = kSchur ? 2 : 0;
-  float* sm = dsm;
-  float* slots = dsm + MODEL_SIZE;
-  float* ws = slots + (kSchur ? ngroups * SLOT_FLOATS : 0) + gi * WS_FLOATS;
-  KktArgs g;
-  g.xu = xu + (size_t)b * xu_bstride;
-  g.xu_stride = xu_stride;
-  g.goal = goal + (size_t)b * goal_bstride;
-  g.goal_stride = goal_stride;
-  g.xs = xs;
-  g.bm = bmask != nullptr ? bmask + (size_t)b * 2 * N : nullptr;
-  g.dt = dt;
-  g.gravity = gravity;
-  g.qd_cost = qd_cost;
-  g.r_cost = r_cost;
-  g.rho = kSchur ? rho_p[(size_t)b * rho_bstride] : 0.f;
-  g.N = N;
-  g.integrator_type = integrator_type;
-  g.wrap = wrap;
-  g.terminal_at_last = terminal_at_last;
-  g.Q_o = Q_o + (size_t)b * N * NN;
-  g.A_o = A_o + (size_t)b * N * NN;
-  g.B_o = B_o + (size_t)b * N * NX * NU;
-  g.q_o = q_o + (size_t)b * N * NX;
-  g.c_o = c_o;
+  const int nslots = kSchur ? Kc + 3 : Kc;
+  float* const sm = dsm;
+  float* const slots = dsm + MODEL_SIZE;
+  float* const wsets = slots + (kSchur ? nslots * SLOT_FLOATS : 0);
   load_model(sm, model);
   __syncthreads();
-  // stage 1: knots s - halo .. e (kSchur) or s .. e - 1, one per group
-  {
-    const int k = s - halo + gi;
+  // stage 1: knots s - halo .. e (kSchur) or s .. e - 1, one per slot; a
+  // group's next slot waits for its threads to leave the working set
+  for (int i = gi; i < nslots; i += ngroups) {
+    if (i != gi) gsync();
+    const int tid = fresh_tid_x(), gi_ = tid / KT, gl = tid - gi_ * KT;
+    const int s = fresh_ctaid_x() * Kc, e = min(s + Kc, N), b = fresh_ctaid_y();
+    const int k = s - halo + i;
     const int k_end = kSchur ? min(e + 1, N) : e;
-    if (k >= 0 && k < k_end)
-      knot_stage<kSchur>(g, sm, k, k >= s && k < e, ws,
-                         slots + gi * SLOT_FLOATS, gl, gi);
+    if (k < 0 || k >= k_end) continue;
+    KktArgs g;
+    g.xu = xu + (size_t)b * xu_bstride;
+    g.xu_stride = xu_stride;
+    g.goal = goal + (size_t)b * goal_bstride;
+    g.goal_stride = goal_stride;
+    g.xs = xs;
+    g.bm = bmask != nullptr ? bmask + (size_t)b * 2 * N : nullptr;
+    g.dt = dt;
+    g.gravity = gravity;
+    g.qd_cost = qd_cost;
+    g.r_cost = r_cost;
+    g.rho = kSchur ? rho_p[(size_t)b * rho_bstride] : 0.f;
+    g.N = N;
+    g.integrator_type = integrator_type;
+    g.wrap = wrap;
+    g.terminal_at_last = terminal_at_last;
+    g.Q_o = Q_o + (size_t)b * N * NN;
+    g.A_o = A_o + (size_t)b * N * NN;
+    g.B_o = B_o + (size_t)b * N * NX * NU;
+    g.q_o = q_o + (size_t)b * N * NX;
+    g.c_o = c_o;
+    knot_stage<kSchur>(g, sm, k, k >= s && k < e, wsets + gi_ * WS_FLOATS,
+                       slots + i * SLOT_FLOATS, gl, gi_);
   }
   if constexpr (!kSchur) return;
   __syncthreads();
-  const float* bm = g.bm;
+  const int b = blockIdx.y;
+  const int s = blockIdx.x * Kc, e = min(s + Kc, N);
+  const float* bm = bmask != nullptr ? bmask + (size_t)b * 2 * N : nullptr;
   S += (size_t)b * N * 3 * NN;
   Pinv += (size_t)b * N * 3 * NN;
   gamma += (size_t)b * N * NX;
-  xu = g.xu;
-  // stage 2: slot i = gi + 1, knot s - 1 + gi, up to knot e
-  {
-    const int i = gi + 1, k = s - 2 + i;
-    if (i < ngroups && k >= 0 && k <= e && k < N) {
+  xu += (size_t)b * xu_bstride;
+  // stage 2: slots i = 1 .. Kc + 2, knot s - 2 + i, up to knot e
+  for (int i = gi + 1; i < nslots; i += ngroups) {
+    const int k = s - 2 + i;
+    if (i != gi + 1) gsync();
+    const int tid = fresh_tid_x(), gl = tid - (tid / KT) * KT;
+    float* const ws = wsets + (tid / KT) * WS_FLOATS;
+    if (k >= 0 && k <= e && k < N) {
       const bool has_prev = !first_knot(bm, k), has_next = !last_knot(bm, N, k);
       const bool own = k < e && k >= s;
       const float* prev = slots + (i - 1) * SLOT_FLOATS;   // valid if has_prev
@@ -805,9 +851,12 @@ kkt_window_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
     }
   }
   __syncthreads();
-  // stage 3: the own slots i = gi + 2, knot s + gi < e
-  {
-    const int i = gi + 2, k = s + gi;
+  // stage 3: the own slots i = 2 .. Kc + 1, knot s - 2 + i < e
+  for (int i = gi + 2; i < Kc + 2; i += ngroups) {
+    const int k = s - 2 + i;
+    if (i != gi + 2) gsync();
+    const int tid = fresh_tid_x(), gl = tid - (tid / KT) * KT;
+    float* const ws = wsets + (tid / KT) * WS_FLOATS;
     if (k < e) {
       const bool has_prev = !first_knot(bm, k), has_next = !last_knot(bm, N, k);
       const float* prev = slots + (i - 1) * SLOT_FLOATS;
@@ -854,18 +903,35 @@ kkt_window_kernel(const float* __restrict__ xu, int xu_stride, int xu_bstride,
   }
 }
 
-// knot groups of a CTA for windows of Kc knots, and the check of the
-// caller's shared-memory size against the kernel's own count
-int window_config(int Kc, int smem, bool schur, int* groups) {
-  *groups = schur ? Kc + 3 : Kc;
-  if (Kc < 1 || *groups > KKT_MAX_GROUPS ||
-      smem != static_cast<int>(sizeof(float)) * kkt_smem_floats(*groups, schur))
+// the check of the caller's window, groups (at most one per slot) and
+// shared-memory size against the kernel's own count
+int window_config(int Kc, int groups, int smem, bool schur) {
+  const int nslots = schur ? Kc + 3 : Kc;
+  if (Kc < 1 || groups < 1 || groups > KKT_MAX_GROUPS || groups > nslots ||
+      smem != static_cast<int>(sizeof(float)) * kkt_smem_floats(Kc, groups, schur))
     return static_cast<int>(cudaErrorInvalidValue);
   return 0;
 }
 
+// the kernel's dynamic shared-memory attribute on this device raised to
+// smem where a launch needs more
 template <bool kSchur>
-int launch_window(int N, int batch, int Kc, int smem, cudaStream_t st,
+cudaError_t allow_smem(int smem) {
+  static int smem_set[64] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  int& have = smem_set[device & 63];
+  if (smem > have) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kkt_window_kernel<kSchur>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    have = smem;
+  }
+  return cudaSuccess;
+}
+
+template <bool kSchur>
+int launch_window(int N, int batch, int Kc, int groups, int smem, cudaStream_t st,
                   const float* xu, int xu_stride, int xu_bstride,
                   const float* goal, int goal_stride, int goal_bstride,
                   const float* xs, const float* rho, int rho_bstride,
@@ -874,21 +940,10 @@ int launch_window(int N, int batch, int Kc, int smem, cudaStream_t st,
                   int integrator_type, int wrap, int terminal_at_last,
                   float* S, float* Pinv, float* gamma, float* Q, float* A,
                   float* B, float* q, float* c) {
-  int groups = 0;
-  const int bad = window_config(Kc, smem, kSchur, &groups);
+  const int bad = window_config(Kc, groups, smem, kSchur);
   if (bad != 0) return bad;
-  // the attribute is the kernel's on each device; set it when a launch
-  // needs more
-  static int smem_set[64] = {};
-  int device = 0;
-  cudaGetDevice(&device);
-  int& have = smem_set[device & 63];
-  if (smem > have) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kkt_window_kernel<kSchur>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    have = smem;
-  }
+  const cudaError_t err = allow_smem<kSchur>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + Kc - 1) / Kc, batch);
   kkt_window_kernel<kSchur><<<grid, KT * groups, smem, st>>>(
       xu, xu_stride, xu_bstride, goal, goal_stride, goal_bstride, xs, rho,
@@ -899,10 +954,10 @@ int launch_window(int N, int batch, int Kc, int smem, cudaStream_t st,
 
 }  // namespace
 
-// batch instances side by side (K8a; K1 is batch = 1): instance b reads
-// xu + b xu_bstride, goal + b goal_bstride, rho[b] and writes the b-th
-// (N, ...) slab of every output; windows of Kc knots, smem bytes of dynamic
-// shared memory (solver/kkt_cuda.py::kkt_window_plan)
+// batch instances side by side (K1 is batch = 1): instance b reads xu + b
+// xu_bstride, goal + b goal_bstride, rho[b] and writes the b-th (N, ...)
+// slab of every output; windows of Kc knots, a group per slot, smem bytes
+// of dynamic shared memory (solver/kkt_cuda.py::kkt_window_plan)
 extern "C" int kkt_schur_launch(
     const float* xu, int xu_stride, int xu_bstride, const float* goal,
     int goal_stride, int goal_bstride, const float* rho, float dt,
@@ -911,10 +966,42 @@ extern "C" int kkt_schur_launch(
     int terminal_at_last, float* S, float* Pinv, float* gamma, float* Qinv,
     float* A, float* B, float* q, void* stream) {
   return launch_window<true>(
-      N, batch, Kc, smem, static_cast<cudaStream_t>(stream), xu, xu_stride,
-      xu_bstride, goal, goal_stride, goal_bstride, nullptr, rho, 1, nullptr,
-      dt, model, gravity, qd_cost, r_cost, integrator_type, wrap,
+      N, batch, Kc, Kc + 3, smem, static_cast<cudaStream_t>(stream), xu,
+      xu_stride, xu_bstride, goal, goal_stride, goal_bstride, nullptr, rho, 1,
+      nullptr, dt, model, gravity, qd_cost, r_cost, integrator_type, wrap,
       terminal_at_last, S, Pinv, gamma, Qinv, A, B, q, nullptr);
+}
+
+// K8a: kkt_schur_launch's batch with `groups` knot groups a CTA, which take
+// the Kc + 3 slots of a window in turn (solver/kkt_cuda.py::
+// kkt_batched_plan)
+extern "C" int kkt_schur_batched_launch(
+    const float* xu, int xu_stride, int xu_bstride, const float* goal,
+    int goal_stride, int goal_bstride, const float* rho, float dt,
+    const float* model, float gravity, float qd_cost, float r_cost, int N,
+    int batch, int Kc, int groups, int smem, int integrator_type, int wrap,
+    int terminal_at_last, float* S, float* Pinv, float* gamma, float* Qinv,
+    float* A, float* B, float* q, void* stream) {
+  return launch_window<true>(
+      N, batch, Kc, groups, smem, static_cast<cudaStream_t>(stream), xu,
+      xu_stride, xu_bstride, goal, goal_stride, goal_bstride, nullptr, rho, 1,
+      nullptr, dt, model, gravity, qd_cost, r_cost, integrator_type, wrap,
+      terminal_at_last, S, Pinv, gamma, Qinv, A, B, q, nullptr);
+}
+
+// kkt_window_kernel<true>'s registers a thread, local (spill) bytes a
+// thread and the CTAs of `groups` knot groups and smem bytes of dynamic
+// shared memory an SM holds at once, into out[0..3)
+extern "C" int kkt_window_occupancy(int groups, int smem, int* out) {
+  cudaFuncAttributes attr = {};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kkt_window_kernel<true>);
+  if (err == cudaSuccess) err = allow_smem<true>(smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 2, kkt_window_kernel<true>, KT * groups, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 // K9a: shards side by side, each a horizon of Lext knots: shard b reads
@@ -929,7 +1016,7 @@ extern "C" int kkt_schur_slab_launch(
     float* Pinv, float* gamma, float* Qinv, float* A, float* B, float* q,
     void* stream) {
   return launch_window<true>(
-      Lext, n_shard, Kc, smem, static_cast<cudaStream_t>(stream), xu, W,
+      Lext, n_shard, Kc, Kc + 3, smem, static_cast<cudaStream_t>(stream), xu, W,
       Lext * W, goal, goal_stride, Lext * goal_stride, nullptr, rho, 0, bmask,
       dt, model, gravity, qd_cost, r_cost, integrator_type, wrap,
       terminal_at_last, S, Pinv, gamma, Qinv, A, B, q, nullptr);
@@ -943,7 +1030,7 @@ extern "C" int kkt_launch(const float* xu, int xu_stride, const float* goal,
                           int wrap, int terminal_at_last, float* Q, float* A,
                           float* B, float* q, float* c, void* stream) {
   return launch_window<false>(
-      N, 1, Kc, smem, static_cast<cudaStream_t>(stream), xu, xu_stride, 0,
+      N, 1, Kc, Kc, smem, static_cast<cudaStream_t>(stream), xu, xu_stride, 0,
       goal, goal_stride, 0, xs, nullptr, 0, nullptr, dt, model, gravity,
       qd_cost, 0.f, integrator_type, wrap, terminal_at_last, nullptr, nullptr,
       nullptr, Q, A, B, q, c);

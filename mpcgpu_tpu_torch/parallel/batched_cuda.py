@@ -8,8 +8,10 @@ packed instance its own CG scalars.  On a GPU the instance is simply one
 more grid axis of the single-instance kernels, so the packing has no
 counterpart here and every tensor keeps the (B, N, ...) layout:
 
-  * K8a ``build_kkt_schur_batched``: K1's launch over a (window, instance)
-    grid with K1's windows and a per-instance rho (replaces
+  * K8a ``build_kkt_schur_batched``: K1's kernel over a (window, instance)
+    grid with a per-instance rho and, where the batch fills the card, long
+    windows whose knot groups take the slots in turn
+    (``solver/kkt_cuda.py::kkt_batched_plan``; replaces
     batched_fused.py:150);
   * K8b ``pcg_solve_batched``: K2' with one cluster per instance, each with
     its own CG scalars and its own exit, so every instance's iterations and
@@ -36,7 +38,9 @@ is active and ``it < max_iter``.  ``sqp_solve_batched_fused_sharded`` runs it
 on each instance group of an (instance, knot) mesh (``parallel/mesh.py``).
 Under a ``torch.profiler`` session it records the spans and counters that
 ``solver/sqp.py::sqp_solve`` records (``utils/profiling.py``), with the
-batch size on each span and frozen instances left out of the counters.
+batch size on each span and frozen instances left out of the counters, and
+per K8a launch its knot stages and knots (``k8a.knot_stages``,
+``k8a.knots``).
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ from mpcgpu_tpu_torch.ops.pcg import pcg_solve
 from mpcgpu_tpu_torch.ops.pcg_cuda import (_check_pcg_args, compute_dz_plain,
                                            k2_cluster_plan, require_nx)
 from mpcgpu_tpu_torch.solver.kkt_cuda import (_check_args, build_kkt_schur_plain,
-                                              kkt_window_plan)
+                                              kkt_batched_plan, kkt_knot_stages,
+                                              kkt_window_occupancy)
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_plain,
                                                 merit_span_scratch,
                                                 merit_team_plan)
@@ -115,6 +120,28 @@ def line_search_merits_batched_plain(model: RobotModel, cost: CostConfig, xu_b,
         integrator_type, angle_wrap=angle_wrap) for i in range(xu_b.shape[0])])
 
 
+_K8A_PLANS: dict = {}
+_K8A_OCCUPANCY: dict = {}
+
+
+def k8a_plan(N: int, B: int, nq: int, device):
+    """K8a's plan (``kkt_batched_plan``) for the card ``device``: its SM
+    count and the CTAs an SM of the kernel built for nq holds, as the card
+    reports them; cached per card and shape."""
+    key = (device.index, N, B, nq)
+    plan = _K8A_PLANS.get(key)
+    if plan is None:
+        def ctas_per_sm(groups, smem):
+            k = (device.index, nq, groups, smem)
+            if k not in _K8A_OCCUPANCY:
+                _K8A_OCCUPANCY[k] = kkt_window_occupancy(groups, smem, nq, device)[2]
+            return _K8A_OCCUPANCY[k]
+
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = _K8A_PLANS[key] = kkt_batched_plan(N, B, nq, sms, ctas_per_sm)
+    return plan
+
+
 def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
                             ee_b, rho_b, dt: float, integrator_type: int = 0,
                             angle_wrap: bool = False) -> dict:
@@ -139,13 +166,13 @@ def build_kkt_schur_batched(model: RobotModel, cost: CostConfig, xu_b, xs_b,
                A=torch.empty((B, N, nx, nx), **f32),
                B=torch.empty((B, N, nx, nq), **f32),
                q=torch.empty((B, N, nx), **f32))
-    plan = kkt_window_plan(N, nq=nq)
+    plan = k8a_plan(N, B, nq, dev)
     _kernels.launch(
-        dev, "kkt_schur.cu", "kkt_schur_launch", nq,
+        dev, "kkt_schur.cu", "kkt_schur_batched_launch", nq,
         xu_b.data_ptr(), xu_b.stride(1), xu_b.stride(0), ee_b.data_ptr(),
         ee_b.stride(1), ee_b.stride(0), rho_b.data_ptr(), float(dt),
         packed.data_ptr(), float(model.gravity), float(cost.qd_cost),
-        float(cost.r_cost), N, B, plan.window, plan.smem_bytes,
+        float(cost.r_cost), N, B, plan.window, plan.groups, plan.smem_bytes,
         integrator_type, int(angle_wrap), int(cost.terminal_at_last_state),
         out["S"].data_ptr(), out["Pinv"].data_ptr(), out["gamma"].data_ptr(),
         out["Qinv"].data_ptr(), out["A"].data_ptr(), out["B"].data_ptr(),
@@ -326,6 +353,11 @@ def sqp_solve_batched_fused(
             tr.phase("sqp.kkt", it)
         sys = build_kkt_schur_batched(model, cost, xu, xs_b, ee_b, rho, dt,
                                       integrator_type, angle_wrap)
+        if tr and not _kernels.on_cpu(xu):
+            N = xu.shape[1]
+            tr.count("k8a.knot_stages",
+                     B * kkt_knot_stages(N, k8a_plan(N, B, model.nq, dev).window))
+            tr.count("k8a.knots", B * N)
         if tr:
             tr.phase("sqp.linsys")
         lam_new, lin_iters, lin_ok = pcg_solve_batched(

@@ -15,17 +15,20 @@ same with a leading shard axis, (n_shard, Lext, ...).  K5 returns the
 ``build_kkt_cuda`` and ``build_kkt_schur_slab`` run their plain versions for
 CPU tensors and their kernels for CUDA tensors.
 
-Each kernel is one launch of windows of ``kkt_window_plan(N).window``
-consecutive knots per CTA, a group of ``kkt_group_warps(nq)`` warps per knot
-(K1, K8a, K9a: with two halo knots on the left and one on the right; K5:
-none).  The window is a fixed function of N, so K1, K8a
-(``parallel/batched_cuda.py``) and K9a (N = the shard's Lext) cut a horizon
-alike.  Each launch takes the library built for the model's nq (2..7).
+Each kernel is one launch of windows of consecutive knots per CTA, a
+group of ``kkt_group_warps(nq)`` warps per knot slot (K1, K8a, K9a: with two
+halo knots on the left and one on the right; K5: none).  K1, K5 and K9a (N
+= the shard's Lext) take ``kkt_window_plan(N).window``, a fixed function of
+N, and a group per slot.  K8a (``parallel/batched_cuda.py``) takes
+``kkt_batched_plan``: where the batch fills the card, long windows whose
+groups take the slots in turn, so that the halo knots cost less; each
+instance's rows are K1's bit for bit under either plan.  Each launch takes
+the library built for the model's nq (2..7).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -86,17 +89,31 @@ _WS_FLOATS = kkt_ws_floats(7)
 class KKTPlan(NamedTuple):
     window: int       # Kc: the knots a CTA owns
     ctas: int         # ceil(N / Kc) per instance or shard
-    smem_bytes: int   # dynamic shared memory of a K1 / K8a / K9a CTA
+    smem_bytes: int   # dynamic shared memory of a K1 / K9a CTA
 
 
-def kkt_smem_bytes(window: int, schur: bool = True, nq: int = 7) -> int:
+class KKTBatchedPlan(NamedTuple):
+    window: int       # Kc: the knots a CTA owns
+    groups: int       # G: knot groups a CTA, taking the Kc + 3 slots in turn
+    ctas: int         # ceil(N / Kc) per instance
+    smem_bytes: int   # dynamic shared memory of a K8a CTA
+
+
+# one CTA's dynamic shared memory at most on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+
+
+def kkt_smem_bytes(window: int, schur: bool = True, nq: int = 7,
+                   groups: int | None = None) -> int:
     """Dynamic shared memory of one CTA (``kkt_smem_floats`` of
-    csrc/kkt_schur.cu): the model, and per knot group (K1 / K8a / K9a:
-    window + 3, K5: window) a working set and, with the Schur stages, a
-    knot's slot."""
-    groups = window + 3 if schur else window
+    csrc/kkt_schur.cu): the model, with the Schur stages (K1 / K8a / K9a)
+    window + 3 knot slots, and a working set per knot group (default: one
+    per slot, window + 3, or window for K5)."""
+    if groups is None:
+        groups = window + 3 if schur else window
     return 4 * (_kernels.model_floats(nq)
-                + groups * ((kkt_slot_floats(nq) if schur else 0) + kkt_ws_floats(nq)))
+                + ((window + 3) * kkt_slot_floats(nq) if schur else 0)
+                + groups * kkt_ws_floats(nq))
 
 
 def kkt_window_plan(N: int, max_knots: int = _kernels.MAX_KNOTS,
@@ -110,6 +127,61 @@ def kkt_window_plan(N: int, max_knots: int = _kernels.MAX_KNOTS,
         raise ValueError(f"N = {N} knots; the CUDA kernels take 2 <= N <= {max_knots}")
     window = min(N, KKT_WINDOW)
     return KKTPlan(window, -(-N // window), kkt_smem_bytes(window, nq=nq))
+
+
+def kkt_knot_stages(N: int, window: int) -> int:
+    """The knot stages (stage 1) one instance's launch runs over N knots in
+    windows of ``window``: each window's own knots, two halo knots on the
+    left and one on the right, those inside the horizon (N + 3 ceil(N /
+    window) less the halo past its ends)."""
+    return sum(min(N, s + window + 1) - max(0, s - 2) for s in range(0, N, window))
+
+
+def kkt_batched_plan(N: int, B: int, nq: int, sms: int,
+                     ctas_per_sm: Callable[[int, int], int]) -> KKTBatchedPlan:
+    """K8a's windows for B instances of N knots on a card of ``sms`` SMs
+    that holds ``ctas_per_sm(groups, smem_bytes)`` CTAs an SM at once (the
+    card's occupancy, ``kkt_window_occupancy``).
+
+    Among windows Kc from K1's (``kkt_window_plan(N).window``) to N, with G
+    = min(KKT_MAX_GROUPS, Kc + 3) groups and shared memory within
+    SMEM_LIMIT, the Kc of the fewest waves x rounds: waves = ceil(B ceil(N
+    / Kc) / (sms x CTAs an SM)), rounds = ceil((Kc + 3) / G), the turns the
+    groups take over the slots of stage 1 (the most of the three stages'
+    ceil((Kc + 3) / G), ceil((Kc + 2) / G), ceil(Kc / G)); a tie goes to
+    the smaller Kc.  A batch whose K1 windows fit in one wave keeps them
+    (one round, the least halo of any one-wave plan)."""
+    k1 = kkt_window_plan(N, nq=nq).window
+    best = None
+    for Kc in range(k1, N + 1):
+        groups = min(KKT_MAX_GROUPS, Kc + 3)
+        smem = kkt_smem_bytes(Kc, nq=nq, groups=groups)
+        if smem > SMEM_LIMIT:
+            break
+        ctas = -(-N // Kc)
+        per_sm = ctas_per_sm(groups, smem)
+        if per_sm < 1:
+            continue
+        cost = -(-B * ctas // (sms * per_sm)) * -(-(Kc + 3) // groups)
+        if best is None or cost < best[0]:
+            best = cost, KKTBatchedPlan(Kc, groups, ctas, smem)
+    if best is None:
+        raise ValueError(f"no K8a window fits the card at N = {N}, nq = {nq}")
+    return best[1]
+
+
+def kkt_window_occupancy(groups: int, smem_bytes: int, nq: int, device) -> tuple:
+    """(registers a thread, local bytes a thread, CTAs an SM) of K8a's
+    kernel built for nq on the card ``device``, for CTAs of ``groups`` knot
+    groups and ``smem_bytes`` of dynamic shared memory
+    (``cudaFuncGetAttributes``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    fn = _kernels.entry("kkt_schur.cu", "kkt_window_occupancy", nq)
+    with torch.cuda.device(device):
+        _kernels.check(fn(groups, smem_bytes, out), "kkt_window_occupancy")
+    return tuple(out)
 
 
 def _check_args(cost: CostConfig, integrator_type: int) -> None:

@@ -27,8 +27,10 @@ that stopped at the PCG cap, line searches and those that took no step,
 linear solves whose lam holds a NaN or inf (the f32 breakdown's alarm),
 and the halvings of the steps the line searches took (the sum of the
 accepted ``ls_alpha_idx``: 0 for alpha = 1, 7 for 1/128); and on the host
-(``HOST_COUNTER_NAMES``) the SQP iterations run by a graph replay and the
-graphs captured.  The others stay on the card,
+(``HOST_COUNTER_NAMES``) the SQP iterations run by a graph replay, the
+graphs captured, and K8a's knot stages and knots (instances x the knots
+its windows linearize, halo knots included, and instances x N, per
+launch).  The others stay on the card,
 as references to the tensors the loop writes (its result buffers and each
 linear solve's lam, or a copy where the graph's next replay overwrites it;
 a large lam is reduced per instance when the solve ends, outside its
@@ -147,8 +149,9 @@ SPAN_NAMES = ("sqp.solve", "sqp.kkt", "sqp.linsys", "sqp.dz", "sqp.merits",
 COUNTER_NAMES = ("pcg.solves", "pcg.cap_exits", "ls.searches", "ls.rejects",
                  "pcg.nonfinite", "ls.halvings")
 # counted on the host as the solves run: SQP iterations run by a CUDA graph
-# replay, and graphs captured (solver/sqp_graph.py)
-HOST_COUNTER_NAMES = ("sqp.replays", "sqp.captures")
+# replay, and graphs captured (solver/sqp_graph.py); K8a's knot stages and
+# knots (parallel/batched_cuda.py)
+HOST_COUNTER_NAMES = ("sqp.replays", "sqp.captures", "k8a.knot_stages", "k8a.knots")
 
 
 class Span(NamedTuple):
@@ -299,9 +302,9 @@ class SolveTrace:
                 _enable_record_function(True)
         self._lams.append(lam)
 
-    def count(self, name: str) -> None:
-        """Add one to the host counter ``name`` (``HOST_COUNTER_NAMES``)."""
-        self._rec.host_counts[name] += 1
+    def count(self, name: str, n: int = 1) -> None:
+        """Add n to the host counter ``name`` (``HOST_COUNTER_NAMES``)."""
+        self._rec.host_counts[name] += n
 
     def finish(self, result) -> None:
         """End the open phase; reduce each large lam (KEEP_LAM_BYTES); end the

@@ -1,6 +1,7 @@
-"""K1's window plan (``solver/kkt_cuda.py::kkt_window_plan``), K3's team
-plan (``solver/merit_cuda.py::merit_team_plan``) and what the wrappers of
-K1, K5, K8a, K9a, K3, K3b and K9c hand their launches.
+"""K1's window plan (``solver/kkt_cuda.py::kkt_window_plan``), K8a's
+(``kkt_batched_plan``), K3's team plan
+(``solver/merit_cuda.py::merit_team_plan``) and what the wrappers of K1, K5,
+K8a, K9a, K3, K3b and K9c hand their launches.
 
 The kernels run only on the card (``chip_smoke.py`` holds them against
 their plain versions there).  Here: the plans are valid for every N the
@@ -14,6 +15,7 @@ rows at f64 bit for bit, the decomposition the one-launch K1 relies on.
 import contextlib
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ import torch
 from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.config import CostConfig
 from mpcgpu_tpu_torch.models import iiwa14
+from mpcgpu_tpu_torch.parallel import batched_cuda
 from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
                                                     line_search_merits_batched)
 from mpcgpu_tpu_torch.solver import kkt_cuda, merit_cuda
@@ -29,7 +32,8 @@ from mpcgpu_tpu_torch.solver.kkt_cuda import (build_kkt_cuda, build_kkt_schur,
                                               build_kkt_schur_plain,
                                               build_kkt_schur_slab,
                                               build_kkt_schur_slab_plain,
-                                              kkt_smem_bytes, kkt_window_plan)
+                                              kkt_batched_plan, kkt_smem_bytes,
+                                              kkt_window_plan)
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
                                                 line_search_merits_fused,
                                                 merit_smem_bytes,
@@ -38,6 +42,10 @@ from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
 SMEM_LIMIT = 232_448     # one block's dynamic shared memory on an H100
 CSRC = Path(kkt_cuda.__file__).resolve().parents[1] / "csrc"
+H100_SMS = 132
+# K8a's CTAs an SM on the H100 at every nq, window and group count of its
+# plans: one (the register file; kkt_window_occupancy on the card)
+one_cta_an_sm = lambda groups, smem: 1
 
 
 def _constexprs(*names: str) -> dict:
@@ -100,14 +108,20 @@ def test_kkt_plan_constants_match_the_cuda_source():
     assert 2 * consts["KKT_MAX_GROUPS"] <= 15      # named barriers 1..15
     # the kernel's own count of its shared memory, evaluated here
     terms = _function_body((CSRC / "kkt_schur.cu").read_text(), "kkt_smem_floats")
-    assert terms == "MODEL_SIZE + (schur ? groups * SLOT_FLOATS : 0) + groups * WS_FLOATS"
+    assert terms == ("MODEL_SIZE + (schur ? (Kc + 3) * SLOT_FLOATS : 0) "
+                     "+ groups * WS_FLOATS")
     for Kc in (1, 2, 4):
         for schur in (True, False):
             groups = Kc + 3 if schur else Kc
             floats = (consts["MODEL_SIZE"]
-                      + (groups * consts["SLOT_FLOATS"] if schur else 0)
+                      + ((Kc + 3) * consts["SLOT_FLOATS"] if schur else 0)
                       + groups * consts["WS_FLOATS"])
             assert 4 * floats == kkt_smem_bytes(Kc, schur)
+    # K8a's long windows: fewer groups than slots
+    for Kc, groups in ((32, 7), (16, 7), (49, 7), (8, 1)):
+        floats = (consts["MODEL_SIZE"] + (Kc + 3) * consts["SLOT_FLOATS"]
+                  + groups * consts["WS_FLOATS"])
+        assert 4 * floats == kkt_smem_bytes(Kc, groups=groups)
 
 
 @pytest.mark.parametrize("N", [2, 16, 33, 64, 100, 512])
@@ -175,11 +189,20 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    # K8a's plan: an H100's SM count and CTAs an SM
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=H100_SMS))
+    monkeypatch.setattr(batched_cuda, "kkt_window_occupancy",
+                        lambda groups, smem, nq, dev: (80, 0, 1))
+    monkeypatch.setattr(batched_cuda, "_K8A_PLANS", {})
+    monkeypatch.setattr(batched_cuda, "_K8A_OCCUPANCY", {})
     return calls
 
 
 @pytest.mark.parametrize("N", [2, 33, 64, 512])
 def test_k1_k5_k8a_k9a_launch_the_same_windows(recorder, N):
+    """K1, K5 and K9a launch K1's windows; K8a its own entry with its plan
+    (Kc, G, smem), which at 3 instances is K1's windows again."""
     m = iiwa14(torch.float32, device="cpu")
     cost = CostConfig.for_knots(N)
     xu, ee = torch.zeros((N, 21)), torch.zeros((N, 6))
@@ -193,12 +216,16 @@ def test_k1_k5_k8a_k9a_launch_the_same_windows(recorder, N):
                          ee.expand(2, N, 6).contiguous(), z, z, 1e-3, 1 / 64)
     (n1, a1), (n5, a5), (n8, a8), (n9, a9) = recorder
     assert (n1, n5, n8, n9) == ("kkt_schur_launch", "kkt_launch",
-                                "kkt_schur_launch", "kkt_schur_slab_launch")
+                                "kkt_schur_batched_launch", "kkt_schur_slab_launch")
     plan = kkt_window_plan(N)
     # kkt_schur_launch: ..., N, batch, Kc, smem, ...; kkt_schur_slab_launch:
-    # ..., Lext, n_shard, Kc, smem, ...; kkt_launch: ..., N, Kc, smem, ...
+    # ..., Lext, n_shard, Kc, smem, ...; kkt_launch: ..., N, Kc, smem, ...;
+    # kkt_schur_batched_launch: ..., N, batch, Kc, groups, smem, ...
     assert tuple(a1[12:16]) == (N, 1, plan.window, plan.smem_bytes)
-    assert tuple(a8[12:16]) == (N, 3, plan.window, plan.smem_bytes)
+    k8a = kkt_batched_plan(N, 3, 7, H100_SMS, one_cta_an_sm)
+    assert tuple(a8[12:17]) == (N, 3, k8a.window, k8a.groups, k8a.smem_bytes)
+    assert (k8a.window, k8a.groups, k8a.smem_bytes) == (
+        plan.window, plan.window + 3, plan.smem_bytes)
     assert tuple(a9[10:14]) == (N, 2, plan.window, plan.smem_bytes)
     assert tuple(a5[9:12]) == (N, plan.window, kkt_smem_bytes(plan.window, False))
 

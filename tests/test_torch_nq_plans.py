@@ -5,7 +5,7 @@ of the CUDA sources evaluated at that nq.
 The kernels take nq as the compile-time ``MPC_NQ`` (``csrc/common.cuh``).
 Here every file-scope ``constexpr int`` of ``common.cuh`` and of a kernel's
 source is evaluated with ``MPC_NQ`` set (C's integer division), and the
-Python mirrors (``kkt_window_plan``, ``k2_cluster_plan``,
+Python mirrors (``kkt_window_plan``, ``kkt_batched_plan``, ``k2_cluster_plan``,
 ``merit_team_plan``, ``pcr_plan``, ``slab_cluster_plan``,
 ``ca_cluster_plan``, ``coeff_plan``) must give the same sizes; the
 static_asserts of the sources must hold.  The launches are replaced by a
@@ -18,6 +18,7 @@ read past its buffers) and the plan of that nq.
 import contextlib
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -41,6 +42,7 @@ from mpcgpu_tpu_torch.ops.pcr import pcr_levels
 from mpcgpu_tpu_torch.ops.pcr_cuda import (pcr_plan, pcr_slot_floats,
                                            pcr_smem_bytes, pcr_solve_cuda,
                                            pcr_warp_floats, pcr_workspace_floats)
+from mpcgpu_tpu_torch.parallel import batched_cuda
 from mpcgpu_tpu_torch.parallel.batched_cuda import (build_kkt_schur_batched,
                                                     compute_dz_batched,
                                                     line_search_merits_batched,
@@ -50,6 +52,7 @@ from mpcgpu_tpu_torch.solver import kkt_cuda, merit_cuda
 from mpcgpu_tpu_torch.solver.kkt_cuda import (K9A_MAX_KNOTS, build_kkt_cuda,
                                               build_kkt_schur,
                                               build_kkt_schur_slab,
+                                              kkt_batched_plan, kkt_knot_stages,
                                               kkt_smem_bytes, kkt_window_plan)
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
                                                 line_search_merits_fused,
@@ -58,6 +61,10 @@ from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merit_partials_slab,
 SMEM_LIMIT = 232_448     # one block's dynamic shared memory on an H100
 CSRC = Path(kkt_cuda.__file__).resolve().parents[1] / "csrc"
 NQS = (2, 3, 4, 5, 6, 7)
+H100_SMS = 132
+# K8a's CTAs an SM on the H100 at every nq, window and group count of its
+# plans: one (the register file; kkt_window_occupancy on the card)
+one_cta_an_sm = lambda groups, smem: 1
 
 
 def _constexprs(nq: int, *names: str, **funcs) -> dict:
@@ -171,14 +178,87 @@ def test_k3_plan_matches_the_source(nq):
 
 @pytest.mark.parametrize("nq", NQS)
 def test_k8a_k9a_windows_at_every_nq(nq):
-    """K8a takes K1's windows over instances and K9a over halo-extended
-    slabs of up to K9A_MAX_KNOTS knots: the same split at every nq, the
-    shared memory of that nq within the card's."""
+    """K9a takes K1's windows over halo-extended slabs of up to
+    K9A_MAX_KNOTS knots, the same split at every nq; K8a takes its plan,
+    K1's windows at a batch of one and long windows of KKT_MAX_GROUPS
+    groups at a full card; the shared memory of that nq within the
+    card's."""
     for N in (2, 5, 64, 512, K9A_MAX_KNOTS):
         plan = kkt_window_plan(N, K9A_MAX_KNOTS, nq)
         assert plan[:2] == kkt_window_plan(N, K9A_MAX_KNOTS)[:2]
         assert plan.smem_bytes == kkt_smem_bytes(plan.window, nq=nq) <= SMEM_LIMIT
         assert kkt_smem_bytes(plan.window, False, nq) <= plan.smem_bytes
+    for N in (2, 5, 64, 512):
+        one = kkt_batched_plan(N, 1, nq, H100_SMS, one_cta_an_sm)
+        k1 = kkt_window_plan(N, nq=nq)
+        assert (one.window, one.groups, one.ctas, one.smem_bytes) == (
+            k1.window, k1.window + 3, k1.ctas, k1.smem_bytes)
+        full = kkt_batched_plan(N, 256, nq, H100_SMS, one_cta_an_sm)
+        assert full.smem_bytes == kkt_smem_bytes(full.window, nq=nq,
+                                                 groups=full.groups) <= SMEM_LIMIT
+        assert full.groups == min(kkt_cuda.KKT_MAX_GROUPS, full.window + 3)
+
+
+def _k8a_cost(plan, N, B, sms=H100_SMS):
+    """waves x rounds of a K8a plan at one CTA an SM."""
+    waves = -(-B * -(-N // plan.window) // sms)
+    return waves * -(-(plan.window + 3) // plan.groups)
+
+
+@pytest.mark.parametrize("nq", NQS)
+@pytest.mark.parametrize("N", [2, 33, 64, 512])
+@pytest.mark.parametrize("B", [1, 3, 33, 256])
+def test_k8a_plan_covers_the_horizon(nq, N, B):
+    """K8a's plan at every nq on an H100 (132 SMs, one CTA an SM): its
+    windows own every knot once, the groups' turns over the slots reach
+    every slot of the three stages once, with the two left and one right
+    halo knots inside the horizon; the shared memory is the source's
+    ``kkt_smem_floats`` (evaluated at nq) and within the card's; a batch
+    whose K1 windows fit in one wave keeps K1's windows; no other window
+    from K1's to N is cheaper in waves x rounds; at N = 64, nq = 7, B =
+    256 the window is 32 knots."""
+    c = _constexprs(nq, "kkt_schur.cu")
+    plan = kkt_batched_plan(N, B, nq, H100_SMS, one_cta_an_sm)
+    Kc, G = plan.window, plan.groups
+    assert 1 <= G <= c["KKT_MAX_GROUPS"] and G <= Kc + 3 and 1 <= Kc <= N
+    assert plan.ctas == -(-N // Kc)
+    # the source's kkt_smem_floats(Kc, groups, schur), its ternary in Python
+    body = _body((CSRC / "kkt_schur.cu").read_text(), "kkt_smem_floats")
+    expr = re.sub(r"\((\w+) \? (.+) : (\w+)\)", r"(\2 if \1 else \3)", body)
+    floats = eval(expr, {}, dict(c, Kc=Kc, groups=G, schur=True))
+    assert floats == c["MODEL_SIZE"] + (Kc + 3) * c["SLOT_FLOATS"] + G * c["WS_FLOATS"]
+    assert plan.smem_bytes == 4 * floats <= SMEM_LIMIT
+    owned, stages = [], 0
+    for w in range(plan.ctas):
+        s, e = w * Kc, min(N, (w + 1) * Kc)
+        owned += range(s, e)
+        # the kernel's loops: stage 1 over slots 0 .. Kc + 2, stage 2 over
+        # 1 .. Kc + 2, stage 3 over 2 .. Kc + 1, group gi on gi, gi + G, ...
+        turns = lambda lo, hi: sorted(i for gi in range(G)
+                                      for i in range(lo + gi, hi, G))
+        slots1, slots2, slots3 = turns(0, Kc + 3), turns(1, Kc + 3), turns(2, Kc + 2)
+        assert slots1 == list(range(Kc + 3)) and slots2 == list(range(1, Kc + 3))
+        assert slots3 == list(range(2, Kc + 2))
+        stage1 = [s - 2 + i for i in slots1 if 0 <= s - 2 + i < min(e + 1, N)]
+        assert stage1 == list(range(max(0, s - 2), min(N, e + 1)))
+        assert [s - 2 + i for i in slots3 if s - 2 + i < e] == list(range(s, e))
+        stages += len(stage1)
+    assert owned == list(range(N))
+    assert stages == kkt_knot_stages(N, Kc)
+    k1 = kkt_window_plan(N, nq=nq)
+    if B * k1.ctas <= H100_SMS:
+        assert (Kc, G, plan.smem_bytes) == (k1.window, k1.window + 3, k1.smem_bytes)
+    cost = _k8a_cost(plan, N, B)
+    for other in range(k1.window, N + 1):
+        groups = min(c["KKT_MAX_GROUPS"], other + 3)
+        if kkt_smem_bytes(other, nq=nq, groups=groups) > SMEM_LIMIT:
+            break
+        alt = kkt_cuda.KKTBatchedPlan(other, groups, -(-N // other), 0)
+        assert _k8a_cost(alt, N, B) >= cost, (other, plan)
+        if other < Kc:
+            assert _k8a_cost(alt, N, B) > cost, (other, plan)
+    if (N, nq, B) == (64, 7, 256):
+        assert (Kc, G, plan.ctas, stages) == (32, 7, 2, 67)
 
 
 @pytest.mark.parametrize("nq", NQS)
@@ -313,6 +393,13 @@ def recorder(monkeypatch):
     monkeypatch.setattr(_kernels, "stream_ptr", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "device", card)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: current[0].index)
+    # K8a's plan: an H100's SM count and CTAs an SM
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=H100_SMS))
+    monkeypatch.setattr(batched_cuda, "kkt_window_occupancy",
+                        lambda groups, smem, nq, dev: (80, 0, 1))
+    monkeypatch.setattr(batched_cuda, "_K8A_PLANS", {})
+    monkeypatch.setattr(batched_cuda, "_K8A_OCCUPANCY", {})
     return calls
 
 
@@ -411,6 +498,7 @@ def _kernel_calls(nq):
     at = lambda i, *v: dict(zip(range(i, i + len(v)), v))
     window = kkt_window_plan(N, nq=nq).window
     k7, k9a = pcr_plan(N, nx), kkt_window_plan(L + 4, K9A_MAX_KNOTS, nq)
+    k8a = kkt_batched_plan(N, B, nq, H100_SMS, one_cta_an_sm)
     sys_b = {k: rep(v, B) for k, v in sys_.items()}
     sys_s = {k: v.reshape(n_sh, L, *v.shape[1:]) for k, v in sys_.items()}
     st10a, in10a = _slab_state(nq, L)
@@ -430,10 +518,10 @@ def _kernel_calls(nq):
         "K7": ("pcr.cu", "pcr_launch",
                lambda: pcr_solve_cuda(sys_["S"], z((N, nx))),
                at(2, N, pcr_levels(N), 1, k7.ctas, int(k7.cluster), k7.smem_bytes)),
-        "K8a": ("kkt_schur.cu", "kkt_schur_launch",
+        "K8a": ("kkt_schur.cu", "kkt_schur_batched_launch",
                 lambda: build_kkt_schur_batched(m, cost, xu_b, z((B, nx)),
                                                 rep(ee, B), z(B), 1 / 64),
-                at(12, N, B, window, kkt_smem_bytes(window, nq=nq))),
+                at(12, N, B, k8a.window, k8a.groups, k8a.smem_bytes)),
         "K8b": ("pcg_dz.cu", "pcg_launch",
                 lambda: pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"],
                                           z((B, N, nx))),

@@ -251,3 +251,40 @@ def test_lam_reductions_run_unprofiled_and_turn_the_profiler_back_on(
     assert names.count("aten::all") == ITERS - 1
     assert "aten::cumsum" in names
     assert profiling.counters()["pcg.nonfinite"] == ITERS
+
+
+def test_k8a_counters_zero_outside_a_session(tmp_path_factory):
+    """K8a's host counters (``k8a.knot_stages``, ``k8a.knots``) are zero
+    after a batched solve with no profiler session, and after one under a
+    session on the CPU, where the plain version runs in place of K8a."""
+    run = _run("batched", tmp_path_factory)
+    names = ("k8a.knot_stages", "k8a.knots")
+    assert set(names) <= set(profiling.HOST_COUNTER_NAMES)
+    assert [run["recorded_off"][1][k] for k in names] == [0, 0]
+    assert [run["counters"][k] for k in names] == [0, 0]
+
+
+@pytest.mark.parametrize("stages, knots, want", [
+    (256 * 67 * 2, 256 * 64 * 2, 100 * 3 / 64),      # N = 64 in two windows of 32
+    (256 * 109, 256 * 64, 100 * 45 / 64),            # K1's windows of 4
+    (0, 0, None)])
+def test_k8a_recompute_pct_reads_the_counters(monkeypatch, stages, knots, want):
+    """``portbench/metrics/k8a_recompute_pct.py``: 100 x (stages - knots) /
+    knots of the recorder's counters; None with no K8a knot counted, with
+    no such counter (a program without it), or with no traced segment."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "portbench/metrics/k8a_recompute_pct.py"
+    spec = importlib.util.spec_from_file_location("k8a_recompute_pct", path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    counts = dict.fromkeys(profiling.COUNTER_NAMES, 0) | {
+        "sqp.replays": 0, "sqp.captures": 0,
+        "k8a.knot_stages": stages, "k8a.knots": knots}
+    monkeypatch.setattr(profiling, "counters", lambda: counts)
+    got = reader.read({"traced": {"busy_s": 1.0}})
+    assert got == pytest.approx(want) if want is not None else got is None
+    assert reader.read({"traced": None}) is None
+    for k in ("k8a.knot_stages", "k8a.knots"):
+        del counts[k]
+    assert reader.read({"traced": {"busy_s": 1.0}}) is None

@@ -59,8 +59,10 @@ call (parent, change, change, parent) and compare the saved outputs:
 
 (The saved outputs at B = 256 take ~100 MB.)
 
-``--window-sweep`` times K1 (N = 64, 512) and K8a (B = 256) with windows of
-2, 3 and 4 knots (``solver/kkt_cuda.py::KKT_WINDOW``), ``--team-sweep`` K3
+``--window-sweep`` times K1 (N = 64, 512) with windows of 2, 3 and 4 knots
+(``solver/kkt_cuda.py::KKT_WINDOW``) and K8a (B = 256) with windows of 4 to
+49 knots and 7 groups (its plan, ``kkt_batched_plan``, takes 32 there; a
+tree without that plan times K8a at the windows of 2, 3 and 4), ``--team-sweep`` K3
 (N = 64) and K3b (B = 256) with teams of 1..32 lanes and 32, 64 or 128
 samples a block (``solver/merit_cuda.py::merit_team_plan``); both print whether each
 result equals the default plan's bit for bit.  ``--cluster-sweep`` times K2'
@@ -692,7 +694,26 @@ def main():
         cases = {f"K1 N={n}": (lambda n=n: build_kkt_schur(
             m, inputs[n][0], inputs[n][1], inputs[n][2], inputs[n][3], rho, c.DT, 0))
             for n in (N, c.N_BIG)}
-        cases[f"K8a B={B}"] = k8a
+        if hasattr(kkt_cuda, "kkt_batched_plan"):
+            from mpcgpu_tpu_torch.parallel import batched_cuda
+
+            planned = batched_cuda.k8a_plan
+            for Kc in (4, 8, 16, 24, 32, 40, 49):
+                plan = kkt_cuda.KKTBatchedPlan(Kc, 7, -(-N // Kc),
+                                               kkt_cuda.kkt_smem_bytes(Kc, groups=7))
+                batched_cuda.k8a_plan = lambda *a, plan=plan: plan
+                try:
+                    res = k8a()
+                    same = all(torch.equal(v.cpu(), outs[f"K8a B={B} {k}"])
+                               for k, v in res.items())
+                    ms = c.graph_ms(torch, k8a, calls=5)
+                finally:
+                    batched_cuda.k8a_plan = planned
+                print(f"  window sweep K8a B={B} Kc={Kc}, 7 groups: {ms * 1e3:.1f} us "
+                      f"({plan.ctas} CTAs per instance, {plan.smem_bytes} B shared "
+                      f"memory each); bitwise equal to the plan's: {same}", flush=True)
+        else:
+            cases[f"K8a B={B}"] = k8a
         for Kc in (2, 3, 4):
             kkt_cuda.KKT_WINDOW = Kc
             for name, fn in cases.items():
