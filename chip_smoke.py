@@ -19,8 +19,9 @@ Phases (any failure raises and the script exits non-zero):
      N = 64 and N = 512, and K2 / K2' (one thread-block cluster per solve)
      also at the ragged N = 2, 37, 100; print K2's cluster plan and
      cudaOccupancyMaxActiveClusters at each N; K6 (a warp per knot,
-     launched with programmatic dependent launch) also bit for bit against
-     the earlier dz_kernel, which K8c still runs;
+     launched with programmatic dependent launch) bit for bit against K2's
+     fused dz, and K8c (the same kernel over instances, a rho each) per
+     instance bit for bit against K6;
   2a. hold K1, K2, K3, K4 and K4b at nq = 3 and 5 (the chain tracker's
      planar arms, on their own reference traces) against their plain
      versions at N = 16, 64 and 512, at the tolerances of their nq = 7
@@ -32,8 +33,7 @@ Phases (any failure raises and the script exits non-zero):
      seed on the calm rows (N = 64) and by medians against its plain
      version elsewhere (N = 64, 512); hold K8a-c and K3
      over instances (B = 256, N = 64) against the single-instance kernels
-     bit for bit per instance (K8c also against dz_kernel at batch = 1),
-     and B = 4 instances against the plain versions; K8a's window plan
+     bit for bit per instance, and B = 4 instances against the plain versions; K8a's window plan
      (k8a_plan_checks: its registers and residency, bit for bit against K1
      at B = 16, N = 512 too, its time against K1's windows at B = 256, K1's
      time within 3% of K1_US_REF);
@@ -41,7 +41,7 @@ Phases (any failure raises and the script exits non-zero):
      halo-extended slabs, K9b dz, K9c merit partials, K10a the pipelined CG
      step) against their plain versions on the card at N = 64 over 4 shards
      and N = 512 over 8, K9a and K9b against K1 and K6 bit for bit on the
-     interior rows (K9b also against the earlier dz_kernel), and the sharded PCG through K10a against K2' on the
+     interior rows, and the sharded PCG through K10a against K2' on the
      well-conditioned system (tightly) and on the real system over noise
      seeds (by medians); check that K9a's corner blocks at the horizon's
      ends are exactly 0; hold K10b (the s-step basis and Gram kernel) and
@@ -62,8 +62,9 @@ Phases (any failure raises and the script exits non-zero):
      and (nq = 5) 512 over 8;
   2e. the race check of K6 and K9b: K1 then K6, and K9a then K9b, 16 pairs
      on fresh blocks in one CUDA graph (outputs NaN before the replay) and
-     eagerly, at nq = 3, 5 and 7: every dz bit for bit the earlier
-     dz_kernel's on its blocks and within K6's bound of the plain version;
+     eagerly, at nq = 3, 5 and 7: every dz bit for bit the same kernel's
+     relaunched on its settled blocks and within K6's bound of the plain
+     version;
   3. run the warm-started chain: 64 MPC steps of the IIWA-14 at N = 64 in
      f32 through the kernels (linsys="pcg_cuda"), check the results and that
      every kernel was launched, compare step 1 with the plain and f64 steps,
@@ -150,9 +151,8 @@ Phases (any failure raises and the script exits non-zero):
      plain version, its bound and, for K7, the dense library solve (K2,
      K2' and K8b also per CG iteration); every kernel also at nq = 3 and 5,
      each beside its bound at that nq; the fleet unsharded and over the
-     instance axis, in turns; K6 and K9b beside the earlier dz_kernel and
-     without programmatic dependent launch, the empty kernel on their grids
-     (the launch floor) and the pairs K2' -> K6 and halo glue -> K9b;
+     instance axis, in turns; K6 and K9b beside the pairs K2' -> K6 and
+     halo glue -> K9b;
   7. the multi-card path (``multicard_checks``): one worker process per
      visible card, at most four, in one NCCL group on a localhost
      coordinator (this script with ``--multicard-worker``), each finding its
@@ -1377,8 +1377,7 @@ def slice_kernel_checks(c) -> dict:
     version on the card, with the tolerances of its nq = 7 check (phases 2,
     2b, 2c): K5 5e-5 max|ref| per block (both integrators); K2' lam bit for
     bit K2's and within 2e-6 of its plain version on synthetic_btd at nx;
-    K6 1e-5 and bit for bit K2's fused dz and the earlier dz_kernel (K9b
-    too); K7 1e-5 of the plain and f64
+    K6 1e-5 and bit for bit K2's fused dz; K7 1e-5 of the plain and f64
     solves on synthetic_btd; K8a-c and K3b at B = NQ_BATCH bit for bit the
     single kernels per instance, and B_PLAIN instances against the plain
     versions (K8b on synthetic systems); K9a-c against their plain versions
@@ -1492,8 +1491,6 @@ def slice_kernel_checks(c) -> dict:
                    f"K6 {tag}: vs plain {r:.3e} max|ref| (<= 1e-5, or within 2x the "
                    f"plain f32 version's distance to f64: kernel {rk:.3e}, plain "
                    f"{rp:.3e}); bitwise equal to K2's fused dz {torch.equal(d6, k2[1])}")
-            same = torch.equal(d6, dz_kernel_ref(torch, sys_, k2[0], u, rho, cost.r_cost))
-            expect(same, f"K6 {tag}: bitwise equal to the earlier dz_kernel {same}")
         # K7 on the well-conditioned system, within 1e-5 of the plain and
         # the f64 solves
         for N in (3,) + NQ_SINGLE_SIZES[nq]:
@@ -1632,9 +1629,6 @@ def slice_kernel_checks(c) -> dict:
             same = torch.equal(d9.reshape(N, w), d6)
             expect(r <= 1e-5 and same, f"K9b {tag}: vs plain {r:.3e} max|ref| "
                    f"(<= 1e-5); == K6 bit for bit {same}")
-            same = torch.equal(d9, dz_slab_kernel_ref(torch, sl, lam_s, lam_n, last_s,
-                                                      u_s, rho, cost.r_cost))
-            expect(same, f"K9b {tag}: bitwise equal to the earlier dz_kernel {same}")
             w1 = knot_windows(c, N, S, 0, 1)
             x1, z1, e1 = xu[w1].contiguous(), d6[w1].contiguous(), ee[w1].contiguous()
             kc, kd, ka = line_search_merit_partials_slab(model, cost, x1, z1, e1, DT)
@@ -2079,62 +2073,6 @@ RACE_CALLS = 16          # predecessor-then-dz pairs in one CUDA graph
 RACE_CASES = {3: (16, (64, 4)), 5: (N_MAIN, (N_MAIN, 4)), 7: (N_MAIN, (N_BIG, 8))}
 
 
-def dz_kernel_ref(torch, sys_, lam, u, rho, r_cost: float):
-    """The earlier K6 on the same inputs: csrc/pcg_dz.cu::dz_kernel (a
-    32-thread block per knot) through K8c's entry dz_launch at batch = 1;
-    the bits the redesigned K6 keeps."""
-    from mpcgpu_tpu_torch import _kernels
-
-    N, nx = lam.shape
-    dev = lam.device
-    rho_t = _kernels.scalar(rho, dev)
-    dz = torch.empty((N, nx + nx // 2), dtype=torch.float32, device=dev)
-    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_launch", nq=nx // 2)(
-        lam.data_ptr(), sys_["Qinv"].data_ptr(), sys_["A"].data_ptr(),
-        sys_["B"].data_ptr(), sys_["q"].data_ptr(), u.data_ptr(), u.stride(0), 0,
-        rho_t.data_ptr(), float(r_cost), N, 1, dz.data_ptr(),
-        _kernels.stream_ptr(dev)), "dz_launch")
-    return dz
-
-
-def dz_slab_kernel_ref(torch, sl, lam, lam_next, last, u, rho, r_cost: float):
-    """The earlier K9b on the same inputs: dz_kernel through dz_slab_launch."""
-    from mpcgpu_tpu_torch import _kernels
-
-    S, L, nx = lam.shape
-    dev = lam.device
-    rho_t = _kernels.scalar(rho, dev)
-    dz = torch.empty((S, L, nx + nx // 2), dtype=torch.float32, device=dev)
-    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_slab_launch", nq=nx // 2)(
-        lam.data_ptr(), lam_next.data_ptr(), last.data_ptr(), sl["Qinv"].data_ptr(),
-        sl["A"].data_ptr(), sl["B"].data_ptr(), sl["q"].data_ptr(),
-        sl["Qinv"].stride(0) // (nx * nx), u.data_ptr(), u.stride(1), u.stride(0),
-        rho_t.data_ptr(), float(r_cost), L, S, dz.data_ptr(),
-        _kernels.stream_ptr(dev)), "dz_slab_launch")
-    return dz
-
-
-def dz_launch_raw(plan, pdl: int, args: tuple, dz):
-    """dz_warp_launch by hand on a plan, with (pdl = 1) or without (0) the
-    programmatic-stream-serialization attribute; args are the wrapper's
-    arguments up to the batch (lam .. N, batch)."""
-    from mpcgpu_tpu_torch import _kernels
-
-    nq = dz.shape[-1] // 3
-    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_warp_launch", nq=nq)(
-        *args, *plan, pdl, dz.data_ptr(), _kernels.stream_ptr(dz.device)),
-        "dz_warp_launch")
-    return dz
-
-
-def dz_empty(dev, plan, batch: int, pdl: int, nq: int = 7) -> None:
-    """The empty kernel on a dz plan's grid and block (the launch floor)."""
-    from mpcgpu_tpu_torch import _kernels
-
-    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_empty_launch", nq=nq)(
-        batch, *plan, pdl, _kernels.stream_ptr(dev)), "dz_empty_launch")
-
-
 def split_route_order(c, model, cost, pcg_cfg, xu, ee) -> None:
     """The fused_dz=False route (K1 -> K2' -> K6) under torch.profiler: one
     sqp_solve of 2 SQP iterations from xu.  Every K6 launch must come right
@@ -2173,64 +2111,33 @@ def split_route_order(c, model, cost, pcg_cfg, xu, ee) -> None:
 
 def dz_slice_timings(c, sys_, lam, u, rho, r_cost: float, exit_tol: float,
                      slab: dict, n_shard: int) -> dict:
-    """Phase 5's numbers of this slice, device time per call of CUDA graphs
-    of 20 calls, in two rounds (the second in reverse order), medians: K6
-    (N knots) and K9b (``slab``, phase 2c's inputs) beside the earlier
-    dz_kernel on the same inputs and beside themselves launched without
-    programmatic dependent launch; the launch floor (the empty kernel on K6's
-    and K9b's grids, with and without it); and the pairs on their routes:
-    K2' from lam with no CG step (max_iter = 0: r0, z0 and the exit test)
-    then K6 against K2' with its cast then dz_kernel, and the sharded step's
-    halo glue then K9b against the glue then dz_kernel.  Returns {case:
-    us}."""
+    """Phase 5's numbers of the dz kernel, device time per call of CUDA
+    graphs of 20 calls, in two rounds (the second in reverse order),
+    medians: K6 (N knots) and K9b (``slab``, phase 2c's inputs), and the
+    pairs on their routes: K2' from lam with no CG step (max_iter = 0: r0,
+    z0 and the exit test) then K6, and the sharded step's halo glue then
+    K9b.  Returns {case: us}."""
     from mpcgpu_tpu_torch.ops.pcg_cuda import (compute_dz_cuda, compute_dz_slab,
-                                               dz_plan, pcg_solve_cuda,
                                                pcg_solve_cuda_uncast)
     from mpcgpu_tpu_torch.parallel import KnotMesh
     from mpcgpu_tpu_torch.parallel.sqp_sharded import _next
 
-    torch, dev = c.torch, c.dev
-    N, nx = lam.shape
-    plan6 = dz_plan(N, nx)
+    torch = c.torch
+    N = lam.shape[0]
     lam_s, lam_n, last_s, u_s, sl = (slab[k] for k in ("lam_s", "lam_n", "last_s",
                                                        "u_s", "sl"))
     L = lam_s.shape[1]
-    plan9 = dz_plan(L, nx)
-    out6 = torch.empty((N, nx + nx // 2), device=dev)
-    out9 = torch.empty((n_shard, L, nx + nx // 2), device=dev)
-    args6 = (lam.data_ptr(), None, None, *(sys_[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
-             N, u.data_ptr(), u.stride(0), 0, rho.data_ptr(), float(r_cost), N, 1)
-    args9 = (lam_s.data_ptr(), lam_n.data_ptr(), last_s.data_ptr(),
-             *(sl[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
-             sl["Qinv"].stride(0) // (nx * nx), u_s.data_ptr(), u_s.stride(1),
-             u_s.stride(0), rho.data_ptr(), float(r_cost), L, n_shard)
     mesh = KnotMesh(n_shard)
-    k2p = lambda solve: solve(sys_["S"], sys_["Pinv"], sys_["gamma"], lam,
-                              max_iter=0, exit_tol=exit_tol).lam
+    k2p = lambda: pcg_solve_cuda_uncast(sys_["S"], sys_["Pinv"], sys_["gamma"], lam,
+                                        max_iter=0, exit_tol=exit_tol).lam
     glue = lambda: _next(lam_s, mesh.send_left(lam_s[:, 0]))
     cases = {
         f"K6 N={N}": lambda: compute_dz_cuda(sys_, lam, u, rho, r_cost),
-        f"K6 N={N} without PDL": lambda: dz_launch_raw(plan6, 0, args6, out6),
-        f"K6 N={N} earlier dz_kernel": lambda: dz_kernel_ref(torch, sys_, lam, u, rho,
-                                                             r_cost),
         f"K9b {n_shard * L}/{n_shard}": lambda: compute_dz_slab(
             sl, lam_s, lam_n, last_s, u_s, rho, r_cost),
-        f"K9b {n_shard * L}/{n_shard} without PDL": lambda: dz_launch_raw(
-            plan9, 0, args9, out9),
-        f"K9b {n_shard * L}/{n_shard} earlier dz_kernel": lambda: dz_slab_kernel_ref(
-            torch, sl, lam_s, lam_n, last_s, u_s, rho, r_cost),
-        "empty on K6's grid, PDL": lambda: dz_empty(dev, plan6, 1, 1),
-        "empty on K6's grid, no PDL": lambda: dz_empty(dev, plan6, 1, 0),
-        "empty on K9b's grid, PDL": lambda: dz_empty(dev, plan9, n_shard, 1),
-        "empty on K9b's grid, no PDL": lambda: dz_empty(dev, plan9, n_shard, 0),
-        "pair K2' -> K6": lambda: compute_dz_cuda(sys_, k2p(pcg_solve_cuda_uncast), u,
-                                                  rho, r_cost),
-        "pair K2' (cast) -> earlier dz_kernel": lambda: dz_kernel_ref(
-            torch, sys_, k2p(pcg_solve_cuda), u, rho, r_cost),
+        "pair K2' -> K6": lambda: compute_dz_cuda(sys_, k2p(), u, rho, r_cost),
         "pair glue -> K9b": lambda: compute_dz_slab(sl, lam_s, glue(), last_s, u_s,
                                                     rho, r_cost),
-        "pair glue -> earlier dz_kernel": lambda: dz_slab_kernel_ref(
-            torch, sl, lam_s, glue(), last_s, u_s, rho, r_cost),
     }
     got = {k: [] for k in cases}
     for order in (list(cases), list(cases)[::-1]):
@@ -2258,11 +2165,12 @@ def dz_race_checks(c) -> None:
     then K9b), RACE_CALLS times in one CUDA graph, every pair on fresh
     blocks (the trace under another noise seed) that its predecessor has
     just written, every output of the graph set to NaN before the replay;
-    then the same pairs eagerly on the stream.  Each dz must equal the
-    earlier dz_kernel on its blocks bit for bit and lie within K6's bound of
-    the plain version (1e-5 max|ref|, or 2x the plain f32 version's
-    distance to f64, as phase 2d holds K6).  A load placed before
-    griddepcontrol.wait would read NaN or another pair's blocks."""
+    then the same pairs eagerly on the stream.  Each dz must equal the same
+    kernel relaunched on its blocks once they are settled (after a
+    synchronize) bit for bit and lie within K6's bound of the plain version
+    (1e-5 max|ref|, or 2x the plain f32 version's distance to f64, as phase
+    2d holds K6).  A load placed before griddepcontrol.wait would read NaN
+    or another pair's blocks."""
     import numpy as np
 
     from mpcgpu_tpu_torch.config import CostConfig
@@ -2296,7 +2204,7 @@ def dz_race_checks(c) -> None:
         worst = max(e for _, e in res + eager)
         expect(n_g == n_e == RACE_CALLS,
                f"race {what}: {RACE_CALLS} pairs in one graph (outputs NaN before "
-               f"the replay) / eagerly: dz == dz_kernel on the fresh blocks bit for "
+               f"the replay) / eagerly: dz == the kernel's on the settled blocks bit for "
                f"bit and within K6's bound of the plain version in {n_g} / {n_e} "
                f"(vs plain worst {worst:.3e} max|ref|)")
 
@@ -2316,7 +2224,8 @@ def dz_race_checks(c) -> None:
 
         def check_k6(i, sys_, dz):
             u = probs[i][1][:, nx:]
-            return held(dz, dz_kernel_ref(torch, sys_, lam, u, rho, cost.r_cost),
+            torch.cuda.synchronize()
+            return held(dz, compute_dz_cuda(sys_, lam, u, rho, cost.r_cost),
                         compute_dz_plain(sys_, lam, u, rho, cost.r_cost),
                         compute_dz_plain(f64(sys_), lam.double(), u.double(),
                                          rho.double(), cost.r_cost))
@@ -2345,8 +2254,9 @@ def dz_race_checks(c) -> None:
         def check_k9b(i, out, dz):
             u_s = ext[i][3]
             sl = {k: v[:, 2:2 + L] for k, v in out.items()}
-            return held(dz, dz_slab_kernel_ref(torch, sl, lam_s, lam_n, last_s, u_s,
-                                               rho, cost_s.r_cost),
+            torch.cuda.synchronize()
+            return held(dz, compute_dz_slab(sl, lam_s, lam_n, last_s, u_s, rho,
+                                            cost_s.r_cost),
                         compute_dz_slab_plain(sl, lam_s, lam_n, last_s, u_s, rho,
                                               cost_s.r_cost),
                         compute_dz_slab_plain(f64(sl), lam_s.double(), lam_n.double(),
@@ -3847,8 +3757,17 @@ def main() -> int:
                f"K6 N={N}: vs plain compute_dz max|d|={d:.3e} = {r:.3e} "
                f"max|ref| (<= 1e-5); bitwise equal to K2's fused dz "
                f"{torch.equal(d6, got[1])}")
-        same = torch.equal(d6, dz_kernel_ref(torch, sys_, got[0], u, rho, cost.r_cost))
-        expect(same, f"K6 N={N}: bitwise equal to the earlier dz_kernel {same}")
+        # K8c (the same kernel over an instance axis, a rho each) on two
+        # copies of these blocks, at rho and 2 rho: each instance bit for bit
+        # K6 on its blocks
+        two = lambda t: torch.stack([t, t])
+        d8 = compute_dz_batched({k: two(sys_[k]) for k in ("Qinv", "A", "B", "q")},
+                                two(got[0]), two(u), torch.stack([rho, 2 * rho]),
+                                cost.r_cost)
+        d6b = compute_dz_cuda(sys_, got[0], u, 2 * rho, cost.r_cost)
+        same = [torch.equal(d8[0], d6), torch.equal(d8[1], d6b)]
+        expect(all(same), f"K8c N={N}: instances at rho, 2 rho bitwise equal to K6 "
+               f"on their blocks {same}")
 
         # K5 against build_kkt per output (K1 reaches <= 1.8e-5 max|ref|);
         # the second case takes the semi-implicit integrator, the angle wrap
@@ -4038,7 +3957,7 @@ def main() -> int:
     dz_b = compute_dz_batched(sys_b, lam_b, xu_b[:, :, 14:], rho_b, cost.r_cost)
     m_b, a_b = line_search_merits_batched(model, cost, xu_b, dz_b, xs_b, ee_b, mu, DT)
     torch.cuda.synchronize()
-    differ = {"K8a": 0, "K8b": 0, "K8c": 0, "K8c vs dz_kernel": 0, "K3b": 0}
+    differ = {"K8a": 0, "K8b": 0, "K8c": 0, "K3b": 0}
     for i in range(B):
         one = build_kkt_schur(model, cost, xu_b[i], xs_b[i], ee_b[i], rho_b[i], DT, 0)
         differ["K8a"] += not all(torch.equal(one[k], sys_b[k][i]) for k in one)
@@ -4050,15 +3969,12 @@ def main() -> int:
                               and torch.equal(p1.converged, cv_b[i]))
         d1 = compute_dz_cuda(one_i, lam_b[i], xu_b[i, :, 14:], rho_b[i], cost.r_cost)
         differ["K8c"] += not torch.equal(d1, dz_b[i])
-        differ["K8c vs dz_kernel"] += not torch.equal(dz_kernel_ref(
-            torch, one_i, lam_b[i], xu_b[i, :, 14:], rho_b[i], cost.r_cost), dz_b[i])
         m1, a1 = line_search_merits_fused(model, cost, xu_b[i], dz_b[i], xs_b[i],
                                           ee_b[i], mu, DT)
         differ["K3b"] += not (torch.equal(m1, m_b[i]) and torch.equal(a1, a_b[i]))
     expect(all(v == 0 for v in differ.values()),
            f"K8a/K8b/K8c/K3b B={B} N={N}: instances that differ from the single "
-           f"kernels (K1/K2'/K6/K3; K8c also from dz_kernel at batch = 1, the "
-           f"earlier K6) bit for bit: {differ}; PCG iterations "
+           f"kernels (K1/K2'/K6/K3) bit for bit: {differ}; PCG iterations "
            f"{int(it_b.min())}..{int(it_b.max())}")
     P = B_PLAIN
     ref_b = build_kkt_schur_batched_plain(model, cost, xu_b[:P], xs_b[:P], ee_b[:P],
@@ -4266,10 +4182,6 @@ def main() -> int:
         same = torch.equal(d9.reshape(N, 21), d6)
         expect(r <= 1e-5 and same, f"K9b N={N} over {S} shards: vs plain "
                f"{r:.3e} max|ref| (<= 1e-5); == K6 bit for bit {same}")
-        same = torch.equal(d9, dz_slab_kernel_ref(torch, sl, lam_s, lam_n, last_s, u_s,
-                                                  rho, cost.r_cost))
-        expect(same, f"K9b N={N} over {S} shards: bitwise equal to the earlier "
-               f"dz_kernel {same}")
         # K9c on each shard's L knots and the next shard's first: per-knot
         # terms against its plain version, and, corrected at the global ends
         # and summed, against K3's merits (both 1e-4 relative, K3's bound)
@@ -5202,8 +5114,7 @@ def main() -> int:
             print(f"    {name}: {rows[-1]['us_per_iter']:.3f} us per CG "
                   f"iteration ({steps[name]} iterations)")
 
-    # this slice: K6 / K9b against the earlier dz_kernel, without PDL, the
-    # launch floor and the pairs on their routes (phase 2c's 512/8 inputs)
+    # K6 / K9b and the pairs on their routes (phase 2c's 512/8 inputs)
     n9, s9 = SHARD_CASES[0]
     dz_slice = dz_slice_timings(ctx, sys_, lam_k2, xu[:, 14:], rho, cost.r_cost,
                                 pcg_kw["exit_tol"], slab_ref[n9], s9)

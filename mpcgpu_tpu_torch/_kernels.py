@@ -56,11 +56,8 @@ _SIGNATURES = {
                           I, P, I, I, I, I, I, P, P, P, P, P],
         "pcg_launch": [P, P, P, P, I, P, I, I, I, I, I, I, P, P, P, P],
         "pcg_cluster_occupancy": [I, I, I, I, P],
-        "dz_launch": [P, P, P, P, P, P, I, I, P, F, I, I, P, P],
-        "dz_slab_launch": [P, P, P, P, P, P, P, I, P, I, I, P, F, I, I, P, P],
-        "dz_warp_launch": [P, P, P, P, P, P, P, I, P, I, I, P, F, I, I, I, I, I,
+        "dz_warp_launch": [P, P, P, P, P, P, P, I, P, I, I, P, I, F, I, I, I, I,
                            I, P, P],
-        "dz_empty_launch": [I, I, I, I, I, P],
     },
     "merit.cu": {
         "merit_launch": [P, P, P, P, I, I, P, F, F, F, F, F,

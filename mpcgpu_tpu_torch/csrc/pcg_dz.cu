@@ -106,12 +106,9 @@
 // shared-memory rows), so K6 on K2's lam equals K2's dz bit for bit.
 //
 // K8c replaces mpcgpu_tpu/parallel/batched_fused.py::compute_dz_batched:
-// the earlier dz recovery (dz_kernel: a 32-thread block per knot, rhs and
-// then dx loaded from global memory one after the other) over a (knot,
-// instance) grid with a per-instance rho; at B = 256 it reaches 76% of its
-// bound and stays as it is.  dz_kernel's batch = 1 entry (dz_launch) and
-// its slab entry (dz_slab_launch) keep the earlier K6 and K9b launchable:
-// chip_smoke.py holds dz_warp_kernel to them bit for bit.  K8b replaces
+// dz_warp_kernel over a (CTA, instance) grid with a per-instance rho
+// (rho_bstride 1), so each instance's dz equals K6's on its blocks bit for
+// bit.  K8b replaces
 // batched_fused.py::pcg_solve_batched_lanes (_make_pcg_kernel_packed:
 // instances packed on lanes with segmented reductions, emulated here by
 // one cluster per instance).
@@ -513,57 +510,21 @@ pcg_dz_kernel(const float* __restrict__ S, const float* __restrict__ Pinv,
   }
 }
 
-// The earlier dz recovery, K8c's (and the earlier K6's and K9b's): a block
-// per knot.  lam_next, lastm: K9b's lam_{k+1} rows and last-knot flags (N
-// per shard), or nullptr (K8c, K6: the next row of lam, and k = N - 1).  The
-// blocks of instance b start sys_nstride knots after those of instance b - 1.
-__global__ void __launch_bounds__(32)
-dz_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next,
-          const float* __restrict__ lastm, const float* __restrict__ Qinv,
-          const float* __restrict__ A, const float* __restrict__ B,
-          const float* __restrict__ q, int sys_nstride,
-          const float* __restrict__ u, int u_stride, int u_bstride,
-          const float* __restrict__ rho_p, int rho_bstride, float r_cost,
-          int N, float* __restrict__ dz) {
-  __shared__ float rhs[NX];
-  const int k = blockIdx.x, tid = threadIdx.x;
-  // instance or shard blockIdx.y (K8c, K9b; K6 is one instance)
-  const int b = blockIdx.y;
-  lam += (size_t)b * N * NX;
-  Qinv += (size_t)b * sys_nstride * NN;
-  A += (size_t)b * sys_nstride * NN;
-  B += (size_t)b * sys_nstride * NX * NU;
-  q += (size_t)b * sys_nstride * NX;
-  u += (size_t)b * u_bstride;
-  rho_p += (size_t)b * rho_bstride;
-  dz += (size_t)b * N * W;
-  const float* lam_n = lam_next != nullptr
-      ? lam_next + ((size_t)b * N + k) * NX : lam + (k + 1) * NX;
-  const bool has_next = lastm != nullptr ? lastm[(size_t)b * N + k] == 0.f
-                                         : k < N - 1;
-  if (tid < NX) rhs[tid] = dz_rhs(A, q, lam, lam_n, has_next, k, tid);
-  __syncthreads();
-  if (tid < NX) {
-    dz[k * W + tid] = dz_dx(Qinv, rhs, k, tid);
-  } else if (tid < W) {
-    const float s_r = 1.f / (r_cost + *rho_p);
-    dz[k * W + tid] = dz_du(B, lam_n, has_next, u, u_stride, r_cost, s_r, k,
-                            tid - NX);
-  }
-}
-
-// K6 and K9b: warp w of CTA (x, b) recovers knot x kpc + w of instance or
-// shard b, as dz_kernel reads its inputs (lam_next, lastm nullptr for K6).
-// Before griddepcontrol.wait only indices are computed: the inputs may be
-// the preceding kernel's outputs.
+// K6, K8c and K9b: warp w of CTA (x, b) recovers knot x kpc + w of
+// instance or shard b.  lam_next, lastm: K9b's lam_{k+1} rows and last-knot
+// flags (N per shard), or nullptr (K6, K8c: the next row of lam, and k =
+// N - 1).  The blocks of instance b start b sys_nstride knots on, its u b
+// u_bstride floats on, its rho b rho_bstride.  Before griddepcontrol.wait
+// only indices are computed: the inputs may be the preceding kernel's
+// outputs.
 __global__ void __launch_bounds__(32 * DZ_MAX_KPC)
 dz_warp_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next,
                const float* __restrict__ lastm, const float* __restrict__ Qinv,
                const float* __restrict__ A, const float* __restrict__ B,
                const float* __restrict__ q, int sys_nstride,
                const float* __restrict__ u, int u_stride, int u_bstride,
-               const float* __restrict__ rho_p, float r_cost, int N, int kpc,
-               float* __restrict__ dz) {
+               const float* __restrict__ rho_p, int rho_bstride, float r_cost,
+               int N, int kpc, float* __restrict__ dz) {
   extern __shared__ __align__(16) float sh[];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int b = blockIdx.y, k = blockIdx.x * kpc + w;
@@ -584,7 +545,7 @@ dz_warp_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next
   else if (k < N - 1)
     stage<8, NX>(s + DZ_LAMN, lam + (kr + 1) * NX, lane);
   stage<4, NU>(s + DZ_U, u + (size_t)b * u_bstride + (size_t)k * u_stride, lane);
-  if (lane == 0) cp_async<4>(s + DZ_RHO, rho_p);
+  if (lane == 0) cp_async<4>(s + DZ_RHO, rho_p + (size_t)b * rho_bstride);
   if (slab && lane == 1) cp_async<4>(s + DZ_LAST, lastm + kr);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncwarp();
@@ -601,26 +562,6 @@ dz_warp_kernel(const float* __restrict__ lam, const float* __restrict__ lam_next
   __syncwarp();
   if (lane < NX) v = dz_dx(s + DZ_QINV, s + DZ_RHS, 0, lane);
   if (lane < W) dz[kr * W + lane] = v;
-}
-
-// the launch floor: dz_warp_kernel's launch with no work
-__global__ void dz_empty_kernel() { griddep_wait(); }
-
-// the launch of dz_warp_kernel / dz_empty_kernel: ctas x batch CTAs of kpc
-// warps, smem bytes of dynamic shared memory, with programmatic dependent
-// launch when pdl is set
-cudaLaunchConfig_t dz_config(int ctas, int batch, int kpc, int smem, int pdl,
-                             void* stream, cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ctas, batch, 1);
-  cfg.blockDim = dim3(32 * kpc, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  return cfg;
 }
 
 // the cluster launch of K2 / K2' / K8b: cluster C CTAs of k2_threads(kp)
@@ -729,69 +670,35 @@ extern "C" int pcg_cluster_occupancy(int cluster, int kp, int smem, int dz,
   return static_cast<int>(err);
 }
 
-// batch instances side by side (K8c; batch = 1 the earlier K6): instance b
-// reads u + b u_bstride, rho[b] and the b-th (N, ...) slab of the other
-// inputs
-extern "C" int dz_launch(const float* lam, const float* Qinv, const float* A,
-                         const float* B, const float* q, const float* u,
-                         int u_stride, int u_bstride, const float* rho,
-                         float r_cost, int N, int batch, float* dz,
-                         void* stream) {
-  dz_kernel<<<dim3(N, batch), 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      lam, nullptr, nullptr, Qinv, A, B, q, N, u, u_stride, u_bstride, rho, 1,
-      r_cost, N, dz);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the earlier K9b (dz_kernel), shards side by side: shard b reads the b-th
-// (L, ...) slab of lam, lam_next and lastm, the blocks from knot b
-// sys_nstride on, u + b u_bstride and the one rho, and writes the b-th (L,
-// NX + NU) slab of dz
-extern "C" int dz_slab_launch(const float* lam, const float* lam_next,
-                              const float* lastm, const float* Qinv,
-                              const float* A, const float* B, const float* q,
-                              int sys_nstride, const float* u, int u_stride,
-                              int u_bstride, const float* rho, float r_cost,
-                              int L, int n_shard, float* dz, void* stream) {
-  dz_kernel<<<dim3(L, n_shard), 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      lam, lam_next, lastm, Qinv, A, B, q, sys_nstride, u, u_stride,
-      u_bstride, rho, 0, r_cost, L, dz);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K6 (lam_next, lastm nullptr; batch = 1) and K9b (batch = shards, the
-// arguments of dz_slab_launch): dz_warp_kernel on the plan (kpc knots per
-// CTA, ctas CTAs per instance, smem bytes; ops/pcg_cuda.py::dz_plan), with
-// programmatic dependent launch when pdl is set (the wrappers always set
-// it; 0 is the measurement of what it gains)
+// K6 (lam_next, lastm nullptr; batch = 1; rho_bstride 0), K8c (batch
+// instances, rho_bstride 1) and K9b (batch = shards, rho_bstride 0):
+// dz_warp_kernel on the plan (ctas x batch CTAs of kpc warps, smem bytes of
+// dynamic shared memory; ops/pcg_cuda.py::dz_plan), with programmatic
+// dependent launch
 extern "C" int dz_warp_launch(const float* lam, const float* lam_next,
                               const float* lastm, const float* Qinv,
                               const float* A, const float* B, const float* q,
                               int sys_nstride, const float* u, int u_stride,
-                              int u_bstride, const float* rho, float r_cost,
-                              int N, int batch, int kpc, int ctas, int smem,
-                              int pdl, float* dz, void* stream) {
+                              int u_bstride, const float* rho, int rho_bstride,
+                              float r_cost, int N, int batch, int kpc, int ctas,
+                              int smem, float* dz, void* stream) {
   if (N < 2 || batch < 1 || kpc < 1 || kpc > DZ_MAX_KPC || ctas * kpc < N ||
       smem < static_cast<int>(sizeof(float)) * kpc * DZ_KNOT_FLOATS ||
       (lam_next == nullptr) != (lastm == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = dz_config(ctas, batch, kpc, smem, pdl, stream, attr);
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, batch, 1);
+  cfg.blockDim = dim3(32 * kpc, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, dz_warp_kernel, lam, lam_next, lastm, Qinv, A, B, q, sys_nstride,
-      u, u_stride, u_bstride, rho, r_cost, N, kpc, dz);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the empty kernel on the same grid, block and launch as dz_warp_launch
-extern "C" int dz_empty_launch(int batch, int kpc, int ctas, int smem, int pdl,
-                               void* stream) {
-  if (batch < 1 || kpc < 1 || kpc > DZ_MAX_KPC || ctas < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = dz_config(ctas, batch, kpc, smem, pdl, stream, attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, dz_empty_kernel);
+      u, u_stride, u_bstride, rho, rho_bstride, r_cost, N, kpc, dz);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -305,8 +305,7 @@ def compute_dz_cuda(sys: dict, lam, u, rho, r_cost: float):
         dev, "pcg_dz.cu", "dz_warp_launch", nx // 2,
         lam.data_ptr(), None, None, sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
         sys["B"].data_ptr(), sys["q"].data_ptr(), N, u.data_ptr(), u.stride(0),
-        0, rho_t.data_ptr(), float(r_cost), N, 1, *dz_plan(N, nx), 1,
-        dz.data_ptr())
+        0, rho_t.data_ptr(), 0, float(r_cost), N, 1, *dz_plan(N, nx), dz.data_ptr())
     compute_dz_cuda.launches += 1
     return dz
 
@@ -372,7 +371,7 @@ def compute_dz_slab(sys: dict, lam, lam_next, last_mask, u, rho, r_cost: float):
         lam.data_ptr(), lam_next.data_ptr(), last_mask.data_ptr(),
         sys["Qinv"].data_ptr(), sys["A"].data_ptr(), sys["B"].data_ptr(),
         sys["q"].data_ptr(), knot_stride, u.data_ptr(), u.stride(1), u.stride(0),
-        rho_t.data_ptr(), float(r_cost), L, n_shard, *dz_plan(L, nx), 1,
+        rho_t.data_ptr(), 0, float(r_cost), L, n_shard, *dz_plan(L, nx),
         dz.data_ptr())
     compute_dz_slab.launches += 1
     return dz

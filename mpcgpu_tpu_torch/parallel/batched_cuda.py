@@ -16,7 +16,7 @@ counterpart here and every tensor keeps the (B, N, ...) layout:
   * K8b ``pcg_solve_batched``: K2' with one cluster per instance, each with
     its own CG scalars and its own exit, so every instance's iterations and
     exit flag are exact (replaces batched_fused.py:335);
-  * K8c ``compute_dz_batched``: K6 over (knot, instance) with a
+  * K8c ``compute_dz_batched``: K6's kernel over (CTA, instance) with a
     per-instance rho (replaces batched_fused.py:391);
   * ``line_search_merits_batched``: K3 over (candidate, instance), the
     batched use of the merit kernel that the JAX package reaches by vmap,
@@ -34,7 +34,9 @@ for CPU tensors and its kernel for CUDA tensors; the plain versions are
 exit tolerance (no Eisenstat-Walker forcing), a Levenberg-Marquardt rho
 schedule and line search per instance, an instance that gives up frozen
 from then on, per-instance ``sqp_iters``, and iterations while any instance
-is active and ``it < max_iter``.  ``sqp_solve_batched_fused_sharded`` runs it
+is active and ``it < max_iter``.  Its iteration is ``_batched_iteration``;
+its state, loop and result are ``solver/sqp.py``'s (``_initial_state``,
+``_loop``, ``_result``).  ``sqp_solve_batched_fused_sharded`` runs it
 on each instance group of an (instance, knot) mesh (``parallel/mesh.py``).
 Under a ``torch.profiler`` session it records the spans and counters that
 ``solver/sqp.py::sqp_solve`` records (``utils/profiling.py``), with the
@@ -45,6 +47,9 @@ per K8a launch its knot stages and knots (``k8a.knot_stages``,
 
 from __future__ import annotations
 
+import functools
+from typing import Callable, NamedTuple
+
 import torch
 
 from mpcgpu_tpu_torch import _kernels
@@ -52,14 +57,16 @@ from mpcgpu_tpu_torch.config import CostConfig, PCGConfig, SQPConfig
 from mpcgpu_tpu_torch.models.robot import RobotModel
 from mpcgpu_tpu_torch.ops.pcg import pcg_solve
 from mpcgpu_tpu_torch.ops.pcg_cuda import (_check_pcg_args, compute_dz_plain,
-                                           k2_cluster_plan, require_nx)
+                                           dz_plan, k2_cluster_plan,
+                                           require_dz_alignment, require_nx)
 from mpcgpu_tpu_torch.solver.kkt_cuda import (_check_args, build_kkt_schur_plain,
                                               kkt_batched_plan, kkt_knot_stages,
                                               kkt_window_occupancy)
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_plain,
                                                 merit_span_scratch,
                                                 merit_team_plan)
-from mpcgpu_tpu_torch.solver.sqp import SQPResult, line_search_update
+from mpcgpu_tpu_torch.solver.sqp import (SQPResult, _initial_state, _loop, _record,
+                                         _result, _State, line_search_update)
 from mpcgpu_tpu_torch.utils import profiling
 
 
@@ -239,12 +246,14 @@ def compute_dz_batched(sys: dict, lam, u, rho_b, r_cost: float):
             or u.device != dev:
         raise ValueError("u: f32 (B, N, nu) on the card with rows of unit stride")
     _kernels.require(rho_b, "rho", (B,), dev)
+    require_dz_alignment(lam=lam, **{k: sys[k] for k in ("Qinv", "A", "B", "q")})
     dz = torch.empty((B, N, nx + nu), dtype=torch.float32, device=dev)
     _kernels.launch(
-        dev, "pcg_dz.cu", "dz_launch", nu,
-        lam.data_ptr(), sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
-        sys["B"].data_ptr(), sys["q"].data_ptr(), u.data_ptr(), u.stride(1),
-        u.stride(0), rho_b.data_ptr(), float(r_cost), N, B, dz.data_ptr())
+        dev, "pcg_dz.cu", "dz_warp_launch", nu,
+        lam.data_ptr(), None, None, sys["Qinv"].data_ptr(), sys["A"].data_ptr(),
+        sys["B"].data_ptr(), sys["q"].data_ptr(), N, u.data_ptr(), u.stride(1),
+        u.stride(0), rho_b.data_ptr(), 1, float(r_cost), N, B, *dz_plan(N, nx),
+        dz.data_ptr())
     compute_dz_batched.launches += 1
     return dz
 
@@ -293,6 +302,74 @@ def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
 line_search_merits_batched.launches = 0
 
 
+class _Route(NamedTuple):
+    """What the fleet's SQP iterations read besides the carried state."""
+    model: RobotModel
+    cost: CostConfig
+    sqp_cfg: SQPConfig
+    pcg_cfg: PCGConfig
+    xs: torch.Tensor
+    ee_goal: torch.Tensor
+    dt: float
+    integrator_type: int
+    angle_wrap: bool
+    merits: Callable        # the batched K3 or its plain version per instance
+    exit_tol: torch.Tensor  # () pcg_cfg.exit_tol, every iteration's
+
+
+def _batched_iteration(r: _Route, st: _State, it: int, tr=None) -> _State:
+    """One SQP iteration of every instance from ``st`` (``sqp._iteration``'s
+    contract over an instance axis): K8a, K8b at the fixed PCG tolerance
+    (no Eisenstat-Walker forcing), K8c, the merits, and each instance's
+    line-search step and rho.  An instance that gave up earlier is frozen:
+    nothing of it changes, its buffer entries included."""
+    model, cost, sqp_cfg, pcg_cfg = r.model, r.cost, r.sqp_cfg, r.pcg_cfg
+    xu, lam, rho = st.xu, st.lam, st.rho
+    B, N = xu.shape[:2]
+    nx = 2 * model.nq
+    if tr:
+        tr.phase("sqp.kkt", it)
+    sys = build_kkt_schur_batched(model, cost, xu, r.xs, r.ee_goal, rho, r.dt,
+                                  r.integrator_type, r.angle_wrap)
+    if tr and not _kernels.on_cpu(xu):
+        tr.count("k8a.knot_stages",
+                 B * kkt_knot_stages(N, k8a_plan(N, B, model.nq, xu.device).window))
+        tr.count("k8a.knots", B * N)
+    if tr:
+        tr.phase("sqp.linsys")
+    lam_new, lin_iters, lin_ok = pcg_solve_batched(
+        sys["S"], sys["Pinv"], sys["gamma"], lam, max_iter=pcg_cfg.max_iter,
+        exit_tol=r.exit_tol, exit_criterion=pcg_cfg.exit_criterion)
+    if tr:
+        tr.phase("sqp.dz")
+    dz = compute_dz_batched(sys, lam_new, xu[:, :, nx:], rho, cost.r_cost)
+    if tr:
+        tr.lam_solved(lam_new)
+        tr.phase("sqp.merits")
+    merits, alphas = r.merits(
+        model, cost, xu, dz, r.xs, r.ee_goal, float(sqp_cfg.mu), r.dt,
+        num_alphas=sqp_cfg.num_alphas, integrator_type=r.integrator_type,
+        angle_wrap=r.angle_wrap)
+
+    if tr:
+        tr.phase("sqp.step")
+    step = line_search_update(merits, alphas, rho, st.drho, sqp_cfg)
+    # an instance that gave up earlier is frozen: nothing of it changes
+    frozen = st.stop
+    take = step.success & ~frozen
+    kept = lambda buf, v: torch.where(frozen, buf[:, it], v)
+    _record(st, it, kept(st.pcg_iters, lin_iters), kept(st.pcg_converged, lin_ok),
+            kept(st.ls_alpha_idx, step.alpha_idx))
+    return st._replace(
+        xu=torch.where(take[:, None, None], xu + step.alpha[:, None, None] * dz, xu),
+        lam=torch.where(frozen[:, None, None], lam, lam_new),
+        rho=torch.where(frozen, rho, step.rho),
+        drho=torch.where(frozen, st.drho, step.drho),
+        merit=torch.where(frozen, st.merit, step.merit),
+        stop=frozen | step.stop, gave_up=st.gave_up | step.stop,
+        sqp_iters=st.sqp_iters + (~frozen).to(torch.int32))
+
+
 def sqp_solve_batched_fused(
     model: RobotModel,
     cost: CostConfig,
@@ -307,11 +384,12 @@ def sqp_solve_batched_fused(
 
     xu_b (B, N, nx+nu), lam_b (B, N, nx), xs_b (B, nx), ee_b (B, N, 6), rho_b
     (B,) tensor.  Every SQPResult field gains a leading instance axis.  The
-    loop reads ``all(stop)`` back to the host once per iteration after the
-    first.  merit_impl picks the merits, as ``sqp_solve``'s does: "cuda"
-    the batched K3 (its plain version on CPU tensors), "plain"
-    ``line_search_merits(include_zero=True)`` per instance, "auto" the
-    batched K3 on the card in ee cost mode and the plain merits otherwise."""
+    loop (``sqp._loop`` over ``_batched_iteration``) reads ``all(stop)``
+    back to the host once per iteration after the first.  merit_impl picks
+    the merits, as ``sqp_solve``'s does: "cuda" the batched K3 (its plain
+    version on CPU tensors), "plain" ``line_search_merits(include_zero=True)``
+    per instance, "auto" the batched K3 on the card in ee cost mode and the
+    plain merits otherwise."""
     if pcg_cfg.preconditioner != "stair":
         raise ValueError("the batched kernels implement the stair "
                          "preconditioner only")
@@ -321,82 +399,19 @@ def sqp_solve_batched_fused(
         use_kernel = merit_impl == "cuda"
     else:
         raise ValueError(f"unknown merit_impl {merit_impl!r}")
-    merits_of = (line_search_merits_batched if use_kernel
-                 else line_search_merits_batched_plain)
     B = xu_b.shape[0]
     tr = profiling.solve_trace(B)
-    nx = 2 * model.nq
     dev, dtype = xu_b.device, xu_b.dtype
-    max_iter = sqp_cfg.max_iter
-    mu = float(sqp_cfg.mu)
     exit_tol = _kernels.scalar(pcg_cfg.exit_tol, dev, dtype)
-
-    xu, lam = xu_b, lam_b
-    rho = rho_b.to(device=dev, dtype=dtype)
-    drho = torch.ones((B,), dtype=dtype, device=dev)
-    merit = torch.full((B,), float("inf"), dtype=dtype, device=dev)
-    stop = torch.zeros((B,), dtype=torch.bool, device=dev)
-    gave_up_any = torch.zeros((B,), dtype=torch.bool, device=dev)
-    sqp_iters = torch.zeros((B,), dtype=torch.int32, device=dev)
-    pcg_iters = torch.full((B, max_iter), -1, dtype=torch.int32, device=dev)
-    pcg_converged = torch.zeros((B, max_iter), dtype=torch.bool, device=dev)
-    ls_alpha_idx = torch.full((B, max_iter), -1, dtype=torch.int32, device=dev)
-
-    it = 0
-    while it < max_iter:
-        if it:
-            if tr:
-                tr.phase("sqp.stop_read", it - 1)
-            if bool(stop.all()):
-                break
-        if tr:
-            tr.phase("sqp.kkt", it)
-        sys = build_kkt_schur_batched(model, cost, xu, xs_b, ee_b, rho, dt,
-                                      integrator_type, angle_wrap)
-        if tr and not _kernels.on_cpu(xu):
-            N = xu.shape[1]
-            tr.count("k8a.knot_stages",
-                     B * kkt_knot_stages(N, k8a_plan(N, B, model.nq, dev).window))
-            tr.count("k8a.knots", B * N)
-        if tr:
-            tr.phase("sqp.linsys")
-        lam_new, lin_iters, lin_ok = pcg_solve_batched(
-            sys["S"], sys["Pinv"], sys["gamma"], lam,
-            max_iter=pcg_cfg.max_iter, exit_tol=exit_tol,
-            exit_criterion=pcg_cfg.exit_criterion)
-        if tr:
-            tr.phase("sqp.dz")
-        dz = compute_dz_batched(sys, lam_new, xu[:, :, nx:], rho, cost.r_cost)
-        if tr:
-            tr.lam_solved(lam_new)
-            tr.phase("sqp.merits")
-        merits, alphas = merits_of(
-            model, cost, xu, dz, xs_b, ee_b, mu, dt,
-            num_alphas=sqp_cfg.num_alphas, integrator_type=integrator_type,
-            angle_wrap=angle_wrap)
-
-        if tr:
-            tr.phase("sqp.step")
-        step = line_search_update(merits, alphas, rho, drho, sqp_cfg)
-        # an instance that gave up earlier is frozen: nothing of it changes
-        frozen = stop
-        take = step.success & ~frozen
-        xu = torch.where(take[:, None, None], xu + step.alpha[:, None, None] * dz, xu)
-        lam = torch.where(frozen[:, None, None], lam, lam_new)
-        rho = torch.where(frozen, rho, step.rho)
-        drho = torch.where(frozen, drho, step.drho)
-        merit = torch.where(frozen, merit, step.merit)
-        stop = frozen | step.stop
-        gave_up_any = gave_up_any | step.stop
-        sqp_iters = sqp_iters + (~frozen).to(torch.int32)
-        for buf, v in ((pcg_iters, lin_iters), (pcg_converged, lin_ok),
-                       (ls_alpha_idx, step.alpha_idx)):
-            buf[:, it] = torch.where(frozen, buf[:, it], v)
-        it += 1
-
-    result = SQPResult(xu=xu, lam=lam, rho=rho, drho=drho, sqp_iters=sqp_iters,
-                       merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
-                       pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+    st = _initial_state(xu_b, lam_b, rho_b.to(device=dev, dtype=dtype),
+                        torch.ones((B,), dtype=dtype, device=dev), exit_tol,
+                        sqp_cfg.max_iter)
+    r = _Route(model, cost, sqp_cfg, pcg_cfg, xs_b, ee_b, dt, integrator_type,
+               angle_wrap, line_search_merits_batched if use_kernel
+               else line_search_merits_batched_plain, exit_tol)
+    st, _ = _loop(functools.partial(_batched_iteration, r), st, sqp_cfg.max_iter,
+                  tr)
+    result = _result(st)
     if tr:
         tr.finish(result)
     return result

@@ -27,8 +27,11 @@ Two routes for the shard-local compute:
 ``fused="auto"`` takes the fused route when the tensors are on the card and
 the shape qualifies (ee cost, stair preconditioner, L >= 2), else the
 unfused one (on the CPU the wrappers would run their plain versions).  The
-loop reads its stop flag back once per SQP iteration after the first, as
-``sqp_solve`` does; the PCG reads nothing back.
+iteration is a closure over the mesh and the route; its state, loop and
+result are ``solver/sqp.py``'s (``_initial_state``, ``_loop``, ``_result``),
+so the loop reads its stop flag back once per SQP iteration after the
+first, as ``sqp_solve`` does; the PCG reads nothing back.  It records no
+spans.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from mpcgpu_tpu_torch.solver.kkt import (euler_step_and_jacobians,
 from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur_slab
 from mpcgpu_tpu_torch.solver.merit import line_search_alphas, tracking_cost
 from mpcgpu_tpu_torch.solver.merit_cuda import line_search_merit_partials_slab
-from mpcgpu_tpu_torch.solver.sqp import SQPResult, line_search_update
+from mpcgpu_tpu_torch.solver.sqp import (SQPResult, _initial_state, _loop, _record,
+                                         _result, line_search_update)
 
 H = 2   # halo knots per side of a fused slab (the stair band's two-hop need)
 
@@ -280,17 +284,8 @@ def sqp_solve_sharded(
                              torch.sum(torch.abs(cand_x0 - xs), dim=-1), zero)
         return mesh.psum(cost_tot + mu * (defect_tot + x0_res))
 
-    rho = _kernels.scalar(rho, dev, dtype)
-    drho = torch.ones((), dtype=dtype, device=dev)
-    merit = torch.full((), float("inf"), dtype=dtype, device=dev)
-    stop = torch.zeros((), dtype=torch.bool, device=dev)
-    gave_up_any = torch.zeros((), dtype=torch.bool, device=dev)
-    pcg_iters = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
-    pcg_converged = torch.zeros((max_iter,), dtype=torch.bool, device=dev)
-    ls_alpha_idx = torch.full((max_iter,), -1, dtype=torch.int32, device=dev)
-
-    it = 0
-    while it < iter_bound and (it == 0 or not bool(stop)):
+    def iterate(st, it: int, tr):
+        xu_loc, rho = st.xu, st.rho
         if fused:
             lane = build_fused(xu_loc, rho)
             S, Pinv, gamma = lane["S"], lane["Pinv"], lane["gamma"]
@@ -298,7 +293,7 @@ def sqp_solve_sharded(
             A, B, Q, q, R, r, c = build_blocks(xu_loc)
             S, Pinv, gamma, Qinv, Rinv = form_schur(A, B, Q, q, R, r, c, rho)
         lam_new, lin_iters, lin_ok = solve_lin(
-            S, Pinv, gamma, lam_loc, pcg_cfg.max_iter, tol, mesh,
+            S, Pinv, gamma, st.lam, pcg_cfg.max_iter, tol, mesh,
             pcg_cfg.exit_criterion)
         if fused:
             dz = dz_fused(lane, xu_loc, lam_new, rho)
@@ -307,21 +302,18 @@ def sqp_solve_sharded(
             dz = compute_dz(A, B, q, r, Qinv, Rinv, lam_new)
             merits = merits_of(xu_loc, dz)
 
-        step = line_search_update(merits[0], alphas, rho, drho, sqp_cfg)
-        xu_loc = torch.where(step.success, xu_loc + step.alpha * dz, xu_loc)
-        lam_loc = lam_new
-        rho, drho, merit, stop = step.rho, step.drho, step.merit, step.stop
-        gave_up_any = gave_up_any | stop
-        pcg_iters[it] = lin_iters[0]
-        pcg_converged[it] = lin_ok[0]
-        ls_alpha_idx[it] = step.alpha_idx
-        it += 1
+        step = line_search_update(merits[0], alphas, rho, st.drho, sqp_cfg)
+        _record(st, it, lin_iters[0], lin_ok[0], step.alpha_idx)
+        return st._replace(
+            xu=torch.where(step.success, xu_loc + step.alpha * dz, xu_loc),
+            lam=lam_new, rho=step.rho, drho=step.drho, merit=step.merit,
+            stop=step.stop, gave_up=st.gave_up | step.stop)
 
-    return SQPResult(
-        xu=mesh.gather(xu_loc), lam=mesh.gather(lam_loc), rho=rho, drho=drho,
-        sqp_iters=torch.full((), it, dtype=torch.int32, device=dev),
-        merit=merit, gave_up=gave_up_any, pcg_iters=pcg_iters,
-        pcg_converged=pcg_converged, ls_alpha_idx=ls_alpha_idx)
+    st = _initial_state(xu_loc, lam_loc, _kernels.scalar(rho, dev, dtype),
+                        torch.ones((), dtype=dtype, device=dev), tol, max_iter)
+    st, it = _loop(iterate, st, iter_bound)
+    st.sqp_iters.fill_(it)
+    return _result(st._replace(xu=mesh.gather(st.xu), lam=mesh.gather(st.lam)))
 
 
 def make_sharded_sqp_solver(model: RobotModel, cost: CostConfig,

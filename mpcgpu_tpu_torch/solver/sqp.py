@@ -32,7 +32,11 @@ one-iteration solve (the MPC chain) never syncs.
 One SQP iteration is ``_iteration``.  On the fused route with the K3
 merits and xu on a card (``graph_engages``) the solve replays it as a CUDA
 graph, one replay per iteration (``sqp_graph``); every other call runs it
-eagerly, each iteration's launches enqueued by the host.
+eagerly, each iteration's launches enqueued by the host.  The loop and what
+it carries are shared with the fleet's and the knot shards' solves
+(``parallel/batched_cuda.py``, ``parallel/sqp_sharded.py``): each starts
+from ``_initial_state``, runs ``_loop`` over its own iteration, writes the
+per-iteration buffers by ``_record`` and returns ``_result``.
 
 Under a ``torch.profiler`` session the solve records the spans and counters
 of ``utils/profiling.py`` (``sqp.solve``; per iteration ``sqp.kkt``,
@@ -43,6 +47,7 @@ of ``utils/profiling.py`` (``sqp.solve``; per iteration ``sqp.kkt``,
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -160,9 +165,11 @@ class _Route(NamedTuple):
 
 
 class _State(NamedTuple):
-    """What the SQP loop carries from one iteration to the next.  The last
-    three are the result's per-iteration buffers, each iteration writes its
-    entry in place."""
+    """What an SQP loop carries from one iteration to the next, for one arm
+    or with a leading instance axis (``_initial_state``): first the fields
+    an iteration returns anew, then the iteration count and the result's
+    per-iteration buffers, whose entries each iteration writes in place
+    (``_record``).  ``SQPResult``'s fields are among them (``_result``)."""
     xu: torch.Tensor
     lam: torch.Tensor
     rho: torch.Tensor
@@ -171,29 +178,84 @@ class _State(NamedTuple):
     stop: torch.Tensor
     gave_up: torch.Tensor
     lin_tol: torch.Tensor
+    sqp_iters: torch.Tensor
     pcg_iters: torch.Tensor
     pcg_converged: torch.Tensor
     ls_alpha_idx: torch.Tensor
 
 
+def _initial_state(xu, lam, rho, drho, exit_tol, max_iter: int,
+                   pcg_cfg: PCGConfig | None = None) -> _State:
+    """The state before an SQP loop's first iteration.  The leading
+    instance shape is rho's, () for one arm and (B,) for a fleet; drho is a
+    tensor of that shape.  Merit inf, no stop, nothing given up, no
+    iterations, the per-iteration buffers (max_iter entries an instance)
+    -1, False and -1, and the linear solve's tolerance the 0-d exit_tol,
+    times ``pcg_cfg.ew_boost0`` where ``pcg_cfg`` forces by Eisenstat-Walker
+    (the fleet and the knot shards pass none: their tolerance is fixed)."""
+    batch, dev, dtype = rho.shape, xu.device, xu.dtype
+    i32, b8 = dict(dtype=torch.int32, device=dev), dict(dtype=torch.bool, device=dev)
+    ew = pcg_cfg is not None and pcg_cfg.forcing == "ew"
+    return _State(
+        xu=xu, lam=lam, rho=rho, drho=drho,
+        merit=torch.full(batch, float("inf"), dtype=dtype, device=dev),
+        stop=torch.zeros(batch, **b8), gave_up=torch.zeros(batch, **b8),
+        lin_tol=exit_tol * pcg_cfg.ew_boost0 if ew else exit_tol,
+        sqp_iters=torch.zeros(batch, **i32),
+        pcg_iters=torch.full(batch + (max_iter,), -1, **i32),
+        pcg_converged=torch.zeros(batch + (max_iter,), **b8),
+        ls_alpha_idx=torch.full(batch + (max_iter,), -1, **i32))
+
+
 def _put(buf, it, value) -> None:
-    """buf[it] = value, for ``it`` a Python int or a device int64 (1,): an
-    index the card reads, so that one captured graph writes the entry of
-    whichever iteration it replays."""
+    """buf[..., it] = value, for ``it`` a Python int or a device int64 (1,)
+    (one arm's buffer): an index the card reads, so that one captured graph
+    writes the entry of whichever iteration it replays."""
     if isinstance(it, int):
-        buf[it] = value
+        buf[..., it] = value
     else:
         buf.index_copy_(0, it, value.reshape(1).to(buf.dtype))
+
+
+def _record(st: _State, it, lin_iters, lin_ok, alpha_idx) -> None:
+    """SQP iteration ``it``'s entries of the per-iteration buffers: the
+    linear solve's iterations and exit flag, the chosen alpha's index."""
+    _put(st.pcg_iters, it, lin_iters)
+    _put(st.pcg_converged, it, lin_ok)
+    _put(st.ls_alpha_idx, it, alpha_idx)
+
+
+def _loop(iterate, st: _State, iter_bound: int, tr=None):
+    """The SQP loop of every solve: ``st = iterate(st, it, tr)`` for it = 0,
+    1, ... while ``it < iter_bound``, the stop flag read back to the host
+    before every iteration after the first (a batch's: whether every
+    instance stopped).  Returns the final state and the iterations run."""
+    it = 0
+    while it < iter_bound:
+        if it:
+            if tr:
+                tr.phase("sqp.stop_read", it - 1)
+            stop = st.stop
+            if bool(stop.all() if stop.dim() else stop):
+                break
+        st = iterate(st, it, tr)
+        it += 1
+    return st, it
+
+
+def _result(st: _State) -> SQPResult:
+    """The result's fields of a final state."""
+    return SQPResult._make(getattr(st, f) for f in SQPResult._fields)
 
 
 def _iteration(r: _Route, st: _State, it, tr=None) -> _State:
     """One SQP iteration from ``st`` on ``r``'s route: the KKT system, the
     linear solve and dz, the merits, the line-search step and rho, the
     Eisenstat-Walker forcing, and the iteration's entries of the
-    per-iteration buffers (at ``it``, ``_put``).  Returns the next state.
-    The eager loop runs it with ``it`` an int and the solve's recorder
-    ``tr``; ``sqp_graph`` captures it with ``it`` on the card and no
-    recorder."""
+    per-iteration buffers (at ``it``, ``_record``).  Returns the next state;
+    the iteration count is the loop's.  The eager loop (``_loop``) runs it
+    with ``it`` an int and the solve's recorder ``tr``; ``sqp_graph``
+    captures it with ``it`` on the card and no recorder."""
     xu, lam, rho = st.xu, st.lam, st.rho
     cost, pcg_cfg, sqp_cfg = r.cost, r.pcg_cfg, r.sqp_cfg
     nx = lam.shape[-1]
@@ -263,9 +325,7 @@ def _iteration(r: _Route, st: _State, it, tr=None) -> _State:
         decayed = torch.maximum(r.exit_tol_target, lin_tol * factor)
         lin_tol = torch.where(step.success, decayed, r.exit_tol_target)
 
-    _put(st.pcg_iters, it, lin_iters)
-    _put(st.pcg_converged, it, lin_ok)
-    _put(st.ls_alpha_idx, it, step.alpha_idx)
+    _record(st, it, lin_iters, lin_ok, step.alpha_idx)
     return st._replace(xu=xu, lam=lam, rho=step.rho, drho=step.drho,
                        merit=step.merit, stop=step.stop, gave_up=gave_up,
                        lin_tol=lin_tol)
@@ -343,40 +403,18 @@ def _solve_eager(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal, rho, dt,
     route checked and resolved by the caller)."""
     tr = profiling.solve_trace(1)
     dev, dtype = xu.device, xu.dtype
-    rho = _kernels.scalar(rho, dev, dtype)
-    drho = _kernels.scalar(drho0, dev, dtype)
     exit_tol_target = _kernels.scalar(pcg_cfg.exit_tol, dev, dtype)
-    lin_tol = exit_tol_target * pcg_cfg.ew_boost0 if pcg_cfg.forcing == "ew" \
-        else exit_tol_target
-    st = _State(
-        xu=xu, lam=lam, rho=rho, drho=drho,
-        merit=_kernels.scalar(float("inf"), dev, dtype),
-        stop=torch.zeros((), dtype=torch.bool, device=dev),
-        gave_up=torch.zeros((), dtype=torch.bool, device=dev), lin_tol=lin_tol,
-        pcg_iters=torch.full((max_iter,), -1, dtype=torch.int32, device=dev),
-        pcg_converged=torch.zeros((max_iter,), dtype=torch.bool, device=dev),
-        ls_alpha_idx=torch.full((max_iter,), -1, dtype=torch.int32, device=dev))
+    st = _initial_state(xu, lam, _kernels.scalar(rho, dev, dtype),
+                        _kernels.scalar(drho0, dev, dtype), exit_tol_target,
+                        max_iter, pcg_cfg)
     r = _Route(model, cost, sqp_cfg, pcg_cfg, xs, ee_goal, dt, linsys,
                integrator_type, angle_wrap, use_kernels, fused, fused_dz,
                exit_tol_target,
                one_iter=torch.ones((), dtype=torch.int32, device=dev),
                converged=torch.ones((), dtype=torch.bool, device=dev))
-
-    it = 0
-    while it < iter_bound:
-        if it:
-            if tr:
-                tr.phase("sqp.stop_read", it - 1)
-            if bool(st.stop):
-                break
-        st = _iteration(r, st, it, tr)
-        it += 1
-
-    result = SQPResult(
-        xu=st.xu, lam=st.lam, rho=st.rho, drho=st.drho,
-        sqp_iters=torch.full((), it, dtype=torch.int32, device=dev),
-        merit=st.merit, gave_up=st.gave_up, pcg_iters=st.pcg_iters,
-        pcg_converged=st.pcg_converged, ls_alpha_idx=st.ls_alpha_idx)
+    st, it = _loop(functools.partial(_iteration, r), st, iter_bound, tr)
+    st.sqp_iters.fill_(it)
+    result = _result(st)
     if tr:
         tr.finish(result)
     return result

@@ -10,9 +10,10 @@ alone; this module only gives it memory of its own and replays it.
 Memory.  A capture bakes in every pointer its launches take, so everything
 the iteration reads or writes lives in memory that the captured graph owns:
 
-  * the state (``sqp._State``), the problem's xs and ee_goal, the pcg exit
-    tolerance and the iteration's index are fields of one byte buffer of
-    the entry (``_Flat``), each a view of its own dtype and shape;
+  * the state (``sqp._State``, as ``sqp._initial_state`` forms it), the
+    iteration's index, the problem's xs and ee_goal and the pcg exit
+    tolerance are fields of one byte buffer of the entry (``_Flat``), each
+    a view of its own dtype and shape;
   * what the iteration allocates (K1's outputs, K2's flags, the merits and
     their span scratch, the step's temporaries) comes from the graph's own
     memory pool; K3's span scratch is taken fresh inside the capture
@@ -23,11 +24,11 @@ The iteration's index is a device int64 that the graph increments, so one
 graph writes the per-iteration entries of every iteration it replays.
 
 A solve copies its inputs into the buffer (xu, lam, xs, ee_goal, rho,
-drho0: one ``_foreach_copy_``), resets the rest in one copy, replays the
-graph once per SQP iteration, reads the stop flag between iterations as
-the eager loop does, and returns fresh copies of the buffer's result
-fields (the plan, and the rest), the result's fields views of them: no
-later solve overwrites a result.
+drho0: one ``_foreach_copy_``), resets the rest in one copy, runs
+``sqp._loop`` with one replay per SQP iteration (so it reads the stop flag
+between iterations as the eager loop does), and returns fresh copies of the
+buffer's result fields (the plan, and the rest), the result's fields views
+of them: no later solve overwrites a result.
 
 Graphs are cached under everything their capture bakes in (``_key``); the
 cache holds at most ``MAX_GRAPHS``, the least recently used dropped
@@ -49,6 +50,7 @@ import math
 
 import torch
 
+from mpcgpu_tpu_torch import _kernels
 from mpcgpu_tpu_torch.solver import merit_cuda, sqp
 from mpcgpu_tpu_torch.utils import profiling
 
@@ -56,13 +58,17 @@ from mpcgpu_tpu_torch.utils import profiling
 MAX_GRAPHS = 8
 # byte alignment of every field of the buffer
 FIELD_ALIGN = 64
-# the state fields the iteration returns anew, copied back into the buffer
-CARRIED = ("xu", "lam", "rho", "drho", "merit", "stop", "gave_up", "lin_tol")
-# spans of the buffer's fields (first, last): reset each solve in one
-# copy; and the result's two copies, the plan and the rest, so that a
-# caller who keeps a result's small fields keeps no plan alive
-RESET = ("merit", "it")
-RESULT = (("xu", "lam"), ("rho", "ls_alpha_idx"))
+# the buffer's state fields in its order: the result's (SQPResult's, the
+# solve's inputs xu, lam, rho, drho first), then the rest of the state
+_RES = sqp.SQPResult._fields
+FIELDS = _RES + tuple(f for f in sqp._State._fields if f not in _RES)
+# spans of the buffer's fields (first, last): reset each solve in one copy,
+# every field after the solve's inputs up to the iteration's index; and the
+# result's two copies, the plan and the rest, so that a caller who keeps a
+# result's small fields keeps no plan alive (and, at most 8 fields, holds
+# one 512-byte block of the allocator)
+RESET = (FIELDS[4], "it")
+RESULT = ((_RES[0], _RES[1]), (_RES[2], _RES[-1]))
 # the wrappers the iteration can call on the fused route, whose .launches a
 # replay advances
 WRAPPERS = (sqp.build_kkt_schur, sqp.pcg_dz_solve, sqp.pcg_solve_cuda,
@@ -135,24 +141,15 @@ class IterationGraph:
         # held so that the model (the key holds its id) and its packed
         # arrays, whose pointers the capture bakes in, outlive the graph
         self.model, self.packed = model, None
-        i32, b8 = torch.int32, torch.bool
-        self.flat = _Flat(
-            [("xu", xu.shape, xu.dtype), ("lam", lam.shape, lam.dtype),
-             ("rho", (), dtype), ("drho", (), dtype), ("merit", (), dtype),
-             ("sqp_iters", (), i32), ("gave_up", (), b8),
-             ("pcg_iters", (max_iter,), i32), ("pcg_converged", (max_iter,), b8),
-             ("ls_alpha_idx", (max_iter,), i32), ("lin_tol", (), dtype),
-             ("stop", (), b8), ("it", (1,), torch.int64),
-             ("xs", xs.shape, xs.dtype), ("ee_goal", ee_goal.shape, ee_goal.dtype),
-             ("exit_tol", (), dtype)], dev)
+        exit_tol = _kernels.scalar(pcg_cfg.exit_tol, dev, dtype)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        init = sqp._initial_state(xu, lam, zero, zero, exit_tol, max_iter, pcg_cfg)
+        extra = dict(it=torch.zeros((1,), dtype=torch.int64, device=dev), xs=xs,
+                     ee_goal=ee_goal, exit_tol=exit_tol)
+        fields = {**{f: getattr(init, f) for f in FIELDS}, **extra}
+        self.flat = _Flat([(f, t.shape, t.dtype) for f, t in fields.items()], dev)
         v = self.v = self.flat.views(self.flat.buf)
-        v["exit_tol"].fill_(float(pcg_cfg.exit_tol))
-        v["merit"].fill_(float("inf"))
-        # as the eager loop forms it, so that the bits agree
-        v["lin_tol"].copy_(v["exit_tol"] * pcg_cfg.ew_boost0
-                           if pcg_cfg.forcing == "ew" else v["exit_tol"])
-        v["pcg_iters"].fill_(-1)
-        v["ls_alpha_idx"].fill_(-1)
+        torch._foreach_copy_([v[f] for f in fields], list(fields.values()))
         self.reset = self.flat.buf[self.flat.span(*RESET)]
         self.init = self.reset.clone()
         # per copy of the result: its bytes in the buffer and its fields
@@ -182,12 +179,36 @@ class IterationGraph:
         torch._foreach_copy_(dst, src)
 
     def step(self) -> None:
-        """One SQP iteration on the buffer, eagerly or into a capture."""
+        """One SQP iteration on the buffer, eagerly or into a capture: the
+        state fields the iteration returns anew copied back."""
         new = sqp._iteration(self.route, self.state, self.v["it"])
-        for f in CARRIED:
-            self.v[f].copy_(getattr(new, f))
+        for old, now in zip(self.state, new):
+            if now is not old:
+                old.copy_(now)
         self.v["it"].add_(1)
         self.v["sqp_iters"].add_(1)
+
+    def iterate(self, st, it: int, tr) -> sqp._State:
+        """``sqp._loop``'s iteration: a replay, or (a key's first) ``step``
+        run eagerly and then captured; the state is the buffer's."""
+        if self.graph is not None:
+            if tr:
+                tr.phase("sqp.replay", it)
+            self.replay()
+            if tr:
+                tr.phase(None)
+                tr.count("sqp.replays")
+        else:
+            if tr:
+                tr.phase(None, it)
+            self.step()
+            if self.capturable:
+                self.capture()
+                if tr:
+                    tr.count("sqp.captures")
+        if tr:
+            tr.lam_solved(self.v["lam"], copy=True)
+        return st
 
     def capture(self) -> None:
         """Capture ``step`` into the entry's graph, on a stream of its own;
@@ -270,31 +291,7 @@ def solve(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal, rho, dt,
     g = iteration_graph(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal,
                         dt, max_iter, integrator_type, angle_wrap, fused_dz)
     g.load(xu, lam, xs, ee_goal, rho, drho0)
-    it = 0
-    while it < iter_bound:
-        if it:
-            if tr:
-                tr.phase("sqp.stop_read", it - 1)
-            if bool(g.v["stop"]):
-                break
-        if g.graph is not None:
-            if tr:
-                tr.phase("sqp.replay", it)
-            g.replay()
-            if tr:
-                tr.phase(None)
-                tr.count("sqp.replays")
-        else:
-            if tr:
-                tr.phase(None, it)
-            g.step()
-            if g.capturable:
-                g.capture()
-                if tr:
-                    tr.count("sqp.captures")
-        if tr:
-            tr.lam_solved(g.v["lam"], copy=True)
-        it += 1
+    sqp._loop(g.iterate, g.state, iter_bound, tr)
     result = g.result()
     if tr:
         tr.finish(result)

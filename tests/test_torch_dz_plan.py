@@ -1,8 +1,9 @@
-"""K6's and K9b's kernel (``csrc/pcg_dz.cu::dz_warp_kernel``): its plan, the
-alignment its staging copies need, and its split of the work.
+"""K6's, K8c's and K9b's kernel (``csrc/pcg_dz.cu::dz_warp_kernel``): its
+plan, the alignment its staging copies need, and its split of the work.
 
-The kernel runs only on the card (``chip_smoke.py`` holds it there to the
-earlier ``dz_kernel`` bit for bit and to the plain versions).  Here: the
+The kernel runs only on the card (``chip_smoke.py`` and
+``tests/test_torch_dz_card.py`` hold it there to K2's fused dz, K8c per
+instance to K6, bit for bit, and each to its plain version).  Here: the
 plan ``dz_plan(N, nx)`` against the constants of the source evaluated with
 ``MPC_NQ`` set (nq = 2..7); the wrappers refuse an input whose base
 address the 16- and 8-byte copies cannot take, before any launch (the
@@ -10,8 +11,8 @@ launch is a recorder); and a torch emulation of the kernel's split (a
 window of knots per CTA, a knot per warp, a lane per output, every input
 of a knot staged before it is used, each sum in the device functions'
 order) at f64 against the plain versions ``compute_dz_plain`` /
-``compute_dz_slab_plain`` and the JAX ``compute_dz`` /
-``compute_dz_pallas_slab`` (interpret mode) oracles.
+``compute_dz_batched_plain`` / ``compute_dz_slab_plain`` and the JAX
+``compute_dz`` / ``compute_dz_pallas_slab`` (interpret mode) oracles.
 """
 
 import contextlib
@@ -37,6 +38,8 @@ from mpcgpu_tpu_torch.ops.pcg_cuda import (DZ_ALIGN, DzPlan, compute_dz_cuda,
                                            compute_dz_plain, compute_dz_slab,
                                            compute_dz_slab_plain, dz_knot_floats,
                                            dz_plan)
+from mpcgpu_tpu_torch.parallel.batched_cuda import (compute_dz_batched,
+                                                    compute_dz_batched_plain)
 from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
 from mpcgpu_tpu_torch.utils.trajfiles import load_eepos_traj, load_xu_traj
 
@@ -170,6 +173,27 @@ def test_k6_refuses_a_base_its_copies_cannot_take(recorder, shift):
         assert recorder == []
 
 
+@pytest.mark.parametrize("shift", [None, "Qinv", "q", "lam"])
+def test_k8c_refuses_a_base_its_copies_cannot_take(recorder, shift):
+    """K8c (the same kernel over instances, a rho each) refuses as K6 does;
+    a whole batch launches once, rho_bstride 1."""
+    t = {k: v.expand(3, *v.shape).contiguous() for k, v in _k6_inputs()[0].items()}
+    if shift is not None:
+        t[shift] = _shifted((3,) + t[shift].shape[1:], 1)
+    lam = t.pop("lam")
+    call = lambda: compute_dz_batched(t, lam, torch.zeros((3, 8, 21))[..., 14:],
+                                      torch.zeros(3), 0.1)
+    if shift is None:
+        call()
+        (name, args), = recorder
+        assert name == "dz_warp_launch" and args[12] == 1 and args[15] == 3
+    else:
+        with pytest.raises(ValueError, match=f"{shift}: base address .* multiple of "
+                                             f"{DZ_ALIGN[shift]} bytes"):
+            call()
+        assert recorder == []
+
+
 @pytest.mark.parametrize("shift", [None, "lam_next", "Qinv", "B"])
 def test_k9b_refuses_a_base_its_copies_cannot_take(recorder, shift):
     """K9b on halo-extended slabs (two halo knots a side, as K9a writes
@@ -198,7 +222,8 @@ def emulate_dz_warp(sys: dict, lam, lam_next, last, u, rho, r_cost: float):
     of dz_plan(N) knots, a warp per knot; each warp stages its knot's
     inputs, then lanes 0..nx-1 form the rhs row and dx, lanes nx.. du, each
     sum from 0 in j order (dz_rhs, dz_dx, dz_du).  sys, lam, u have a
-    leading instance axis; lam_next, last None for K6."""
+    leading instance axis; lam_next, last None for K6 and K8c; rho a float,
+    or (K8c) one per instance."""
     Bn, N, nx = lam.shape
     nu = nx // 2
     kpc, ctas, _ = dz_plan(N, nx)
@@ -227,7 +252,7 @@ def emulate_dz_warp(sys: dict, lam, lam_next, last, u, rho, r_cost: float):
                         for j in range(nx):
                             at = at + Ak[j, c] * ln[j]
                     rhs[c] = (qk[c] - lk[c]) + at
-                s_r = 1.0 / (r_cost + rho)
+                s_r = 1.0 / (r_cost + (rho[b] if torch.is_tensor(rho) else rho))
                 for c in range(nu):                         # dz_du
                     bt = torch.zeros((), dtype=lam.dtype)
                     for j in range(nx):
@@ -282,6 +307,25 @@ def test_k6_split_matches_plain_and_jax(problem):
     _close(got, compute_dz_plain(sys_, lam, u, RHO, problem["r_cost"]), 1e-15)
     ref = jschur.compute_dz(problem["kkt"], problem["sch"], jnp.asarray(problem["lam"]))
     _close(got, ref, 1e-10)
+
+
+def test_k8c_split_matches_plain_and_k6(problem):
+    """The emulated K8c over three instances, a rho each (rho_bstride 1),
+    == compute_dz_batched_plain within 1e-15 at f64, and each instance ==
+    the emulated K6 with that instance's rho bit for bit."""
+    xu, sys_, r_cost = problem["xu"], problem["sys"], problem["r_cost"]
+    blocks = {k: torch.stack([sys_[k]] * 3) for k in ("Qinv", "A", "B", "q")}
+    lam = torch.tensor(problem["lam"])
+    lam_b = torch.stack([lam, 0.5 * lam, -lam])
+    u_b = torch.tensor(xu)[None, :, 14:].expand(3, -1, -1)
+    rho_b = torch.tensor([RHO, 2 * RHO, 5 * RHO], dtype=torch.float64)
+    got = emulate_dz_warp(blocks, lam_b, None, None, u_b, rho_b, r_cost)
+    _close(got, compute_dz_batched_plain(blocks, lam_b, u_b, rho_b, r_cost), 1e-15)
+    for b in range(3):
+        one = emulate_dz_warp({k: v[b:b + 1] for k, v in blocks.items()},
+                              lam_b[b:b + 1], None, None, u_b[b:b + 1],
+                              float(rho_b[b]), r_cost)
+        assert torch.equal(got[b], one[0])
 
 
 @pytest.mark.parametrize("shards", [2, 3])

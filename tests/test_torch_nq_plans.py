@@ -514,7 +514,7 @@ def _kernel_calls(nq):
                 at(7, N, *k2_cluster_plan(N, nx), 1)),
         "K6": ("pcg_dz.cu", "dz_warp_launch",
                lambda: compute_dz_cuda(sys_, z((N, nx)), xu[:, nx:], 1e-3, 0.1),
-               {7: N, 9: w, **at(13, N, 1, *dz_plan(N, nx), 1)}),
+               {7: N, 9: w, 12: 0, **at(14, N, 1, *dz_plan(N, nx))}),
         "K7": ("pcr.cu", "pcr_launch",
                lambda: pcr_solve_cuda(sys_["S"], z((N, nx))),
                at(2, N, pcr_levels(N), 1, k7.ctas, int(k7.cluster), k7.smem_bytes)),
@@ -526,10 +526,10 @@ def _kernel_calls(nq):
                 lambda: pcg_solve_batched(sys_b["S"], sys_b["Pinv"], sys_b["gamma"],
                                           z((B, N, nx))),
                 at(7, N, *k2_cluster_plan(N, nx), B)),
-        "K8c": ("pcg_dz.cu", "dz_launch",
+        "K8c": ("pcg_dz.cu", "dz_warp_launch",
                 lambda: compute_dz_batched(sys_b, z((B, N, nx)), xu_b[..., nx:],
                                            z(B), 0.1),
-                {6: w, 7: N * w, 10: N, 11: B}),
+                {7: N, 9: w, 10: N * w, 12: 1, **at(14, N, B, *dz_plan(N, nx))}),
         "K3b": ("merit.cu", "merit_launch",
                 lambda: line_search_merits_batched(m, cost, xu_b, xu_b, z((B, nx)),
                                                    rep(ee, B), 1.0, 1 / 64),
@@ -543,7 +543,7 @@ def _kernel_calls(nq):
                 lambda: compute_dz_slab(sys_s, z((n_sh, L, nx)), z((n_sh, L, nx)),
                                         z((n_sh, L)),
                                         xu.reshape(n_sh, L, w)[..., nx:], 1e-3, 0.1),
-                {7: L, 9: w, 10: L * w, **at(13, L, n_sh, *dz_plan(L, nx), 1)}),
+                {7: L, 9: w, 10: L * w, 12: 0, **at(14, L, n_sh, *dz_plan(L, nx))}),
         "K9c": ("merit.cu", "merit_partials_launch",
                 lambda: line_search_merit_partials_slab(
                     m, cost, rep(xu[:L + 1], n_sh), rep(xu[:L + 1], n_sh),

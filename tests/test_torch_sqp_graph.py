@@ -375,6 +375,8 @@ def test_results_are_fresh_copies():
     assert (plan | rest).isdisjoint({storage(t) for t in b} | {storage(g.flat.buf)})
     small = a.rho.untyped_storage().nbytes()
     assert small < xu.numel() * xu.element_size()
+    # the rest: its 8 fields and no other, one 512-byte block of the allocator
+    assert small == 8 * sqp_graph.FIELD_ALIGN
     assert a.xu.is_contiguous() and a.lam.is_contiguous()
 
 

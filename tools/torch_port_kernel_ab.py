@@ -38,10 +38,7 @@ shapes, one line per group:
     (on halo-extended slabs) at nq = 7, 3 and 5 on seeded blocks, K8c at B =
     256, and the pairs on their routes: K2' (from K2's lam, with no CG step:
     r0, z0 and the exit test) then K6, and the sharded step's halo glue
-    then K9b; with a tree whose pcg_dz.cu has dz_warp_launch also each
-    K6 / K9b case without programmatic dependent launch (the ablation) and
-    the empty kernel on each case's grid with and without it (the launch
-    floor).
+    then K9b.
 
 Every input is made from a seed, so two trees see the same inputs; --save
 writes every output of every group: K1, K5, K8a, K9a, K9b, K3, K3b, K9c,
@@ -371,19 +368,29 @@ def slab_coeff(tree, c, torch, dev, keep, slab_sweep: bool,
                       flush=True)
 
 
+def dz_launch_raw(plan, args: tuple, dz):
+    """dz_warp_launch by hand on a plan; args are the wrapper's arguments up
+    to the batch (lam .. N, batch)."""
+    from mpcgpu_tpu_torch import _kernels
+
+    nq = dz.shape[-1] // 3
+    _kernels.check(_kernels.entry("pcg_dz.cu", "dz_warp_launch", nq=nq)(
+        *args, *plan, dz.data_ptr(), _kernels.stream_ptr(dz.device)),
+        "dz_warp_launch")
+    return dz
+
+
 def dz_group(tree, c, torch, dev, keep, sweep: bool) -> None:
     """K6 (N = 64, 512) and K9b (512 over 8, 64 over 4 shards, on
     halo-extended slabs of L + 4 knots) at nq = 7, 3 and 5 on seeded blocks,
     and K8c at B = 256: outputs kept, device times printed; the pairs on
     their routes: K2' (from K2's lam on the real system at N = 64, with no
     CG step: max_iter = 0) then K6, and the sharded step's halo glue then
-    K9b; with a tree that has dz_warp_launch also each K6 / K9b case
-    without programmatic dependent launch and the launch floor (the empty
-    kernel on each case's grid, with and without it); with ``sweep`` K6 /
-    K9b at every number of knots per CTA its kernel takes."""
+    K9b; with ``sweep`` K6 / K9b at every number of knots per CTA its
+    kernel takes, launched by hand (a tree whose ``dz_warp_launch`` takes
+    ``rho_bstride``)."""
     import numpy as np
 
-    from mpcgpu_tpu_torch import _kernels
     from mpcgpu_tpu_torch.config import CostConfig
     from mpcgpu_tpu_torch.models import iiwa14
     from mpcgpu_tpu_torch.ops import pcg_cuda
@@ -392,7 +399,6 @@ def dz_group(tree, c, torch, dev, keep, sweep: bool) -> None:
     from mpcgpu_tpu_torch.parallel.sqp_sharded import _next
     from mpcgpu_tpu_torch.solver.kkt_cuda import build_kkt_schur
 
-    new = "dz_warp_launch" in _kernels._SIGNATURES["pcg_dz.cu"]
     rng = np.random.default_rng(11)
     T = lambda *shape: torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                                     device=dev)
@@ -411,8 +417,8 @@ def dz_group(tree, c, torch, dev, keep, sweep: bool) -> None:
             times[name] = c.graph_ms(torch, fn)
             raw[name] = (N, 1, (lam.data_ptr(), None, None,
                                 *(sys_[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
-                                N, u.data_ptr(), u.stride(0), 0, rho.data_ptr(), 0.1,
-                                N, 1), nq, (sys_, lam, u))
+                                N, u.data_ptr(), u.stride(0), 0, rho.data_ptr(), 0,
+                                0.1, N, 1), nq, (sys_, lam, u))
         for N, S in c.SHARD_CASES:
             L = N // S
             ext = {"Qinv": T(S, L + 4, nx, nx), "A": T(S, L + 4, nx, nx),
@@ -430,7 +436,7 @@ def dz_group(tree, c, torch, dev, keep, sweep: bool) -> None:
             raw[name] = (L, S, (lam_s.data_ptr(), lam_n.data_ptr(), last_s.data_ptr(),
                                 *(sl[k].data_ptr() for k in ("Qinv", "A", "B", "q")),
                                 L + 4, u_s.data_ptr(), u_s.stride(1), u_s.stride(0),
-                                rho.data_ptr(), 0.1, L, S), nq,
+                                rho.data_ptr(), 0, 0.1, L, S), nq,
                          (ext, lam_s, lam_n, last_s, u_s))
     # K8c at B = 256 on seeded blocks
     B, N = c.B_MAIN, c.N_MAIN
@@ -467,19 +473,10 @@ def dz_group(tree, c, torch, dev, keep, sweep: bool) -> None:
         sl9, lam9, _next(lam9, mesh.send_left(lam9[:, 0])), last9, u9, rho, 0.1)
     keep("dz pair glue -> K9b", pair9())
     times[f"pair glue -> K9b N={N9}/{S9}"] = c.graph_ms(torch, pair9)
-    if new:
-        for name, (n, batch, args, nq, _) in raw.items():
-            plan = pcg_cuda.dz_plan(n, 2 * nq)
-            out = torch.empty((batch * n, 3 * nq), device=dev)
-            times[f"{name} without PDL"] = c.graph_ms(
-                torch, lambda: c.dz_launch_raw(plan, 0, args, out))
-            for pdl in (1, 0):
-                times[f"empty on {name}'s grid{'' if pdl else ' without PDL'}"] = \
-                    c.graph_ms(torch, lambda: c.dz_empty(dev, plan, batch, pdl, nq))
     print(f"{tree.name or tree}: " + ", ".join(
         f"{k} {v * 1e3:.3f} us" for k, v in times.items()) + f"; {c.card_line()}",
           flush=True)
-    if not (sweep and new):
+    if not sweep:
         return
     for name in ("K6 nq=7 N=64", "K6 nq=7 N=512", "K9b nq=7 N=512/8", "K9b nq=7 N=64/4"):
         n, batch, args, nq, _ = raw[name]
@@ -487,7 +484,7 @@ def dz_group(tree, c, torch, dev, keep, sweep: bool) -> None:
         ref = None
         for kpc in range(1, pcg_cuda.DZ_MAX_KPC + 1):
             plan = pcg_cuda.DzPlan(kpc, -(-n // kpc), 4 * kpc * pcg_cuda.dz_knot_floats(14))
-            fn = lambda plan=plan: c.dz_launch_raw(plan, 1, args, out)
+            fn = lambda plan=plan: dz_launch_raw(plan, args, out)
             fn()
             torch.cuda.synchronize()
             ref = out.clone() if ref is None else ref
