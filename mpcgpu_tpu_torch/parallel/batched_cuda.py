@@ -36,13 +36,17 @@ schedule and line search per instance, an instance that gives up frozen
 from then on, per-instance ``sqp_iters``, and iterations while any instance
 is active and ``it < max_iter``.  Its iteration is ``_batched_iteration``;
 its state, loop and result are ``solver/sqp.py``'s (``_initial_state``,
-``_loop``, ``_result``).  ``sqp_solve_batched_fused_sharded`` runs it
+``_loop``, ``_result``).  With the batched K3 merits on a card
+(``sqp.graph_engages``) each iteration is one replay of a CUDA graph of
+``_batched_iteration`` (``solver/sqp_graph.py``, keyed by ``_graph_key``),
+as the one-arm solve's; CPU tensors and the plain merits run it eagerly,
+with the same results.  ``sqp_solve_batched_fused_sharded`` runs it
 on each instance group of an (instance, knot) mesh (``parallel/mesh.py``).
 Under a ``torch.profiler`` session it records the spans and counters that
-``solver/sqp.py::sqp_solve`` records (``utils/profiling.py``), with the
-batch size on each span and frozen instances left out of the counters, and
-per K8a launch its knot stages and knots (``k8a.knot_stages``,
-``k8a.knots``).
+``solver/sqp.py::sqp_solve`` records (``utils/profiling.py``; on the graph
+path ``sqp.solve``, ``sqp.stop_read`` and ``sqp.replay``), with the batch
+size on each span and frozen instances left out of the counters, and per
+K8a launch its knot stages and knots (``k8a.knot_stages``, ``k8a.knots``).
 """
 
 from __future__ import annotations
@@ -65,8 +69,10 @@ from mpcgpu_tpu_torch.solver.kkt_cuda import (_check_args, build_kkt_schur_plain
 from mpcgpu_tpu_torch.solver.merit_cuda import (line_search_merits_plain,
                                                 merit_span_scratch,
                                                 merit_team_plan)
-from mpcgpu_tpu_torch.solver.sqp import (SQPResult, _initial_state, _loop, _record,
-                                         _result, _State, line_search_update)
+from mpcgpu_tpu_torch.solver import sqp, sqp_graph
+from mpcgpu_tpu_torch.solver.sqp import (SQPResult, _at, _initial_state, _loop,
+                                         _record, _result, _State,
+                                         line_search_update)
 from mpcgpu_tpu_torch.utils import profiling
 
 
@@ -302,6 +308,23 @@ def line_search_merits_batched(model: RobotModel, cost: CostConfig, xu_b, dz_b,
 line_search_merits_batched.launches = 0
 
 
+# the wrappers the fleet's iteration calls on the card, whose .launches a
+# graph replay advances (solver/sqp_graph.py)
+WRAPPERS = (build_kkt_schur_batched, pcg_solve_batched, compute_dz_batched,
+            line_search_merits_batched)
+
+
+def _k8a_counts(model: RobotModel, xu_b) -> tuple:
+    """The host counts of one K8a launch on xu_b (B, N, ...): (name, n)
+    for ``k8a.knot_stages`` (B x the knots its windows linearize) and
+    ``k8a.knots`` (B x N); none on CPU tensors (the plain version)."""
+    if _kernels.on_cpu(xu_b):
+        return ()
+    B, N = xu_b.shape[:2]
+    window = k8a_plan(N, B, model.nq, xu_b.device).window
+    return ("k8a.knot_stages", B * kkt_knot_stages(N, window)), ("k8a.knots", B * N)
+
+
 class _Route(NamedTuple):
     """What the fleet's SQP iterations read besides the carried state."""
     model: RobotModel
@@ -317,25 +340,25 @@ class _Route(NamedTuple):
     exit_tol: torch.Tensor  # () pcg_cfg.exit_tol, every iteration's
 
 
-def _batched_iteration(r: _Route, st: _State, it: int, tr=None) -> _State:
+def _batched_iteration(r: _Route, st: _State, it, tr=None) -> _State:
     """One SQP iteration of every instance from ``st`` (``sqp._iteration``'s
     contract over an instance axis): K8a, K8b at the fixed PCG tolerance
     (no Eisenstat-Walker forcing), K8c, the merits, and each instance's
     line-search step and rho.  An instance that gave up earlier is frozen:
-    nothing of it changes, its buffer entries included."""
+    nothing of it changes, its buffer entries included.  Each instance's
+    iterations are counted here (``sqp_iters``).  The eager loop runs it
+    with ``it`` an int and the solve's recorder ``tr``; ``sqp_graph``
+    captures it with ``it`` on the card and no recorder."""
     model, cost, sqp_cfg, pcg_cfg = r.model, r.cost, r.sqp_cfg, r.pcg_cfg
     xu, lam, rho = st.xu, st.lam, st.rho
-    B, N = xu.shape[:2]
     nx = 2 * model.nq
     if tr:
         tr.phase("sqp.kkt", it)
     sys = build_kkt_schur_batched(model, cost, xu, r.xs, r.ee_goal, rho, r.dt,
                                   r.integrator_type, r.angle_wrap)
-    if tr and not _kernels.on_cpu(xu):
-        tr.count("k8a.knot_stages",
-                 B * kkt_knot_stages(N, k8a_plan(N, B, model.nq, xu.device).window))
-        tr.count("k8a.knots", B * N)
     if tr:
+        for name, n in _k8a_counts(model, xu):
+            tr.count(name, n)
         tr.phase("sqp.linsys")
     lam_new, lin_iters, lin_ok = pcg_solve_batched(
         sys["S"], sys["Pinv"], sys["gamma"], lam, max_iter=pcg_cfg.max_iter,
@@ -357,7 +380,7 @@ def _batched_iteration(r: _Route, st: _State, it: int, tr=None) -> _State:
     # an instance that gave up earlier is frozen: nothing of it changes
     frozen = st.stop
     take = step.success & ~frozen
-    kept = lambda buf, v: torch.where(frozen, buf[:, it], v)
+    kept = lambda buf, v: torch.where(frozen, _at(buf, it), v)
     _record(st, it, kept(st.pcg_iters, lin_iters), kept(st.pcg_converged, lin_ok),
             kept(st.ls_alpha_idx, step.alpha_idx))
     return st._replace(
@@ -389,7 +412,10 @@ def sqp_solve_batched_fused(
     the merits, as ``sqp_solve``'s does: "cuda" the batched K3 (its plain
     version on CPU tensors), "plain" ``line_search_merits(include_zero=True)``
     per instance, "auto" the batched K3 on the card in ee cost mode and the
-    plain merits otherwise."""
+    plain merits otherwise.  With the batched K3 on a card each SQP
+    iteration is one CUDA graph replay (module docstring); every other
+    call runs the iterations eagerly.  Both run ``_batched_iteration``,
+    with the same results."""
     if pcg_cfg.preconditioner != "stair":
         raise ValueError("the batched kernels implement the stair "
                          "preconditioner only")
@@ -399,6 +425,18 @@ def sqp_solve_batched_fused(
         use_kernel = merit_impl == "cuda"
     else:
         raise ValueError(f"unknown merit_impl {merit_impl!r}")
+    if sqp.graph_engages(True, use_kernel, xu_b):
+        return _solve_graph(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b, xs_b,
+                            ee_b, rho_b, dt, integrator_type, angle_wrap)
+    return _solve_eager(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b, xs_b, ee_b,
+                        rho_b, dt, integrator_type, angle_wrap, use_kernel)
+
+
+def _solve_eager(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b, xs_b, ee_b, rho_b,
+                 dt, integrator_type: int, angle_wrap: bool,
+                 use_kernel: bool) -> SQPResult:
+    """``sqp_solve_batched_fused``'s loop with every iteration enqueued by
+    the host (the route checked and resolved by the caller)."""
     B = xu_b.shape[0]
     tr = profiling.solve_trace(B)
     dev, dtype = xu_b.device, xu_b.dtype
@@ -415,6 +453,53 @@ def sqp_solve_batched_fused(
     if tr:
         tr.finish(result)
     return result
+
+
+def _graph_key(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b, xs_b, ee_b, dt,
+               integrator_type, angle_wrap) -> tuple:
+    """Everything a capture of the fleet's iteration bakes in: the body and
+    its merits (the batched K3), the card, the inputs' shapes and dtypes
+    (B, N, nq), the model by identity, dt, the integrator, angle_wrap, and
+    the cost, SQP (max_iter, the per-iteration buffers' length, among them)
+    and PCG settings."""
+    return (_batched_iteration, line_search_merits_batched, xu_b.device,
+            tuple((tuple(t.shape), t.dtype) for t in (xu_b, lam_b, xs_b, ee_b)),
+            id(model), float(dt), int(integrator_type), bool(angle_wrap), cost,
+            sqp_cfg, pcg_cfg)
+
+
+def _iteration_graph(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b, xs_b, ee_b,
+                     dt, integrator_type, angle_wrap) -> sqp_graph.IterationGraph:
+    """The fleet's cached graph entry of the call's key (``_graph_key``):
+    ``_batched_iteration`` with the batched K3 merits, its per-iteration
+    host counts K8a's."""
+
+    def make():
+        dev, dtype = xu_b.device, xu_b.dtype
+        exit_tol = _kernels.scalar(pcg_cfg.exit_tol, dev, dtype)
+        zero = torch.zeros(xu_b.shape[:1], dtype=dtype, device=dev)
+        init = _initial_state(xu_b, lam_b, zero, zero, exit_tol, sqp_cfg.max_iter)
+        route = _Route(model, cost, sqp_cfg, pcg_cfg, xs_b, ee_b, dt,
+                       integrator_type, angle_wrap, line_search_merits_batched,
+                       exit_tol)
+        return sqp_graph.IterationGraph(_batched_iteration, route, init, WRAPPERS,
+                                        _k8a_counts(model, xu_b))
+
+    return sqp_graph.cached(_graph_key(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b,
+                                       xs_b, ee_b, dt, integrator_type, angle_wrap),
+                            model, make)
+
+
+def _solve_graph(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b, xs_b, ee_b, rho_b,
+                 dt, integrator_type: int, angle_wrap: bool) -> SQPResult:
+    """``sqp_solve_batched_fused`` on the graph path: the eager loop's
+    iterations, stop-flag reads and result, each iteration a replay (or, a
+    key's first, run eagerly and then captured); drho starts at 1 for
+    every instance."""
+    tr = profiling.solve_trace(xu_b.shape[0])
+    g = _iteration_graph(model, cost, sqp_cfg, pcg_cfg, xu_b, lam_b, xs_b, ee_b,
+                         dt, integrator_type, angle_wrap)
+    return g.solve(tr, sqp_cfg.max_iter, xu_b, lam_b, xs_b, ee_b, rho_b, 1.0)
 
 
 def make_batched_fused_solver(model: RobotModel, cost: CostConfig,

@@ -36,7 +36,9 @@ eagerly, each iteration's launches enqueued by the host.  The loop and what
 it carries are shared with the fleet's and the knot shards' solves
 (``parallel/batched_cuda.py``, ``parallel/sqp_sharded.py``): each starts
 from ``_initial_state``, runs ``_loop`` over its own iteration, writes the
-per-iteration buffers by ``_record`` and returns ``_result``.
+per-iteration buffers by ``_record`` and returns ``_result``.  The fleet's
+iteration takes the graph path by the same rule, through the same
+``sqp_graph``.
 
 Under a ``torch.profiler`` session the solve records the spans and counters
 of ``utils/profiling.py`` (``sqp.solve``; per iteration ``sqp.kkt``,
@@ -209,12 +211,21 @@ def _initial_state(xu, lam, rho, drho, exit_tol, max_iter: int,
 
 def _put(buf, it, value) -> None:
     """buf[..., it] = value, for ``it`` a Python int or a device int64 (1,)
-    (one arm's buffer): an index the card reads, so that one captured graph
-    writes the entry of whichever iteration it replays."""
+    (an index the card reads, so that one captured graph writes the entry
+    of whichever iteration it replays), over one arm's (max_iter,) buffer
+    or a fleet's (B, max_iter)."""
     if isinstance(it, int):
         buf[..., it] = value
     else:
-        buf.index_copy_(0, it, value.reshape(1).to(buf.dtype))
+        buf.index_copy_(buf.dim() - 1, it,
+                        value.reshape(buf.shape[:-1] + (1,)).to(buf.dtype))
+
+
+def _at(buf, it):
+    """buf[..., it], for ``it`` as ``_put`` takes it."""
+    if isinstance(it, int):
+        return buf[..., it]
+    return buf.index_select(-1, it)[..., 0]
 
 
 def _record(st: _State, it, lin_iters, lin_ok, alpha_idx) -> None:
@@ -422,9 +433,10 @@ def _solve_eager(model, cost, sqp_cfg, pcg_cfg, xu, lam, xs, ee_goal, rho, dt,
 
 def graph_engages(fused: bool, use_kernels: bool, xu) -> bool:
     """Whether a solve runs its iterations as CUDA graph replays: exactly
-    on the fused route (K1 -> K2, or K2' -> K6) with the K3 merits and xu on
-    a card.  The direct solvers, the unfused PCG, the plain merits and CPU
-    tensors run eagerly."""
+    on the fused route (K1 -> K2, or K2' -> K6; the fleet's K8a -> K8b ->
+    K8c) with the K3 merits (the fleet's K3b) and xu on a card.  The direct
+    solvers, the unfused PCG, the plain merits and CPU tensors run
+    eagerly."""
     return fused and use_kernels and xu.device.type == "cuda"
 
 
